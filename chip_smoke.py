@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one GPU and check its kernels.
+"""Drive the PyTorch/CUDA port's serving and training paths on one GPU and
+check its kernels.
 
 Run from the repository root with one CUDA card:  python3 chip_smoke.py
 
@@ -7,8 +8,9 @@ It imports only torch, numpy and the port (never jax or the JAX package),
 exits non-zero without a card or without the port beside it, and exits
 non-zero when any check fails.  Phases:
 
-1. setup: the card's name and power limit, TF32 off, the kernels' build
-   from ``ops/csrc`` (timed);
+1. setup: the card's name and power limit, TF32 off, the build of every
+   kernel source in ``ops/csrc`` (one nvcc per source, started together,
+   timed, with ptxas's register and spill lines);
 2. each kernel against its plain PyTorch version at the six masked OS convs
    of the full-width serving model (SelfRegulationSCP2 shape of the
    reference main.py: 7 channels, T=1152, 2 classes; budget_multiplier=1.0,
@@ -23,19 +25,48 @@ non-zero when any check fails.  Phases:
    class weights against the plain path; phases 3 and 4 run with
    FLSTTSC_FUSE_EPILOGUE unset and =1; every checkpoint carries random
    BatchNorm state, so the folded epilogue is exercised;
-5. the vendored VendGunPoint (T=150) once through ``cli.predict.main``.
+5. the vendored VendGunPoint (T=150) once through ``cli.predict.main``;
+6. the WN kernels ``wn_fwd``/``wn_bwd`` against ``wn_fwd_plain``/
+   ``wn_bwd_plain`` at both full-width training shapes (46,080 rows for the
+   pair pass, 23,040 for infer; n_half 25, C 120, 8 layers; random
+   weight-normed parameters and a non-zero end projection), timed beside
+   their FLOP bound;
+7. the OS conv's gradient on the card: dx and dw through ``OSConvCore``
+   against the plain path's autograd at the six full-width conv shapes;
+8. training through ``cli.main.main([... "--device", "cuda"])``: SCP2 <-
+   EthanolLevel shapes (7 x 1152, 2 classes <- 1 x 1751, 4 classes; 40
+   train / 40 test series per domain), ``PipelineConfig()`` defaults, one or
+   two epochs of every phase; exact launch counts, finite losses, the
+   checkpoints, ``epoch_0.npz`` served by ``cli.predict``, and the phase-5
+   step time;
+9. one full-width phase-5 step against the plain path on the card (kernels
+   swapped for their plain versions; CPC anchors and CDAN dropout pinned):
+   the 9 losses, the trunk-norm vectors, the new GradNorm weights and the
+   gradients of the total per module (relative L2 distance and largest
+   difference over the module's max|g|), checked on a fresh state with WN
+   end projections 0.1*N(0, 1) and measured on the trained state; on both
+   states the same step with only the WN kernels on (checked on the fresh
+   state), with only the OS conv kernel on, and the plain path on the CPU
+   are held against the plain path on the card too;
+10. one more phase-5 step of that fresh state under ``torch.profiler``: the
+    device time by kernel, summed by group (WN kernels, OS conv kernel,
+    the rest), and the device's idle share of the traced step's wall time,
+    measured and not checked.
 
-The launch counts are set to 0 just before each drive of the serving path
-and read just after it.  The line before the last lists every kernel as
-JSON, with the launches of the SCP2 drives (single and ensemble; not the
-VendGunPoint check) and a bound from the FLOPs of the mask's live taps; the
-last line is {"ok": true, "device": {...}}.  Everything measured is also
-written to chiprun_out/chip_smoke_results.json.
+The launch counts are set to 0 just before each drive of the main path and
+read just after it.  The line before the last lists every kernel as JSON,
+with the launches of the main-path drives (serving: single and ensemble,
+not the VendGunPoint check; training: the ``cli.main`` drive) and a bound
+from the FLOPs these inputs need; the last line is {"ok": true, "device":
+{...}}.  Everything measured is also written to
+chiprun_out/chip_smoke_results.json.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
+import copy
 import json
 import math
 import os
@@ -44,6 +75,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -55,11 +87,21 @@ HBM_RATE = 3.35e12  # H100 SXM device memory bytes/s
 REL_TOL = 1e-4  # max_abs / max|plain|, exact f32 both sides, sums in another order
 BATCH = 20
 SCP2 = {"channels": 7, "length": 1152, "classes": 2, "n_train": 200, "n_test": 180}
+GRAD_REL_TOL = 1e-3  # weight gradients: sums over every row (23k-46k) in another order
+STEP_GRAD_L2_TOL = 1e-2  # a whole phase-5 step's gradients per module, every kernel on
 SOURCE = "feature_level_style_transfer_for_tsc_tpu_torch/ops/csrc/os_conv.cu"
+WN_SOURCE = "feature_level_style_transfer_for_tsc_tpu_torch/ops/csrc/wn_fused.cu"
 REPLACES = {
     "os_conv_fwd": "feature_level_style_transfer_for_tsc_tpu/ops/osconv.py:258",
     "os_conv_fused_fwd": "feature_level_style_transfer_for_tsc_tpu/ops/osconv.py:288",
+    "wn_fwd": "feature_level_style_transfer_for_tsc_tpu/ops/wn_fused.py:164",
+    "wn_bwd": "feature_level_style_transfer_for_tsc_tpu/ops/wn_fused.py:195",
 }
+ETHANOL = {"channels": 1, "length": 1751, "classes": 4}  # the reference main.py's source
+TRAIN_SERIES = 40  # per split and domain in the training drive
+PHASE_EPOCHS = {"p1": 1, "p2": 1, "p3": 2, "p4": 2, "p5": 2}
+ANCHORS = (100, 37)  # pinned CPC anchors of the phase-5 comparison (< 1152 // 4)
+WN_END_SCALE = 0.1  # std of the WN end projections of the checked phase-5 state
 
 
 def log(msg: str) -> None:
@@ -94,41 +136,59 @@ def check(cond: bool, what: str) -> None:
 
 class Run:
     """Launch counts of the drives; ``launches`` sums, per kernel, those of
-    the SCP2 main path (single and ensemble), and ``by_drive`` keeps each."""
+    the main path (SCP2 serving, single and ensemble, and the training
+    drive), ``by_path`` per path, and ``by_drive`` keeps each drive."""
 
-    def __init__(self, osconv):
-        self.osconv = osconv
-        self.launches = {name: 0 for name in osconv.LAUNCHES}
+    def __init__(self, *modules):
+        self.modules = modules
+        self.names = [name for m in modules for name in m.LAUNCHES]
+        self.launches = {name: 0 for name in self.names}
+        self.by_path = {}
         self.by_drive = {}
 
-    def drive(self, what: str, fn, expect: dict, main_path: bool = True):
-        self.osconv.reset_launch_counts()
+    def idle(self) -> dict:
+        return {name: 0 for name in self.names}
+
+    def counts(self) -> dict:
+        return {name: n for m in self.modules for name, n in m.LAUNCHES.items()}
+
+    def drive(self, what: str, fn, expect: dict, path=None):
+        for m in self.modules:
+            m.reset_launch_counts()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = dict(self.osconv.LAUNCHES)
+        counts = self.counts()
         log(f"[{what}] launches={counts} expected={expect} wall_s={wall:.3f}")
         check(counts == expect, f"{what}: launches {counts} != {expect}")
         self.by_drive[what] = counts
-        if main_path:
+        if path:
+            per = self.by_path.setdefault(path, self.idle())
             for name, n in counts.items():
                 self.launches[name] += n
+                per[name] += n
         return out
 
 
 @contextlib.contextmanager
-def plain_convs(osconv):
-    """The reference run: the plain PyTorch versions on the same CUDA tensors
-    (and no kernel launch inside)."""
-    saved = osconv.os_conv, osconv.os_conv_fused
-    osconv.os_conv, osconv.os_conv_fused = osconv.os_conv_plain, osconv.os_conv_fused_plain
+def plain_convs(osconv, wn_fused, convs: bool = True, wn: bool = True):
+    """The reference run: the plain PyTorch versions of the OS conv kernels
+    (``convs``) and of the WN kernels (``wn``) on the same CUDA tensors, and
+    no launch of those kernels inside."""
+    saved = osconv.os_conv, osconv.os_conv_fused, wn_fused.wn_fwd, wn_fused.wn_bwd
+    if convs:
+        osconv.os_conv, osconv.os_conv_fused = osconv.os_conv_plain, osconv.os_conv_fused_plain
+    if wn:
+        wn_fused.wn_fwd, wn_fused.wn_bwd = wn_fused.wn_fwd_plain, wn_fused.wn_bwd_plain
     osconv.reset_launch_counts()
+    wn_fused.reset_launch_counts()
     try:
         yield
     finally:
-        osconv.os_conv, osconv.os_conv_fused = saved
-    check(not any(osconv.LAUNCHES.values()), f"the plain reference launched {osconv.LAUNCHES}")
+        osconv.os_conv, osconv.os_conv_fused, wn_fused.wn_fwd, wn_fused.wn_bwd = saved
+    launched = {**(osconv.LAUNCHES if convs else {}), **(wn_fused.LAUNCHES if wn else {})}
+    check(not any(launched.values()), f"the plain reference launched {launched}")
 
 
 @contextlib.contextmanager
@@ -154,6 +214,30 @@ def series_per_s(fn, n: int, reps: int = 3) -> float:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     return n / statistics.median(times)
+
+
+# ------------------------------------------------------------------ phase 1 --
+
+def build_kernels(_build, names) -> dict:
+    """One nvcc per source, all started together; the wall time of each and
+    of the whole, and ptxas's register and spill lines."""
+    def one(name):
+        t0 = time.perf_counter()
+        path = _build.build(name)
+        return path, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        built = dict(zip(names, pool.map(one, names)))
+    out = {"wall_s": time.perf_counter() - t0}
+    for name, (path, secs) in built.items():
+        out[name] = secs
+        log(f"build: {path.name} in {secs:.2f} s")
+        for line in (path.parent / (path.name + ".ptxas.txt")).read_text().splitlines():
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                log(f"  ptxas: {line.strip()}")
+    log(f"build: all sources in {out['wall_s']:.2f} s")
+    return out
 
 
 # ------------------------------------------------------------------ phase 2 --
@@ -256,26 +340,373 @@ def cli_args(root, target, source_root, source, ckpts, out, vote="entropy_precis
     ]
 
 
+
+# ------------------------------------------------------------------ phase 6 --
+
+def wn_work(b: int, t: int, h: int, c: int, n_layers: int) -> dict:
+    """FLOPs and bytes of one ``wn_fwd`` and one ``wn_bwd`` call: the products
+    of ``_wn_fwd_kernel``'s and ``_wn_bwd_kernel``'s bodies that these inputs
+    need (a tap whose read crosses a series boundary reads zero and is not
+    counted; the last layer's res/skip is C x C), each input read once and
+    each output written once."""
+    rows = b * t
+    taps = [rows + 2 * b * max(t - 2 ** i, 0) for i in range(n_layers)]  # live tap rows
+    rs = [2 * c if i < n_layers - 1 else c for i in range(n_layers)]
+    z = sum(2 * tr * c * 2 * c for tr in taps) + n_layers * 2 * rows * h * 2 * c
+    fwd = 2 * rows * h * c + z + sum(2 * rows * c * n for n in rs) + 2 * rows * c * 2 * h
+    bwd = (
+        2 * rows * 2 * h * c  # g_skip
+        + z  # the recomputed z
+        + sum(2 * 2 * rows * c * n for n in rs)  # g_acts and gwr
+        + sum(2 * 2 * tr * c * 2 * c for tr in taps)  # gwi and the transposed taps
+        + n_layers * 2 * 2 * rows * h * 2 * c  # gwc and g_x
+        + 2 * 2 * rows * h * c  # gws and the start's input gradient
+    )
+    weights = h * c + c + h * 2 * c * n_layers + 2 * c * n_layers + n_layers * 3 * c * 2 * c \
+        + n_layers * 2 * c + n_layers * c * 2 * c + n_layers * 2 * c + c * 2 * h + 2 * h
+    fwd_bytes = 4 * (rows * h + weights + rows * 2 * h + n_layers * rows * c + rows * c)
+    bwd_bytes = 4 * (rows * h + rows * 2 * h + n_layers * rows * c + weights  # x, g, aud, weights
+                     + rows * h + weights - c * 2 * h - 2 * h)  # gx and the weight grads
+    return {"fwd_flops": fwd, "bwd_flops": bwd, "fwd_bytes": fwd_bytes, "bwd_bytes": bwd_bytes}
+
+
+def random_wn(wn_init, wn_fused, weight_norm_weight, h, c, n_layers, seed):
+    """Stacked effective WN weights on the card: random weight norm, and a
+    non-zero end projection (the init's zero end would hide most of the
+    backward)."""
+    g = torch.Generator().manual_seed(seed)
+    params = wn_init(g, h, n_layers, c)
+    params["end"]["weight"] = 0.3 * torch.randn(c, 2 * h, generator=g)
+    params["end"]["bias"] = 0.1 * torch.randn(2 * h, generator=g)
+    for layer in params["in_layers"] + params["res_skip_layers"] + [params["start"], params["cond"]]:
+        layer["g"] = layer["g"] * (0.5 + torch.rand(layer["g"].shape, generator=g))
+    return [e.contiguous().cuda() for e in wn_fused.stack_effective(params, weight_norm_weight)]
+
+
+def wn_phase(wn_fused, wn_init, weight_norm_weight, h: int, c: int, n_layers: int):
+    """``wn_fwd``/``wn_bwd`` against their plain versions at the pair
+    (B=40) and infer (B=20) shapes of phase 5, T=1152."""
+    rows_out = []
+    for what, b in (("pair", 2 * BATCH), ("infer", BATCH)):
+        t = SCP2["length"]
+        rows = b * t
+        eff = random_wn(wn_init, wn_fused, weight_norm_weight, h, c, n_layers, seed=b)
+        gen = torch.Generator(device="cuda").manual_seed(b)
+        x2 = torch.randn(rows, h, device="cuda", generator=gen)
+        g2 = torch.randn(rows, 2 * h, device="cuda", generator=gen)
+        got = wn_fused.wn_fwd(x2, *eff, t)
+        want = wn_fused.wn_fwd_plain(x2, *eff, t)
+        fwd_err = [rel_err(a, w) for a, w in zip(got, want)]
+        _, aud, skip = want
+        bwd_args = (x2, g2, aud, skip, eff[0], eff[2], eff[3], eff[4], eff[5], eff[6], eff[8], t)
+        grads = wn_fused.wn_bwd(*bwd_args)
+        again = wn_fused.wn_bwd(*bwd_args)
+        plain = wn_fused.wn_bwd_plain(*bwd_args)
+        bwd_err = [rel_err(a, w) for a, w in zip(grads, plain)]
+        same_bits = all(torch.equal(a, b_) for a, b_ in zip(grads, again))
+        torch.cuda.synchronize()
+        names = ("gx", "gws", "gbs", "gwc", "gbc", "gwi", "gbi", "gwr", "gbr", "gwe", "gbe")
+        work = wn_work(b, t, h, c, n_layers)
+        row = {
+            "shape": what, "rows": rows, "n_half": h, "c": c, "layers": n_layers,
+            "fwd_rel": {k: e[1] for k, e in zip(("y", "aud", "skip"), fwd_err)},
+            "bwd_rel": {k: e[1] for k, e in zip(names, bwd_err)},
+            "fwd_max_abs": max(e[0] for e in fwd_err), "bwd_max_abs": max(e[0] for e in bwd_err),
+            "bwd_deterministic": same_bits,
+            "fwd_ms": cuda_ms(lambda: wn_fused.wn_fwd(x2, *eff, t), reps=5),
+            "fwd_plain_ms": cuda_ms(lambda: wn_fused.wn_fwd_plain(x2, *eff, t), reps=3),
+            "bwd_ms": cuda_ms(lambda: wn_fused.wn_bwd(*bwd_args), reps=5),
+            "bwd_plain_ms": cuda_ms(lambda: wn_fused.wn_bwd_plain(*bwd_args), reps=3),
+            **work,
+            "global_launches_per_call": wn_fused.global_launches(n_layers),
+        }
+        for d in ("fwd", "bwd"):
+            row[f"{d}_flop_ms"] = work[f"{d}_flops"] / FP32_PEAK * 1e3
+            row[f"{d}_bytes_ms"] = work[f"{d}_bytes"] / HBM_RATE * 1e3
+            row[f"{d}_bound_ms"] = max(row[f"{d}_flop_ms"], row[f"{d}_bytes_ms"])
+            row[f"{d}_tflops"] = work[f"{d}_flops"] / row[f"{d}_ms"] / 1e9
+        log("wn " + json.dumps(row))
+        check(max(row["fwd_rel"].values()) <= REL_TOL, f"wn_fwd {what}: rel err {row['fwd_rel']}")
+        check(max(row["bwd_rel"].values()) <= GRAD_REL_TOL, f"wn_bwd {what}: rel err {row['bwd_rel']}")
+        check(same_bits, f"wn_bwd {what}: two runs gave different bits")
+        rows_out.append(row)
+    return rows_out
+
+
+# ------------------------------------------------------------------ phase 7 --
+
+def osconv_grad_phase(osconv, layers):
+    """dx and dw of the conv through ``OSConvCore`` (the kernel forward, the
+    transposed-conv backward) against autograd of the plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    out = []
+    for name, c_in, c_out, k, mask, _ in layers:
+        x_pad = torch.randn(BATCH, SCP2["length"] + k - 1, c_in, device="cuda", generator=gen)
+        w = torch.randn(k, c_in, c_out, device="cuda", generator=gen) / math.sqrt(c_in * k) * mask
+        gy = torch.randn(BATCH, SCP2["length"], c_out, device="cuda", generator=gen)
+        grads = []
+        for fn in (osconv.OSConvCore.apply, osconv.os_conv_plain):
+            xg, wg = x_pad.clone().requires_grad_(True), w.clone().requires_grad_(True)
+            grads.append(torch.autograd.grad(fn(xg, wg), (xg, wg), gy))
+        (dx, dw), (dx_p, dw_p) = grads
+        row = {"layer": name, "dx_rel": rel_err(dx, dx_p)[1], "dw_rel": rel_err(dw, dw_p)[1],
+               "dw_nonzero": bool(dw.abs().max() > 0)}
+        log("osconv grad " + json.dumps(row))
+        check(row["dw_nonzero"], f"{name}: the conv weight got no gradient on the card")
+        check(row["dx_rel"] <= REL_TOL, f"{name}: dx rel err {row['dx_rel']:.3e}")
+        check(row["dw_rel"] <= GRAD_REL_TOL, f"{name}: dw rel err {row['dw_rel']:.3e}")
+        out.append(row)
+    return out
+
+
+# -------------------------------------------------------------- phases 8-9 --
+
+def profile_step(pipe, state, batch) -> dict:
+    """One phase-5 step traced by ``torch.profiler`` (a warm-up step first):
+    the device time by kernel, and the share of the traced step's wall time
+    (host clock around the step, inside the same profiler window) in which
+    no kernel ran; then the same step untraced, for the profiler's cost."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def step():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.phase5_step(state, *batch, 0, cpc_anchors=ANCHORS)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    step()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        traced_ms = step()
+    untraced_ms = step()
+    kernels = sorted(
+        ((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+         if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0),
+        key=lambda k: -k[1],
+    )
+    groups = {"wn kernels": 0.0, "os_conv kernel": 0.0, "other": 0.0}
+    for name, ms, _ in kernels:
+        wn = any(tag in name for tag in ("wn_layer", "wgrad_partial", "reduce_partials", "rowgemm"))
+        groups["wn kernels" if wn else "os_conv kernel" if "os_conv_kernel" in name else "other"] += ms
+    device_ms = sum(groups.values())
+    out = {"device_ms": device_ms, "traced_wall_ms": traced_ms,
+           "device_idle_share": 1.0 - device_ms / traced_ms, "untraced_wall_ms": untraced_ms,
+           "by_group_ms": groups,
+           "top": [{"kernel": n[:90], "ms": ms, "calls": c} for n, ms, c in kernels[:12]]}
+    log(f"[profiled phase-5 step] device ms={device_ms:.1f} traced wall ms={traced_ms:.1f} "
+        f"idle share={out['device_idle_share']:.3f} untraced wall ms={untraced_ms:.1f} by group="
+        f"{ {k: round(v, 1) for k, v in groups.items()} }")
+    for row in out["top"]:
+        log(f"  {row['ms']:9.3f} ms {row['calls']:6d} x {row['kernel']}")
+    return out
+
+
+def expected_training_launches(pipe, n_series: int) -> dict:
+    """Launches of the training drive, derived from the pipeline's code:
+    one ``os_conv_fwd`` per OS layer applied; one ``wn_fwd`` per flow step
+    of each WN forward; one ``wn_bwd`` per WN node per backward pull that
+    reaches it (phase 4: the loss; phase 5: the total 2F, t_nf+s_nf F,
+    t_c+s_c 0, s2t2s_c 2F, with F flows)."""
+    te, cl, se = len(pipe.t_ext_specs), len(pipe.cls_specs), len(pipe.s_ext_specs)
+    flows = pipe.config.flow.n_flows
+    nb = math.ceil(n_series / BATCH)  # batches per epoch, both domains
+    ev = 2 * nb  # eval batches of a domain: train and test splits
+    ev_t, ev_s = ev * (te + cl), ev * (se + cl)
+    e = PHASE_EPOCHS
+    conv = (
+        e["p1"] * (nb * (te + cl) + ev_t)
+        + e["p2"] * (nb * (se + cl) + ev_s)
+        + e["p3"] * (nb * (te + se + 2 * cl) + ev_t + ev_s)
+        + nb * (te + se + 2 * cl) + ev_t + ev_s  # phase 4, supervised epoch 0
+        + (e["p4"] - 1) * nb * (te + se)  # phase 4, unsupervised
+        + e["p5"] * nb * (te + se + 3 * cl)
+        + math.ceil(e["p5"] / pipe.config.eval_every) * (ev_t + ev_s)
+    )
+    return {
+        "os_conv_fwd": conv, "os_conv_fused_fwd": 0,
+        "wn_fwd": e["p4"] * nb * flows + e["p5"] * nb * 2 * flows,
+        "wn_bwd": e["p4"] * nb * flows + e["p5"] * nb * 5 * flows,
+    }
+
+
+def tree_to(tree, device):
+    """A detached copy of a tree of dicts, lists and NamedTuples on ``device``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to(device)
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(tree_to(v, device) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return [tree_to(v, device) for v in tree]
+    return tree
+
+
+def cpu_state(state):
+    """What ``phase5_grads`` reads of a training state, on the CPU."""
+    from feature_level_style_transfer_for_tsc_tpu_torch.train.pipeline import leaves
+
+    params = tree_to(state["params"], "cpu")
+    for p in leaves(params):
+        p.requires_grad_(True)
+    gradnorm = {k: types.SimpleNamespace(weights=v.weights.detach().cpu())
+                for k, v in state["gradnorm"].items()}
+    return {"params": params, "mstate": tree_to(state["mstate"], "cpu"),
+            "consts": tree_to(state["consts"], "cpu"), "gradnorm": gradnorm,
+            "generator": torch.Generator()}
+
+
+def phase5_once(pipe, state, batch, masks, gradnorm_step, ctx, card_gradnorm):
+    """One phase-5 forward and its merged pulls, pinned: the 9 losses, the
+    gradients of the total, n_t, n_s (on the card), and the new GradNorm
+    weights from a copy of ``card_gradnorm`` (the state's, on the card)."""
+    with ctx:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses, _, _, grads, n_t, n_s = pipe.phase5_grads(
+            state, *batch, epoch=0, cpc_anchors=ANCHORS, dropout_masks=masks
+        )
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+
+    def card(v):
+        return None if v is None else v.detach().cuda()
+
+    losses = {k: card(v) for k, v in losses.items()}
+    grads = {k: [card(g) for g in gs] for k, gs in grads.items()}
+    n_t, n_s = card(n_t), card(n_s)
+    gn = copy.deepcopy(card_gradnorm)
+    vec = torch.stack([losses[k] for k in ("t_nf", "t_c", "s_nf", "s_c", "s2t2s_c")])
+    g = pipe.config.gradnorm
+    gradnorm_step(gn["t"], vec[:2], n_t, alpha=g.alpha, weight_sum=g.weights_t_sum)
+    gradnorm_step(gn["s"], vec[2:], n_s, alpha=g.alpha, weight_sum=g.weights_s_sum)
+    return {"losses": losses, "grads": grads, "n_t": n_t, "n_s": n_s,
+            "w_t": gn["t"].weights, "w_s": gn["s"].weights, "secs": secs}
+
+
+def phase5_gap(k, p) -> dict:
+    """How far run ``k`` is from run ``p``: rel errors of the losses, the
+    trunk norms and the GradNorm weights, and per module the relative L2
+    distance of the gradients (``grad_l2_rel``) and the largest gradient
+    difference over that module's own max|g| (``grad_rel``)."""
+    row = {"loss_rel": {n: rel_err(k["losses"][n], p["losses"][n])[1] for n in k["losses"]},
+           "n_t_rel": rel_err(k["n_t"], p["n_t"])[1], "n_s_rel": rel_err(k["n_s"], p["n_s"])[1],
+           "w_t_rel": rel_err(k["w_t"], p["w_t"])[1], "w_s_rel": rel_err(k["w_s"], p["w_s"])[1],
+           "losses": {n: float(v) for n, v in k["losses"].items()},
+           "grad_l2_rel": {}, "grad_rel": {}, "grad_max": {}}
+    for name, gs in p["grads"].items():
+        pairs = [(a, b) for a, b in zip(k["grads"][name], gs) if b is not None]
+        g_max = max((float(b.abs().max()) for _, b in pairs), default=0.0)
+        diff = max((float((a - b).abs().max()) for a, b in pairs), default=0.0)
+        d2 = sum(float(((a - b) ** 2).sum()) for a, b in pairs)
+        n2 = sum(float((b ** 2).sum()) for _, b in pairs)
+        row["grad_max"][name] = g_max
+        row["grad_rel"][name] = diff / g_max if g_max > 0 else diff
+        row["grad_l2_rel"][name] = math.sqrt(d2 / n2) if n2 > 0 else math.sqrt(d2)
+    return row
+
+
+def phase5_against_plain(pipe, state, batch, osconv, wn_fused, gradnorm_step, smi, gate=True,
+                         cpu_pipe=None):
+    """One full-width phase-5 step of ``state`` with the kernels and with the
+    plain versions on the card, randomness pinned: the 9 losses, n_t, n_s,
+    the new GradNorm weights and the gradients of the total.  Checked
+    against the tolerances when ``gate``, else only measured.  Measured
+    beside it: the step with only the WN kernels and with only the OS conv
+    kernel on, and, with ``cpu_pipe``, the plain versions on the CPU, each
+    held against the card's plain run (the last a witness of how far
+    another summation order alone moves the same step).
+
+    Gated on the step with only the WN kernels on: every module's
+    gradients within GRAD_REL_TOL, as relative L2 distance and as largest
+    difference over the module's own max|g|.  Gated on the step with every
+    kernel on: the losses, trunk norms and GradNorm weights, and each
+    module's relative L2 distance within STEP_GRAD_L2_TOL, which leaves room
+    for the OS-CNN modules' sensitivity to the last bits of the conv
+    outputs (a ReLU input within rounding of zero switches between two
+    correct runs); the WN kernels' share is held to the tighter gate."""
+    masks = [[(torch.rand(BATCH, 1024, generator=torch.Generator().manual_seed(i)) >= 0.2).float()
+              / 0.8 for i in (2 * j, 2 * j + 1)] for j in range(2)]
+    card_masks = [[m.cuda() for m in pair] for pair in masks]
+    flows = pipe.config.flow.n_flows
+    convs = len(pipe.t_ext_specs) + len(pipe.s_ext_specs) + 3 * len(pipe.cls_specs)
+
+    def once(ctx, p=pipe, s=state, b=batch, m=card_masks):
+        return phase5_once(p, s, b, m, gradnorm_step, ctx, state["gradnorm"])
+
+    osconv.reset_launch_counts()
+    wn_fused.reset_launch_counts()
+    kern = once(contextlib.nullcontext())
+    launched = {**osconv.LAUNCHES, **wn_fused.LAUNCHES}  # one forward, the four merged pulls
+    want = {"os_conv_fwd": convs, "os_conv_fused_fwd": 0, "wn_fwd": 2 * flows, "wn_bwd": 5 * flows}
+    check(launched == want, f"phase-5 step launches {launched} != {want}")
+    plain = once(plain_convs(osconv, wn_fused))
+    row = phase5_gap(kern, plain)
+    row["grads_and_norms_s"] = {"kernel": kern["secs"], "plain": plain["secs"]}
+    log(f"[phase-5 step, kernels vs plain on the card, {'checked' if gate else 'measured'}] "
+        f"{json.dumps(row)} on {smi}")
+    alone = {"wn kernels only": plain_convs(osconv, wn_fused, wn=False),
+             "os_conv kernel only": plain_convs(osconv, wn_fused, convs=False)}
+    for what, ctx in alone.items():
+        gap = phase5_gap(once(ctx), plain)
+        row[what] = {key: gap[key] for key in ("loss_rel", "grad_l2_rel", "grad_rel")}
+        checked = gate and what == "wn kernels only"
+        log(f"[phase-5 step, {what} vs plain on the card, {'checked' if checked else 'measured'}] "
+            f"{json.dumps(row[what])}")
+    if cpu_pipe is not None:
+        on_cpu = once(contextlib.nullcontext(), cpu_pipe, cpu_state(state),
+                      [b.cpu() for b in batch], masks)
+        row["cpu_plain_vs_card_plain"] = phase5_gap(on_cpu, plain)
+        row["grads_and_norms_s"]["cpu_plain"] = on_cpu["secs"]
+        log(f"[phase-5 step, plain on the CPU ({on_cpu['secs']:.1f} s) vs plain on the card, "
+            f"measured] {json.dumps(row['cpu_plain_vs_card_plain'])}")
+    if not gate:
+        return row
+    for n in ("n_t", "n_s"):
+        check(bool(torch.isfinite(kern[n]).all()), f"phase-5 {n} is not finite")
+    for n, v in row["loss_rel"].items():
+        check(math.isfinite(row["losses"][n]), f"phase-5 loss {n} is not finite")
+        check(v <= REL_TOL, f"phase-5 loss {n}: rel err {v:.3e} against plain")
+    for n in ("n_t_rel", "n_s_rel"):
+        check(row[n] <= GRAD_REL_TOL, f"phase-5 {n} {row[n]:.3e}")
+    for n in ("w_t_rel", "w_s_rel"):
+        check(row[n] <= REL_TOL, f"phase-5 GradNorm {n} {row[n]:.3e}")
+    for n, v in row["grad_l2_rel"].items():
+        check(v <= STEP_GRAD_L2_TOL, f"phase-5 grads of the total, {n}: relative L2 distance {v:.3e}")
+    wn_only = row["wn kernels only"]
+    for metric in ("grad_l2_rel", "grad_rel"):
+        for n, v in wn_only[metric].items():
+            check(v <= GRAD_REL_TOL, f"phase-5 grads with the WN kernels only, {n}: {metric} {v:.3e}")
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
               file=sys.stderr)
         return 2
+    from feature_level_style_transfer_for_tsc_tpu_torch.cli import main as train_cli
     from feature_level_style_transfer_for_tsc_tpu_torch.cli import predict
+    from feature_level_style_transfer_for_tsc_tpu_torch.losses.gradnorm import gradnorm_step
+    from feature_level_style_transfer_for_tsc_tpu_torch.models.common import weight_norm_weight
+    from feature_level_style_transfer_for_tsc_tpu_torch.models.flow import wn_init
     from feature_level_style_transfer_for_tsc_tpu_torch.config import PipelineConfig
     from feature_level_style_transfer_for_tsc_tpu_torch.data.synthetic import (
         make_arrays,
         write_ts_file,
     )
     from feature_level_style_transfer_for_tsc_tpu_torch.io.checkpoint import save_checkpoint
-    from feature_level_style_transfer_for_tsc_tpu_torch.ops import _build, osconv
+    from feature_level_style_transfer_for_tsc_tpu_torch.ops import _build, osconv, wn_fused
     from feature_level_style_transfer_for_tsc_tpu_torch.ops.batchnorm import BNStats
     from feature_level_style_transfer_for_tsc_tpu_torch.parallel.multi_source import (
         MultiSourceEnsemble,
     )
     from feature_level_style_transfer_for_tsc_tpu_torch.structure import total_out_channels
     from feature_level_style_transfer_for_tsc_tpu_torch.train.classifier import OSCNNClassifier
-    from feature_level_style_transfer_for_tsc_tpu_torch.train.pipeline import TargetPredictor
+    from feature_level_style_transfer_for_tsc_tpu_torch.train.pipeline import (
+        StyleTransferPipeline,
+        TargetPredictor,
+    )
 
     # ---- phase 1: setup
     kind = torch.cuda.get_device_name(0)
@@ -288,17 +719,11 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    t0 = time.perf_counter()
+    build = build_kernels(_build, ("os_conv", "wn_fused"))
     osconv._lib()
-    build_s = time.perf_counter() - t0
-    lib_path = _build.build("os_conv")
-    ptxas = (lib_path.parent / (lib_path.name + ".ptxas.txt")).read_text()
-    log(f"build: {lib_path.name} in {build_s:.2f} s")
-    for line in ptxas.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    wn_fused._lib()
 
-    results = {"device": kind, "nvidia_smi": smi, "build_s": build_s}
+    results = {"device": kind, "nvidia_smi": smi, "build": build}
     cfg = PipelineConfig(budget_multiplier=1.0)
     predictor = TargetPredictor(
         SCP2["channels"], SCP2["length"], SCP2["classes"], config=cfg, device="cuda"
@@ -317,7 +742,7 @@ def main() -> int:
     rows = kernel_phase(osconv, layers)
     results["kernels"] = rows
 
-    run = Run(osconv)
+    run = Run(osconv, wn_fused)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         tmp = Path(tmp)
         # ---- data: SCP2-shaped target, a small source for the CLI's flags
@@ -354,7 +779,7 @@ def main() -> int:
         results["serving"] = {}
         for fused in (False, True):
             kern = "os_conv_fused_fwd" if fused else "os_conv_fwd"
-            idle = {name: 0 for name in osconv.LAUNCHES}
+            idle = run.idle()
             tag = "fused" if fused else "unfused"
             with fuse_epilogue(fused):
                 # ---- phase 3: one checkpoint
@@ -362,12 +787,12 @@ def main() -> int:
                 acc = run.drive(
                     f"single {tag}",
                     lambda: predict.main(cli_args(data, "SynSCP2", data, "SynSource", [single], out)),
-                    {**idle, kern: n_layers * n_batches},
+                    {**idle, kern: n_layers * n_batches}, path="serving",
                 )
                 preds = np.load(f"{out}_predict.npy")
                 params, mstate = state["params"], state["mstate"]
                 logits = predictor.predict_logits(params, mstate, x_test)
-                with plain_convs(osconv):
+                with plain_convs(osconv, wn_fused):
                     logits_plain = predictor.predict_logits(params, mstate, x_test)
                     predict.main(cli_args(data, "SynSCP2", data, "SynSource", [single], f"{out}_plain"))
                 check(tuple(logits.shape) == (SCP2["n_test"], n_cls), f"logits {tuple(logits.shape)}")
@@ -387,9 +812,9 @@ def main() -> int:
                 acc_e = run.drive(
                     f"ensemble {tag}",
                     lambda: predict.main(cli_args(data, "SynSCP2", data, "SynSource", ensemble, out)),
-                    {**idle, kern: len(ensemble) * n_layers * 2},
+                    {**idle, kern: len(ensemble) * n_layers * 2}, path="serving",
                 )
-                with plain_convs(osconv):
+                with plain_convs(osconv, wn_fused):
                     predict.main(cli_args(data, "SynSCP2", data, "SynSource", ensemble, f"{out}_plain"))
                 same = np.array_equal(np.load(f"{out}_predict.npy"), np.load(f"{out}_plain_predict.npy"))
                 check(same, f"ensemble {tag}: predictions differ from plain")
@@ -401,7 +826,7 @@ def main() -> int:
                 ens_rel = {}
                 for split, x in (("train", t_train.x), ("test", t_test.x)):
                     got = ens.member_logits(stacked, x)
-                    with plain_convs(osconv):
+                    with plain_convs(osconv, wn_fused):
                         want = ens.member_logits(stacked, x)
                     check(tuple(got.shape) == (len(ensemble), len(x), n_cls)
                           and bool(torch.isfinite(got).all()),
@@ -409,7 +834,7 @@ def main() -> int:
                     ens_rel[split] = rel_err(got, want)[1]
                     check(ens_rel[split] <= REL_TOL,
                           f"ensemble {tag}: {split} member logits rel err {ens_rel[split]:.3e}")
-                with plain_convs(osconv):
+                with plain_convs(osconv, wn_fused):
                     weights_plain = ens.compute_class_weights(stacked, t_train.x, t_train.y)
                 ens_rel["weights"] = rel_err(weights, weights_plain)[1]
                 check(ens_rel["weights"] <= REL_TOL,
@@ -445,17 +870,130 @@ def main() -> int:
         run.drive(
             "VendGunPoint",
             lambda: predict.main(cli_args(uni, "VendGunPoint", uni, "VendCoffee", [g_ckpt], out)),
-            {"os_conv_fwd": n_g * math.ceil(g_test.len / BATCH), "os_conv_fused_fwd": 0},
-            main_path=False,
+            {**run.idle(), "os_conv_fwd": n_g * math.ceil(g_test.len / BATCH)},
         )
-        with plain_convs(osconv):
+        with plain_convs(osconv, wn_fused):
             predict.main(cli_args(uni, "VendGunPoint", uni, "VendCoffee", [g_ckpt], f"{out}_plain"))
         check(np.array_equal(np.load(f"{out}_predict.npy"), np.load(f"{out}_plain_predict.npy")),
               "VendGunPoint: predictions differ from plain")
 
+        # ---- the training configuration: SCP2 <- EthanolLevel, PipelineConfig()
+        train_data = tmp / "train_data"
+        write_dataset(train_data, "SynSCP2", {
+            "TRAIN": make_arrays(TRAIN_SERIES, c, t, n_cls, seed=11),
+            "TEST": make_arrays(TRAIN_SERIES, c, t, n_cls, seed=12),
+        }, write_ts_file)
+        e_c, e_t, e_n = ETHANOL["channels"], ETHANOL["length"], ETHANOL["classes"]
+        write_dataset(train_data, "SynEthanol", {
+            "TRAIN": make_arrays(TRAIN_SERIES, e_c, e_t, e_n, seed=13),
+            "TEST": make_arrays(TRAIN_SERIES, e_c, e_t, e_n, seed=14),
+        }, write_ts_file)
+        pipe = StyleTransferPipeline(c, t, n_cls, e_c, e_t, e_n, cfg, device="cuda")
+        fc = cfg.flow
+
+        # ---- phase 6: the WN kernels at the phase-5 shapes
+        wn_rows = wn_phase(wn_fused, wn_init, weight_norm_weight, pipe.feat_channels // 2,
+                           fc.wn_channels, fc.wn_layers)
+        results["wn"] = wn_rows
+
+        # ---- phase 7: the OS conv's gradient on the card
+        results["osconv_grad"] = osconv_grad_phase(osconv, layers)
+
+        # ---- phase 8: training through cli.main
+        step_s = []
+        untimed = StyleTransferPipeline.phase5_step
+
+        def timed_step(self, *args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = untimed(self, *args, **kwargs)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            return out
+
+        train_out = tmp / "train_run"
+        train_args = [
+            "--target-root", str(train_data), "--target", "SynSCP2",
+            "--source-root", str(train_data), "--source", "SynEthanol",
+            "--out", str(train_out), "--phase-epochs", json.dumps(PHASE_EPOCHS),
+            "--device", "cuda",
+        ]
+        StyleTransferPipeline.phase5_step = timed_step
+        try:
+            state, history = run.drive(
+                "training", lambda: train_cli.main(train_args),
+                {**run.idle(), **expected_training_launches(pipe, TRAIN_SERIES)}, path="training",
+            )
+        finally:
+            StyleTransferPipeline.phase5_step = untimed
+        for h in history:
+            for key, v in h.items():
+                if key not in ("phase", "epoch"):
+                    check(bool(np.all(np.isfinite(v))), f"training: {key} not finite in {h}")
+        want_files = {"final_state.npz", "history.json", "log.jsonl", "epoch_0.npz",
+                      "epoch_0_source.npz", "feature_of_target_s2t", "feature_of_source_t2s"}
+        want_files |= {f"p{i}_{side}_classifier_itself.npz" for i in range(1, 6)
+                       for side in ("target", "source")}
+        have = {f.name for f in train_out.iterdir()}
+        check(have == want_files, f"training wrote {sorted(have)}, want {sorted(want_files)}")
+        step_med = statistics.median(step_s[1:])
+        train_sps = 2 * BATCH / step_med
+        p5 = [h for h in history if h["phase"] == "p5"]
+        log(f"[training] phase-5 step s={[round(x, 4) for x in step_s]} median after the first="
+            f"{step_med:.4f} series/s={train_sps:.1f} (target+source per step) on {smi}")
+        log(f"[training] last p5 metrics {json.dumps(p5[-1])}")
+        served = tmp / "served_epoch0"
+        serve_args = ["--target-root", str(train_data), "--target", "SynSCP2",
+                      "--source-root", str(train_data), "--source", "SynEthanol",
+                      "--checkpoint", str(train_out / "epoch_0.npz"), "--device", "cuda"]
+        acc_served = predict.main(serve_args + ["--out", str(served)])
+        with plain_convs(osconv, wn_fused):
+            predict.main(serve_args + ["--out", f"{served}_plain"])
+        check(np.array_equal(np.load(f"{served}_predict.npy"), np.load(f"{served}_plain_predict.npy")),
+              "epoch_0.npz: served predictions differ from plain")
+        results["training"] = {
+            "phase5_step_s": step_s, "phase5_step_median_s": step_med,
+            "phase5_series_per_s": train_sps, "history": history,
+            "epoch0_served_accuracy": acc_served,
+        }
+
+        # ---- phase 9: one full-width phase-5 step against the plain path.
+        # Checked on a fresh state whose WN end projections are 0.1*N(0,1):
+        # the WN output (log_s about N(0,1)) and every WN gradient are near
+        # the scale training gives them.  The flow amplifies last-bit
+        # differences of the sums from coupling to coupling wherever log_s
+        # is large, as in the state the short drive leaves, so that state is
+        # measured, not checked.  Both states also run the plain path on the
+        # CPU, held against the plain path on the card: a witness of how far
+        # another summation order alone moves the same step.
+        tt_train, _, ss_train, _ = predict.build_datasets(train_data, "SynSCP2", train_data, "SynEthanol")
+        batch = (
+            torch.as_tensor(tt_train.x[:BATCH]).cuda(), torch.as_tensor(tt_train.y[:BATCH]).long().cuda(),
+            torch.as_tensor(ss_train.x[:BATCH]).cuda(), torch.as_tensor(ss_train.y[:BATCH]).long().cuda(),
+        )
+        g = torch.Generator().manual_seed(21)
+        fresh = pipe.init_state(g)
+        with torch.no_grad():
+            for wn in fresh["params"]["nf"]["wn"]:
+                end = wn["end"]["weight"]
+                end.copy_(WN_END_SCALE * torch.randn(end.shape, generator=g))
+        cpu_pipe = StyleTransferPipeline(c, t, n_cls, e_c, e_t, e_n, cfg, device="cpu")
+        results["phase5_vs_plain_trained"] = phase5_against_plain(
+            pipe, state, batch, osconv, wn_fused, gradnorm_step, smi, gate=False,
+            cpu_pipe=cpu_pipe,
+        )
+        results["phase5_vs_plain"] = phase5_against_plain(
+            pipe, fresh, batch, osconv, wn_fused, gradnorm_step, smi,
+            cpu_pipe=cpu_pipe,
+        )
+
+        # ---- phase 10: where a phase-5 step's device time goes
+        results["phase5_profile"] = profile_step(pipe, fresh, batch)
+
     for name, n in run.launches.items():
-        check(n > 0, f"{name} was never launched on the serving path")
+        check(n > 0, f"{name} was never launched on the main path")
     results["launches_by_drive"] = run.by_drive
+    results["launches_by_path"] = run.by_path
     line = {"kernels": [
         {
             "name": "os_conv_fwd", "route": "cuda", "source": SOURCE,
@@ -478,6 +1016,19 @@ def main() -> int:
             "library_ms": None,
         },
     ]}
+    for name, d in (("wn_fwd", "fwd"), ("wn_bwd", "bwd")):
+        # one pair call (46,080 rows) plus one infer call (23,040 rows)
+        line["kernels"].append({
+            "name": name, "route": "cuda", "source": WN_SOURCE, "replaces": REPLACES[name],
+            "launches": run.launches[name],
+            "max_abs_err": max(r[f"{d}_max_abs"] for r in wn_rows),
+            "ms": sum(r[f"{d}_ms"] for r in wn_rows),
+            "plain_ms": sum(r[f"{d}_plain_ms"] for r in wn_rows),
+            "bound_ms": sum(r[f"{d}_bound_ms"] for r in wn_rows),
+            "bound_by": "operations" if sum(r[f"{d}_flop_ms"] for r in wn_rows)
+            >= sum(r[f"{d}_bytes_ms"] for r in wn_rows) else "bytes",
+            "library_ms": None,
+        })
     results["summary"] = line
     out_dir = REPO / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -4,9 +4,9 @@ The JAX package saves a state pytree as one ``.npz`` whose keys are the
 leaves' tree paths as ``jax.tree_util.keystr`` writes them, e.g.
 ``['params']['t_ext']['block']['layers'][0]['conv']['weight']`` for a dict
 key and a list index, and ``['mstate']['t_ext']['res_bn'].mean`` for a
-field of the ``BNStats`` NamedTuple.  The port's state is the same nesting
-of dictionaries, lists and ``BNStats`` over tensors, so both packages read
-each other's files:
+field of a NamedTuple (``BNStats``, ``NoiseTransferState``, ``CriticState``).
+The port's state is the same nesting of dictionaries, lists and those
+NamedTuples over tensors, so both packages read each other's files:
 
 * ``save_checkpoint`` writes a port state under those keys;
 * ``from_jax_params`` turns such a flat ``{key: array}`` mapping back into
@@ -25,8 +25,12 @@ from typing import Dict, Iterable, Optional
 import numpy as np
 import torch
 
+from ..models.adapters import NoiseTransferState
+from ..models.critics import CriticState
 from ..ops.batchnorm import BNStats
 
+#: the NamedTuples of a state, by their sorted field names
+_NAMED = {tuple(sorted(t._fields)): t for t in (BNStats, NoiseTransferState, CriticState)}
 _TOKEN = re.compile(r"\['([^'\]]*)'\]|\[(\d+)\]|\.(\w+)")
 
 
@@ -35,7 +39,7 @@ def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
         return {prefix: tree.detach().cpu().numpy()}
     if isinstance(tree, dict):
         items = ((f"[{k!r}]", v) for k, v in tree.items())
-    elif isinstance(tree, BNStats):
+    elif isinstance(tree, tuple(_NAMED.values())):
         items = ((f".{f}", getattr(tree, f)) for f in tree._fields)
     elif isinstance(tree, (list, tuple)):
         items = ((f"[{i}]", v) for i, v in enumerate(tree))
@@ -73,21 +77,24 @@ def _parse_key(key: str):
 
 def _build(node, device):
     if not isinstance(node, dict):
-        return torch.from_numpy(np.asarray(node)).to(device)
+        t = torch.from_numpy(np.array(node))
+        # integer scalars are host counters (NoiseTransfer, critics)
+        return t if t.dim() == 0 and not t.is_floating_point() else t.to(device)
     keys = list(node)
     if all(isinstance(k, int) for k in keys):
         if sorted(keys) != list(range(len(keys))):
             raise ValueError(f"list indices {sorted(keys)} are not 0..n-1")
         return [_build(node[i], device) for i in range(len(keys))]
     if all(isinstance(k, str) and k.startswith(".") for k in keys):
-        if sorted(keys) != [".mean", ".var"]:
+        named = _NAMED.get(tuple(sorted(k[1:] for k in keys)))
+        if named is None:
             raise ValueError(f"unknown NamedTuple fields {sorted(keys)}")
-        return BNStats(_build(node[".mean"], device), _build(node[".var"], device))
+        return named(**{f: _build(node["." + f], device) for f in named._fields})
     return {k: _build(v, device) for k, v in node.items()}
 
 
 def from_jax_params(flat: Dict[str, np.ndarray], device="cpu"):
-    """A port state (nested dicts, lists and ``BNStats`` of tensors on
+    """A port state (nested dicts, lists and NamedTuples of tensors on
     ``device``) from the JAX package's flat ``{keystr: array}`` mapping."""
     root: dict = {}
     for key, value in flat.items():

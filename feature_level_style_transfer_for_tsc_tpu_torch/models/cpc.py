@@ -1,0 +1,71 @@
+"""Contrastive Predictive Coding (CPC) self-supervised auxiliary loss.
+
+Counterpart of the JAX package's ``models/cpc.py`` (reference
+``Comparison/SLARDA/train.py:41-76``): a GRU over the features, a random
+anchor ``t ~ U[0, timestep/2)``, ``timestep`` per-step Linears predicting
+z[:, t+1 .. t+timestep] from the context c_t, and InfoNCE over the batch.
+
+As in the JAX package the GRU runs over the static prefix of
+``timestep//2`` steps and the output is taken at the anchor: a causal GRU's
+output at t depends only on steps <= t, so this is exact.  The anchor is
+drawn on the host from a ``torch.Generator`` or passed in (``anchor=``).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+
+from .common import gru_init, gru_scan, linear_init
+
+
+def cpc_init(generator: torch.Generator, num_channels: int, gru_hidden_dim: int, timestep: int,
+             device="cpu") -> Dict:
+    return {
+        "gru": gru_init(generator, num_channels, gru_hidden_dim, device),
+        "wk": [linear_init(generator, gru_hidden_dim, num_channels, device) for _ in range(timestep)],
+    }
+
+
+def draw_anchor(params: Dict, generator: torch.Generator) -> int:
+    """The reference's ``torch.randint(timestep//2)`` anchor."""
+    return int(torch.randint(0, len(params["wk"]) // 2, (), generator=generator))
+
+
+def _context(params: Dict, features: torch.Tensor) -> torch.Tensor:
+    """GRU outputs over the static prefix of ``timestep//2`` steps."""
+    prefix = max(len(params["wk"]) // 2, 1)
+    hidden = params["gru"]["w_hh"].shape[0]
+    return gru_scan(params["gru"], features[:, :prefix], features.new_zeros(features.shape[0], hidden))
+
+
+def _info_nce(params: Dict, z: torch.Tensor, context: torch.Tensor, anchor: int) -> torch.Tensor:
+    b = z.shape[0]
+    timestep = len(params["wk"])
+    encode_samples = z[:, anchor + 1 : anchor + 1 + timestep].transpose(0, 1)  # (ts, B, C)
+    c_t = context[:, anchor]  # (B, hidden)
+    pred = torch.stack([c_t @ p["weight"] + p["bias"] for p in params["wk"]])  # (ts, B, C)
+    total = torch.einsum("sbc,sdc->sbd", encode_samples, pred)  # (ts, B, B)
+    nce = torch.diagonal(torch.log_softmax(total, dim=-1), dim1=1, dim2=2).sum()
+    return nce / (-1.0 * b * timestep)
+
+
+def cpc_apply(params: Dict, features: torch.Tensor, anchor: int) -> torch.Tensor:
+    """InfoNCE loss of features (B, T, C) at anchor ``anchor``."""
+    return _info_nce(params, features, _context(params, features), anchor)
+
+
+def cpc_apply_pair(params: Dict, feats_a: torch.Tensor, feats_b: torch.Tensor,
+                   generator: Optional[torch.Generator] = None,
+                   anchors: Optional[Sequence[int]] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two independent CPC losses with one batched GRU scan over both feature
+    batches; the anchors are drawn from ``generator`` unless given."""
+    if anchors is None:
+        anchors = (draw_anchor(params, generator), draw_anchor(params, generator))
+    b = feats_a.shape[0]
+    context = _context(params, torch.cat([feats_a, feats_b], dim=0))
+    return (
+        _info_nce(params, feats_a, context[:b], anchors[0]),
+        _info_nce(params, feats_b, context[b:], anchors[1]),
+    )

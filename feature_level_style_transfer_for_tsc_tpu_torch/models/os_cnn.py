@@ -1,22 +1,23 @@
-"""OS-CNN model family in eval mode: omni-scale classifier and residual extractor.
+"""OS-CNN model family: omni-scale classifier and residual extractor.
 
-Counterpart of the JAX package's ``models/os_cnn.py`` for serving
-(reference ``OS_CNN/OS_CNN.py:44-220``):
+Counterpart of the JAX package's ``models/os_cnn.py`` (reference
+``OS_CNN/OS_CNN.py:44-220``):
 
 * ``os_block_*``   — stack of masked omni-scale conv layers, each
                      conv -> BatchNorm -> (ReLU except optionally the last);
 * ``os_cnn_*``     — OS block (all-ReLU) -> mean over time -> Linear head;
-                     returns (logits, pooled_feature);
+                     returns (logits, pooled_feature, new_state);
+* ``os_cnn_head``  — the bare Linear head (the s2t2s path);
 * ``os_cnn_res_*`` — single residual layer: ReLU(OS block(x) + Conv1x1BN(x)),
-                     the feature extractor trunk.
+                     the feature extractor trunk; returns (feature, new_state).
 
 Layout: (B, T, C).  Each module is a (params, state) pair of nested
 dictionaries with the JAX package's keys; state carries the BatchNorm
-running statistics.  Only eval mode is here: the apply functions normalize
-with the running statistics and return no new state.  ``fused_infer=True``
-folds each BatchNorm into a scale/shift epilogue of the conv (no-grad
-inference path); ``FLSTTSC_FUSE_EPILOGUE=1`` then runs that epilogue inside
-the conv kernel.
+running statistics, and every apply takes ``training`` and returns the new
+state as the JAX functions do (eval mode returns it unchanged).
+``fused_infer=True`` (eval mode, no gradient) folds each BatchNorm into a
+scale/shift epilogue of the conv; ``FLSTTSC_FUSE_EPILOGUE=1`` then runs that
+epilogue inside the conv kernel.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from ..ops.batchnorm import batch_norm_eval, init_bn_stats
+from ..ops.batchnorm import batch_norm, init_bn_stats
 from ..ops.osconv import build_os_mask, init_os_conv_params, masked_os_conv
 from ..structure import LayerSpec, total_out_channels
 from .common import conv1x1, conv1x1_init, linear, linear_init
@@ -48,19 +49,21 @@ def os_layer_apply(
     state: Dict,
     mask: torch.Tensor,
     x: torch.Tensor,
+    training: bool,
     relu: bool,
     fused_infer: bool = False,
-) -> torch.Tensor:
+) -> Tuple[torch.Tensor, Dict]:
     conv, st = params["conv"], state["bn"]
-    if fused_infer:
+    if fused_infer and not training:
         inv_scale = params["bn_scale"] * torch.rsqrt(st.var + 1e-5)
-        return masked_os_conv(
+        y = masked_os_conv(
             x, conv["weight"], conv["bias"], mask,
             scale=inv_scale, shift=params["bn_bias"] - st.mean * inv_scale, relu=relu,
         )
+        return y, state
     y = masked_os_conv(x, conv["weight"], conv["bias"], mask)
-    y = batch_norm_eval(y, params["bn_scale"], params["bn_bias"], st)
-    return torch.relu(y) if relu else y
+    y, new_bn = batch_norm(y, params["bn_scale"], params["bn_bias"], st, training)
+    return (torch.relu(y) if relu else y), {"bn": new_bn}
 
 
 # -------------------------------------------------------------- OS block ---
@@ -80,14 +83,17 @@ def os_block_apply(
     state: Dict,
     masks: List[torch.Tensor],
     x: torch.Tensor,
+    training: bool,
     relu_at_last: bool = True,
     fused_infer: bool = False,
-) -> torch.Tensor:
+) -> Tuple[torch.Tensor, Dict]:
     n = len(masks)
+    new_states = []
     for i, (p, s, m) in enumerate(zip(params["layers"], state["layers"], masks)):
         relu = True if i < n - 1 else relu_at_last
-        x = os_layer_apply(p, s, m, x, relu, fused_infer)
-    return x
+        x, ns = os_layer_apply(p, s, m, x, training, relu, fused_infer)
+        new_states.append(ns)
+    return x, {"layers": new_states}
 
 
 # ------------------------------------------------------- OS_CNN classifier -
@@ -106,18 +112,27 @@ def os_cnn_apply(
     state: Dict,
     masks: List[torch.Tensor],
     x: torch.Tensor,
+    training: bool,
     few_shot: bool = False,
     fused_infer: bool = False,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits, pooled_feature) — reference OS_CNN.forward.
+) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
+    """Returns (logits, pooled_feature, new_state) — reference OS_CNN.forward.
 
     ``few_shot=True`` skips the Linear head and returns the pooled feature
     in both slots (reference OS_CNN.py:82,106-108).
     """
-    y = os_block_apply(params["block"], state["block"], masks, x, True, fused_infer)
+    y, new_block = os_block_apply(
+        params["block"], state["block"], masks, x, training, True, fused_infer
+    )
     pooled = torch.mean(y, dim=1)  # AdaptiveAvgPool1d(1) over time
     logits = pooled if few_shot else linear(params["hidden"], pooled)
-    return logits, pooled
+    return logits, pooled, {"block": new_block}
+
+
+def os_cnn_head(params: Dict, pooled: torch.Tensor) -> torch.Tensor:
+    """The bare Linear head, used directly for the s2t2s path (reference
+    train_and_test.py:598 uses ``source_classification_module.hidden``)."""
+    return linear(params["hidden"], pooled)
 
 
 # -------------------------------------------- OS_CNN_res feature extractor -
@@ -140,13 +155,16 @@ def os_cnn_res_apply(
     state: Dict,
     masks: List[torch.Tensor],
     x: torch.Tensor,
+    training: bool,
     fused_infer: bool = False,
-) -> torch.Tensor:
+) -> Tuple[torch.Tensor, Dict]:
     """ReLU(OS_block(x, no final relu) + BN(Conv1x1(x))) — Res_OS_layer."""
-    main = os_block_apply(
-        params["block"], state["block"], masks, x, relu_at_last=False, fused_infer=fused_infer
+    main, new_block = os_block_apply(
+        params["block"], state["block"], masks, x, training,
+        relu_at_last=False, fused_infer=fused_infer,
     )
-    shortcut = batch_norm_eval(
-        conv1x1(params["res"], x), params["res_bn_scale"], params["res_bn_bias"], state["res_bn"]
+    shortcut, new_res_bn = batch_norm(
+        conv1x1(params["res"], x), params["res_bn_scale"], params["res_bn_bias"],
+        state["res_bn"], training,
     )
-    return torch.relu(main + shortcut)
+    return torch.relu(main + shortcut), {"block": new_block, "res_bn": new_res_bn}

@@ -17,6 +17,13 @@ tensor, and in the plain PyTorch version beside each on a CPU tensor:
   the folded eval-mode BatchNorm ``y*scale + shift`` and an optional ReLU are
   applied before the single store.  ``FLSTTSC_FUSE_EPILOGUE=1`` selects it
   on the no-grad inference path, read per call as in the JAX package.
+
+Gradients: ``masked_os_conv`` runs the conv through ``OSConvCore``, an
+``autograd.Function`` whose forward is ``os_conv`` and whose backward is the
+plain transposed conv (``torch.nn.grad.conv1d_input`` / ``conv1d_weight``),
+as the JAX package's ``_conv_core`` custom VJP takes its backward from XLA
+convs outside any Pallas kernel.  ``os_conv_fused`` has no gradient and
+refuses inputs that require one.
 """
 
 from __future__ import annotations
@@ -187,6 +194,10 @@ def os_conv_fused(
 ) -> torch.Tensor:
     """``relu?(os_conv(x_pad, w) * scale + shift)`` with one store; kernel on
     CUDA, plain on CPU.  No gradient: inference only."""
+    if any(t.requires_grad for t in (x_pad, w, scale, shift)):
+        raise RuntimeError(
+            "os_conv_fused has no gradient; call it under torch.inference_mode()"
+        )
     if not use_kernel(x_pad):
         return os_conv_fused_plain(x_pad, w, scale, shift, relu)
     out_shape = _check_operands(x_pad, w, scale, shift)
@@ -203,6 +214,33 @@ def os_conv_fused(
     LAUNCHES["os_conv_fused_fwd"] += 1
     _raise_on(err, "os_conv_fused_fwd")
     return y
+
+
+# ----------------------------------------------------------- gradient -----
+
+class OSConvCore(torch.autograd.Function):
+    """``os_conv`` with the plain transposed conv as its backward."""
+
+    @staticmethod
+    def forward(ctx, x_pad: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x_pad, w)
+        return os_conv(x_pad, w)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x_pad, w = ctx.saved_tensors
+        w_oik = w.permute(2, 1, 0)  # (C_out, C_in, K), torch's conv layout
+        g_ncw = g.transpose(1, 2)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.nn.grad.conv1d_input(
+                (x_pad.shape[0], x_pad.shape[2], x_pad.shape[1]), w_oik, g_ncw
+            ).transpose(1, 2)
+        if ctx.needs_input_grad[1]:
+            dw = torch.nn.grad.conv1d_weight(
+                x_pad.transpose(1, 2), w_oik.shape, g_ncw
+            ).permute(2, 1, 0)
+        return dx, dw
 
 
 # ------------------------------------------------------------ the op ------
@@ -231,7 +269,7 @@ def masked_os_conv(
         eff_shift = bias * scale + (shift if shift is not None else 0.0)
         if fuse_epilogue_in_kernel():
             return os_conv_fused(x_pad, w, scale.contiguous(), eff_shift, relu)
-        y = os_conv(x_pad, w) * scale + eff_shift
+        y = OSConvCore.apply(x_pad, w) * scale + eff_shift
         return torch.relu(y) if relu else y
-    y = os_conv(x_pad, w) + bias
+    y = OSConvCore.apply(x_pad, w) + bias
     return torch.relu(y) if relu else y

@@ -1,0 +1,306 @@
+"""The WaveNet coupling net (WN) of one flow step as two hand-written kernels.
+
+Counterpart of the JAX package's ``ops/wn_fused.py``.  The whole coupling net
+(start 1x1, L layers of a kernel-3 conv with dilation ``2**i`` plus the cond
+slice, the tanh*sigmoid gate, the res/skip 1x1 with the last layer
+zero-embedded, the end 1x1) runs on the batch collapsed into rows,
+``(B*T, C)``, with position masks ``pos = row % T`` in place of padding:
+
+* ``wn_fwd`` (CUDA, ``csrc/wn_fused.cu``) replaces ``_wn_fwd_kernel``; it
+  returns y, the per-layer audio ``aud`` (L, R, C) and the skip sum;
+* ``wn_bwd`` replaces ``_wn_bwd_kernel``: the reverse layer walk recomputing
+  z from ``aud``, the input gradient and every weight gradient; the end
+  projection's gradients (and ``gbc``, equal to ``gbi``) are taken outside,
+  as the JAX package does (``wn_fused.py:444-450``).
+
+Beside each kernel is its plain PyTorch version, ``wn_fwd_plain`` and
+``wn_bwd_plain`` (the backward written out, not by autograd).  ``WNCore`` is
+the ``autograd.Function`` over the stacked effective weights; like every op
+of the port it takes the kernels for a CUDA tensor and the plain versions
+for a CPU tensor.  ``stack_effective`` builds those weights from the
+weight-normed parameters in differentiable torch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import _build, use_kernel
+
+#: Launches of each host entry, counted by its wrapper where it launches.
+LAUNCHES = {"wn_fwd": 0, "wn_bwd": 0}
+
+#: Rows per weight-gradient slice of ``wn_bwd`` (partials summed in order).
+SPLIT_ROWS = 1024
+#: Widest geometry the kernels take.
+MAX_C, MAX_H = 128, 32
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def global_launches(n_layers: int) -> Dict[str, int]:
+    """``__global__`` launches per call of each host entry."""
+    return {"wn_fwd": 1 + n_layers, "wn_bwd": 4 + 6 * n_layers}
+
+
+def stack_effective(params: Dict, weight_norm_weight) -> Tuple[torch.Tensor, ...]:
+    """Effective (post weight-norm) tensors, stacked, with the last res/skip
+    layer embedded into columns [C, 2C) of a zero (C, 2C) weight.
+    Differentiable: autograd carries the gradients back to v/g."""
+    n_layers = len(params["in_layers"])
+    c = params["start"]["v"].shape[-1]
+    w_in = torch.stack([weight_norm_weight(p) for p in params["in_layers"]])
+    b_in = torch.stack([p["bias"] for p in params["in_layers"]])
+    rs_w, rs_b = [], []
+    for i, p in enumerate(params["res_skip_layers"]):
+        w, b = weight_norm_weight(p)[0], p["bias"]
+        if i == n_layers - 1:  # all-skip layer -> cols [c:2c), zero audio block
+            w = torch.cat([torch.zeros_like(w), w], dim=1)
+            b = torch.cat([torch.zeros_like(b), b])
+        rs_w.append(w)
+        rs_b.append(b)
+    return (
+        weight_norm_weight(params["start"])[0], params["start"]["bias"],
+        weight_norm_weight(params["cond"])[0], params["cond"]["bias"],
+        w_in, b_in, torch.stack(rs_w), torch.stack(rs_b),
+        params["end"]["weight"], params["end"]["bias"],
+    )
+
+
+# ------------------------------------------------------ plain versions ----
+
+def _shift(a: torch.Tensor, s: int) -> torch.Tensor:
+    """``out[r] = a[r + s]``, zero where ``r + s`` is outside the rows."""
+    rows = a.shape[0]
+    if s == 0:
+        return a
+    if abs(s) >= rows:
+        return torch.zeros_like(a)
+    if s > 0:
+        return F.pad(a[s:], (0, 0, 0, s))
+    return F.pad(a[: rows + s], (0, 0, -s, 0))
+
+
+def _masks(rows: int, t_len: int, d: int, device):
+    pos = torch.arange(rows, device=device) % t_len
+    lo = (pos >= d).to(torch.float32)[:, None]
+    hi = (pos < t_len - d).to(torch.float32)[:, None]
+    return lo, hi
+
+
+def wn_fwd_plain(x2, w_start, b_start, w_cond, b_cond, w_in, b_in, w_rs, b_rs, w_end, b_end,
+                 t_len: int):
+    """The forward on rows: x2 (R, H) -> (y (R, 2H), aud (L, R, C), skip (R, C))."""
+    n_layers, taps, c, _ = w_in.shape
+    if taps != 3:
+        raise ValueError(f"w_in of shape {tuple(w_in.shape)} is not (L, 3, C, 2C)")
+    rows = x2.shape[0]
+    audio = x2 @ w_start + b_start
+    spect = x2 @ w_cond + b_cond
+    skip = torch.zeros_like(audio)
+    aud = []
+    for i in range(n_layers):
+        d = 2 ** i
+        lo, hi = _masks(rows, t_len, d, x2.device)
+        aud.append(audio)
+        z = (
+            (lo * _shift(audio, -d)) @ w_in[i, 0] + audio @ w_in[i, 1]
+            + (hi * _shift(audio, d)) @ w_in[i, 2]
+            + b_in[i] + spect[:, 2 * c * i : 2 * c * (i + 1)]
+        )
+        acts = torch.tanh(z[:, :c]) * torch.sigmoid(z[:, c:])
+        rs = acts @ w_rs[i] + b_rs[i]
+        audio = audio + rs[:, :c]
+        skip = skip + rs[:, c:]
+    return skip @ w_end + b_end, torch.stack(aud), skip
+
+
+def wn_bwd_plain(x2, g2, aud, skip, w_start, w_cond, b_cond, w_in, b_in, w_rs, w_end,
+                 t_len: int):
+    """The backward of ``wn_fwd_plain`` written out, as ``_wn_bwd_kernel``
+    computes it.  Returns the gradients of (x2, w_start, b_start, w_cond,
+    b_cond, w_in, b_in, w_rs, b_rs, w_end, b_end)."""
+    n_layers, _, c, _ = w_in.shape
+    rows = x2.shape[0]
+    b_z = b_in + b_cond.reshape(n_layers, 2 * c)
+    g_skip = g2 @ w_end.T
+    g_audio = torch.zeros_like(g_skip)
+    g_x = torch.zeros_like(x2)
+    gwi, gbi, gwr, gbr, gwc = [], [], [], [], []
+    for i in reversed(range(n_layers)):
+        d = 2 ** i
+        lo, hi = _masks(rows, t_len, d, x2.device)
+        audio = aud[i]
+        a_lo, a_hi = lo * _shift(audio, -d), hi * _shift(audio, d)
+        w_c = w_cond[:, 2 * c * i : 2 * c * (i + 1)]
+        z = a_lo @ w_in[i, 0] + audio @ w_in[i, 1] + a_hi @ w_in[i, 2] + b_z[i] + x2 @ w_c
+        tt, ss = torch.tanh(z[:, :c]), torch.sigmoid(z[:, c:])
+        acts = tt * ss
+        g_rs = torch.cat([g_audio, g_skip], dim=1)
+        gwr.append(acts.T @ g_rs)
+        gbr.append(g_rs.sum(0))
+        g_acts = g_rs @ w_rs[i].T
+        g_z = torch.cat([g_acts * ss * (1 - tt * tt), g_acts * tt * ss * (1 - ss)], dim=1)
+        gwi.append(torch.stack([a_lo.T @ g_z, audio.T @ g_z, a_hi.T @ g_z]))
+        gbi.append(g_z.sum(0))
+        gwc.append(x2.T @ g_z)
+        g_x = g_x + g_z @ w_c.T
+        g_audio = (
+            g_audio + _shift(lo * g_z, d) @ w_in[i, 0].T + g_z @ w_in[i, 1].T
+            + _shift(hi * g_z, -d) @ w_in[i, 2].T
+        )
+    gbi = torch.stack(gbi[::-1])
+    return (
+        g_x + g_audio @ w_start.T,
+        x2.T @ g_audio, g_audio.sum(0),
+        torch.cat(gwc[::-1], dim=1), gbi.reshape(-1),
+        torch.stack(gwi[::-1]), gbi,
+        torch.stack(gwr[::-1]), torch.stack(gbr[::-1]),
+        skip.T @ g2, g2.sum(0),
+    )
+
+
+# ---------------------------------------------------- kernel wrappers -----
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """Build (at first use) and bind ``csrc/wn_fused.cu``."""
+    lib = _build.load("wn_fused")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.wn_fwd.argtypes = [p] * 13 + [i] * 5 + [p]
+    lib.wn_fwd.restype = i
+    lib.wn_bwd.argtypes = [p] * 20 + [i] * 6 + [p]
+    lib.wn_bwd.restype = i
+    return lib
+
+
+def _check(x2: torch.Tensor, t_len: int, w_in: torch.Tensor, *tensors: torch.Tensor):
+    """float32 contiguous operands on one device, a geometry the kernels take."""
+    for t in (x2, w_in) + tensors:
+        if t.device != x2.device:
+            raise ValueError(f"operands on {t.device} and {x2.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"the wn kernels take float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("the wn kernels take contiguous tensors")
+    rows, h = x2.shape
+    n_layers, taps, c, c2 = w_in.shape
+    if taps != 3 or c2 != 2 * c:
+        raise ValueError(f"w_in of shape {tuple(w_in.shape)} is not (L, 3, C, 2C)")
+    if not (0 < c <= MAX_C and 0 < h <= MAX_H and 0 < t_len and rows % t_len == 0 and rows > 0):
+        raise ValueError(f"unsupported WN geometry rows={rows} T={t_len} H={h} C={c}")
+    return rows, h, c, n_layers
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err:
+        raise RuntimeError(f"{name} launch failed with cudaError_t {err}")
+
+
+def _ptrs(*tensors):
+    return [t.data_ptr() for t in tensors]
+
+
+def wn_fwd(x2, w_start, b_start, w_cond, b_cond, w_in, b_in, w_rs, b_rs, w_end, b_end,
+           t_len: int):
+    """The forward kernel; same contract as ``wn_fwd_plain``."""
+    n_layers, c = w_in.shape[0], w_in.shape[2]
+    b_z = (b_in + b_cond.reshape(n_layers, 2 * c)).contiguous()
+    ins = [x2, w_start, b_start, w_cond, b_z, w_in, w_rs, b_rs, w_end, b_end]
+    rows, h, c, n_layers = _check(x2, t_len, w_in, *ins)
+    lib = _lib()
+    y = torch.empty(rows, 2 * h, device=x2.device)
+    aud = torch.empty(n_layers, rows, c, device=x2.device)
+    skip = torch.empty(rows, c, device=x2.device)
+    with torch.cuda.device(x2.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.wn_fwd(*_ptrs(*ins, y, aud, skip), rows, t_len, h, c, n_layers, stream)
+    LAUNCHES["wn_fwd"] += 1
+    _raise_on(err, "wn_fwd")
+    return y, aud, skip
+
+
+def wn_bwd(x2, g2, aud, skip, w_start, w_cond, b_cond, w_in, b_in, w_rs, w_end, t_len: int):
+    """The backward kernel; same contract as ``wn_bwd_plain``."""
+    n_layers, _, c, _ = w_in.shape
+    h = x2.shape[1]
+    b_z = (b_in + b_cond.reshape(n_layers, 2 * c)).contiguous()
+    w_in_t = w_in.transpose(2, 3).contiguous()
+    w_rs_t = w_rs.transpose(1, 2).contiguous()
+    w_cond_t = w_cond.reshape(h, n_layers, 2 * c).permute(1, 2, 0).contiguous()
+    ins = [x2, g2, aud, w_cond, w_in, b_z, w_in_t, w_rs_t, w_cond_t,
+           w_start.T.contiguous(), w_end.T.contiguous()]
+    rows, h, c, n_layers = _check(x2, t_len, w_in, *ins)
+    if g2.shape != (rows, 2 * h) or aud.shape != (n_layers, rows, c):
+        raise ValueError(f"g {tuple(g2.shape)} / aud {tuple(aud.shape)} do not match x")
+    lib = _lib()
+    dev = x2.device
+    k_in = 3 * c + h + 1
+    gx = torch.empty(rows, h, device=dev)
+    g_in = torch.empty(n_layers, k_in, 2 * c, device=dev)
+    g_rs = torch.empty(n_layers, c + 1, 2 * c, device=dev)
+    g_start = torch.empty(h + 1, c, device=dev)
+    scratch = [
+        torch.empty(2, rows, c, device=dev),  # g_audio, ping-pong
+        torch.empty(rows, c, device=dev),  # g_skip
+        torch.empty(rows, 2 * c, device=dev),  # g_z
+        torch.empty(rows, c, device=dev),  # acts
+        torch.empty(-(-rows // SPLIT_ROWS) * k_in * 2 * c, device=dev),  # partial sums
+    ]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.wn_bwd(*_ptrs(*ins, gx, g_in, g_rs, g_start, *scratch),
+                         rows, t_len, h, c, n_layers, SPLIT_ROWS, stream)
+    LAUNCHES["wn_bwd"] += 1
+    _raise_on(err, "wn_bwd")
+    gbi = g_in[:, -1]
+    return (
+        gx, g_start[:h], g_start[h],
+        g_in[:, 3 * c : 3 * c + h].permute(1, 0, 2).reshape(h, n_layers * 2 * c),
+        gbi.reshape(-1),
+        g_in[:, : 3 * c].reshape(n_layers, 3, c, 2 * c), gbi,
+        g_rs[:, :c], g_rs[:, c],
+        skip.T @ g2, g2.sum(0),
+    )
+
+
+# ------------------------------------------------------------ the op ------
+
+class WNCore(torch.autograd.Function):
+    """The WN on stacked effective weights: kernels on CUDA, plain on CPU."""
+
+    @staticmethod
+    def forward(ctx, x, w_start, b_start, w_cond, b_cond, w_in, b_in, w_rs, b_rs, w_end, b_end):
+        b, t, h = x.shape
+        x2 = x.reshape(b * t, h).contiguous()
+        fwd = wn_fwd if use_kernel(x2) else wn_fwd_plain
+        y, aud, skip = fwd(x2, w_start, b_start, w_cond, b_cond, w_in, b_in, w_rs, b_rs,
+                           w_end, b_end, t)
+        ctx.save_for_backward(x2, w_start, w_cond, b_cond, w_in, b_in, w_rs, w_end, aud, skip)
+        ctx.shape = (b, t, h)
+        return y.reshape(b, t, 2 * h)
+
+    @staticmethod
+    def backward(ctx, g):
+        b, t, h = ctx.shape
+        x2, w_start, w_cond, b_cond, w_in, b_in, w_rs, w_end, aud, skip = ctx.saved_tensors
+        g2 = g.reshape(b * t, 2 * h).contiguous()
+        bwd = wn_bwd if use_kernel(g2) else wn_bwd_plain
+        gx, *grads = bwd(x2, g2, aud, skip, w_start, w_cond, b_cond, w_in, b_in, w_rs,
+                         w_end, t)
+        return (gx.reshape(b, t, h), *grads)
+
+
+def wn_apply_fused(params: Dict, x: torch.Tensor, weight_norm_weight) -> torch.Tensor:
+    """The coupling net x (B, T, n_half) -> (B, T, 2*n_half) through ``WNCore``
+    (reference geometry: kernel 3, dilation 2**i)."""
+    eff = [t.contiguous() for t in stack_effective(params, weight_norm_weight)]
+    return WNCore.apply(x.float(), *eff)

@@ -69,11 +69,11 @@ class OSCNNClassifier:
 
     def forward(self, params, mstate, x: torch.Tensor, fused_infer: bool = False):
         """(logits, pooled, feat) in eval mode."""
-        feat = os_cnn_res_apply(
-            params["ext"], mstate["ext"], self.ext_masks, x, fused_infer=fused_infer
+        feat, _ = os_cnn_res_apply(
+            params["ext"], mstate["ext"], self.ext_masks, x, False, fused_infer=fused_infer
         )
-        logits, pooled = os_cnn_apply(
-            params["cls"], mstate["cls"], self.cls_masks, feat, fused_infer=fused_infer
+        logits, pooled, _ = os_cnn_apply(
+            params["cls"], mstate["cls"], self.cls_masks, feat, False, fused_infer=fused_infer
         )
         return logits, pooled, feat
 

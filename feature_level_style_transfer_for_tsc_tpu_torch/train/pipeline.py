@@ -1,41 +1,116 @@
-"""The serving part of the style-transfer pipeline: the target model's predictions.
+"""The five-phase feature-level style-transfer pipeline, and its served target.
 
-Counterpart of the JAX package's ``train/pipeline.py`` ``StyleTransferPipeline``
-for serving only: the target extractor ``t_ext`` (OS_CNN_res) and the target
-classifier ``t_cls`` (OS_CNN), their specs and masks built as in the
-pipeline's constructor, ``target_features``/``classify_target``, the
-no-grad ``_predict_target`` and the batched ``predict_target``.  The source
-side, the flow, the critics and the five training phases come with the
-training slice.
+Counterpart of the JAX package's ``train/pipeline.py`` (reference
+``train_and_test.py:22-798``):
 
-A state is ``{"params": {"t_ext", "t_cls"}, "mstate": {"t_ext", "t_cls"}}``
-under the JAX package's keys, so a training checkpoint of either package
-restores into it (``io/checkpoint.py``).
+* ``StyleTransferPipeline`` trains the curriculum: 1 target pretrain
+  (CE_t + CPC_t), 2 source pretrain (CE_s through DimensionUnification),
+  3 self-supervised (CPC_t + CPC_s, + 0.8 CE_t + 1.2 CE_s every 50th epoch),
+  4 NF pretrain (flow NLL on detached features, joint with 5 CE + 3 CPC every
+  75th epoch), 5 joint adversarial (GradNorm-weighted NF + CE + s2t2s losses
+  and epoch-staged CDAN / WGAN-critic / CPC terms, WGAN clipping);
+* ``TargetPredictor`` serves the target extractor + classifier of a state.
+
+PyTorch idiom inside: each phase-epoch is a Python loop over stacked
+batches; parameters are leaf tensors updated in place by one torch optimizer
+per module; BatchNorm statistics, NoiseTransfer averages and critic counters
+are explicit state under the JAX package's keys.  Phase 5 runs ONE forward and
+takes the GradNorm trunk gradients with ``torch.autograd.grad`` on the loss
+vector ``[total, t_nf, t_c, s_nf, s_c, s2t2s_c]`` seeded one-hot, merged as
+the JAX package merges them (``merged_pullbacks``): total; t_nf + s_nf; t_c +
+s_c; s2t2s_c.  Each pull names only the seeded losses as outputs, so autograd
+walks only their ancestors (the JAX package gets that from dead-code
+elimination of the zero seeds).
+
+Randomness (batch order, CPC anchors, CDAN dropout) comes from
+``torch.Generator``s; the anchors and dropout masks can be pinned per call.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..config import PipelineConfig
+from ..data.batching import epoch_batches
+from ..losses.cdan import cdan_loss
+from ..losses.classification import cross_entropy
+from ..losses.gradnorm import gradnorm_init, gradnorm_step
+from ..losses.wgan import wgan_loss
+from ..models.adapters import (
+    dimension_unification_apply,
+    dimension_unification_init,
+    noise_transfer_apply,
+    noise_transfer_init,
+    prob_transfer_apply,
+    prob_transfer_init,
+)
+from ..models.cpc import cpc_apply, cpc_apply_pair, cpc_init, draw_anchor
+from ..models.critics import (
+    ad_net_init,
+    feature_discriminator_apply,
+    feature_discriminator_init,
+    random_layer_init,
+)
+from ..models.flow import waveglow_forward_pair, waveglow_infer, waveglow_init, waveglow_loss
 from ..models.os_cnn import (
     os_block_masks,
     os_cnn_apply,
+    os_cnn_head,
     os_cnn_init,
     os_cnn_res_apply,
     os_cnn_res_init,
 )
 from ..ops import resolve_device
+from ..structure import total_out_channels
 from .classifier import build_specs
+from .optim import (
+    clip_params,
+    make_adam,
+    make_rmsprop,
+    plateau_init,
+    plateau_step,
+    set_lr,
+    step_lr,
+)
 
 #: checkpoint key prefixes of the target model within a full pipeline state
 TARGET_PREFIXES = (
     "['params']['t_ext']", "['params']['t_cls']",
     "['mstate']['t_ext']", "['mstate']['t_cls']",
 )
+STEPLR_MODULES = ("t_ext", "t_cls", "s_ext", "dim_uni", "s_cls", "noise", "cpc")
+PLATEAU_MODULES = ("prob_trans", "nf", "ad", "fd")
+ALL_MODULES = ("t_ext", "t_cls", "s_ext", "dim_uni", "s_cls", "prob_trans",
+               "nf", "noise", "ad", "fd", "cpc")
+#: the feature sets dumped for t-SNE (reference train_and_test.py:792-797)
+FEATURE_KEYS = ("t_feat", "s2t_feat", "s_feat", "s_pool", "t2s_pool", "s2t2s_pool")
+
+
+def leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a tree of dicts, lists and NamedTuples, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in leaves(v)]
+    return [leaf for v in tree for leaf in leaves(v)]
+
+
+def detached(tree):
+    """A tree of dicts, lists and NamedTuples with every tensor detached."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach()
+    if isinstance(tree, dict):
+        return {k: detached(v) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(detached(v) for v in tree))
+    return [detached(v) for v in tree]
+
+
+def _batch(a, device, dtype=None) -> torch.Tensor:
+    return torch.as_tensor(a, dtype=dtype).to(device)
 
 
 class TargetPredictor:
@@ -66,15 +141,18 @@ class TargetPredictor:
             "mstate": {"t_ext": t_ext_s, "t_cls": t_cls_s},
         }
 
-    def target_features(self, params, mstate, x, fused_infer: bool = False) -> torch.Tensor:
+    def target_features(self, params, mstate, x, training: bool, fused_infer: bool = False):
+        """(feature, new state)."""
         return os_cnn_res_apply(
-            params["t_ext"], mstate["t_ext"], self.t_ext_masks, x, fused_infer=fused_infer
+            params["t_ext"], mstate["t_ext"], self.t_ext_masks, x, training,
+            fused_infer=fused_infer,
         )
 
-    def classify_target(self, params, mstate, feat, fused_infer: bool = False):
-        """(logits, pooled)."""
+    def classify_target(self, params, mstate, feat, training: bool, fused_infer: bool = False):
+        """(logits, pooled, new state)."""
         return os_cnn_apply(
-            params["t_cls"], mstate["t_cls"], self.cls_masks, feat, fused_infer=fused_infer
+            params["t_cls"], mstate["t_cls"], self.cls_masks, feat, training,
+            fused_infer=fused_infer,
         )
 
     @torch.inference_mode()
@@ -82,24 +160,572 @@ class TargetPredictor:
         """The JAX package's ``_predict_target``: no grad, so the folded-BN
         conv epilogue (and with ``FLSTTSC_FUSE_EPILOGUE=1`` the fused kernel)
         is safe."""
-        feat = self.target_features(params, mstate, x, fused_infer=True)
-        logits, _ = self.classify_target(params, mstate, feat, fused_infer=True)
+        feat, _ = self.target_features(params, mstate, x, False, fused_infer=True)
+        logits, _, _ = self.classify_target(params, mstate, feat, False, fused_infer=True)
         return logits
 
-    def predict_target(self, state: Dict, x: np.ndarray) -> np.ndarray:
+    def _batched_predictions(self, predict, state: Dict, x: np.ndarray) -> np.ndarray:
         """Argmax class predictions in fixed-size batches of
         ``config.batch_size``; the last batch is padded by repeating its
-        last series, and the padded rows are dropped (the JAX package's
-        ``_batched_predictions``)."""
+        last series, and the padded rows are dropped."""
         bs = self.config.batch_size
         xs = torch.as_tensor(x, dtype=torch.float32).to(self.device)
-        n = xs.shape[0]
         preds = []
-        for i in range(0, n, bs):
+        for i in range(0, xs.shape[0], bs):
             xe = xs[i : i + bs]
             pad = bs - xe.shape[0]
             if pad:
                 xe = torch.cat([xe, xe[-1:].expand(pad, *xe.shape[1:])], 0)
-            logits = self.predict_logits(state["params"], state["mstate"], xe)
+            logits = predict(state["params"], state["mstate"], xe)
             preds.append(torch.argmax(logits, -1)[: bs - pad])
         return torch.cat(preds).cpu().numpy()
+
+    def predict_target(self, state: Dict, x: np.ndarray) -> np.ndarray:
+        return self._batched_predictions(self.predict_logits, state, x)
+
+
+class StyleTransferPipeline(TargetPredictor):
+    """The paired target/source model stack and its five training phases."""
+
+    def __init__(
+        self,
+        target_channels: int,
+        target_length: int,
+        target_classes: int,
+        source_channels: int,
+        source_length: int,
+        source_classes: int,
+        config: Optional[PipelineConfig] = None,
+        device="cuda",
+    ):
+        super().__init__(target_channels, target_length, target_classes, config, device)
+        cfg = self.config
+        self.s_shape = (source_channels, source_length, source_classes)
+        self.feat_channels = total_out_channels(self.t_ext_specs[-1])
+        self.s_ext_specs = build_specs(source_channels, source_length, cfg)[0]
+        self.s_feat_channels = total_out_channels(self.s_ext_specs[-1])
+        self.s_ext_masks = os_block_masks(self.s_ext_specs, self.device)
+        self.log_s_clamp = float(cfg.log_s_clamp)
+        o = cfg.optim
+        self.base_lr = {
+            "t_ext": o.lr_target_ext, "t_cls": o.lr_target_cls, "s_ext": o.lr_source_ext,
+            "dim_uni": o.lr_dim_uni, "s_cls": o.lr_source_cls, "prob_trans": o.lr_prob_trans,
+            "nf": o.lr_nf, "noise": o.lr_noise_trans, "ad": o.lr_ad_net,
+            "fd": o.lr_feat_disc, "cpc": o.lr_cpc,
+        }
+
+    # ------------------------------------------------------------ state ----
+
+    def init_models(self, generator: torch.Generator) -> Dict:
+        """Params, model state and constants under the JAX package's keys."""
+        cfg, dev = self.config, self.device
+        (_, t_t, n_t), (_, t_s, n_s) = self.t_shape, self.s_shape
+        t_ext_p, t_ext_s = os_cnn_res_init(generator, self.t_ext_specs, dev)
+        t_cls_p, t_cls_s = os_cnn_init(generator, self.cls_specs, n_t, dev)
+        s_ext_p, s_ext_s = os_cnn_res_init(generator, self.s_ext_specs, dev)
+        dim_uni_p = dimension_unification_init(
+            generator, self.s_feat_channels, self.feat_channels, t_s, t_t, dev
+        )
+        s_cls_p, s_cls_s = os_cnn_init(generator, self.cls_specs, n_s, dev)
+        prob_trans_p = prob_transfer_init(generator, self.feat_channels, dev)
+        nf_p = waveglow_init(generator, cfg.flow.n_flows, self.feat_channels,
+                             cfg.flow.wn_channels, cfg.flow.wn_layers, dev)
+        noise_p, noise_s = noise_transfer_init(generator, self.feat_channels, t_t, dev)
+        ad_p, ad_s = ad_net_init(generator, cfg.cdan_dim, 1024, dev)
+        fd_p, fd_s = feature_discriminator_init(generator, self.feat_channels, dev)
+        cpc_p = cpc_init(generator, self.feat_channels, cfg.cpc_hidden, t_t // 2, dev)
+        random_layer = random_layer_init(generator, [self.feat_channels * t_t, n_t],
+                                         cfg.cdan_dim, dev)
+        return {
+            "params": {
+                "t_ext": t_ext_p, "t_cls": t_cls_p, "s_ext": s_ext_p, "dim_uni": dim_uni_p,
+                "s_cls": s_cls_p, "prob_trans": prob_trans_p, "nf": nf_p, "noise": noise_p,
+                "ad": ad_p, "fd": fd_p, "cpc": cpc_p,
+            },
+            "mstate": {
+                "t_ext": t_ext_s, "t_cls": t_cls_s, "s_ext": s_ext_s, "s_cls": s_cls_s,
+                "noise": noise_s, "ad": ad_s, "fd": fd_s,
+            },
+            "consts": {"random_layer": random_layer},
+        }
+
+    def training_state(self, models: Dict, seed: int) -> Dict:
+        """``models`` (params, mstate, consts) plus what training carries:
+        one optimizer per module over its parameter tensors (made leaves that
+        require grad), StepLR counters, plateau states, GradNorm weights and
+        the generator of CPC anchors and CDAN dropout."""
+        g = self.config.gradnorm
+        params = models["params"]
+        for p in leaves(params):
+            p.requires_grad_(True)
+        opt = {
+            name: (make_adam if name == "cpc" else make_rmsprop)(leaves(params[name]),
+                                                                 self.base_lr[name])
+            for name in ALL_MODULES
+        }
+        return {
+            "params": params,
+            "mstate": models["mstate"],
+            "consts": models["consts"],
+            "opt": opt,
+            "sched": {name: 0 for name in STEPLR_MODULES},
+            "plateau": {name: plateau_init(self.base_lr[name]) for name in PLATEAU_MODULES},
+            "gradnorm": {
+                "t": gradnorm_init(g.weights_t_init, g.lr_weights_t, self.device),
+                "s": gradnorm_init(g.weights_s_init, g.lr_weights_s, self.device),
+            },
+            "generator": torch.Generator().manual_seed(seed),
+        }
+
+    def init_state(self, generator: torch.Generator) -> Dict:
+        return self.training_state(self.init_models(generator), int(generator.initial_seed()) + 1)
+
+    # ----------------------------------------------- forward building blocks
+
+    def source_features(self, params, mstate, x, training: bool, fused_infer: bool = False):
+        """s_ext + DimensionUnification -> target-shaped features."""
+        feat, new_s = os_cnn_res_apply(
+            params["s_ext"], mstate["s_ext"], self.s_ext_masks, x, training,
+            fused_infer=fused_infer,
+        )
+        return dimension_unification_apply(params["dim_uni"], feat), new_s
+
+    def classify_source(self, params, mstate, feat, training: bool, fused_infer: bool = False):
+        return os_cnn_apply(
+            params["s_cls"], mstate["s_cls"], self.cls_masks, feat, training,
+            fused_infer=fused_infer,
+        )
+
+    # ---------------------------------------------------- optimizer steps --
+
+    def _apply_updates(self, state: Dict, names: Sequence[str], grads: Dict[str, list]) -> None:
+        """One step of each named module's optimizer.  A parameter that got
+        no gradient steps with zero, as in the JAX package."""
+        for name in names:
+            for p, g in zip(leaves(state["params"][name]), grads[name]):
+                p.grad = torch.zeros_like(p) if g is None else g
+            state["opt"][name].step()
+            state["opt"][name].zero_grad(set_to_none=True)
+
+    def _grads(self, loss: torch.Tensor, state: Dict, names: Sequence[str],
+               retain_graph: bool = False) -> Dict[str, list]:
+        """d loss / d params of each named module (None where unused)."""
+        params = [leaves(state["params"][n]) for n in names]
+        flat = torch.autograd.grad(loss, [p for ps in params for p in ps],
+                                   retain_graph=retain_graph, allow_unused=True)
+        out, i = {}, 0
+        for name, ps in zip(names, params):
+            out[name] = list(flat[i : i + len(ps)])
+            i += len(ps)
+        return out
+
+    def _step_steplr(self, state: Dict, names: Sequence[str]) -> None:
+        """Increment scheduler counters and refresh LRs (torch StepLR)."""
+        o = self.config.optim
+        for n in names:
+            state["sched"][n] += 1
+            step, gamma = o.steplr_step, o.steplr_gamma
+            if n == "noise":
+                step, gamma = o.noise_steplr_step, o.noise_steplr_gamma
+            elif n == "cpc":
+                gamma = o.cpc_steplr_gamma
+            set_lr(state["opt"][n], step_lr(self.base_lr[n], state["sched"][n], step, gamma))
+
+    def _step_plateau(self, state: Dict, name: str, metric: float) -> None:
+        o = self.config.optim
+        ps = plateau_step(state["plateau"][name], metric, factor=o.plateau_factor,
+                          min_lr=o.plateau_min_lr)
+        state["plateau"][name] = ps
+        set_lr(state["opt"][name], ps.lr)
+
+    def _train_step(self, state, loss, new_m, names) -> None:
+        grads = self._grads(loss, state, names)
+        self._apply_updates(state, names, grads)
+        state["mstate"] = detached(new_m)
+
+    # ------------------------------------------------------------ phases ---
+
+    def phase1_epoch(self, state: Dict, xb, yb, cpc_anchor: Optional[int] = None) -> Dict:
+        """Target pretrain (reference :141-180): CE_t + CPC_t."""
+        names = ("t_ext", "t_cls", "cpc")
+        ces, sls = [], []
+        for x, y in zip(xb, yb):
+            params, mstate = state["params"], state["mstate"]
+            x, y = _batch(x, self.device), _batch(y, self.device, torch.long)
+            feat, t_ext_s = self.target_features(params, mstate, x, True)
+            anchor = draw_anchor(params["cpc"], state["generator"]) if cpc_anchor is None else cpc_anchor
+            sl = cpc_apply(params["cpc"], feat, anchor)
+            logits, _, t_cls_s = self.classify_target(params, mstate, feat, True)
+            ce = cross_entropy(logits, y)
+            self._train_step(state, ce + sl, {**mstate, "t_ext": t_ext_s, "t_cls": t_cls_s}, names)
+            ces.append(ce.detach())
+            sls.append(sl.detach())
+        self._step_steplr(state, names)
+        return {"t_c_loss": torch.stack(ces).mean(), "t_sl_loss": torch.stack(sls).mean()}
+
+    def phase2_epoch(self, state: Dict, xb, yb) -> Dict:
+        """Source pretrain (reference :181-220): CE_s."""
+        names = ("s_ext", "dim_uni", "s_cls")
+        ces = []
+        for x, y in zip(xb, yb):
+            params, mstate = state["params"], state["mstate"]
+            x, y = _batch(x, self.device), _batch(y, self.device, torch.long)
+            feat, s_ext_s = self.source_features(params, mstate, x, True)
+            logits, _, s_cls_s = self.classify_source(params, mstate, feat, True)
+            ce = cross_entropy(logits, y)
+            self._train_step(state, ce, {**mstate, "s_ext": s_ext_s, "s_cls": s_cls_s}, names)
+            ces.append(ce.detach())
+        self._step_steplr(state, names)
+        return {"s_c_loss": torch.stack(ces).mean()}
+
+    def _both_sides(self, params, mstate, bt, lt, bs, ls, generator, cpc_anchors):
+        """The supervised joint forward of phases 3 and 4."""
+        new_m = dict(mstate)
+        t_feat, new_m["t_ext"] = self.target_features(params, mstate, bt, True)
+        t_logits, _, new_m["t_cls"] = self.classify_target(params, mstate, t_feat, True)
+        s_feat, new_m["s_ext"] = self.source_features(params, mstate, bs, True)
+        t_sl, s_sl = cpc_apply_pair(params["cpc"], t_feat, s_feat, generator, cpc_anchors)
+        s_logits, _, new_m["s_cls"] = self.classify_source(params, mstate, s_feat, True)
+        return t_feat, s_feat, cross_entropy(t_logits, lt), t_sl, cross_entropy(s_logits, ls), s_sl, new_m
+
+    def phase3_epoch(self, state: Dict, xt, yt, xs, ys, supervised: bool,
+                     cpc_anchors: Optional[Sequence[int]] = None) -> Dict:
+        """Joint self-supervised (reference :221-363): CPC_t + CPC_s, plus
+        0.8 CE_t + 1.2 CE_s when supervised (heads frozen otherwise)."""
+        names = (("t_ext", "t_cls", "cpc", "s_ext", "dim_uni", "s_cls") if supervised
+                 else ("t_ext", "cpc", "s_ext", "dim_uni"))
+        out = []
+        for bt, lt, bs, ls in zip(xt, yt, xs, ys):
+            params, mstate = state["params"], state["mstate"]
+            bt, bs = _batch(bt, self.device), _batch(bs, self.device)
+            lt, ls = _batch(lt, self.device, torch.long), _batch(ls, self.device, torch.long)
+            _, _, t_ce, t_sl, s_ce, s_sl, new_m = self._both_sides(
+                params, mstate, bt, lt, bs, ls, state["generator"], cpc_anchors
+            )
+            total = t_sl + s_sl + (0.8 * t_ce + 1.2 * s_ce if supervised else 0.0)
+            self._train_step(state, total, new_m, names)
+            out.append(torch.stack([t_ce, t_sl, s_ce, s_sl]).detach())
+        self._step_steplr(state, names)
+        m = torch.stack(out).mean(0)
+        return {"t_c_loss": m[0], "t_sl_loss": m[1], "s_c_loss": m[2], "s_sl_loss": m[3]}
+
+    def phase4_epoch(self, state: Dict, xt, yt, xs, ys, supervised: bool,
+                     cpc_anchors: Optional[Sequence[int]] = None) -> Dict:
+        """NF pretrain (reference :374-494): the flow NLL on detached
+        features, or joint with 5 CE + 3 CPC when supervised."""
+        wn_ch = self.config.flow.wn_channels
+        # the reference also steps t_ext/s_ext/dim_uni in the unsupervised
+        # branch, but their grads are None after the detach (:483-489)
+        names = (("t_ext", "t_cls", "s_ext", "dim_uni", "s_cls", "nf", "cpc") if supervised
+                 else ("nf",))
+        out = []
+        for bt, lt, bs, ls in zip(xt, yt, xs, ys):
+            params, mstate = state["params"], state["mstate"]
+            bt, bs = _batch(bt, self.device), _batch(bs, self.device)
+            lt, ls = _batch(lt, self.device, torch.long), _batch(ls, self.device, torch.long)
+            if supervised:
+                t_feat, s_feat, t_ce, t_sl, s_ce, s_sl, new_m = self._both_sides(
+                    params, mstate, bt, lt, bs, ls, state["generator"], cpc_anchors
+                )
+            else:
+                new_m = dict(mstate)
+                t_feat, new_m["t_ext"] = self.target_features(params, mstate, bt, True)
+                s_feat, new_m["s_ext"] = self.source_features(params, mstate, bs, True)
+                t_feat, s_feat = t_feat.detach(), s_feat.detach()
+            t_out, s_out = waveglow_forward_pair(params["nf"], t_feat, s_feat, wn_ch, self.log_s_clamp)
+            t_nf, s_nf = waveglow_loss(t_out), waveglow_loss(s_out)
+            if supervised:
+                total = t_nf + s_nf + 5 * t_ce + 5 * s_ce + 3 * t_sl + 3 * s_sl
+            else:
+                t_ce = s_ce = torch.zeros((), device=self.device)
+                total = t_nf + s_nf
+            self._train_step(state, total, new_m, names)
+            out.append(torch.stack([t_nf, s_nf, t_ce, s_ce]).detach())
+        self._step_steplr(state, ("t_ext", "t_cls", "s_ext", "dim_uni", "s_cls", "cpc")
+                          if supervised else ("t_ext", "s_ext", "dim_uni"))
+        last = out[-1]  # the nf plateau steps with the LAST batch's total (:444,:494)
+        self._step_plateau(state, "nf", float(last[0] + last[1] + 5 * last[2] + 5 * last[3]))
+        m = torch.stack(out).mean(0)
+        return {"t_nf_loss": m[0], "s_nf_loss": m[1], "t_c_loss": m[2], "s_c_loss": m[3]}
+
+    def _phase5_forward(self, params, mstate, consts, bt, lt, bs, ls,
+                        generator: Optional[torch.Generator] = None,
+                        cpc_anchors: Optional[Sequence[int]] = None,
+                        dropout_masks=None):
+        """The full hot-loop forward (reference :539-621): every loss, the
+        new model state and the feature sets.  ``cpc_anchors`` and
+        ``dropout_masks`` (the critic's multipliers: target call, s2t call,
+        two each) pin the randomness."""
+        wn_ch = self.config.flow.wn_channels
+        new_m = dict(mstate)
+        t_feat, new_m["t_ext"] = self.target_features(params, mstate, bt, True)
+        s_feat, new_m["s_ext"] = self.source_features(params, mstate, bs, True)
+        t_sl, s_sl = cpc_apply_pair(params["cpc"], t_feat, s_feat, generator, cpc_anchors)
+        t_nf_out, s_nf_out = waveglow_forward_pair(params["nf"], t_feat, s_feat, wn_ch,
+                                                   self.log_s_clamp)
+        t_nf_loss, s_nf_loss = waveglow_loss(t_nf_out), waveglow_loss(s_nf_out)
+        s2t_noise, new_m["noise"] = noise_transfer_apply(
+            params["noise"], mstate["noise"], t_nf_out[0], s_nf_out[0]
+        )
+        s2t_feat = waveglow_infer(params["nf"], s2t_noise, wn_ch, log_s_clamp=self.log_s_clamp)
+        t_logits, t_pool, new_m["t_cls"] = self.classify_target(params, mstate, t_feat, True)
+        # eval-mode s2t pass on the running stats JUST updated by the target
+        # pass, as the reference's in-place BatchNorm sees them (:583-586)
+        s2t_logits, s2t_pool, _ = self.classify_target(params, new_m, s2t_feat, False)
+        s_logits, s_pool, new_m["s_cls"] = self.classify_source(params, mstate, s_feat, True)
+        cdan, new_m["ad"] = cdan_loss(
+            params["ad"], mstate["ad"], t_feat, s2t_feat, t_logits, s2t_logits,
+            random_layer=consts["random_layer"], training=True, generator=generator,
+            dropout_masks=dropout_masks,
+        )
+        t2s_pool = prob_transfer_apply(params["prob_trans"], t_pool)
+        s2t2s_pool = prob_transfer_apply(params["prob_trans"], s2t_pool)
+        s2t2s_logits = os_cnn_head(params["s_cls"], s2t2s_pool)
+        fd_t, fd_state = feature_discriminator_apply(params["fd"], mstate["fd"], t2s_pool,
+                                                     training=True)
+        fd_s2t2s, fd_state = feature_discriminator_apply(params["fd"], fd_state, s2t2s_pool,
+                                                         training=True)
+        fd_src, new_m["fd"] = feature_discriminator_apply(params["fd"], fd_state, s_pool,
+                                                          training=True)
+        losses = {
+            "t_nf": t_nf_loss, "s_nf": s_nf_loss,
+            "t_c": cross_entropy(t_logits, lt), "s_c": cross_entropy(s_logits, ls),
+            "t_sl": t_sl, "s_sl": s_sl, "cdan": cdan,
+            "s2t2s_c": cross_entropy(s2t2s_logits, ls), "fd": wgan_loss(fd_t, fd_s2t2s, fd_src),
+        }
+        feats = {
+            "t_feat": t_feat, "s2t_feat": s2t_feat, "s_feat": s_feat,
+            "s_pool": s_pool, "t2s_pool": t2s_pool, "s2t2s_pool": s2t2s_pool,
+        }
+        return losses, new_m, feats
+
+    @staticmethod
+    def _staged_weights(epoch: int) -> List[float]:
+        """Epoch-staged adversarial/CPC coefficients (reference :665-672)."""
+        stages = ([3.0, 3.0, 2.0, 2.0], [2.0, 3.0, 1.8, 1.5],
+                  [1.5, 2.0, 1.8, 1.8], [1.5, 1.5, 2.5, 2.5])
+        return stages[sum(epoch >= e for e in (12, 24, 50))]
+
+    def phase5_grads(self, state: Dict, bt, lt, bs, ls, epoch: int,
+                     cpc_anchors: Optional[Sequence[int]] = None, dropout_masks=None):
+        """One forward and the four merged pulls of a phase-5 step.
+
+        Returns (losses, new_m, feats, grads of the total per module, n_t
+        (2,), n_s (3,)): ``n_t`` from the t_nf+t_c pulls on the t_ext trunk,
+        ``n_s`` from the s_nf+s_c and s2t2s_c pulls on the s_ext trunk."""
+        params = state["params"]
+        gn = state["gradnorm"]
+        losses, new_m, feats = self._phase5_forward(
+            params, state["mstate"], state["consts"], bt, lt, bs, ls, state["generator"],
+            cpc_anchors, dropout_masks,
+        )
+        loss_t = torch.stack([losses["t_nf"], losses["t_c"]])
+        loss_s = torch.stack([losses["s_nf"], losses["s_c"], losses["s2t2s_c"]])
+        w = self._staged_weights(epoch)
+        total = (
+            torch.sum(gn["t"].weights.clone() * loss_t) + torch.sum(gn["s"].weights.clone() * loss_s)
+            + w[0] * losses["cdan"] + w[1] * losses["fd"] + w[2] * losses["t_sl"]
+            + w[3] * losses["s_sl"]
+        )
+        grads = self._grads(total, state, ALL_MODULES, retain_graph=True)
+        t_trunk = leaves(params["t_ext"]["block"])
+        s_trunk = leaves(params["s_ext"]["block"])
+
+        def norms(outputs, trunks, retain=True):
+            g = torch.autograd.grad(outputs, [p for t in trunks for p in t],
+                                    retain_graph=retain, allow_unused=True)
+            out, j = [], 0
+            for t in trunks:
+                out.append(sum(torch.linalg.vector_norm(x) for x in g[j : j + len(t)] if x is not None))
+                j += len(t)
+            return out
+
+        # one pull per seed: e_t_nf + e_s_nf, e_t_c + e_s_c, e_s2t2s_c; the
+        # cross-trunk gradients of the merged pairs are structurally zero
+        n_nf_t, n_nf_s = norms([losses["t_nf"], losses["s_nf"]], (t_trunk, s_trunk))
+        n_c_t, n_c_s = norms([losses["t_c"], losses["s_c"]], (t_trunk, s_trunk))
+        (n_5_s,) = norms(losses["s2t2s_c"], (s_trunk,), retain=False)
+        n_t = torch.stack([n_nf_t, n_c_t]).detach()
+        n_s = torch.stack([n_nf_s, n_c_s, n_5_s]).detach()
+        return losses, new_m, feats, grads, n_t, n_s
+
+    def phase5_step(self, state: Dict, bt, lt, bs, ls, epoch: int,
+                    cpc_anchors: Optional[Sequence[int]] = None, dropout_masks=None):
+        """One joint step: pulls, GradNorm, all 11 module updates, WGAN clip.
+        Returns (losses, feats), detached."""
+        cfg = self.config
+        losses, new_m, feats, grads, n_t, n_s = self.phase5_grads(
+            state, bt, lt, bs, ls, epoch, cpc_anchors, dropout_masks
+        )
+        vec = torch.stack([losses[k] for k in ("t_nf", "t_c", "s_nf", "s_c", "s2t2s_c")]).detach()
+        gradnorm_step(state["gradnorm"]["t"], vec[:2], n_t, alpha=cfg.gradnorm.alpha,
+                      weight_sum=cfg.gradnorm.weights_t_sum)
+        gradnorm_step(state["gradnorm"]["s"], vec[2:], n_s, alpha=cfg.gradnorm.alpha,
+                      weight_sum=cfg.gradnorm.weights_s_sum)
+        self._apply_updates(state, ALL_MODULES, grads)
+        clip_params(leaves(state["params"]["ad"]), cfg.optim.ad_net_clip)
+        clip_params(leaves(state["params"]["fd"]), cfg.optim.feat_disc_clip)
+        state["mstate"] = detached(new_m)
+        return ({k: v.detach() for k, v in losses.items()},
+                {k: v.detach() for k, v in feats.items()})
+
+    def phase5_epoch(self, state: Dict, xt, yt, xs, ys, epoch: int,
+                     collect_features: bool = False,
+                     cpc_anchors: Optional[Sequence[int]] = None, dropout_masks=None):
+        """Joint adversarial training (reference :513-797), one epoch."""
+        steps = []
+        for bt, lt, bs, ls in zip(xt, yt, xs, ys):
+            steps.append(self.phase5_step(
+                state, _batch(bt, self.device), _batch(lt, self.device, torch.long),
+                _batch(bs, self.device), _batch(ls, self.device, torch.long), epoch,
+                cpc_anchors, dropout_masks,
+            ))
+        self._step_steplr(state, ("t_ext", "t_cls", "cpc", "s_ext", "dim_uni", "s_cls", "noise"))
+        last = steps[-1][0]
+        self._step_plateau(state, "prob_trans", float(last["s2t2s_c"]))
+        self._step_plateau(state, "nf", float(last["t_nf"]))
+        self._step_plateau(state, "ad", float(last["cdan"]))
+        self._step_plateau(state, "fd", float(last["fd"]))
+        metrics = {k: torch.stack([s[0][k] for s in steps]).mean() for k in last}
+        metrics["gradnorm_w_t"] = state["gradnorm"]["t"].weights.clone()
+        metrics["gradnorm_w_s"] = state["gradnorm"]["s"].weights.clone()
+        if collect_features:
+            feats = {k: torch.stack([s[1][k] for s in steps]).cpu().numpy() for k in FEATURE_KEYS}
+            return metrics, feats
+        return metrics
+
+    # -------------------------------------------------------- evaluation ---
+
+    @torch.inference_mode()
+    def predict_source_logits(self, params, mstate, x: torch.Tensor) -> torch.Tensor:
+        feat, _ = self.source_features(params, mstate, x, False, fused_infer=True)
+        logits, _, _ = self.classify_source(params, mstate, feat, False, fused_infer=True)
+        return logits
+
+    def evaluate_target(self, state: Dict, x, y) -> float:
+        return float(np.mean(self.predict_target(state, x) == y))
+
+    def evaluate_source(self, state: Dict, x, y) -> float:
+        return float(np.mean(self._batched_predictions(self.predict_source_logits, state, x) == y))
+
+    # ------------------------------------------------------ orchestration --
+
+    def run(
+        self,
+        target_train,
+        target_test,
+        source_train,
+        source_test,
+        *,
+        epochs: Optional[Dict[str, int]] = None,
+        state: Optional[Dict] = None,
+        verbose: bool = True,
+        eval_hook=None,
+        checkpoint_hook=None,
+        phase_checkpoint_hook=None,
+        artifact_dir: Optional[str] = None,
+        log_every: int = 1,
+        log_file: Optional[str] = None,
+        pretrain_eval_every: int = 1,
+        seed: Optional[int] = None,
+    ):
+        """The full curriculum (phase lengths overridable), with the JAX
+        package's hooks and eval cadence: phases 1-3 evaluate every epoch,
+        phase 4 on its supervised epochs, phase 5 every ``eval_every``
+        epochs, where it also calls ``eval_hook``/``checkpoint_hook`` and,
+        with ``artifact_dir``, dumps the feature sets.
+        ``phase_checkpoint_hook(phase, state)`` fires at each phase end."""
+        cfg = self.config
+        ep = {
+            "p1": cfg.target_pretrain_epochs, "p2": cfg.source_pretrain_epochs,
+            "p3": cfg.selfsup_epochs, "p4": cfg.nf_pretrain_epochs, "p5": cfg.joint_epochs,
+        }
+        ep.update(epochs or {})
+        seed = cfg.seed if seed is None else seed
+        if state is None:
+            state = self.init_state(torch.Generator().manual_seed(seed))
+        batch_gen = torch.Generator().manual_seed(seed + 1)
+        history = []
+        file_logger = None
+        if log_file:
+            from ..utils.logging import FileLogger
+
+            file_logger = FileLogger(log_file)
+
+        def log(phase, e, metrics):
+            if e % log_every and phase != "p5_eval":
+                return
+            rec = {"phase": phase, "epoch": e}
+            for k, v in metrics.items():
+                v = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+                rec[k] = v.tolist() if v.ndim else float(v)
+            history.append(rec)
+            if file_logger:
+                file_logger.log(rec)
+            if verbose:
+                print(rec, flush=True)
+
+        def batches(ds):
+            return epoch_batches(ds.x, ds.y, batch_gen, cfg.batch_size)
+
+        def paired_batches():
+            xt, yt = batches(target_train)
+            xs, ys = batches(source_train)
+            nb = min(xt.shape[0], xs.shape[0])  # reference rounds_per_epoch
+            return xt[:nb], yt[:nb], xs[:nb], ys[:nb]
+
+        def accs(which):
+            out = {}
+            if "t" in which:
+                out["target_train_acc"] = self.evaluate_target(state, target_train.x, target_train.y)
+                out["target_test_acc"] = self.evaluate_target(state, target_test.x, target_test.y)
+            if "s" in which:
+                out["source_train_acc"] = self.evaluate_source(state, source_train.x, source_train.y)
+                out["source_test_acc"] = self.evaluate_source(state, source_test.x, source_test.y)
+            return out
+
+        def pretrain_eval(phase, e, which):
+            if pretrain_eval_every and e % pretrain_eval_every == 0:
+                log(phase + "_eval", e, accs(which))
+
+        def phase_done(phase):
+            if phase_checkpoint_hook:
+                phase_checkpoint_hook(phase, state)
+
+        for e in range(ep["p1"]):
+            log("p1", e, self.phase1_epoch(state, *batches(target_train)))
+            pretrain_eval("p1", e, "t")  # reference :177-179
+        phase_done("p1")
+        for e in range(ep["p2"]):
+            log("p2", e, self.phase2_epoch(state, *batches(source_train)))
+            pretrain_eval("p2", e, "s")  # reference :217-219
+        phase_done("p2")
+        for e in range(ep["p3"]):
+            log("p3", e, self.phase3_epoch(state, *paired_batches(),
+                                           e % cfg.selfsup_supervised_every == 0))
+            pretrain_eval("p3", e, "ts")  # reference :286-293,354-361
+        phase_done("p3")
+        for e in range(ep["p4"]):
+            supervised = e % cfg.nf_supervised_every == 0
+            log("p4", e, self.phase4_epoch(state, *paired_batches(), supervised))
+            if supervised:  # reference evaluates only the supervised branch (:448-455)
+                pretrain_eval("p4", e, "ts")
+        phase_done("p4")
+        for e in range(ep["p5"]):
+            collect = artifact_dir is not None and e % cfg.eval_every == 0
+            out = self.phase5_epoch(state, *paired_batches(), e, collect)
+            if collect:
+                from ..io.artifacts import save_feature_dumps
+
+                out, feats = out
+                save_feature_dumps(artifact_dir, e, feats)
+            log("p5", e, out)
+            if e % cfg.eval_every == 0:
+                a = accs("ts")
+                log("p5_eval", e, a)
+                if eval_hook:
+                    eval_hook(e, state, a)
+                if checkpoint_hook:
+                    checkpoint_hook(e, state)
+        phase_done("p5")
+        return state, history

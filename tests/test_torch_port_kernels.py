@@ -6,19 +6,26 @@ package, so that it runs on a GPU machine without jax:
 
     pytest --noconftest tests/test_torch_port_kernels.py -m gpu
 
-Shapes cover the ragged edges of the kernels' tiles: time not a multiple of
-the time tile, C_out not a multiple of 4 or of the C_out tile, C_in not a
-multiple of the staged chunk, and every tap-group size (K of 1, 2, 3, 5, 89).
-Tolerance: max|kernel - plain| <= 1e-4 * max|plain|, both exact float32
-with TF32 off, the sums taken in another order.
+Shapes cover the ragged edges of the kernels' tiles: for the OS conv, time
+not a multiple of the time tile, C_out not a multiple of 4 or of the C_out
+tile, C_in not a multiple of the staged chunk, and every tap-group size (K
+of 1, 2, 3, 5, 89); for the WN kernels, rows not a multiple of the 64-row
+tile, T < 2^7 (the deep layers' taps all masked), B = 1, and C, H off the
+thread tiling.  Tolerance: max|kernel - plain| <= 1e-4 * max|plain| for
+forward values, both exact float32 with TF32 off, the sums taken in another
+order; 1e-3 for the WN weight gradients, sums over every row in another
+order.
 """
 
 import pytest
 import torch
 
-from feature_level_style_transfer_for_tsc_tpu_torch.ops import osconv
+from feature_level_style_transfer_for_tsc_tpu_torch.models.common import weight_norm_weight
+from feature_level_style_transfer_for_tsc_tpu_torch.models.flow import wn_init
+from feature_level_style_transfer_for_tsc_tpu_torch.ops import osconv, wn_fused
 
 REL_TOL = 1e-4
+GRAD_REL_TOL = 1e-3
 
 
 @pytest.fixture
@@ -30,9 +37,9 @@ def card():
     return torch.device("cuda")
 
 
-def _close(got, want):
+def _close(got, want, tol=REL_TOL):
     err = (got - want).abs().max().item()
-    assert err <= REL_TOL * max(want.abs().max().item(), 1e-30), err
+    assert err <= tol * max(want.abs().max().item(), 1e-30), err
 
 
 @pytest.mark.gpu
@@ -90,3 +97,85 @@ def test_wrapper_refuses_non_contiguous_input(card):
     w = torch.randn(3, 4, 5, device=card)
     with pytest.raises(ValueError, match="contiguous"):
         osconv.os_conv(x_pad, w)
+
+
+def _wn_operands(card, b, t, h, c, n_layers, seed):
+    """Stacked effective WN weights (random weight norm, non-zero end: the
+    init's zero end would hide most of the backward) and an input."""
+    g = torch.Generator().manual_seed(seed)
+    params = wn_init(g, h, n_layers, c)
+    params["end"]["weight"] = 0.3 * torch.randn(c, 2 * h, generator=g)
+    params["end"]["bias"] = 0.1 * torch.randn(2 * h, generator=g)
+    for layer in params["in_layers"] + params["res_skip_layers"] + [params["start"], params["cond"]]:
+        layer["g"] = layer["g"] * (0.5 + torch.rand(layer["g"].shape, generator=g))
+    eff = [e.contiguous().to(card) for e in wn_fused.stack_effective(params, weight_norm_weight)]
+    x = torch.randn(b, t, h, generator=g).to(card)
+    return params, eff, x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "b, t, h, c, n_layers",
+    [
+        (3, 150, 25, 120, 8),  # 450 rows: a ragged last tile
+        (2, 37, 5, 16, 8),  # T < 2^7
+        (1, 1152, 25, 120, 8),  # B = 1 at the training length
+        (4, 20, 3, 33, 3),  # C and H off the thread tiling
+    ],
+)
+def test_wn_kernels_match_plain(card, b, t, h, c, n_layers):
+    _, eff, x = _wn_operands(card, b, t, h, c, n_layers, seed=b * 100 + t)
+    x2 = x.reshape(b * t, h).contiguous()
+    before = dict(wn_fused.LAUNCHES)
+    got = wn_fused.wn_fwd(x2, *eff, t)
+    want = wn_fused.wn_fwd_plain(x2, *eff, t)
+    for gv, wv in zip(got, want):
+        _close(gv, wv)
+    g2 = torch.randn(b * t, 2 * h, device=card, generator=torch.Generator(card).manual_seed(7))
+    _, aud, skip = want
+    bwd_args = (x2, g2, aud, skip, eff[0], eff[2], eff[3], eff[4], eff[5], eff[6], eff[8], t)
+    grads = wn_fused.wn_bwd(*bwd_args)
+    again = wn_fused.wn_bwd(*bwd_args)
+    torch.cuda.synchronize()
+    assert wn_fused.LAUNCHES["wn_fwd"] == before["wn_fwd"] + 1
+    assert wn_fused.LAUNCHES["wn_bwd"] == before["wn_bwd"] + 2
+    for gv, wv, av in zip(grads, wn_fused.wn_bwd_plain(*bwd_args), again):
+        assert gv.shape == wv.shape
+        _close(gv, wv, GRAD_REL_TOL)
+        assert torch.equal(gv, av)  # fixed-order reductions: the same bits every run
+
+
+@pytest.mark.gpu
+def test_wn_core_on_card_matches_cpu(card):
+    """The WN through ``WNCore`` with autograd: value, input grad and every
+    effective-weight grad on the card against the same op on the CPU."""
+    b, t, h, c = 2, 90, 6, 24
+    _, eff, x = _wn_operands("cpu", b, t, h, c, 8, seed=3)
+    out = {}
+    for dev in ("cpu", card):
+        ins = [a.to(dev).requires_grad_(True) for a in [x] + eff]
+        y = wn_fused.WNCore.apply(*ins)
+        grads = torch.autograd.grad(torch.sin(y).sum(), ins)
+        out[str(dev)] = [y.detach().cpu()] + [gr.cpu() for gr in grads]
+    for got, want in zip(out[str(card)], out["cpu"]):
+        _close(got, want, GRAD_REL_TOL)
+
+
+@pytest.mark.gpu
+def test_os_conv_autograd_on_card(card):
+    """The masked OS conv on the card carries gradients (``OSConvCore``): the
+    weights' and the input's equal the plain path's."""
+    spec = [(6, 4, kk) for kk in (1, 2, 3, 5, 7, 11)]
+    params = osconv.init_os_conv_params(torch.Generator().manual_seed(0), spec)
+    mask = torch.from_numpy(osconv.build_os_mask(spec))
+    x = torch.randn(3, 70, 6, generator=torch.Generator().manual_seed(1))
+    grads = {}
+    for dev in ("cpu", card):
+        w = params["weight"].to(dev).requires_grad_(True)
+        bias = params["bias"].to(dev).requires_grad_(True)
+        xd = x.to(dev).requires_grad_(True)
+        y = osconv.masked_os_conv(xd, w, bias, mask.to(dev))
+        grads[str(dev)] = [gr.cpu() for gr in torch.autograd.grad(torch.sin(y).sum(), (xd, w, bias))]
+    for got, want in zip(grads[str(card)], grads["cpu"]):
+        assert got.abs().max() > 0
+        _close(got, want)

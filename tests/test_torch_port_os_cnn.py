@@ -106,9 +106,9 @@ def test_os_cnn_res_matches_jax(tmp_path, x, fused_infer, fuse_env, monkeypatch)
         training=False, fused_infer=fused_infer,
     )
     _, port = _to_port(tmp_path, "ext", tree)
-    got = os_cnn.os_cnn_res_apply(
+    got, _ = os_cnn.os_cnn_res_apply(
         port["params"], port["mstate"], os_cnn.os_block_masks(EXT_SPECS), torch.from_numpy(x),
-        fused_infer=fused_infer,
+        False, fused_infer=fused_infer,
     )
     assert got.shape == (3, 32, total_out_channels(EXT_SPECS[-1]))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
@@ -127,9 +127,9 @@ def test_os_cnn_matches_jax(tmp_path, x, fused_infer, fuse_env, monkeypatch):
         training=False, fused_infer=fused_infer,
     )
     _, port = _to_port(tmp_path, "cls", tree)
-    logits, pooled = os_cnn.os_cnn_apply(
+    logits, pooled, _ = os_cnn.os_cnn_apply(
         port["params"], port["mstate"], os_cnn.os_block_masks(CLS_SPECS), torch.from_numpy(feat),
-        fused_infer=fused_infer,
+        False, fused_infer=fused_infer,
     )
     assert logits.shape == (3, 3)
     np.testing.assert_allclose(logits.numpy(), np.asarray(want_logits), **TOL)
@@ -162,5 +162,5 @@ def test_relu_at_last_rule(relu_at_last):
     p, s = os_cnn.os_block_init(torch.Generator().manual_seed(3), EXT_SPECS)
     masks = os_cnn.os_block_masks(EXT_SPECS)
     x = torch.from_numpy(np.random.default_rng(5).standard_normal((2, 16, 2)).astype(np.float32))
-    y = os_cnn.os_block_apply(p, s, masks, x, relu_at_last=relu_at_last)
+    y, _ = os_cnn.os_block_apply(p, s, masks, x, False, relu_at_last=relu_at_last)
     assert (y.min().item() >= 0.0) == relu_at_last
