@@ -1,0 +1,99 @@
+"""Time the PyTorch port's full-width phase-5 step on one CUDA card.
+
+Builds ``StyleTransferPipeline`` at the reference main.py pair's shapes
+(SelfRegulationSCP2 7 x 1152, 2 classes <- EthanolLevel 1 x 1751, 4
+classes; ``PipelineConfig(budget_multiplier=1.0)``) with random weights from
+a seed, takes one batch of 20 target and 20 source synthetic series, and
+runs ``phase5_step`` on one state: 2 warm-up steps, then ``--steps`` steps
+timed by the host clock between ``torch.cuda.synchronize()`` calls, then one
+step under ``torch.profiler`` for its device time.  TF32 is off, as in
+chip_smoke.py.  The route is the environment's (``FLSTTSC_WN_FUSED``).
+
+It imports only torch, numpy and the port of the tree it sits in, so a copy
+placed in another checkout's ``experiments/`` times that checkout: run the
+parent's and the change's copies in one call, alternating, to compare them.
+
+Usage: python experiments/phase5_step_time.py [--steps 10] [--label name]
+       [--deterministic]
+Prints one JSON line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
+
+BATCH = 20
+ANCHORS = (100, 37)  # pinned CPC anchors, as chip_smoke.py's phase-5 checks
+TARGET = (7, 1152, 2)  # channels, length, classes
+SOURCE = (1, 1751, 4)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--label", default=str(REPO.name))
+    ap.add_argument("--deterministic", action="store_true",
+                    help="time under torch.use_deterministic_algorithms, as chip_smoke.py's drives")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("phase5_step_time: needs a CUDA card", file=sys.stderr)
+        return 2
+    from torch.profiler import ProfilerActivity, profile
+
+    from feature_level_style_transfer_for_tsc_tpu_torch.cli import predict
+    from feature_level_style_transfer_for_tsc_tpu_torch.config import PipelineConfig
+    from feature_level_style_transfer_for_tsc_tpu_torch.data.synthetic import make_arrays, write_ts_file
+    from feature_level_style_transfer_for_tsc_tpu_torch.train.pipeline import StyleTransferPipeline
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if args.deterministic:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (c, t, n), seed in (("SynSCP2", TARGET, 11), ("SynEthanol", SOURCE, 13)):
+            x, y = make_arrays(2 * BATCH, c, t, n, seed=seed)
+            write_ts_file(f"{tmp}/{name}/{name}_TRAIN.ts", x, y, problem=name)
+            write_ts_file(f"{tmp}/{name}/{name}_TEST.ts", x, y, problem=name)
+        tt, _, ss, _ = predict.build_datasets(tmp, "SynSCP2", tmp, "SynEthanol")
+    batch = (torch.as_tensor(tt.x[:BATCH]).cuda(), torch.as_tensor(tt.y[:BATCH]).long().cuda(),
+             torch.as_tensor(ss.x[:BATCH]).cuda(), torch.as_tensor(ss.y[:BATCH]).long().cuda())
+    pipe = StyleTransferPipeline(*TARGET, *SOURCE, PipelineConfig(budget_multiplier=1.0), device="cuda")
+    state = pipe.init_state(torch.Generator().manual_seed(21))
+
+    def step() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.phase5_step(state, *batch, 0, cpc_anchors=ANCHORS)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    for _ in range(2):
+        step()
+    step_ms = [step() for _ in range(args.steps)]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        traced_ms = step()
+    device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                    if str(e.device_type).endswith("CUDA")) / 1e3
+    print(json.dumps({
+        "label": args.label, "deterministic": args.deterministic,
+        "card": torch.cuda.get_device_name(0), "step_ms": step_ms,
+        "median_ms": statistics.median(step_ms), "min_ms": min(step_ms),
+        "traced_ms": traced_ms, "device_ms": device_ms,
+        "device_idle_share": 1.0 - device_ms / traced_ms,
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -13,11 +13,17 @@ and ``epoch_*_source.npz`` at the phase-5 eval cadence,
 ``log.jsonl`` and the ``feature_of_*`` dumps.  ``--resume`` is refused: the
 optimizer moments are not carried across yet.
 
+The JAX package's route switches of the flow's coupling net hold here too:
+``FLSTTSC_WN_FUSED=0`` trains with the op-by-op WN (the gate kernel) and
+``FLSTTSC_CONV_IMPL=pallas`` makes its dilated convs the tap-conv kernel.
+
 Usage:
   python -m feature_level_style_transfer_for_tsc_tpu_torch.cli.main \
       --target-root Multivariate_ts --target SelfRegulationSCP2 \
       --source-root Univariate_ts --source EthanolLevel \
       --out train_log --device cuda
+  # the op-by-op WN route:
+  FLSTTSC_WN_FUSED=0 FLSTTSC_CONV_IMPL=pallas python -m ... (same flags)
 """
 
 from __future__ import annotations

@@ -13,22 +13,35 @@ Counterpart of the JAX package's ``models/flow.py`` (reference
 * ``waveglow_*`` n_flows of (inv1x1 -> split -> affine coupling), density and
   synthesis directions, and the NLL.
 
-``wn_apply`` runs the coupling net through ``ops.wn_fused.WNCore``, as the
-JAX package routes to its fused Pallas kernel: the hand-written kernels for
-a CUDA tensor, their plain PyTorch versions for a CPU tensor.  Layout
-(B, T, C), channel split along the last axis.
+``wn_apply`` routes the coupling net as the JAX package does, by its own
+switches, read per call:
+
+* by default (``FLSTTSC_WN_FUSED`` unset or 1) through
+  ``ops.wn_fused.WNCore``, the whole net in the fused kernels;
+* with ``FLSTTSC_WN_FUSED=0``, or with a ``dilated_conv=`` override, op by
+  op: per layer a dilated conv (``_dilated_conv_same``, formulated as
+  ``FLSTTSC_CONV_IMPL`` says: ``conv``, ``im2col`` or ``pallas``, the last
+  the tap-conv kernel) and the gate (``ops.gate``, its kernel).
+
+Either way a CUDA tensor runs the hand-written kernels of its route and a
+CPU tensor their plain PyTorch versions.  Layout (B, T, C), channel split
+along the last axis.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import os
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..ops.coupling import affine_coupling_forward, affine_coupling_inverse
+from ..ops.gate import fused_add_tanh_sigmoid_multiply
+from ..ops.osconv import _conv_im2col, conv_impl, tap_conv
 from ..ops.wn_fused import wn_apply_fused
-from .common import uniform, weight_norm_init, weight_norm_weight
+from .common import conv1x1, uniform, weight_norm_init, weight_norm_weight
 
 
 # --------------------------------------------------------------- inv 1x1 ---
@@ -86,11 +99,66 @@ def wn_init(generator: torch.Generator, n_in_channels: int, n_layers: int, n_cha
     return params
 
 
-def wn_apply(params: Dict, x: torch.Tensor, n_channels: int) -> torch.Tensor:
-    """The coupling net x (B, T, n_half) -> (B, T, 2*n_half) through
-    ``WNCore``: the kernels for a CUDA tensor, their plain versions for a CPU
-    tensor.  ``n_channels`` (the JAX signature's) is implied by ``params``."""
-    return wn_apply_fused(params, x, weight_norm_weight)
+def _dilated_conv_same(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                       dilation: int) -> torch.Tensor:
+    """Kernel-k dilated "same" conv, channel-last (B, T, C_in) -> (B, T, C_out)
+    with w (k, C_in, C_out), formulated as ``conv_impl()`` says:
+
+    * "pallas": ``ops.osconv.tap_conv``, the tap-conv kernel on CUDA;
+    * "im2col": unfold + one einsum;
+    * "conv": ``F.conv1d`` with ``dilation`` (a library conv, as the JAX
+      package leaves this one to XLA)."""
+    k = w.shape[0]
+    pad = (k * dilation - dilation) // 2
+    impl = conv_impl()
+    if impl in ("pallas", "im2col"):
+        x_pad = F.pad(x, (0, 0, pad, pad))
+        conv = tap_conv if impl == "pallas" else _conv_im2col
+        return conv(x_pad, w, dilation) + bias
+    y = F.conv1d(x.transpose(1, 2), w.permute(2, 1, 0), padding=pad, dilation=dilation)
+    return y.transpose(1, 2) + bias
+
+
+def wn_fused_enabled() -> bool:
+    """The fused WN route (``WNCore``) unless ``FLSTTSC_WN_FUSED`` is 0; read
+    per call, as in the JAX package."""
+    return os.environ.get("FLSTTSC_WN_FUSED", "1") not in ("0", "false", "False")
+
+
+def wn_apply(params: Dict, x: torch.Tensor, n_channels: int,
+             dilated_conv: Optional[Callable] = None) -> torch.Tensor:
+    """The coupling net x (B, T, n_half) -> (B, T, 2*n_half).
+
+    ``dilated_conv(x, w, bias, dilation)`` overrides the dilated-conv
+    primitive (the JAX package's ``parallel/sequence.py`` passes a
+    halo-exchange conv here) and takes the op-by-op route."""
+    if dilated_conv is None:
+        if wn_fused_enabled():
+            return wn_apply_fused(params, x, weight_norm_weight)
+        dilated_conv = _dilated_conv_same
+    n_layers = len(params["in_layers"])
+    audio = conv1x1(
+        {"weight": weight_norm_weight(params["start"])[0], "bias": params["start"]["bias"]}, x
+    )
+    spect = conv1x1(
+        {"weight": weight_norm_weight(params["cond"])[0], "bias": params["cond"]["bias"]}, x
+    )
+    output = torch.zeros_like(audio)
+    for i in range(n_layers):
+        w_in = weight_norm_weight(params["in_layers"][i])
+        in_act = dilated_conv(audio, w_in, params["in_layers"][i]["bias"], 2 ** i)
+        off = i * 2 * n_channels
+        acts = fused_add_tanh_sigmoid_multiply(
+            in_act, spect[..., off : off + 2 * n_channels], n_channels
+        )
+        w_rs = weight_norm_weight(params["res_skip_layers"][i])[0]
+        res_skip = acts @ w_rs + params["res_skip_layers"][i]["bias"]
+        if i < n_layers - 1:
+            audio = audio + res_skip[..., :n_channels]
+            output = output + res_skip[..., n_channels:]
+        else:
+            output = output + res_skip
+    return output @ params["end"]["weight"] + params["end"]["bias"]
 
 
 # --------------------------------------------------------------- WaveGlow --

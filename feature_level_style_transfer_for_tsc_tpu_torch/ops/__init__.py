@@ -33,4 +33,5 @@ def resolve_device(device) -> torch.device:
 
 
 from .batchnorm import BNStats, batch_norm_eval  # noqa: E402,F401
+from .gate import fused_add_tanh_sigmoid_multiply  # noqa: E402,F401
 from .osconv import build_os_mask, masked_os_conv  # noqa: E402,F401

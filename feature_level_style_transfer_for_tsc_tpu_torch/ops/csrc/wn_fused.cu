@@ -20,7 +20,8 @@
 // those of the end projection, taken outside as in the JAX package.
 //
 // Bound on an H100 SXM.  At the training shapes (R = 46,080 or 23,040, H = 25,
-// C = 120, L = 8) one forward does about 1.96 MFLOP per row on about 4.6 KB
+// C = 120, L = 8; H is half the target extractor's output width, 25 to 168 over
+// the vendored datasets) one forward does about 1.96 MFLOP per row on about 4.6 KB
 // per row of audio/skip written, so both directions are bound by operations,
 // not by memory: the FP32 pipes' 67 TFLOP/s (exact f32, no tensor cores).
 //
@@ -38,6 +39,11 @@
 //   the cond slice form one 3C+H deep reduction (w_in[i] is 345 KB and is
 //   streamed, never resident); acts stay in shared memory for the res/skip
 //   product.
+// * H is any width: every product over H (the start projection, the cond slice
+//   of the z reduction, the weight gradients) is a reduction staged KC deep, and
+//   every product with H or 2H output columns (the end projection, g_x, the
+//   start's input gradient) walks them in chunks of CMAX columns, in a loop
+//   (the end projection) or over blockIdx.y (the others).
 // * The backward walks the layers in reverse with two launches each: one
 //   recomputes z, forms g_z and keeps acts; the next, after the barrier, takes
 //   the transposed taps of g_z at u +- d (and the cond input gradient).
@@ -60,8 +66,7 @@ constexpr int NTHREADS = 256; // (TR / RM) * NTX
 constexpr int KC = 16;        // reduction depth staged per pass
 constexpr int AS_STRIDE = KC + 1;
 constexpr int WMAX = 256;     // staged weight columns
-constexpr int CMAX = 128;     // widest C
-constexpr int HMAX = 32;      // widest H
+constexpr int CMAX = 128;     // widest C; also the output columns of one block
 constexpr int SK_STRIDE = CMAX + 1;
 constexpr int CP = CMAX / NTX;  // column pairs per thread
 
@@ -181,7 +186,8 @@ struct RowW {
 
 // ------------------------------------------------------------- forward ----
 
-// out[r, n] = (accumulate ? out[r, n] : 0) + a[r] @ w[:, n] + bias[n], n < N <= 128.
+// out[r, n] = (accumulate ? out[r, n] : 0) + a[r] @ w[:, n] + bias[n]; each
+// block takes CMAX columns from n0 = blockIdx.y * CMAX.
 __global__ void __launch_bounds__(NTHREADS)
 rowgemm_kernel(const float* __restrict__ a, const float* __restrict__ w,
                const float* __restrict__ bias, float* __restrict__ out, int rows, int k,
@@ -191,12 +197,14 @@ rowgemm_kernel(const float* __restrict__ a, const float* __restrict__ w,
   const int tx = threadIdx.x % NTX;
   const int ty = threadIdx.x / NTX;
   const int r0 = blockIdx.x * TR;
+  const int n0 = blockIdx.y * CMAX;
+  const int nc = min(CMAX, n - n0);
   int col[CP];
 #pragma unroll
   for (int q = 0; q < CP; ++q) col[q] = tx + NTX * q;
   float acc[RM][CP];
   zero(acc);
-  tile_gemm(acc, col, k, n, RowA{a, r0, rows, k}, RowW{w, n}, smem);
+  tile_gemm(acc, col, k, nc, RowA{a, r0, rows, k}, RowW{w + n0, n}, smem);
 #pragma unroll
   for (int m = 0; m < RM; ++m) {
     const int r = r0 + ty * RM + m;
@@ -204,9 +212,9 @@ rowgemm_kernel(const float* __restrict__ a, const float* __restrict__ w,
 #pragma unroll
     for (int q = 0; q < CP; ++q) {
       const int j = col[q];
-      if (j >= n) break;
-      const size_t o = static_cast<size_t>(r) * n + j;
-      float v = acc[m][q] + (bias ? bias[j] : 0.f);
+      if (j >= nc) break;
+      const size_t o = static_cast<size_t>(r) * n + n0 + j;
+      float v = acc[m][q] + (bias ? bias[n0 + j] : 0.f);
       if (accumulate) v += out[o];
       out[o] = v;
     }
@@ -270,21 +278,24 @@ wn_layer_fwd_kernel(const float* __restrict__ x, const float* __restrict__ aud_i
       }
     }
   }
-  if (LAST) {
-    constexpr int NQ = 2 * HMAX / NTX;
-    int ecol[NQ];
+  if (LAST) {  // y = skip @ w_end + b_end, CMAX of the 2H columns at a time
+    int ecol[CP];
 #pragma unroll
-    for (int q = 0; q < NQ; ++q) ecol[q] = tx + NTX * q;
-    float e[RM][NQ];
-    zero(e);
-    tile_gemm(e, ecol, c, 2 * h, SmemA{sk}, RowW{w_end, 2 * h}, smem);
+    for (int q = 0; q < CP; ++q) ecol[q] = tx + NTX * q;
+    for (int n0 = 0; n0 < 2 * h; n0 += CMAX) {
+      const int nc = min(CMAX, 2 * h - n0);
+      float e[RM][CP];
+      zero(e);
+      tile_gemm(e, ecol, c, nc, SmemA{sk}, RowW{w_end + n0, 2 * h}, smem);
 #pragma unroll
-    for (int m = 0; m < RM; ++m) {
-      const int r = r0 + ty * RM + m;
+      for (int m = 0; m < RM; ++m) {
+        const int r = r0 + ty * RM + m;
 #pragma unroll
-      for (int q = 0; q < NQ; ++q) {
-        const int j = ecol[q];
-        if (r < rows && j < 2 * h) y[static_cast<size_t>(r) * 2 * h + j] = e[m][q] + b_end[j];
+        for (int q = 0; q < CP; ++q) {
+          const int j = ecol[q];
+          if (r < rows && j < nc)
+            y[static_cast<size_t>(r) * 2 * h + n0 + j] = e[m][q] + b_end[n0 + j];
+        }
       }
     }
   }
@@ -384,20 +395,9 @@ struct GaA {
   }
 };
 
-// W: [w_in[i, tap]^T | (tap 1 only) w_cond_i^T], output C + H columns.
-struct GaW {
-  const float* w_in_t_i;    // (3, 2C, C)
-  const float* w_cond_t_i;  // (2C, H)
-  int c, h;
-  __device__ float operator()(int k, int n) const {
-    const int tap = k / (2 * c);
-    const int kk = k - tap * 2 * c;
-    if (n < c) return w_in_t_i[(static_cast<size_t>(tap) * 2 * c + kk) * c + n];
-    return tap == 1 ? w_cond_t_i[static_cast<size_t>(kk) * h + n - c] : 0.f;
-  }
-};
-
-// Layer i, second half: g_audio_i = g_audio_{i+1} + taps^T(g_z); g_x += g_z @ w_cond_i^T.
+// Layer i, second half.  blockIdx.y == 0: g_audio_i = g_audio_{i+1} +
+// taps^T(g_z), the 6C-deep product with w_in[i]^T as (3*2C, C) rows;
+// blockIdx.y = 1 + j: g_x[:, jCMAX:(j+1)CMAX] += g_z @ w_cond_i^T, 2C deep.
 __global__ void __launch_bounds__(NTHREADS, 2)
 wn_layer_ga_kernel(const float* __restrict__ gz, const float* __restrict__ w_in_t_i,
                    const float* __restrict__ w_cond_t_i, const float* __restrict__ ga_next,
@@ -405,31 +405,44 @@ wn_layer_ga_kernel(const float* __restrict__ gz, const float* __restrict__ w_in_
                    int h, int c, int layer, int first) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  constexpr int NQ = (CMAX + HMAX) / NTX;
   const int tx = threadIdx.x % NTX;
   const int ty = threadIdx.x / NTX;
   const int r0 = blockIdx.x * TR;
-  int col[NQ];
+  int col[CP];
 #pragma unroll
-  for (int q = 0; q < NQ; ++q) col[q] = tx + NTX * q;
-  float acc[RM][NQ];
+  for (int q = 0; q < CP; ++q) col[q] = tx + NTX * q;
+  float acc[RM][CP];
   zero(acc);
-  tile_gemm(acc, col, 6 * c, c + h, GaA{gz, r0, rows, t_len, c, 1 << layer},
-            GaW{w_in_t_i, w_cond_t_i, c, h}, smem);
+  if (blockIdx.y == 0) {
+    tile_gemm(acc, col, 6 * c, c, GaA{gz, r0, rows, t_len, c, 1 << layer}, RowW{w_in_t_i, c},
+              smem);
+#pragma unroll
+    for (int m = 0; m < RM; ++m) {
+      const int u = r0 + ty * RM + m;
+      if (u >= rows) break;
+#pragma unroll
+      for (int q = 0; q < CP; ++q) {
+        const int n = col[q];
+        if (n >= c) break;
+        const size_t o = static_cast<size_t>(u) * c + n;
+        ga_out[o] = (ga_next ? ga_next[o] : 0.f) + acc[m][q];
+      }
+    }
+    return;
+  }
+  const int n0 = (blockIdx.y - 1) * CMAX;
+  const int nc = min(CMAX, h - n0);
+  tile_gemm(acc, col, 2 * c, nc, RowA{gz, r0, rows, 2 * c}, RowW{w_cond_t_i + n0, h}, smem);
 #pragma unroll
   for (int m = 0; m < RM; ++m) {
     const int u = r0 + ty * RM + m;
     if (u >= rows) break;
 #pragma unroll
-    for (int q = 0; q < NQ; ++q) {
+    for (int q = 0; q < CP; ++q) {
       const int n = col[q];
-      if (n < c) {
-        const size_t o = static_cast<size_t>(u) * c + n;
-        ga_out[o] = (ga_next ? ga_next[o] : 0.f) + acc[m][q];
-      } else if (n < c + h) {
-        const size_t o = static_cast<size_t>(u) * h + n - c;
-        gx[o] = (first ? 0.f : gx[o]) + acc[m][q];
-      }
+      if (n >= nc) break;
+      const size_t o = static_cast<size_t>(u) * h + n0 + n;
+      gx[o] = (first ? 0.f : gx[o]) + acc[m][q];
     }
   }
 }
@@ -534,6 +547,7 @@ reduce_partials_kernel(const float* __restrict__ partial, int nsplit, int count,
 // ------------------------------------------------------------ launches ----
 
 inline int tiles(int rows) { return (rows + TR - 1) / TR; }
+inline int col_chunks(int n) { return (n + CMAX - 1) / CMAX; }
 
 template <class K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
@@ -546,8 +560,8 @@ cudaError_t rowgemm(const float* a, const float* w, const float* bias, float* ou
                     int k, int n, int accumulate, cudaStream_t stream) {
   cudaError_t e = allow_smem(rowgemm_kernel, GEMM_SMEM);
   if (e != cudaSuccess) return e;
-  rowgemm_kernel<<<tiles(rows), NTHREADS, GEMM_SMEM, stream>>>(a, w, bias, out, rows, k, n,
-                                                               accumulate);
+  rowgemm_kernel<<<dim3(tiles(rows), col_chunks(n)), NTHREADS, GEMM_SMEM, stream>>>(
+      a, w, bias, out, rows, k, n, accumulate);
   return cudaGetLastError();
 }
 
@@ -563,9 +577,10 @@ cudaError_t wgrad(const WGradArgs& p, float* partial, float* out, cudaStream_t s
   return cudaGetLastError();
 }
 
+// The geometry the kernels take; wn_fused.py check_geometry states the same.
 bool bad_geometry(int rows, int t_len, int h, int c, int n_layers) {
-  return rows < 1 || t_len < 1 || rows % t_len != 0 || h < 1 || h > HMAX || c < 1 ||
-         c > CMAX || n_layers < 1 || n_layers > 30;
+  return rows < 1 || t_len < 1 || rows % t_len != 0 || h < 1 || c < 1 || c > CMAX ||
+         n_layers < 1 || n_layers > 30;
 }
 
 }  // namespace
@@ -644,7 +659,7 @@ extern "C" int wn_bwd(const float* x, const float* g, const float* aud, const fl
     p.kdim = k_in;
     e = wgrad(p, partial, g_in + static_cast<size_t>(i) * k_in * 2 * c, stream);
     if (e != cudaSuccess) return e;
-    wn_layer_ga_kernel<<<tiles(rows), NTHREADS, GEMM_SMEM, stream>>>(
+    wn_layer_ga_kernel<<<dim3(tiles(rows), 1 + col_chunks(h)), NTHREADS, GEMM_SMEM, stream>>>(
         gz, w_in_t + static_cast<size_t>(i) * 3 * 2 * c * c,
         w_cond_t + static_cast<size_t>(i) * 2 * c * h, ga_next, ga_out, gx, rows, t_len, h, c,
         i, i == n_layers - 1);

@@ -24,6 +24,19 @@ plain transposed conv (``torch.nn.grad.conv1d_input`` / ``conv1d_weight``),
 as the JAX package's ``_conv_core`` custom VJP takes its backward from XLA
 convs outside any Pallas kernel.  ``os_conv_fused`` has no gradient and
 refuses inputs that require one.
+
+The tap conv, the flow's dilated kernel-3 conv under
+``FLSTTSC_CONV_IMPL=pallas`` (``conv_impl``, read per call):
+
+* ``tap_conv(x_pad, w, dilation)`` is the VALID channel-last conv
+  ``y[t] = sum_j x_pad[t + j*d] @ w[j]`` through ``TapConvCore``: for a
+  CUDA tensor ``tap_conv_fwd`` (``csrc/tap_conv.cu``, replaces
+  ``_tap_conv_kernel``; it takes float32 only and raises on other dtypes),
+  for a CPU tensor ``tap_conv_plain`` (k shifted matmuls, the JAX package's
+  ``_tap_conv_xla``);
+* its backward is the JAX package's ``_tap_conv_bwd``: dx is the same tap
+  conv (the kernel again) on g padded by (k-1)*d each side with the taps
+  flipped and transposed, dw[j] one matmul per tap.
 """
 
 from __future__ import annotations
@@ -41,7 +54,7 @@ from ..structure import LayerSpec, mask_bounds
 from . import _build, use_kernel
 
 #: Launches of each kernel, counted by its wrapper where it launches.
-LAUNCHES = {"os_conv_fwd": 0, "os_conv_fused_fwd": 0}
+LAUNCHES = {"os_conv_fwd": 0, "os_conv_fused_fwd": 0, "tap_conv_fwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -101,6 +114,14 @@ def fuse_epilogue_in_kernel() -> bool:
     return os.environ.get("FLSTTSC_FUSE_EPILOGUE", "0") == "1"
 
 
+def conv_impl() -> str:
+    """How the flow's dilated convs are formulated: "pallas" (``tap_conv``,
+    the tap-conv kernel on CUDA), "conv" (``F.conv1d``) or "im2col" (unfold
+    + one einsum).  The same values and default as the JAX package, read
+    per call."""
+    return os.environ.get("FLSTTSC_CONV_IMPL", "conv")
+
+
 # ------------------------------------------------------ plain versions ----
 
 def os_conv_plain(x_pad: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -110,6 +131,29 @@ def os_conv_plain(x_pad: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     y = x_pad[:, :t] @ w[0]
     for j in range(1, k):
         y += x_pad[:, j : j + t] @ w[j]
+    return y
+
+
+def unfold1d(x_pad: torch.Tensor, k: int, dilation: int = 1) -> torch.Tensor:
+    """im2col for conv1d: (..., T_pad, C) -> (..., T_out, k, C) by k slices."""
+    t_out = x_pad.shape[-2] - (k - 1) * dilation
+    return torch.stack(
+        [x_pad[..., j * dilation : j * dilation + t_out, :] for j in range(k)], dim=-2
+    )
+
+
+def _conv_im2col(x_pad: torch.Tensor, w: torch.Tensor, dilation: int = 1) -> torch.Tensor:
+    return torch.einsum("...tki,kio->...to", unfold1d(x_pad, w.shape[0], dilation), w)
+
+
+def tap_conv_plain(x_pad: torch.Tensor, w: torch.Tensor, dilation: int) -> torch.Tensor:
+    """``y[:, t] = sum_j x_pad[:, t + j*d] @ w[j]``: (B, t_pad, C_in) ->
+    (B, t_pad - (k-1)*d, C_out), as k shifted matmuls."""
+    k = w.shape[0]
+    t_out = x_pad.shape[-2] - (k - 1) * dilation
+    y = x_pad[..., :t_out, :] @ w[0]
+    for j in range(1, k):
+        y = y + x_pad[..., j * dilation : j * dilation + t_out, :] @ w[j]
     return y
 
 
@@ -125,6 +169,16 @@ def os_conv_fused_plain(
 
 
 # ---------------------------------------------------- kernel wrappers -----
+
+@functools.lru_cache(maxsize=None)
+def _tap_lib() -> ctypes.CDLL:
+    """Build (at first use) and bind ``csrc/tap_conv.cu``."""
+    lib = _build.load("tap_conv")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.tap_conv_fwd.argtypes = [p, p, p, i, i, i, i, i, i, p]
+    lib.tap_conv_fwd.restype = i
+    return lib
+
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
@@ -146,9 +200,9 @@ def _check_operands(x_pad: torch.Tensor, w: torch.Tensor, *vectors: torch.Tensor
         if t.device != x_pad.device:
             raise ValueError(f"operands on {t.device} and {x_pad.device}")
         if t.dtype != torch.float32:
-            raise TypeError(f"the os_conv kernels take float32, got {t.dtype}")
+            raise TypeError(f"the conv kernels take float32, got {t.dtype}")
         if not t.is_contiguous():
-            raise ValueError("the os_conv kernels take contiguous tensors")
+            raise ValueError("the conv kernels take contiguous tensors")
     if x_pad.dim() != 3 or w.dim() != 3 or x_pad.shape[2] != w.shape[1]:
         raise ValueError(f"shapes {tuple(x_pad.shape)} and {tuple(w.shape)} do not chain")
     b, t_pad, _ = x_pad.shape
@@ -216,6 +270,27 @@ def os_conv_fused(
     return y
 
 
+def tap_conv_fwd(x_pad: torch.Tensor, w: torch.Tensor, dilation: int) -> torch.Tensor:
+    """The tap-conv kernel on CUDA tensors; same contract as ``tap_conv_plain``."""
+    if x_pad.device.type != "cuda":
+        raise ValueError(f"tap_conv_fwd takes CUDA tensors, got {x_pad.device}")
+    _check_operands(x_pad, w)
+    b, t_pad, c_in = x_pad.shape
+    k, _, c_out = w.shape
+    t_out = t_pad - (k - 1) * dilation
+    if dilation < 1 or t_out < 1:
+        raise ValueError(f"unsupported dilation {dilation} for t_pad={t_pad}, k={k}")
+    lib = _tap_lib()
+    y = torch.empty(b, t_out, c_out, device=x_pad.device, dtype=torch.float32)
+    with torch.cuda.device(x_pad.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.tap_conv_fwd(x_pad.data_ptr(), w.data_ptr(), y.data_ptr(),
+                               b, t_pad, c_in, k, c_out, dilation, stream)
+    LAUNCHES["tap_conv_fwd"] += 1
+    _raise_on(err, "tap_conv_fwd")
+    return y
+
+
 # ----------------------------------------------------------- gradient -----
 
 class OSConvCore(torch.autograd.Function):
@@ -241,6 +316,49 @@ class OSConvCore(torch.autograd.Function):
                 x_pad.transpose(1, 2), w_oik.shape, g_ncw
             ).permute(2, 1, 0)
         return dx, dw
+
+
+def _tap(x_pad: torch.Tensor, w: torch.Tensor, dilation: int) -> torch.Tensor:
+    """The kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    if use_kernel(x_pad):
+        return tap_conv_fwd(x_pad, w, dilation)
+    return tap_conv_plain(x_pad, w, dilation)
+
+
+class TapConvCore(torch.autograd.Function):
+    """The tap conv with the JAX package's hand-written backward."""
+
+    @staticmethod
+    def forward(ctx, x_pad: torch.Tensor, w: torch.Tensor, dilation: int) -> torch.Tensor:
+        ctx.save_for_backward(x_pad, w)
+        ctx.dilation = dilation
+        return _tap(x_pad, w, dilation)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x_pad, w = ctx.saved_tensors
+        d = ctx.dilation
+        k, c_in, c_out = w.shape
+        b, t_out = g.shape[0], g.shape[1]
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            # dx_pad[s] = sum_j g[s - j*d] @ w[j].T: the tap conv of g padded
+            # by (k-1)*d each side with flipped, transposed taps
+            lp = (k - 1) * d
+            g_pad = F.pad(g, (0, 0, lp, lp))
+            dx = _tap(g_pad, torch.flip(w, (0,)).transpose(1, 2).contiguous(), d)
+        if ctx.needs_input_grad[1]:
+            g2 = g.reshape(b * t_out, c_out)
+            dw = torch.stack([
+                x_pad[:, j * d : j * d + t_out].reshape(b * t_out, c_in).T @ g2 for j in range(k)
+            ])
+        return dx, dw, None
+
+
+def tap_conv(x_pad: torch.Tensor, w: torch.Tensor, dilation: int) -> torch.Tensor:
+    """VALID dilated conv1d, channel-last: (B, t_pad, C_in) x (k, C_in, C_out)
+    -> (B, t_pad - (k-1)*dilation, C_out), with its gradient."""
+    return TapConvCore.apply(x_pad, w, dilation)
 
 
 # ------------------------------------------------------------ the op ------

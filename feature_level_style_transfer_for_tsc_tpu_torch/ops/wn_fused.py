@@ -37,8 +37,11 @@ LAUNCHES = {"wn_fwd": 0, "wn_bwd": 0}
 
 #: Rows per weight-gradient slice of ``wn_bwd`` (partials summed in order).
 SPLIT_ROWS = 1024
-#: Widest geometry the kernels take.
-MAX_C, MAX_H = 128, 32
+#: Widest WN channel count C the kernels take (``FlowConfig.wn_channels`` is
+#: 120); the half width H may be any.
+MAX_C = 128
+#: Most layers: the dilation ``2**i`` is an int shift in the kernels.
+MAX_LAYERS = 30
 
 
 def reset_launch_counts() -> None:
@@ -182,6 +185,17 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def check_geometry(rows: int, t_len: int, h: int, c: int, n_layers: int) -> None:
+    """Raise unless the kernels take this WN: ``rows`` = B*T rows of series of
+    length ``t_len``, half width ``h`` (any), WN channels ``c`` <= MAX_C and
+    1..MAX_LAYERS layers (the C++ ``bad_geometry`` holds the same test)."""
+    if not (rows > 0 and t_len > 0 and rows % t_len == 0 and h > 0 and 0 < c <= MAX_C
+            and 0 < n_layers <= MAX_LAYERS):
+        raise ValueError(
+            f"unsupported WN geometry rows={rows} T={t_len} H={h} C={c} layers={n_layers}"
+        )
+
+
 def _check(x2: torch.Tensor, t_len: int, w_in: torch.Tensor, *tensors: torch.Tensor):
     """float32 contiguous operands on one device, a geometry the kernels take."""
     for t in (x2, w_in) + tensors:
@@ -195,8 +209,7 @@ def _check(x2: torch.Tensor, t_len: int, w_in: torch.Tensor, *tensors: torch.Ten
     n_layers, taps, c, c2 = w_in.shape
     if taps != 3 or c2 != 2 * c:
         raise ValueError(f"w_in of shape {tuple(w_in.shape)} is not (L, 3, C, 2C)")
-    if not (0 < c <= MAX_C and 0 < h <= MAX_H and 0 < t_len and rows % t_len == 0 and rows > 0):
-        raise ValueError(f"unsupported WN geometry rows={rows} T={t_len} H={h} C={c}")
+    check_geometry(rows, t_len, h, c, n_layers)
     return rows, h, c, n_layers
 
 

@@ -24,6 +24,14 @@ elimination of the zero seeds).
 
 Randomness (batch order, CPC anchors, CDAN dropout) comes from
 ``torch.Generator``s; the anchors and dropout masks can be pinned per call.
+
+The flow's coupling nets are reached only through ``waveglow_forward_pair``
+(phases 4 and 5) and ``waveglow_infer`` (phase 5's s2t pass), which call
+``models.flow.wn_apply`` per flow step.  It picks its route per call, as
+the JAX package does: ``FLSTTSC_WN_FUSED=0`` runs the WN op by op (the gate
+kernel in every layer, and under ``FLSTTSC_CONV_IMPL=pallas`` the tap-conv
+kernel for each dilated conv), so both variables take effect in
+``cli.main`` without a flag of its own.
 """
 
 from __future__ import annotations

@@ -10,8 +10,11 @@ Shapes cover the ragged edges of the kernels' tiles: for the OS conv, time
 not a multiple of the time tile, C_out not a multiple of 4 or of the C_out
 tile, C_in not a multiple of the staged chunk, and every tap-group size (K
 of 1, 2, 3, 5, 89); for the WN kernels, rows not a multiple of the 64-row
-tile, T < 2^7 (the deep layers' taps all masked), B = 1, and C, H off the
-thread tiling.  Tolerance: max|kernel - plain| <= 1e-4 * max|plain| for
+tile, T < 2^7 (the deep layers' taps all masked), B = 1, C, H off the
+thread tiling, and H of 65 and 168 (VendGunPoint's and VendCoffee's, past
+one 128-column chunk); for the gate, rows and n off the thread grid and a
+row-strided operand; for the tap conv, time and C_out off the 64 x 64 tile,
+C_in off the 16-channel pass, dilations up to 128.  Tolerance: max|kernel - plain| <= 1e-4 * max|plain| for
 forward values, both exact float32 with TF32 off, the sums taken in another
 order; 1e-3 for the WN weight gradients, sums over every row in another
 order.
@@ -21,8 +24,9 @@ import pytest
 import torch
 
 from feature_level_style_transfer_for_tsc_tpu_torch.models.common import weight_norm_weight
+from feature_level_style_transfer_for_tsc_tpu_torch.models import flow
 from feature_level_style_transfer_for_tsc_tpu_torch.models.flow import wn_init
-from feature_level_style_transfer_for_tsc_tpu_torch.ops import osconv, wn_fused
+from feature_level_style_transfer_for_tsc_tpu_torch.ops import gate, osconv, wn_fused
 
 REL_TOL = 1e-4
 GRAD_REL_TOL = 1e-3
@@ -121,6 +125,8 @@ def _wn_operands(card, b, t, h, c, n_layers, seed):
         (2, 37, 5, 16, 8),  # T < 2^7
         (1, 1152, 25, 120, 8),  # B = 1 at the training length
         (4, 20, 3, 33, 3),  # C and H off the thread tiling
+        (2, 150, 65, 120, 8),  # VendGunPoint's H: 2H past one column chunk
+        (3, 60, 168, 120, 8),  # VendCoffee's H: H and 2H past one chunk
     ],
 )
 def test_wn_kernels_match_plain(card, b, t, h, c, n_layers):
@@ -179,3 +185,120 @@ def test_os_conv_autograd_on_card(card):
     for got, want in zip(grads[str(card)], grads["cpu"]):
         assert got.abs().max() > 0
         _close(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lead, n", [((2, 37), 120), ((1, 5), 3), ((4, 33), 65)])
+def test_gate_kernel_matches_plain(card, lead, n):
+    """``gate_fwd`` against ``gate_plain``, with ``b`` a column slice of a
+    wider tensor (a row-strided view, as the WN's cond projection)."""
+    g = torch.Generator(device=card).manual_seed(n)
+    a = torch.randn(*lead, 2 * n, device=card, generator=g)
+    wide = torch.randn(*lead, 6 * n, device=card, generator=g)
+    b = wide[..., 2 * n : 4 * n]
+    before = gate.LAUNCHES["gate_fwd"]
+    got = gate.gate_fwd(a, b, n)
+    torch.cuda.synchronize()
+    assert gate.LAUNCHES["gate_fwd"] == before + 1
+    assert got.shape == (*lead, n)
+    _close(got, gate.gate_plain(a, b, n))
+    column_major = torch.randn(2 * n, 7, device=card).T  # no (M, 2n) view with unit column stride
+    with pytest.raises(ValueError, match="row-strided"):
+        gate.gate_fwd(column_major, column_major, n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "b, t_out, c_in, c_out, d",
+    [
+        (2, 150, 120, 240, 1),
+        (3, 37, 240, 120, 128),  # t_out < d: taps reach far past the tile
+        (1, 5, 7, 9, 2),
+        (4, 100, 17, 33, 64),
+        (1, 1152, 120, 240, 16),
+    ],
+)
+def test_tap_conv_kernel_matches_plain(card, b, t_out, c_in, c_out, d):
+    g = torch.Generator(device=card).manual_seed(d * 10 + c_in)
+    x_pad = torch.randn(b, t_out + 2 * d, c_in, device=card, generator=g)
+    w = torch.randn(3, c_in, c_out, device=card, generator=g) / (3 * c_in) ** 0.5
+    before = osconv.LAUNCHES["tap_conv_fwd"]
+    got = osconv.tap_conv_fwd(x_pad, w, d)
+    torch.cuda.synchronize()
+    assert osconv.LAUNCHES["tap_conv_fwd"] == before + 1
+    assert got.shape == (b, t_out, c_out)
+    _close(got, osconv.tap_conv_plain(x_pad, w, d))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 32])
+def test_tap_conv_core_grads_match_plain_autograd(card, d):
+    """dx (the kernel on the flipped taps) and dw (matmuls) of
+    ``TapConvCore`` against autograd of ``tap_conv_plain``."""
+    g = torch.Generator(device=card).manual_seed(d)
+    x_pad = torch.randn(3, 90 + 2 * d, 24, device=card, generator=g)
+    w = torch.randn(3, 24, 40, device=card, generator=g) / 72 ** 0.5
+    gy = torch.randn(3, 90, 40, device=card, generator=g)
+    grads = []
+    for fn in (osconv.tap_conv, osconv.tap_conv_plain):
+        xg, wg = x_pad.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        grads.append(torch.autograd.grad(fn(xg, wg, d), (xg, wg), gy))
+    (dx, dw), (dx_p, dw_p) = grads
+    _close(dx, dx_p)
+    _close(dw, dw_p, GRAD_REL_TOL)
+
+
+class _SavedTap:
+    """The ctx ``TapConvCore.backward`` reads, for calling it directly."""
+
+    def __init__(self, x_pad, w, dilation):
+        self.saved_tensors, self.dilation, self.needs_input_grad = (x_pad, w), dilation, (True, False, False)
+
+
+@pytest.mark.gpu
+def test_tap_conv_refuses_non_float32_on_card(card):
+    """A bf16 CUDA operand reaches the kernel's dtype check and raises, in
+    the forward and in ``TapConvCore``'s dx; no plain version runs on the card."""
+    x_pad = torch.randn(2, 20, 8, device=card, dtype=torch.bfloat16)
+    w = torch.randn(3, 8, 8, device=card, dtype=torch.bfloat16)
+    before = osconv.LAUNCHES["tap_conv_fwd"]
+    with pytest.raises(TypeError, match="float32"):
+        osconv.tap_conv(x_pad, w, 2)
+    with pytest.raises(TypeError, match="float32"):
+        osconv.TapConvCore.backward(_SavedTap(x_pad, w, 2), torch.ones(2, 16, 8, device=card, dtype=torch.bfloat16))
+    assert osconv.LAUNCHES["tap_conv_fwd"] == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl", ["conv", "pallas"])
+def test_op_by_op_wn_on_card_matches_cpu(card, impl, monkeypatch):
+    """``wn_apply`` on the op-by-op route: value, input grad and every
+    parameter grad on the card (gate kernel; tap-conv kernel under
+    "pallas") against the same route on the CPU."""
+    monkeypatch.setenv("FLSTTSC_WN_FUSED", "0")
+    monkeypatch.setenv("FLSTTSC_CONV_IMPL", impl)
+    params, _, x = _wn_operands("cpu", 2, 90, 6, 24, 8, seed=4)
+    out = {}
+    before = dict(gate.LAUNCHES, **osconv.LAUNCHES)
+    for dev in ("cpu", card):
+        leaves = []
+
+        def to(node):
+            if isinstance(node, torch.Tensor):
+                t = node.detach().to(dev).requires_grad_(True)
+                leaves.append(t)
+                return t
+            if isinstance(node, dict):
+                return {k: to(v) for k, v in node.items()}
+            return [to(v) for v in node]
+
+        p = to(params)
+        xd = x.to(dev).requires_grad_(True)
+        y = flow.wn_apply(p, xd, 24)
+        grads = torch.autograd.grad(torch.sin(y).sum(), [xd] + leaves)
+        out[str(dev)] = [y.detach().cpu()] + [gr.cpu() for gr in grads]
+    assert gate.LAUNCHES["gate_fwd"] == before["gate_fwd"] + 8
+    taps = 16 if impl == "pallas" else 0
+    assert osconv.LAUNCHES["tap_conv_fwd"] == before["tap_conv_fwd"] + taps
+    for got, want in zip(out[str(card)], out["cpu"]):
+        _close(got, want, GRAD_REL_TOL)

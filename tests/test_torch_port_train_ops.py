@@ -169,8 +169,8 @@ def _wn_case(b, t, h, c, seed):
 
 
 def _wn_unfused(params, x, n_channels):
-    """The coupling net op by op (autograd over F.conv1d): the reference the
-    port's ``WNCore`` plain versions and kernels compute in one piece."""
+    """The coupling net op by op, written out here (autograd over F.conv1d):
+    an independent reference for ``WNCore``'s plain versions."""
     n_layers = len(params["in_layers"])
     audio = x @ weight_norm_weight(params["start"])[0] + params["start"]["bias"]
     spect = x @ weight_norm_weight(params["cond"])[0] + params["cond"]["bias"]
@@ -194,10 +194,12 @@ def _wn_unfused(params, x, n_channels):
 
 @pytest.mark.parametrize("path", ["unfused", "wn_core"])
 @pytest.mark.parametrize("shape", [(2, 37, 5), (3, 20, 4), (1, 64, 3)])
-def test_wn_matches_jax_wn_apply(path, shape):
+def test_wn_matches_jax_wn_apply(path, shape, monkeypatch):
     """Value, input grad and every param grad against JAX ``wn_apply``,
     with T not a multiple of 8 and T < 2^7 (the deep taps all masked):
-    the op-by-op reference and the port's ``wn_apply`` (``WNCore``)."""
+    the port's ``wn_apply`` on its op-by-op route (``FLSTTSC_WN_FUSED=0``)
+    and on its fused route (``WNCore``)."""
+    monkeypatch.setenv("FLSTTSC_WN_FUSED", "0" if path == "unfused" else "1")
     b, t, h = shape
     c = 16
     params, x = _wn_case(b, t, h, c, seed=t)
@@ -208,7 +210,7 @@ def test_wn_matches_jax_wn_apply(path, shape):
     want = j_flow.wn_apply(params, jnp.asarray(x), c)
     want_gp, want_gx = jax.grad(jloss, argnums=(0, 1))(params, jnp.asarray(x))
     pp, xt = _port(params, grad=True), _t(x, True)
-    y = (_wn_unfused if path == "unfused" else flow.wn_apply)(pp, xt, c)
+    y = flow.wn_apply(pp, xt, c)
     np.testing.assert_allclose(y.detach().numpy(), np.asarray(want), **WN_TOL)
     loss = torch.sin(y).sum()
     (gx,) = torch.autograd.grad(loss, xt, retain_graph=True)
