@@ -16,7 +16,14 @@ non-zero when any check fails.  Phases:
    of the full-width serving model (SelfRegulationSCP2 shape of the
    reference main.py: 7 channels, T=1152, 2 classes; budget_multiplier=1.0,
    batch 20), with CUDA-event times of the kernel, the plain version and
-   F.conv1d (the library yardstick, TF32 off) beside the bound;
+   F.conv1d (the library yardstick, TF32 off) beside the bounds: the
+   tensor-core bound of the 3xTF32 tap GEMM (three TF32 products a live
+   term at the dense TF32 peak), which with the bytes bound is
+   ``bound_ms``, and the FP32-pipe bound beside it; the work the tap
+   windows leave issued, the effective TFLOP/s on live and on issued
+   operations, and kernel_ms / library_ms; every time here and below is
+   CUDA events around a run of back-to-back calls (``cuda_ms``), and the
+   conv phases also keep the single-call medians that earlier PRs took;
 3. single-checkpoint serving through ``cli.predict.main`` on SCP2-shaped
    synthetic data (200 train / 180 test series), with the launch counts,
    the logits against the plain path on the card, and series/s;
@@ -65,9 +72,9 @@ non-zero when any check fails.  Phases:
     with ``b`` a column slice of a cond projection, beside its bytes bound;
     ``tap_conv_fwd`` against ``tap_conv_plain`` at the 8 dilations of the
     pair pass's forward (120 -> 240) and of its input-gradient pass (240 ->
-    120), beside its FLOP bound and ``F.conv1d`` with ``dilation`` (TF32
-    off) as the library yardstick; ``TapConvCore``'s dx and dw against
-    autograd of the plain version;
+    120), beside its tensor-core and FP32 bounds (as phase 2), its TFLOP/s,
+    and ``F.conv1d`` with ``dilation`` (TF32 off) as the library yardstick;
+    ``TapConvCore``'s dx and dw against autograd of the plain version;
 13. training through ``cli.main`` on the op-by-op route
     (``FLSTTSC_WN_FUSED=0``, ``FLSTTSC_CONV_IMPL=pallas``, set around the
     call and restored), the shapes and lengths of phase 8: exact launch
@@ -113,6 +120,8 @@ REPO = Path(__file__).resolve().parent
 # cuBLAS repeats its sums only with a fixed workspace; set before its first use
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 FP32_PEAK = 67e12  # H100 SXM FP32 FLOP/s outside the tensor cores (NVIDIA data sheet)
+TC_PEAK = 494.7e12  # H100 SXM dense TF32 FLOP/s on the tensor cores (NVIDIA data sheet)
+TF32_PRODUCTS = 3  # the tap-GEMM kernels' f32-accurate product: lo*hi + hi*lo + hi*hi
 HBM_RATE = 3.35e12  # H100 SXM device memory bytes/s
 REL_TOL = 1e-4  # max_abs / max|plain|, exact f32 both sides, sums in another order
 BATCH = 20
@@ -156,8 +165,42 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def conv_totals(what: str, rows, ms: str, library_ms: str) -> dict:
+    """Sums over a conv phase's rows: times, both bounds, live and issued
+    GFLOP, effective TFLOP/s on each, and kernel time over library time."""
+    single = [k for k in rows[0] if k.endswith("single_call_ms")]
+    tot = {k: sum(r[k] for r in rows) for k in
+           (ms, library_ms, "bound_ms", "tc_flop_ms", "fp32_bound_ms", "gflop", "issued_gflop",
+            *single)}
+    tot["live_tflops"] = tot["gflop"] / tot[ms]
+    tot["issued_tflops"] = tot["issued_gflop"] / tot[ms]
+    tot["kernel_over_library"] = tot[ms] / tot[library_ms]
+    log(f"[{what}] {json.dumps(tot)}")
+    return tot
+
+
 def cuda_ms(fn, warmup: int = 2, reps: int = 10) -> float:
-    """Median CUDA-event time of one call, after warmup."""
+    """Time of one call: CUDA events around ``reps`` back-to-back calls (the
+    host's launch work overlaps the device's), median of 3 runs, after
+    warmup."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        runs.append(start.elapsed_time(end) / reps)
+    return statistics.median(runs)
+
+
+def single_call_ms(fn, warmup: int = 2, reps: int = 10) -> float:
+    """Median CUDA-event time of one call alone, after warmup: the device
+    waits for the host's launch work of each call."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -346,12 +389,17 @@ def kernel_phase(osconv, layers):
         live_taps = int(mask.sum().item())
         flops = 2 * BATCH * SCP2["length"] * c_in * live_taps
         dense_flops = 2 * BATCH * SCP2["length"] * k * c_in * c_out
+        # the work the kernel issues: each 8-column group's window of taps
+        windows = osconv.tap_windows_plain(w).cpu()
+        cols = torch.tensor([min(8, c_out - 8 * g) for g in range(len(windows))])
+        issued_flops = 2 * BATCH * SCP2["length"] * c_in * int(((windows[:, 1] - windows[:, 0]) * cols).sum())
         conv_bytes = 4 * (x_pad.numel() + w.numel() + y.numel())
         fused_bytes = conv_bytes + 4 * 2 * c_out
         row = {
             "layer": name, "c_in": c_in, "c_out": c_out, "k": k, "relu": relu,
             "live_tap_share": live_taps / (k * c_out),
             "gflop": flops / 1e9, "dense_gflop": dense_flops / 1e9,
+            "issued_gflop": issued_flops / 1e9,
             "max_abs": err, "rel": rel,
             "fused_max_abs": max(e[0] for e in errs_f), "fused_rel": max(e[1] for e in errs_f),
             "library_rel_vs_kernel": lib_err,
@@ -362,14 +410,20 @@ def kernel_phase(osconv, layers):
                 lambda: osconv.os_conv_fused_plain(x_pad, w, scale, shift, relu), reps=5
             ),
             "library_ms": cuda_ms(lambda: F.conv1d(x_ncw, w_oik)),
+            "kernel_single_call_ms": single_call_ms(lambda: osconv.os_conv(x_pad, w)),
+            "library_single_call_ms": single_call_ms(lambda: F.conv1d(x_ncw, w_oik)),
             "flop_ms": flops / FP32_PEAK * 1e3,
+            "tc_flop_ms": TF32_PRODUCTS * flops / TC_PEAK * 1e3,
             "bytes_ms": conv_bytes / HBM_RATE * 1e3,
             "fused_bytes_ms": fused_bytes / HBM_RATE * 1e3,
         }
-        row["bound_ms"] = max(row["flop_ms"], row["bytes_ms"])
-        row["fused_bound_ms"] = max(row["flop_ms"], row["fused_bytes_ms"])
+        row["bound_ms"] = max(row["tc_flop_ms"], row["bytes_ms"])
+        row["fused_bound_ms"] = max(row["tc_flop_ms"], row["fused_bytes_ms"])
+        row["fp32_bound_ms"] = max(row["flop_ms"], row["bytes_ms"])
         row["kernel_tflops"] = flops / row["kernel_ms"] / 1e9  # live taps only
+        row["kernel_issued_tflops"] = issued_flops / row["kernel_ms"] / 1e9
         row["kernel_dense_tflops"] = dense_flops / row["kernel_ms"] / 1e9
+        row["kernel_over_library"] = row["kernel_ms"] / row["library_ms"]
         log("kernel " + json.dumps(row))
         check(rel <= REL_TOL, f"{name}: os_conv_fwd rel err {rel:.3e} > {REL_TOL}")
         check(row["fused_rel"] <= REL_TOL, f"{name}: os_conv_fused_fwd rel err {row['fused_rel']:.3e}")
@@ -563,7 +617,8 @@ def profile_step(pipe, state, batch) -> dict:
     groups = {"wn kernels": 0.0, "os_conv kernel": 0.0, "other": 0.0}
     for name, ms, _ in kernels:
         wn = any(tag in name for tag in ("wn_layer", "wgrad_partial", "reduce_partials", "rowgemm"))
-        groups["wn kernels" if wn else "os_conv kernel" if "os_conv_kernel" in name else "other"] += ms
+        # the fused route runs the tap GEMM (prep and main kernel) only for the OS conv
+        groups["wn kernels" if wn else "os_conv kernel" if "tap_gemm" in name else "other"] += ms
     device_ms = sum(groups.values())
     out = {"device_ms": device_ms, "traced_wall_ms": traced_ms,
            "device_idle_share": 1.0 - device_ms / traced_ms, "untraced_wall_ms": untraced_ms,
@@ -828,9 +883,17 @@ def tap_conv_phase(osconv, c: int, n_layers: int):
                    "ms": cuda_ms(lambda: osconv.tap_conv_fwd(x, w, d)),
                    "plain_ms": cuda_ms(lambda: osconv.tap_conv_plain(x, w, d), reps=5),
                    "library_ms": cuda_ms(lambda: F.conv1d(x_ncw, w_oik, dilation=d)),
-                   "flop_ms": flops / FP32_PEAK * 1e3, "bytes_ms": n_bytes / HBM_RATE * 1e3}
-            row["bound_ms"] = max(row["flop_ms"], row["bytes_ms"])
+                   "single_call_ms": single_call_ms(lambda: osconv.tap_conv_fwd(x, w, d)),
+                   "library_single_call_ms": single_call_ms(
+                       lambda: F.conv1d(x_ncw, w_oik, dilation=d)),
+                   "gflop": flops / 1e9, "issued_gflop": flops / 1e9,  # every tap is live
+                   "flop_ms": flops / FP32_PEAK * 1e3,
+                   "tc_flop_ms": TF32_PRODUCTS * flops / TC_PEAK * 1e3,
+                   "bytes_ms": n_bytes / HBM_RATE * 1e3}
+            row["bound_ms"] = max(row["tc_flop_ms"], row["bytes_ms"])
+            row["fp32_bound_ms"] = max(row["flop_ms"], row["bytes_ms"])
             row["tflops"] = flops / row["ms"] / 1e9
+            row["ms_over_library"] = row["ms"] / row["library_ms"]
             log("tap_conv " + json.dumps(row))
             check(rel <= REL_TOL, f"tap_conv_fwd {what} d={d}: rel err {rel:.3e}")
             rows.append(row)
@@ -1071,6 +1134,8 @@ def main() -> int:
                            spec[-1][-1], mask, relu))
     rows = kernel_phase(osconv, layers)
     results["kernels"] = rows
+    results["kernels_total"] = conv_totals("os_conv_fwd, six serving convs", rows, "kernel_ms", "library_ms")
+    results["kernels_total"]["fused_ms"] = sum(r["fused_ms"] for r in rows)
 
     run = Run(osconv, wn_fused, gate)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -1311,6 +1376,7 @@ def main() -> int:
         gate_rows = gate_phase(gate, fc.wn_channels, fc.wn_layers)
         tap_rows, tap_grads = tap_conv_phase(osconv, fc.wn_channels, fc.wn_layers)
         results["gate"], results["tap_conv"], results["tap_conv_grad"] = gate_rows, tap_rows, tap_grads
+        results["tap_conv_total"] = conv_totals("tap_conv_fwd, 16 tap convs", tap_rows, "ms", "library_ms")
 
         # ---- phase 13: training through cli.main on the op-by-op route
         op_out = tmp / "train_run_op_by_op"
@@ -1344,7 +1410,7 @@ def main() -> int:
             "ms": sum(r["kernel_ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),
             "bound_ms": sum(r["bound_ms"] for r in rows),
-            "bound_by": "operations" if sum(r["flop_ms"] for r in rows) >= sum(r["bytes_ms"] for r in rows) else "bytes",
+            "bound_by": "operations" if sum(r["tc_flop_ms"] for r in rows) >= sum(r["bytes_ms"] for r in rows) else "bytes",
             "library_ms": sum(r["library_ms"] for r in rows),
         },
         {
@@ -1354,7 +1420,7 @@ def main() -> int:
             "ms": sum(r["fused_ms"] for r in rows),
             "plain_ms": sum(r["fused_plain_ms"] for r in rows),
             "bound_ms": sum(r["fused_bound_ms"] for r in rows),
-            "bound_by": "operations" if sum(r["flop_ms"] for r in rows) >= sum(r["fused_bytes_ms"] for r in rows) else "bytes",
+            "bound_by": "operations" if sum(r["tc_flop_ms"] for r in rows) >= sum(r["fused_bytes_ms"] for r in rows) else "bytes",
             "library_ms": None,
         },
     ]}
@@ -1389,7 +1455,7 @@ def main() -> int:
         "max_abs_err": max(r["max_abs"] for r in tap_rows),
         "ms": sum(r["ms"] for r in tap_rows), "plain_ms": sum(r["plain_ms"] for r in tap_rows),
         "bound_ms": sum(r["bound_ms"] for r in tap_rows),
-        "bound_by": "operations" if sum(r["flop_ms"] for r in tap_rows)
+        "bound_by": "operations" if sum(r["tc_flop_ms"] for r in tap_rows)
         >= sum(r["bytes_ms"] for r in tap_rows) else "bytes",
         "library_ms": sum(r["library_ms"] for r in tap_rows),
     })

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface.  It is compiled by ``nvcc``
 for Hopper (``sm_90a``) into ``build/kernels/`` at the repository root, at
 first use, and loaded with ``ctypes``.  The library's file name carries a
-hash of the source and the flags, so an edited source is rebuilt, and the
-build writes to a temporary name and renames it, so concurrent first uses
+hash of the source, of every shared header ``csrc/*.cuh`` and of the flags,
+so an edited source or header is rebuilt, and the build writes to a temporary name and renames it, so concurrent first uses
 do not see a half-written library.  ``ptxas -v`` (registers, shared memory,
 spills per kernel) is kept beside the library as ``<lib>.ptxas.txt``.
 """
@@ -38,11 +38,20 @@ def _nvcc() -> str:
     return str(candidate)
 
 
+def source_digest(name: str, csrc: Path = CSRC) -> str:
+    """Hash of ``<csrc>/<name>.cu``, every ``<csrc>/*.cuh`` (any of them may
+    be included) and the flags."""
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless this source was already built."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{name}_{digest}.so"
+    out = BUILD_DIR / f"lib{name}_{source_digest(name)}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -18,6 +18,12 @@ tensor, and in the plain PyTorch version beside each on a CPU tensor:
   applied before the single store.  ``FLSTTSC_FUSE_EPILOGUE=1`` selects it
   on the no-grad inference path, read per call as in the JAX package.
 
+Both run the tap GEMM of ``csrc/tap_gemm.cuh`` (3xTF32 on the tensor cores,
+f32 accuracy) after a prep kernel that splits w into TF32 hi and lo parts
+and finds, per group of 8 output columns, the span of taps whose weights
+are nonzero; the GEMM skips the mask's dead taps outside it.
+``tap_windows_plain`` is that window search in PyTorch.
+
 Gradients: ``masked_os_conv`` runs the conv through ``OSConvCore``, an
 ``autograd.Function`` whose forward is ``os_conv`` and whose backward is the
 plain transposed conv (``torch.nn.grad.conv1d_input`` / ``conv1d_weight``),
@@ -30,8 +36,9 @@ The tap conv, the flow's dilated kernel-3 conv under
 
 * ``tap_conv(x_pad, w, dilation)`` is the VALID channel-last conv
   ``y[t] = sum_j x_pad[t + j*d] @ w[j]`` through ``TapConvCore``: for a
-  CUDA tensor ``tap_conv_fwd`` (``csrc/tap_conv.cu``, replaces
-  ``_tap_conv_kernel``; it takes float32 only and raises on other dtypes),
+  CUDA tensor ``tap_conv_fwd`` (``csrc/tap_conv.cu``, the same tap GEMM
+  with every tap live, replaces ``_tap_conv_kernel``; it takes float32
+  only and raises on other dtypes),
   for a CPU tensor ``tap_conv_plain`` (k shifted matmuls, the JAX package's
   ``_tap_conv_xla``);
 * its backward is the JAX package's ``_tap_conv_bwd``: dx is the same tap
@@ -41,6 +48,7 @@ The tap conv, the flow's dilated kernel-3 conv under
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import os
@@ -157,6 +165,22 @@ def tap_conv_plain(x_pad: torch.Tensor, w: torch.Tensor, dilation: int) -> torch
     return y
 
 
+def tap_windows_plain(w: torch.Tensor, group: int = 8) -> torch.Tensor:
+    """``(ceil(C_out / group), 2)`` int32 tap windows of ``w`` (K, C_in, C_out):
+    row g is ``[lo, hi)``, the span of taps j at which any ``w[j, :, cols of
+    g]`` is nonzero, and ``(0, 0)`` when all of them are zero.  The plain
+    mirror of the window search of ``csrc/tap_gemm.cuh``'s ``prep_kernel``."""
+    k, _, c_out = w.shape
+    n_groups = -(-c_out // group)
+    live = F.pad((w != 0).any(dim=1), (0, n_groups * group - c_out))  # (K, padded C_out)
+    live = live.reshape(k, n_groups, group).any(dim=2)  # (K, groups)
+    taps = torch.arange(k, device=w.device).unsqueeze(1)
+    lo = torch.where(live, taps, k).min(dim=0).values
+    hi = torch.where(live, taps + 1, 0).max(dim=0).values
+    empty = hi <= lo
+    return torch.stack([lo.masked_fill(empty, 0), hi.masked_fill(empty, 0)], dim=1).to(torch.int32)
+
+
 def os_conv_fused_plain(
     x_pad: torch.Tensor,
     w: torch.Tensor,
@@ -175,7 +199,7 @@ def _tap_lib() -> ctypes.CDLL:
     """Build (at first use) and bind ``csrc/tap_conv.cu``."""
     lib = _build.load("tap_conv")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.tap_conv_fwd.argtypes = [p, p, p, i, i, i, i, i, i, p]
+    lib.tap_conv_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
     lib.tap_conv_fwd.restype = i
     return lib
 
@@ -185,9 +209,9 @@ def _lib() -> ctypes.CDLL:
     """Build (at first use) and bind ``csrc/os_conv.cu``."""
     lib = _build.load("os_conv")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.os_conv_fwd.argtypes = [p, p, p, i, i, i, i, i, p]
+    lib.os_conv_fwd.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.os_conv_fwd.restype = i
-    lib.os_conv_fused_fwd.argtypes = [p, p, p, p, i, p, i, i, i, i, i, p]
+    lib.os_conv_fused_fwd.argtypes = [p, p, p, p, p, i, p, i, i, i, i, i, p]
     lib.os_conv_fused_fwd.restype = i
     return lib
 
@@ -215,6 +239,24 @@ def _check_operands(x_pad: torch.Tensor, w: torch.Tensor, *vectors: torch.Tensor
     return (b, t_pad - k + 1, c_out)
 
 
+def _work(w: torch.Tensor) -> torch.Tensor:
+    """The scratch of the tap GEMM's prep kernel (``csrc/tap_gemm.cuh``
+    ``work_words``): w's TF32 hi and lo planes, K x (C_in padded to 8) x
+    (C_out padded to 64) words each, then 2 ints a group of 8 columns for
+    the windows (K - lo, then hi)."""
+    k, c_in, c_out = w.shape
+    words = 2 * k * (-(-c_in // 8) * 8) * (-(-c_out // 64) * 64) + 2 * -(-c_out // 8)
+    return torch.empty(words, device=w.device, dtype=torch.int32)
+
+
+def _on(device: torch.device):
+    """The context for launching on ``device``: a no-op where it is already
+    the current device (the common case, and the cheap one)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
 def _raise_on(err: int, name: str) -> None:
     if err:
         raise RuntimeError(f"{name} launch failed with cudaError_t {err}")
@@ -227,10 +269,11 @@ def os_conv(x_pad: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     out_shape = _check_operands(x_pad, w)
     lib = _lib()
     y = torch.empty(out_shape, device=x_pad.device, dtype=torch.float32)
-    with torch.cuda.device(x_pad.device):
+    work = _work(w)
+    with _on(x_pad.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.os_conv_fwd(
-            x_pad.data_ptr(), w.data_ptr(), y.data_ptr(),
+            x_pad.data_ptr(), w.data_ptr(), work.data_ptr(), y.data_ptr(),
             x_pad.shape[0], x_pad.shape[1], x_pad.shape[2], w.shape[0], w.shape[2],
             stream,
         )
@@ -257,10 +300,12 @@ def os_conv_fused(
     out_shape = _check_operands(x_pad, w, scale, shift)
     lib = _lib()
     y = torch.empty(out_shape, device=x_pad.device, dtype=torch.float32)
-    with torch.cuda.device(x_pad.device):
+    work = _work(w)
+    with _on(x_pad.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.os_conv_fused_fwd(
-            x_pad.data_ptr(), w.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+            x_pad.data_ptr(), w.data_ptr(), work.data_ptr(),
+            scale.data_ptr(), shift.data_ptr(),
             int(relu), y.data_ptr(),
             x_pad.shape[0], x_pad.shape[1], x_pad.shape[2], w.shape[0], w.shape[2],
             stream,
@@ -282,9 +327,10 @@ def tap_conv_fwd(x_pad: torch.Tensor, w: torch.Tensor, dilation: int) -> torch.T
         raise ValueError(f"unsupported dilation {dilation} for t_pad={t_pad}, k={k}")
     lib = _tap_lib()
     y = torch.empty(b, t_out, c_out, device=x_pad.device, dtype=torch.float32)
-    with torch.cuda.device(x_pad.device):
+    work = _work(w)
+    with _on(x_pad.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.tap_conv_fwd(x_pad.data_ptr(), w.data_ptr(), y.data_ptr(),
+        err = lib.tap_conv_fwd(x_pad.data_ptr(), w.data_ptr(), work.data_ptr(), y.data_ptr(),
                                b, t_pad, c_in, k, c_out, dilation, stream)
     LAUNCHES["tap_conv_fwd"] += 1
     _raise_on(err, "tap_conv_fwd")

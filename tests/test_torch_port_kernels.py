@@ -7,14 +7,17 @@ package, so that it runs on a GPU machine without jax:
     pytest --noconftest tests/test_torch_port_kernels.py -m gpu
 
 Shapes cover the ragged edges of the kernels' tiles: for the OS conv, time
-not a multiple of the time tile, C_out not a multiple of 4 or of the C_out
-tile, C_in not a multiple of the staged chunk, and every tap-group size (K
-of 1, 2, 3, 5, 89); for the WN kernels, rows not a multiple of the 64-row
+not a multiple of the 128-row tile, C_out not a multiple of 4 or of the C_out
+tile, C_in not a multiple of the 8-channel chunk, every taps-a-stage size (K
+of 1, 2, 3, 5, 89), and the real masked weights of the serving model's
+layers (C_in 7, 25, 50 and 225; C_out 25, 225 and 50), with a column group
+whose taps are all zero and a stray nonzero weight outside the mask, so the
+tap windows of the pre-pass are exercised; for the WN kernels, rows not a multiple of the 64-row
 tile, T < 2^7 (the deep layers' taps all masked), B = 1, C, H off the
 thread tiling, and H of 65 and 168 (VendGunPoint's and VendCoffee's, past
 one 128-column chunk); for the gate, rows and n off the thread grid and a
-row-strided operand; for the tap conv, time and C_out off the 64 x 64 tile,
-C_in off the 16-channel pass, dilations up to 128.  Tolerance: max|kernel - plain| <= 1e-4 * max|plain| for
+row-strided operand; for the tap conv, time and C_out off the 128 x 64 tile,
+C_in off the 8-channel chunk, dilations up to 128 (also with t_out < d).  Tolerance: max|kernel - plain| <= 1e-4 * max|plain| for
 forward values, both exact float32 with TF32 off, the sums taken in another
 order; 1e-3 for the WN weight gradients, sums over every row in another
 order.
@@ -23,10 +26,13 @@ order.
 import pytest
 import torch
 
+from feature_level_style_transfer_for_tsc_tpu_torch.config import PipelineConfig
 from feature_level_style_transfer_for_tsc_tpu_torch.models.common import weight_norm_weight
 from feature_level_style_transfer_for_tsc_tpu_torch.models import flow
 from feature_level_style_transfer_for_tsc_tpu_torch.models.flow import wn_init
 from feature_level_style_transfer_for_tsc_tpu_torch.ops import gate, osconv, wn_fused
+from feature_level_style_transfer_for_tsc_tpu_torch.structure import total_out_channels
+from feature_level_style_transfer_for_tsc_tpu_torch.train.classifier import build_specs
 
 REL_TOL = 1e-4
 GRAD_REL_TOL = 1e-3
@@ -74,6 +80,44 @@ def test_kernels_match_plain(card, b, t, k, c_in, c_out, relu):
     assert osconv.LAUNCHES["os_conv_fused_fwd"] == before["os_conv_fused_fwd"] + 1
     _close(got, osconv.os_conv_plain(x_pad, w))
     _close(fused, osconv.os_conv_fused_plain(x_pad, w, scale, shift, relu))
+
+
+def _serving_layer(i):
+    """Spec of layer ``i`` of the SCP2 serving model (extractor then classifier)."""
+    ext, cls = build_specs(7, 1152, PipelineConfig())
+    return (ext + cls)[i]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layer", [0, 1, 2, 3])  # 7 -> 25, 25 -> 225, 225 -> 50 (K=2), 50 -> 25
+@pytest.mark.parametrize("edit", ["mask", "dead group", "stray tap"])
+def test_kernels_match_plain_on_masked_weights(card, layer, edit):
+    """The real masked weights of a serving layer at T off the 128-row tile,
+    as they are, with one column group all zero (window empty, output 0
+    before the epilogue), and with one nonzero weight outside the mask (the
+    window must widen to reach it)."""
+    spec = _serving_layer(layer)
+    k, c_in, c_out = spec[-1][-1], spec[0][0], total_out_channels(spec)
+    g = torch.Generator(device=card).manual_seed(layer)
+    mask = torch.from_numpy(osconv.build_os_mask(spec)).to(card)
+    w = torch.randn(k, c_in, c_out, device=card, generator=g) / (c_in * k) ** 0.5 * mask
+    if edit == "dead group":
+        w[:, :, 8:16] = 0.0
+    elif edit == "stray tap":
+        w[k - 1, c_in - 1, 0] = 0.5  # column 0 is the kernel-1 branch: its last tap is dead
+    x_pad = torch.randn(2, 300 + k - 1, c_in, device=card, generator=g)
+    scale = torch.rand(c_out, device=card, generator=g) + 0.5
+    shift = torch.randn(c_out, device=card, generator=g)
+    before = dict(osconv.LAUNCHES)
+    got = osconv.os_conv(x_pad, w)
+    fused = osconv.os_conv_fused(x_pad, w, scale, shift, True)
+    torch.cuda.synchronize()
+    assert osconv.LAUNCHES["os_conv_fwd"] == before["os_conv_fwd"] + 1
+    assert osconv.LAUNCHES["os_conv_fused_fwd"] == before["os_conv_fused_fwd"] + 1
+    _close(got, osconv.os_conv_plain(x_pad, w))
+    _close(fused, osconv.os_conv_fused_plain(x_pad, w, scale, shift, True))
+    if edit == "dead group":
+        assert torch.equal(got[:, :, 8:16], torch.zeros_like(got[:, :, 8:16]))
 
 
 @pytest.mark.gpu
@@ -216,6 +260,7 @@ def test_gate_kernel_matches_plain(card, lead, n):
         (1, 5, 7, 9, 2),
         (4, 100, 17, 33, 64),
         (1, 1152, 120, 240, 16),
+        (2, 50, 13, 240, 128),  # t_out < d, C_in off the 8-channel chunk
     ],
 )
 def test_tap_conv_kernel_matches_plain(card, b, t_out, c_in, c_out, d):
