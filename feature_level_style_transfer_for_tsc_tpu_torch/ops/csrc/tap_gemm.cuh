@@ -72,11 +72,15 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "mma_tf32.cuh"
+
 // Internal linkage: each library that includes this header (os_conv,
 // tap_conv) keeps its own kernels and its own per-device caches below; as
 // inline functions' statics they would be one object for the whole process.
 namespace tap_gemm {
 namespace {
+
+using namespace tf32x3;  // split_tf32, mma_tf32, ldmatrix_x4, cp_async*
 
 constexpr int MT = 2;       // m16 tiles per warp: 32 rows
 constexpr int NT = 4;       // n8 tiles per warp: 32 columns
@@ -105,46 +109,6 @@ inline size_t work_words(int k, int c_in, int c_out) {
   return 2 * static_cast<size_t>(k) * round_up(c_in, KC) * round_up(c_out, PAD_N) +
          2 * static_cast<size_t>((c_out + GROUP - 1) / GROUP);
 }
-
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(v));
-  const float rest = v - __uint_as_float(hi);
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(rest));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8 x 4-word matrices from shared memory: lane l gives the address of
-// row l % 8 of matrix l / 8 and receives word l % 4 of row l / 4 of each.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const uint32_t* row) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-// cp.async of 4 or 16 bytes; an invalid source copies nothing and zero-fills.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(s), "l"(src),
-               "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;"); }
-
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;"); }
 
 // Word of half h (k 0-3 or 4-7) of row n in a block of 8-word rows: the halves
 // of rows n and n + 4 trade places, so ldmatrix's 8 rows hit 32 banks.

@@ -23,41 +23,69 @@
 // C = 120, L = 8; H is half the target extractor's output width, 25 to 168 over
 // the vendored datasets) one forward does about 1.96 MFLOP per row on about 4.6 KB
 // per row of audio/skip written, so both directions are bound by operations,
-// not by memory: the FP32 pipes' 67 TFLOP/s (exact f32, no tensor cores).
+// not by memory.  At float32 accuracy the least time is on the tensor cores
+// taking each product as three TF32 products (3xTF32: 494.7 TFLOP/s / 3); the
+// FP32 pipes' 67 TFLOP/s is the bound of the kernels that use them.
 //
-// Design, simple and exact first (tensor cores, wgmma and TMA are later work):
+// Design, simple and exact first (wgmma and TMA are later work):
 // * The halo does not fit one block: layer i reads audio at r +- 2^i (up to
 //   +-128 rows, and +-255 over the 8 layers), and a whole series' audio
 //   (1152 x 120 floats) is larger than shared memory.  So each layer is one
-//   launch over tiles of 64 rows, and the launch boundary is the grid-wide
+//   launch over tiles of rows, and the launch boundary is the grid-wide
 //   barrier between layers.  The start projection is its own launch; the end
 //   projection is folded into the last layer.
-// * In a layer, each of the 256 threads owns 4 rows x 8 column pairs (j and
-//   j + C), so the tanh and sigmoid halves of the gate meet in one thread's
-//   registers.  Every product is a block-level FMA GEMM whose reduction axis
-//   is staged 16 at a time through shared memory: the three masked taps and
-//   the cond slice form one 3C+H deep reduction (w_in[i] is 345 KB and is
-//   streamed, never resident); acts stay in shared memory for the res/skip
-//   product.
-// * H is any width: every product over H (the start projection, the cond slice
-//   of the z reduction, the weight gradients) is a reduction staged KC deep, and
+// * Forward (FP32 FMA): in a layer, each of the 256 threads owns 4 rows x 8
+//   column pairs (j and j + C), so the tanh and sigmoid halves of the gate
+//   meet in one thread's registers.  Every product is a block-level FMA GEMM
+//   whose reduction axis is staged 16 at a time through shared memory: the
+//   three masked taps and the cond slice form one 3C+H deep reduction (w_in[i]
+//   is 345 KB and is streamed, never resident); acts stay in shared memory
+//   for the res/skip product.
+// * H is any width: every product over H is a reduction staged in chunks, and
 //   every product with H or 2H output columns (the end projection, g_x, the
 //   start's input gradient) walks them in chunks of CMAX columns, in a loop
 //   (the end projection) or over blockIdx.y (the others).
-// * The backward walks the layers in reverse with two launches each: one
-//   recomputes z, forms g_z and keeps acts; the next, after the barrier, takes
-//   the transposed taps of g_z at u +- d (and the cond input gradient).
-// * Weight gradients reduce over all rows.  Each block writes the partial sum
-//   of a 1024-row slice, and a second pass adds the slices in a fixed order:
-//   no float atomics, so every run gives the same bits.
+// * Backward: the layers in reverse with two launches each: one recomputes
+//   z, forms g_z and keeps acts; the next, after the barrier, takes the
+//   transposed taps of g_z at u +- d (and the cond input gradient); between
+//   them the weight gradients.  Every product of a layer runs on the tensor
+//   cores as 3xTF32 mma.sync (mma_tf32.cuh's helpers, as the conv tap GEMM),
+//   each stage summed into zeroed registers and added to the running sum with
+//   one rounded f32 add (the tensor core's accumulate truncates).  Operands
+//   are staged as shifted row ranges with one mask a row (16-byte cp.async,
+//   no divide or modulo an element) and each staged element is split once
+//   into TF32 hi/lo planes that ldmatrix reads.
+//   - Row-tile products (wn_layer_gz_kernel, wn_layer_ga_kernel): tiles of 64
+//     rows, 16 warps; the weights are split once a call by wsplit_kernel into
+//     planes laid out (output column, reduction), so a stage copies them as
+//     they are.  A warp keeps the gate pair (j, C + j) of its n8 tiles, with C
+//     padded to a multiple of 8.  On short series (a row-tile grid under one
+//     block an SM) blockIdx.y deals the column tiles to 2 or 4 blocks.
+//   - Weight gradients (wgrad_kernel): A^T B over a slice of rows, both
+//     operands data, so both are split a stage into planes stored transposed.
+//     One tensor-core accumulator over 46,080 rows loses f32 accuracy; the
+//     stage sums keep it.  Each block writes its slice's partial, about 64
+//     slices a reduction so that short series fill the card (wn_fused.py
+//     wgrad_split_rows), and a second pass adds them in a fixed order: no
+//     float atomics, so every run gives the same bits.
+//   - The start's input gradient and g_skip (rowgemm_kernel) stay FP32 FMA:
+//     under 1% of the FLOPs.
+//   A non-finite input is not carried as f32 would carry it (hi = inf gives
+//   lo = NaN): the contract is for finite inputs.
 // Unlike the TPU kernel there is no pad of T to a multiple of 8 (a TPU
 // sublane rule) and no roll: each block reads the rows it needs.
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
+#include <initializer_list>
+
+#include "mma_tf32.cuh"
 
 namespace {
+
+using namespace tf32x3;  // split_tf32, mma_tf32, ldmatrix_x4, cp_async*
 
 constexpr int TR = 64;        // rows per block
 constexpr int RM = 4;         // rows per thread
@@ -72,11 +100,6 @@ constexpr int CP = CMAX / NTX;  // column pairs per thread
 
 constexpr size_t GEMM_SMEM = (TR * AS_STRIDE + KC * WMAX) * sizeof(float);
 constexpr size_t LAYER_SMEM = GEMM_SMEM + TR * SK_STRIDE * sizeof(float);
-
-// Weight-gradient GEMM tiles.
-constexpr int KT = 64;
-constexpr int NT = 64;
-constexpr int RB = 16;
 
 __device__ __forceinline__ float sigmoidf_(float v) { return 1.f / (1.f + expf(-v)); }
 
@@ -303,232 +326,610 @@ wn_layer_fwd_kernel(const float* __restrict__ x, const float* __restrict__ aud_i
 
 // ------------------------------------------------------------ backward ----
 
-// g_rs = [g_audio_{i+1} | g_skip]: 2C deep; g_audio after the last layer is 0.
-struct GrsA {
-  const float* ga_next;
-  const float* gskip;
-  int r0, rows, c;
-  __device__ float operator()(int m, int k) const {
-    const int r = r0 + m;
-    if (r >= rows) return 0.f;
-    if (k < c) return ga_next ? ga_next[static_cast<size_t>(r) * c + k] : 0.f;
-    return gskip[static_cast<size_t>(r) * c + k - c];
-  }
+// ---------------------------------------------------- weight gradients ----
+//
+// P[s][k][n] = sum over the rows r of slice s of A(r, k) B(r, n), on the
+// tensor cores (3xTF32), then out = sum_s P[s] in slice order.  A and B are
+// rows of up to five segments side by side, each a row range of a row-major
+// matrix, shifted by a constant and masked by one test a row:
+//   g_in[i]  (gwi | gwc | gbi):  A = [lo*aud[r-d] | aud[r] | hi*aud[r+d] | x[r] | 1],
+//                                B = g_z[r]
+//   g_rs[i]  (gwr | gbr):        A = [acts[r] | 1],  B = [g_audio_{i+1}[r] | g_skip[r]]
+//   g_start  (gws | gbs):        A = [x[r] | 1],     B = g_audio_0[r]
+
+enum SegKind { kRows = 0, kLo = 1, kHi = 2, kOnes = 3, kZero = 4 };
+
+// Columns [base, base + width) of an operand: src[(r + shift) * ld + j], zero
+// where the row's mask is off (kLo: pos(r) >= d, kHi: pos(r) < T - d); kOnes
+// is a column of ones, kZero a zero block.  vec: 16-byte copies are aligned.
+struct Seg {
+  const float* src;
+  int ld, width, shift, kind, vec;
+};
+constexpr int MAX_SEGS = 5;
+struct Operand {
+  Seg seg[MAX_SEGS];
+  int nseg, cols;
+};
+struct WGrad {
+  Operand a, b;
+  const float* any;  // a valid address for the zero-filling copies
+  int rows, t_len, d, split_rows;
 };
 
-// Layer i, first half: recompute z, then g_acts = g_rs @ w_rs[i]^T, g_z and acts.
-__global__ void __launch_bounds__(NTHREADS, 2)
-wn_layer_gz_kernel(const float* __restrict__ x, const float* __restrict__ aud_i,
-                   const float* __restrict__ w_in_i, const float* __restrict__ w_cond,
-                   const float* __restrict__ b_z_i, const float* __restrict__ w_rs_t_i,
-                   const float* __restrict__ ga_next, const float* __restrict__ gskip,
-                   float* __restrict__ gz, float* __restrict__ acts, int rows, int t_len,
-                   int h, int c, int layer, int n_layers) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int tx = threadIdx.x % NTX;
-  const int ty = threadIdx.x / NTX;
-  const int r0 = blockIdx.x * TR;
-  const int d = 1 << layer;
+constexpr int WG_KT = 64;         // weight-gradient rows a block (the mma's m)
+constexpr int WG_NT = 256;        // weight-gradient columns a block (n)
+constexpr int WG_THREADS = 512;   // 16 warps: 2 (rows) x 8 (columns) of 32 x 32
+constexpr int WG_RB = 32;         // input rows a stage: 4 mma k-steps
+constexpr int WG_AS = WG_KT + 4;  // staged A row stride: float4 reads hit 32 banks
+constexpr int WG_BS = WG_NT + 4;
+constexpr int WG_PS = WG_RB + 4;  // split plane row stride: ldmatrix's 8 rows hit 32 banks
+constexpr size_t WG_SMEM =
+    (2 * WG_RB * (WG_AS + WG_BS) + 2 * (WG_KT + WG_NT) * WG_PS) * sizeof(float);
 
-  int col[2 * CP];
+// Row r's columns [k, k + 4) of an operand into dst (16-byte aligned): one
+// 16-byte cp.async where the four lie in one aligned segment, else one a
+// column; zero past the slice (row_ok false), past the operand, or where the
+// segment's row mask is off.
+__device__ __forceinline__ void stage4(const Operand& op, const float* any, int k, int r,
+                                       bool row_ok, int pos, int d, int t_len, float* dst) {
+  int base = 0;
 #pragma unroll
-  for (int q = 0; q < CP; ++q) {
-    col[q] = tx + NTX * q;
-    col[CP + q] = c + tx + NTX * q;
-  }
-  float zt[RM][2 * CP];  // z, then (tanh, sigmoid) of its halves
-  zero(zt);
-  tile_gemm(zt, col, 3 * c + h, 2 * c, ZA{aud_i, x, r0, rows, t_len, c, h, d},
-            ZW{w_in_i, w_cond, c, 2 * c * n_layers, 2 * c * layer}, smem);
-#pragma unroll
-  for (int m = 0; m < RM; ++m) {
-#pragma unroll
-    for (int q = 0; q < CP; ++q) {
-      const int j = col[q] < c ? col[q] : 0;
-      zt[m][q] = tanhf(zt[m][q] + b_z_i[j]);
-      zt[m][CP + q] = sigmoidf_(zt[m][CP + q] + b_z_i[c + j]);
-    }
-  }
-  int acol[CP];
-#pragma unroll
-  for (int q = 0; q < CP; ++q) acol[q] = tx + NTX * q;
-  float ga[RM][CP];
-  zero(ga);
-  tile_gemm(ga, acol, 2 * c, c, GrsA{ga_next, gskip, r0, rows, c}, RowW{w_rs_t_i, c}, smem);
-#pragma unroll
-  for (int m = 0; m < RM; ++m) {
-    const int r = r0 + ty * RM + m;
-#pragma unroll
-    for (int q = 0; q < CP; ++q) {
-      const int j = acol[q];
-      if (r < rows && j < c) {
-        const float t = zt[m][q];
-        const float s = zt[m][CP + q];
-        const float g = ga[m][q];
-        gz[static_cast<size_t>(r) * 2 * c + j] = g * s * (1.f - t * t);
-        gz[static_cast<size_t>(r) * 2 * c + c + j] = g * t * s * (1.f - s);
-        acts[static_cast<size_t>(r) * c + j] = t * s;
+  for (int s = 0; s < MAX_SEGS; ++s) {
+    if (s < op.nseg) {
+      const Seg& g = op.seg[s];
+      const int lo = max(k, base);
+      const int hi = min(k + 4, base + g.width);
+      if (lo < hi) {
+        const bool ok = row_ok && (g.kind != kLo || pos >= d) && (g.kind != kHi || pos < t_len - d);
+        if (g.kind == kOnes || g.kind == kZero) {
+          for (int j = lo; j < hi; ++j) dst[j - k] = ok && g.kind == kOnes ? 1.f : 0.f;
+        } else {
+          const float* row = ok ? g.src + static_cast<size_t>(r + g.shift) * g.ld : any;
+          if (g.vec && lo == k && hi == k + 4) {
+            cp_async16(dst, ok ? row + (k - base) : any, ok);
+          } else {
+            for (int j = lo; j < hi; ++j) cp_async4(dst + j - k, ok ? row + (j - base) : any, ok);
+          }
+        }
       }
+      base += g.width;
     }
   }
+  for (int j = max(k, base); j < k + 4; ++j) dst[j - k] = 0.f;
 }
 
-// A of the transposed taps: [mask*gz[u+d] | gz[u] | mask*gz[u-d]], 6C deep.
-struct GaA {
-  const float* gz;
-  int r0, rows, t_len, c, d;
-  __device__ float operator()(int m, int k) const {
-    const int u = r0 + m;
-    if (u >= rows) return 0.f;
-    const int tap = k / (2 * c);
-    const int kk = k - tap * 2 * c;
-    int src = u;
-    if (tap == 0) {  // g_z[u+d] fed tap -d: valid iff pos(u+d) >= d
-      src = u + d;
-      if (src >= rows || src % t_len < d) return 0.f;
-    } else if (tap == 2) {  // g_z[u-d] fed tap +d: valid iff pos(u-d) < T-d
-      src = u - d;
-      if (src < 0 || src % t_len >= t_len - d) return 0.f;
-    }
-    return gz[static_cast<size_t>(src) * 2 * c + kk];
-  }
-};
-
-// Layer i, second half.  blockIdx.y == 0: g_audio_i = g_audio_{i+1} +
-// taps^T(g_z), the 6C-deep product with w_in[i]^T as (3*2C, C) rows;
-// blockIdx.y = 1 + j: g_x[:, jCMAX:(j+1)CMAX] += g_z @ w_cond_i^T, 2C deep.
-__global__ void __launch_bounds__(NTHREADS, 2)
-wn_layer_ga_kernel(const float* __restrict__ gz, const float* __restrict__ w_in_t_i,
-                   const float* __restrict__ w_cond_t_i, const float* __restrict__ ga_next,
-                   float* __restrict__ ga_out, float* __restrict__ gx, int rows, int t_len,
-                   int h, int c, int layer, int first) {
+// One block a (64-row, 256-column) tile of P[s] for slice s = blockIdx.z;
+// 16 warps of 32 x 32 (2 x 4 mma tiles); a 128-column tile of 8 warps, two
+// blocks an SM, was 9% slower at the pair shape (PERF.md).  A stage stages WG_RB input rows of
+// the tile's A and B columns (double-buffered cp.async), splits each element
+// once into TF32 hi/lo planes stored transposed (a plane row is a column of
+// the stage, so both mma operands come by ldmatrix), and sums its
+// lo*hi + hi*lo + hi*hi products into zeroed registers that are added to the
+// running sum with one rounded f32 add.
+__global__ void __launch_bounds__(WG_THREADS, 1)
+wgrad_kernel(WGrad p, float* __restrict__ partial) {
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int tx = threadIdx.x % NTX;
-  const int ty = threadIdx.x / NTX;
-  const int r0 = blockIdx.x * TR;
-  int col[CP];
-#pragma unroll
-  for (int q = 0; q < CP; ++q) col[q] = tx + NTX * q;
-  float acc[RM][CP];
-  zero(acc);
-  if (blockIdx.y == 0) {
-    tile_gemm(acc, col, 6 * c, c, GaA{gz, r0, rows, t_len, c, 1 << layer}, RowW{w_in_t_i, c},
-              smem);
-#pragma unroll
-    for (int m = 0; m < RM; ++m) {
-      const int u = r0 + ty * RM + m;
-      if (u >= rows) break;
-#pragma unroll
-      for (int q = 0; q < CP; ++q) {
-        const int n = col[q];
-        if (n >= c) break;
-        const size_t o = static_cast<size_t>(u) * c + n;
-        ga_out[o] = (ga_next ? ga_next[o] : 0.f) + acc[m][q];
-      }
-    }
-    return;
-  }
-  const int n0 = (blockIdx.y - 1) * CMAX;
-  const int nc = min(CMAX, h - n0);
-  tile_gemm(acc, col, 2 * c, nc, RowA{gz, r0, rows, 2 * c}, RowW{w_cond_t_i + n0, h}, smem);
-#pragma unroll
-  for (int m = 0; m < RM; ++m) {
-    const int u = r0 + ty * RM + m;
-    if (u >= rows) break;
-#pragma unroll
-    for (int q = 0; q < CP; ++q) {
-      const int n = col[q];
-      if (n >= nc) break;
-      const size_t o = static_cast<size_t>(u) * h + n0 + n;
-      gx[o] = (first ? 0.f : gx[o]) + acc[m][q];
-    }
-  }
-}
+  float* const raw = reinterpret_cast<float*>(smem4);
+  uint32_t* const ah = reinterpret_cast<uint32_t*>(raw + 2 * WG_RB * (WG_AS + WG_BS));
+  uint32_t* const al = ah + WG_KT * WG_PS;
+  uint32_t* const bh = al + WG_KT * WG_PS;
+  uint32_t* const bl = bh + WG_NT * WG_PS;
+  auto raw_a = [&](int buf) { return raw + buf * WG_RB * (WG_AS + WG_BS); };
+  auto raw_b = [&](int buf) { return raw_a(buf) + WG_RB * WG_AS; };
 
-// Weight gradients: P[s][k][n] = sum over the rows of slice s of A(r, k) B(r, n).
-enum WGradMode { kLayerIn = 0, kLayerRs = 1, kStart = 2 };
-
-struct WGradArgs {
-  int mode;
-  const float* aud_i;
-  const float* x;
-  const float* gz;
-  const float* acts;
-  const float* ga_next;
-  const float* gskip;
-  const float* ga0;
-  int rows, t_len, h, c, d, kdim, ndim, split_rows;
-};
-
-__device__ __forceinline__ float wgrad_a(const WGradArgs& p, int r, int k) {
-  if (p.mode == kLayerIn) {  // [lo*aud[r-d] | aud[r] | hi*aud[r+d] | x[r] | 1]
-    if (k < 3 * p.c) return ZA{p.aud_i, p.x, 0, p.rows, p.t_len, p.c, p.h, p.d}(r, k);
-    if (k < 3 * p.c + p.h) return p.x[static_cast<size_t>(r) * p.h + k - 3 * p.c];
-    return 1.f;
-  }
-  if (p.mode == kLayerRs)  // [acts | 1]
-    return k < p.c ? p.acts[static_cast<size_t>(r) * p.c + k] : 1.f;
-  return k < p.h ? p.x[static_cast<size_t>(r) * p.h + k] : 1.f;  // [x | 1]
-}
-
-__device__ __forceinline__ float wgrad_b(const WGradArgs& p, int r, int n) {
-  if (p.mode == kLayerIn) return p.gz[static_cast<size_t>(r) * 2 * p.c + n];
-  if (p.mode == kLayerRs) return GrsA{p.ga_next, p.gskip, 0, p.rows, p.c}(r, n);
-  return p.ga0[static_cast<size_t>(r) * p.c + n];
-}
-
-__global__ void __launch_bounds__(NTHREADS)
-wgrad_partial_kernel(WGradArgs p, float* __restrict__ partial) {
-  __shared__ float as[RB][KT];
-  __shared__ float bs[RB][NT];
   const int tid = threadIdx.x;
-  const int tk = tid / NTX;  // 16 x 4 rows of k
-  const int tn = tid % NTX;  // 16 x 4 columns of n, strided
-  const int k0 = blockIdx.x * KT;
-  const int n0 = blockIdx.y * NT;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int k0 = blockIdx.x * WG_KT;
+  const int n0 = blockIdx.y * WG_NT;
   const int rs = blockIdx.z * p.split_rows;
   const int re = min(rs + p.split_rows, p.rows);
-  float acc[4][4];
-  zero(acc);
-  for (int rb = rs; rb < re; rb += RB) {
-    __syncthreads();
-    for (int i = tid; i < RB * KT; i += NTHREADS) {
-      const int rr = i / KT;
-      const int kk = i - rr * KT;
+  const int n_stages = (re - rs + WG_RB - 1) / WG_RB;
+  const int wm0 = (warp & 1) * 32;
+  const int wn0 = (warp >> 1) * 32;
+  // mma tiles past the operands' columns are not issued (warp-uniform)
+  const int m_live = min(2, max(0, (p.a.cols - k0 - wm0 + 15) / 16));
+  const int n_live = min(4, max(0, (p.b.cols - n0 - wn0 + 7) / 8));
+
+  auto load = [&](int s, int buf) {
+    const int rb = rs + s * WG_RB;
+#pragma unroll
+    for (int i = 0; i < WG_RB * WG_KT / 4 / WG_THREADS; ++i) {
+      const int e = tid + i * WG_THREADS;
+      const int rr = e / (WG_KT / 4);
+      const int g = e % (WG_KT / 4);
       const int r = rb + rr;
-      as[rr][kk] = (r < re && k0 + kk < p.kdim) ? wgrad_a(p, r, k0 + kk) : 0.f;
+      const bool ok = r < re;
+      stage4(p.a, p.any, k0 + 4 * g, r, ok, ok ? r % p.t_len : 0, p.d, p.t_len,
+             raw_a(buf) + rr * WG_AS + 4 * g);
     }
-    for (int i = tid; i < RB * NT; i += NTHREADS) {
-      const int rr = i / NT;
-      const int nn = i - rr * NT;
+#pragma unroll
+    for (int i = 0; i < WG_RB * WG_NT / 4 / WG_THREADS; ++i) {
+      const int e = tid + i * WG_THREADS;
+      const int rr = e / (WG_NT / 4);
+      const int g = e % (WG_NT / 4);
       const int r = rb + rr;
-      bs[rr][nn] = (r < re && n0 + nn < p.ndim) ? wgrad_b(p, r, n0 + nn) : 0.f;
+      stage4(p.b, p.any, n0 + 4 * g, r, r < re, 0, p.d, p.t_len, raw_b(buf) + rr * WG_BS + 4 * g);
     }
-    __syncthreads();
-#pragma unroll 4
-    for (int rr = 0; rr < RB; ++rr) {
-      float a[4], b[4];
+  };
+  // staged (row, column) -> planes (column, row); lanes take neighbouring
+  // rows: float4 reads at a stride of 4 mod 32 words, 32-word stores
+  auto split = [&](const float* src, int stride, int cols, uint32_t* hi, uint32_t* lo) {
+    for (int e = tid; e < WG_RB * cols / 4; e += WG_THREADS) {
+      const int r = e % WG_RB;
+      const int c = (e / WG_RB) * 4;
+      const float4 v = *reinterpret_cast<const float4*>(src + r * stride + c);
+      split_tf32(v.x, hi[c * WG_PS + r], lo[c * WG_PS + r]);
+      split_tf32(v.y, hi[(c + 1) * WG_PS + r], lo[(c + 1) * WG_PS + r]);
+      split_tf32(v.z, hi[(c + 2) * WG_PS + r], lo[(c + 2) * WG_PS + r]);
+      split_tf32(v.w, hi[(c + 3) * WG_PS + r], lo[(c + 3) * WG_PS + r]);
+    }
+  };
+
+  float acc[2][4][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = as[rr][tk * 4 + i];
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = bs[rr][tn + NTX * j];
+    for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+  // ldmatrix rows of this lane: A rows of an m16 tile, B rows of two n8 tiles
+  const int a_row = wm0 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int a_col = (lane >> 4) * 4;
+  const int b_row = wn0 + (lane >> 4) * 8 + (lane & 7);
+  const int b_col = ((lane >> 3) & 1) * 4;
+
+  if (n_stages > 0) {
+    load(0, 0);
+    cp_async_commit();
+  }
+  for (int s = 0; s < n_stages; ++s) {
+    cp_async_wait_all();
+    __syncthreads();  // stage s landed; every warp is done with the planes of stage s-1
+    if (s + 1 < n_stages) {
+      load(s + 1, (s + 1) & 1);
+      cp_async_commit();
+    }
+    split(raw_a(s & 1), WG_AS, WG_KT, ah, al);
+    split(raw_b(s & 1), WG_BS, WG_NT, bh, bl);
+    __syncthreads();  // the planes of stage s are written
+
+    float part[2][4][4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) part[mt][nt][i] = 0.f;
+#pragma unroll
+    for (int kb = 0; kb < WG_RB / 8; ++kb) {
+      uint32_t fah[2][4], fal[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        if (mt < m_live) {
+          const int i = (a_row + mt * 16) * WG_PS + kb * 8 + a_col;
+          ldmatrix_x4(fah[mt], ah + i);
+          ldmatrix_x4(fal[mt], al + i);
+        }
+      }
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {  // n8 tiles 2np and 2np + 1
+        if (2 * np < n_live) {
+          const int i = (b_row + np * 16) * WG_PS + kb * 8 + b_col;
+          uint32_t fbh[4], fbl[4];
+          ldmatrix_x4(fbh, bh + i);
+          ldmatrix_x4(fbl, bl + i);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            if (mt < m_live) {
+              mma_tf32(part[mt][2 * np], fal[mt], fbh[0], fbh[1]);
+              mma_tf32(part[mt][2 * np], fah[mt], fbl[0], fbl[1]);
+              mma_tf32(part[mt][2 * np], fah[mt], fbh[0], fbh[1]);
+              if (2 * np + 1 < n_live) {
+                mma_tf32(part[mt][2 * np + 1], fal[mt], fbh[2], fbh[3]);
+                mma_tf32(part[mt][2 * np + 1], fah[mt], fbl[2], fbl[3]);
+                mma_tf32(part[mt][2 * np + 1], fah[mt], fbh[2], fbh[3]);
+              }
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mt][nt][i] += part[mt][nt][i];
+  }
+
+  float* out = partial + static_cast<size_t>(blockIdx.z) * p.a.cols * p.b.cols;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int k = k0 + wm0 + mt * 16 + gid + half * 8;
+      if (k >= p.a.cols) continue;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int n = n0 + wn0 + nt * 8 + 2 * tig + q;
+          if (n < p.b.cols) out[static_cast<size_t>(k) * p.b.cols + n] = acc[mt][nt][half * 2 + q];
+        }
+      }
     }
   }
-  float* out = partial + static_cast<size_t>(blockIdx.z) * p.kdim * p.ndim;
+}
+
+// A segment of rows of a row-major (rows, ld) matrix (a zero block where
+// src is null), and a column of ones.
+inline Seg rows_of(const float* src, int ld, int shift = 0, int kind = kRows) {
+  return Seg{src, ld, ld, shift, src ? kind : kZero, 0};
+}
+inline Seg ones() { return Seg{nullptr, 0, 1, 0, kOnes, 0}; }
+
+// The segments side by side.
+inline Operand operand(std::initializer_list<Seg> segs) {
+  Operand op{};
+  for (Seg g : segs) {
+    g.vec = g.kind <= kHi && g.ld % 4 == 0 && op.cols % 4 == 0 &&
+            reinterpret_cast<uintptr_t>(g.src) % 16 == 0;
+    op.seg[op.nseg++] = g;
+    op.cols += g.width;
+  }
+  return op;
+}
+
+// ---------------------------------------------------- row-tile products ----
+//
+// Y[r, n] = sum_k A(r, k) W(k, n) over a tile of RT_M rows, on the tensor
+// cores (3xTF32), for the layer's other products: z over [lo*aud[r-d] |
+// aud[r] | hi*aud[r+d] | x[r]], g_acts over [g_audio_{i+1} | g_skip], the
+// transposed taps over [g_z[u+d] | g_z[u] | g_z[u-d]], and g_x over g_z.  The
+// weights are split once a call (wsplit_kernel) into TF32 hi/lo planes laid
+// out (output column n, reduction k), so a stage copies its RT_KS columns of
+// the planes as they are (16-byte cp.async, double-buffered) and B
+// fragments load by ldmatrix.  A stage stages RT_KS columns of A as the
+// weight gradients do (segments of shifted row ranges, one mask a row) and
+// splits each element once in place; each stage is summed into zeroed
+// registers.  A warp owns one m16 row tile and up to RT_NQ column units: a
+// gate pair of n8 tiles (z columns j and C + j, at plane rows j and Cp + j
+// with C padded to Cp = a multiple of 8, so tanh and sigmoid of one z meet in
+// one thread) or one n8 tile.  On short series the units are dealt over
+// blockIdx.y as well, so that the grid fills the card.
+
+constexpr int RT_M = 64;             // rows a block: 4 m16 tiles
+constexpr int RT_THREADS = 512;      // 16 warps: 4 m16 tiles x 4 unit slots
+constexpr int RT_KS = 32;            // reduction columns a stage: 4 mma k-steps
+constexpr int RT_NQ = 4;             // column units a warp
+constexpr int RT_NMAX = 2 * CMAX;    // most plane rows a stage: the padded z columns
+constexpr int RT_AS = RT_KS + 4;     // row stride of every staged tile: ldmatrix's 8 rows hit 32 banks
+constexpr size_t RT_SMEM =
+    (2 * RT_M * RT_AS + 2 * RT_M * RT_AS + 2 * 2 * RT_NMAX * RT_AS) * sizeof(float);
+
+__host__ __device__ inline int round8(int v) { return (v + 7) / 8 * 8; }
+__host__ __device__ inline int round_ks(int v) { return (v + RT_KS - 1) / RT_KS * RT_KS; }
+
+// The split weights of one layer in the caller's scratch: per matrix a hi
+// plane then a lo plane, each (rows, k_pad) words, k_pad a whole number of
+// stages: z (2Cp, 3C+H), g_acts (Cp, 2C), the transposed taps (Cp, 6C), the
+// cond input gradient (Hp, 2C); wn_bwd_wsplit_words gives the caller the size.
+struct WPlanes {
+  int cp, hp, kz, kg, kt, kc;
+  size_t z, g, t, x, layer;  // word offsets in a layer's block, and its size
+};
+__host__ __device__ inline WPlanes wplanes(int c, int h) {
+  WPlanes p;
+  p.cp = round8(c);
+  p.hp = round8(h);
+  p.kz = round_ks(3 * c + h);
+  p.kg = p.kc = round_ks(2 * c);
+  p.kt = round_ks(6 * c);
+  p.z = 0;
+  p.g = p.z + 2 * static_cast<size_t>(2 * p.cp) * p.kz;
+  p.t = p.g + 2 * static_cast<size_t>(p.cp) * p.kg;
+  p.x = p.t + 2 * static_cast<size_t>(p.cp) * p.kt;
+  p.layer = p.x + 2 * static_cast<size_t>(p.hp) * p.kc;
+  return p;
+}
+
+// Splits W(k, n) of every layer (blockIdx.z) and matrix (blockIdx.y: z,
+// g_acts, the transposed taps, the cond input gradient) into its planes,
+// one block a plane row n (blockIdx.x), zero past W and in the padding:
+//   z:      W(k, col) = [w_in[i] (3C, 2C); w_cond[:, 2Ci:2C(i+1)] (H, 2C)],
+//           plane row n < Cp is column n, row Cp + j is column C + j
+//   g_acts: W(k, n) = w_rs[i][n][k]
+//   taps:   W(k, n) = w_in[i][k / 2C][n][k % 2C]  (w_in[i]^T as (3*2C, C))
+//   g_x:    W(k, n) = w_cond[n][2Ci + k]
+__global__ void __launch_bounds__(NTHREADS)
+wsplit_kernel(const float* __restrict__ w_in, const float* __restrict__ w_cond,
+              const float* __restrict__ w_rs, uint32_t* __restrict__ out, int c, int h,
+              int n_layers) {
+  const int i = blockIdx.z;
+  const int m = blockIdx.y;
+  const int n = blockIdx.x;
+  const WPlanes P = wplanes(c, h);
+  const int rows_m = m == 0 ? 2 * P.cp : m == 3 ? P.hp : P.cp;
+  if (n >= rows_m) return;
+  const int k_pad = m == 0 ? P.kz : m == 1 ? P.kg : m == 2 ? P.kt : P.kc;
+  const size_t off = m == 0 ? P.z : m == 1 ? P.g : m == 2 ? P.t : P.x;
+  uint32_t* hi = out + i * P.layer + off + static_cast<size_t>(n) * k_pad;
+  uint32_t* lo = hi + static_cast<size_t>(rows_m) * k_pad;
+  const int col = n < P.cp ? (n < c ? n : -1) : (n - P.cp < c ? c + n - P.cp : -1);
+  const size_t ldc = static_cast<size_t>(2 * c) * n_layers;
+  for (int k = threadIdx.x; k < k_pad; k += NTHREADS) {
+    float v = 0.f;
+    if (m == 0) {
+      if (col >= 0 && k < 3 * c) v = w_in[(static_cast<size_t>(i) * 3 * c + k) * 2 * c + col];
+      else if (col >= 0 && k < 3 * c + h) v = w_cond[(k - 3 * c) * ldc + 2 * c * i + col];
+    } else if (m == 1) {
+      if (n < c && k < 2 * c) v = w_rs[(static_cast<size_t>(i) * c + n) * 2 * c + k];
+    } else if (m == 2) {
+      if (n < c && k < 6 * c)
+        v = w_in[((static_cast<size_t>(i) * 3 + k / (2 * c)) * c + n) * 2 * c + k % (2 * c)];
+    } else if (n < h && k < 2 * c) {
+      v = w_cond[n * ldc + 2 * c * i + k];
+    }
+    split_tf32(v, hi[k], lo[k]);
+  }
+}
+
+// acc[j][t] += A(tile rows, :k_dim) @ W(:k_dim, n8 tile tiles[j][t]) for the
+// units j < nu of this warp.  W is its split planes: w_hi (row n at
+// w_hi + n * k_pad, the lo plane w_lo), of which the stage copies rows
+// [0, w_rows).
+template <int NTU>
+__device__ __forceinline__ void rt_phase(float (&acc)[RT_NQ][NTU][4], const Operand& a,
+                                         const uint32_t* w_hi, const uint32_t* w_lo, int k_pad,
+                                         int w_rows, int k_dim, int r0, int rows, int t_len, int d,
+                                         const float* any, const int (&tiles)[RT_NQ][NTU], int nu,
+                                         float* smem) {
+  float* const raw_a = smem;  // 2 x [RT_M][RT_AS]
+  uint32_t* const ah = reinterpret_cast<uint32_t*>(raw_a + 2 * RT_M * RT_AS);
+  uint32_t* const al = ah + RT_M * RT_AS;
+  uint32_t* const wbuf = al + RT_M * RT_AS;  // 2 x {hi, lo} x [RT_NMAX][RT_AS]
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int n_stages = (k_dim + RT_KS - 1) / RT_KS;
+
+  auto load = [&](int s, int buf) {
+    const int k0 = s * RT_KS;
+    {  // A: RT_M rows x RT_KS columns, one 4-column group a thread
+      const int rr = tid / (RT_KS / 4);
+      const int g = tid % (RT_KS / 4);
+      const int r = r0 + rr;
+      const bool ok = r < rows;
+      stage4(a, any, k0 + 4 * g, r, ok, ok ? r % t_len : 0, d, t_len,
+             raw_a + buf * RT_M * RT_AS + rr * RT_AS + 4 * g);
+    }
+    uint32_t* wb = wbuf + buf * 2 * RT_NMAX * RT_AS;
+    for (int e = tid; e < 2 * w_rows * (RT_KS / 4); e += RT_THREADS) {  // W: 16-byte chunks
+      const int q = e % (RT_KS / 4);
+      const int n = (e / (RT_KS / 4)) % w_rows;
+      const int p = e / (RT_KS / 4) / w_rows;
+      const uint32_t* src = (p ? w_lo : w_hi) + static_cast<size_t>(n) * k_pad + k0 + 4 * q;
+      cp_async16(wb + (p * RT_NMAX + n) * RT_AS + 4 * q, src, true);
+    }
+  };
+
+  // ldmatrix rows of this lane: A rows of the warp's m16 tile; for B, lanes
+  // 0-15 read the hi plane and 16-31 the lo plane of one n8 tile
+  const int a_row = (warp & 3) * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int a_col = (lane >> 4) * 4;
+  const int b_off = ((lane >> 4) * RT_NMAX + (lane & 7)) * RT_AS + ((lane >> 3) & 1) * 4;
+
+  // every warp is done with an earlier phase of the block: its last stage
+  // may have read buffer 0, which the first load below overwrites
+  __syncthreads();
+  if (n_stages > 0) {
+    load(0, 0);
+    cp_async_commit();
+  }
+  for (int s = 0; s < n_stages; ++s) {
+    cp_async_wait_all();
+    __syncthreads();  // stage s landed; every warp is done with stage s-1
+    if (s + 1 < n_stages) {
+      load(s + 1, (s + 1) & 1);
+      cp_async_commit();
+    }
+    const float* xa = raw_a + (s & 1) * RT_M * RT_AS;
+    for (int e = tid; e < RT_M * RT_KS; e += RT_THREADS) {
+      const int i = (e / RT_KS) * RT_AS + e % RT_KS;
+      split_tf32(xa[i], ah[i], al[i]);
+    }
+    __syncthreads();  // the A planes of stage s are written
+    const uint32_t* wb = wbuf + (s & 1) * 2 * RT_NMAX * RT_AS + b_off;
+
+    float part[RT_NQ][NTU][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = k0 + tk * 4 + i;
-    if (k >= p.kdim) break;
+    for (int j = 0; j < RT_NQ; ++j)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tn + NTX * j;
-      if (n < p.ndim) out[static_cast<size_t>(k) * p.ndim + n] = acc[i][j];
+      for (int t = 0; t < NTU; ++t)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) part[j][t][i] = 0.f;
+#pragma unroll
+    for (int kb = 0; kb < RT_KS / 8; ++kb) {
+      uint32_t fah[4], fal[4];
+      ldmatrix_x4(fah, ah + a_row * RT_AS + kb * 8 + a_col);
+      ldmatrix_x4(fal, al + a_row * RT_AS + kb * 8 + a_col);
+#pragma unroll
+      for (int j = 0; j < RT_NQ; ++j) {
+        if (j < nu) {
+#pragma unroll
+          for (int t = 0; t < NTU; ++t) {
+            uint32_t fb[4];  // hi k 0-3, hi k 4-7, lo k 0-3, lo k 4-7
+            ldmatrix_x4(fb, wb + tiles[j][t] * 8 * RT_AS + kb * 8);
+            mma_tf32(part[j][t], fal, fb[0], fb[1]);
+            mma_tf32(part[j][t], fah, fb[2], fb[3]);
+            mma_tf32(part[j][t], fah, fb[0], fb[1]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < RT_NQ; ++j)
+#pragma unroll
+      for (int t = 0; t < NTU; ++t)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[j][t][i] += part[j][t][i];
+  }
+}
+
+// A row and column of this lane's element i of an m16n8 C fragment of the
+// warp's m16 tile (column within the n8 tile).
+__device__ __forceinline__ int frag_row(int i) {
+  return ((threadIdx.x >> 5) & 3) * 16 + ((threadIdx.x & 31) >> 2) + (i >> 1) * 8;
+}
+__device__ __forceinline__ int frag_col(int i) { return (threadIdx.x & 3) * 2 + (i & 1); }
+
+// The n8 tiles (or gate pairs) of this warp: unit p = slot + 4j of the
+// block's share is unit y + ny*p of the whole; returns how many exist.
+__device__ __forceinline__ int rt_units(int y, int ny, int n_units, int (&unit)[RT_NQ]) {
+  const int slot = threadIdx.x >> 7;
+  int nu = 0;
+#pragma unroll
+  for (int j = 0; j < RT_NQ; ++j) {
+    unit[j] = y + ny * (slot + 4 * j);
+    if (unit[j] < n_units) nu = j + 1;
+  }
+  return nu;
+}
+
+// Layer i, first half: z = [taps of aud | x] @ [w_in[i]; w_cond_i], g_acts =
+// [g_audio_{i+1} | g_skip] @ w_rs[i]^T, then g_z and acts.  blockIdx.y deals
+// the gate pairs over gridDim.y blocks.
+struct GzArgs {
+  Operand a_z, a_grs;
+  const uint32_t* planes;  // the layer's split weights (WPlanes)
+  const float* b_z;
+  float* gz;
+  float* acts;
+  int rows, t_len, h, c, d;
+};
+
+__global__ void __launch_bounds__(RT_THREADS, 1) wn_layer_gz_kernel(GzArgs p) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int r0 = blockIdx.x * RT_M;
+  const int c = p.c;
+  const WPlanes P = wplanes(c, p.h);
+  int unit[RT_NQ];
+  const int nu = rt_units(blockIdx.y, gridDim.y, P.cp / 8, unit);
+  int pair[RT_NQ][2], one[RT_NQ][1];
+#pragma unroll
+  for (int j = 0; j < RT_NQ; ++j) {
+    pair[j][0] = one[j][0] = unit[j];
+    pair[j][1] = unit[j] + P.cp / 8;
+  }
+  float t_[RT_NQ][4], s_[RT_NQ][4];  // tanh and sigmoid of the z pairs
+  {
+    float z[RT_NQ][2][4];
+#pragma unroll
+    for (int j = 0; j < RT_NQ; ++j)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) z[j][i >> 2][i & 3] = 0.f;
+    const uint32_t* wz = p.planes + P.z;
+    rt_phase(z, p.a_z, wz, wz + static_cast<size_t>(2 * P.cp) * P.kz, P.kz, 2 * P.cp, p.a_z.cols,
+             r0, p.rows, p.t_len, p.d, p.gz, pair, nu, smem);
+#pragma unroll
+    for (int j = 0; j < RT_NQ; ++j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = min(unit[j] * 8 + frag_col(i), c - 1);
+        t_[j][i] = tanhf(z[j][0][i] + p.b_z[col]);
+        s_[j][i] = sigmoidf_(z[j][1][i] + p.b_z[c + col]);
+      }
+    }
+  }
+  float g[RT_NQ][1][4];
+#pragma unroll
+  for (int j = 0; j < RT_NQ; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) g[j][0][i] = 0.f;
+  const uint32_t* wg = p.planes + P.g;
+  rt_phase(g, p.a_grs, wg, wg + static_cast<size_t>(P.cp) * P.kg, P.kg, P.cp, 2 * c, r0, p.rows,
+           p.t_len, p.d, p.gz, one, nu, smem);
+#pragma unroll
+  for (int j = 0; j < RT_NQ; ++j) {
+    if (j >= nu) continue;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = r0 + frag_row(i);
+      const int col = unit[j] * 8 + frag_col(i);
+      if (r < p.rows && col < c) {
+        const float t = t_[j][i];
+        const float s = s_[j][i];
+        p.gz[static_cast<size_t>(r) * 2 * c + col] = g[j][0][i] * s * (1.f - t * t);
+        p.gz[static_cast<size_t>(r) * 2 * c + c + col] = g[j][0][i] * t * s * (1.f - s);
+        p.acts[static_cast<size_t>(r) * c + col] = t * s;
+      }
+    }
+  }
+}
+
+// Layer i, second half.  Part blockIdx.y / ny == 0: g_audio_i = g_audio_{i+1}
+// + [g_z[u+d] | g_z[u] | g_z[u-d]] @ w_in[i]^T as (3*2C, C), each tap masked
+// at its source row: g_z[u+d] is live iff pos(u+d) >= d, which is pos(u) <
+// T - d, and g_z[u-d] iff pos(u-d) < T - d, which is pos(u) >= d.  Part 1 +
+// j: g_x[:, jCMAX:(j+1)CMAX] += g_z @ w_cond_i^T, 2C deep.  blockIdx.y % ny
+// deals the n8 tiles.
+struct GaArgs {
+  Operand a_taps, a_gz;
+  const uint32_t* planes;  // the layer's split weights (WPlanes)
+  const float* ga_next;
+  float* ga_out;
+  float* gx;
+  int rows, t_len, h, c, d, first, ny;
+};
+
+__global__ void __launch_bounds__(RT_THREADS, 1) wn_layer_ga_kernel(GaArgs p) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int r0 = blockIdx.x * RT_M;
+  const WPlanes P = wplanes(p.c, p.h);
+  const int part = blockIdx.y / p.ny;
+  const int n0 = (part - 1) * CMAX;
+  const int nc = part == 0 ? p.c : min(CMAX, p.h - n0);
+  int unit[RT_NQ], tile[RT_NQ][1];
+  const int nu = rt_units(blockIdx.y % p.ny, p.ny, (nc + 7) / 8, unit);
+#pragma unroll
+  for (int j = 0; j < RT_NQ; ++j) tile[j][0] = unit[j];
+  float acc[RT_NQ][1][4];
+#pragma unroll
+  for (int j = 0; j < RT_NQ; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][0][i] = 0.f;
+  const float* any = p.a_gz.seg[0].src;
+  if (part == 0) {
+    const uint32_t* wt = p.planes + P.t;
+    rt_phase(acc, p.a_taps, wt, wt + static_cast<size_t>(P.cp) * P.kt, P.kt, P.cp, 6 * p.c, r0,
+             p.rows, p.t_len, p.d, any, tile, nu, smem);
+  } else {
+    const uint32_t* wx = p.planes + P.x;
+    rt_phase(acc, p.a_gz, wx + static_cast<size_t>(n0) * P.kc,
+             wx + static_cast<size_t>(P.hp + n0) * P.kc, P.kc, round8(nc), 2 * p.c, r0, p.rows,
+             p.t_len, p.d, any, tile, nu, smem);
+  }
+#pragma unroll
+  for (int j = 0; j < RT_NQ; ++j) {
+    if (j >= nu) continue;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int u = r0 + frag_row(i);
+      const int n = tile[j][0] * 8 + frag_col(i);
+      if (u >= p.rows || n >= nc) continue;
+      if (part == 0) {
+        const size_t o = static_cast<size_t>(u) * p.c + n;
+        p.ga_out[o] = (p.ga_next ? p.ga_next[o] : 0.f) + acc[j][0][i];
+      } else {
+        const size_t o = static_cast<size_t>(u) * p.h + n0 + n;
+        p.gx[o] = (p.first ? 0.f : p.gx[o]) + acc[j][0][i];
+      }
     }
   }
 }
@@ -565,16 +966,32 @@ cudaError_t rowgemm(const float* a, const float* w, const float* bias, float* ou
   return cudaGetLastError();
 }
 
-cudaError_t wgrad(const WGradArgs& p, float* partial, float* out, cudaStream_t stream) {
+cudaError_t wgrad(const WGrad& p, float* partial, float* out, cudaStream_t stream) {
   const int nsplit = (p.rows + p.split_rows - 1) / p.split_rows;
-  const dim3 grid((p.kdim + KT - 1) / KT, (p.ndim + NT - 1) / NT, nsplit);
-  wgrad_partial_kernel<<<grid, NTHREADS, 0, stream>>>(p, partial);
+  const dim3 grid((p.a.cols + WG_KT - 1) / WG_KT, (p.b.cols + WG_NT - 1) / WG_NT, nsplit);
+  wgrad_kernel<<<grid, WG_THREADS, WG_SMEM, stream>>>(p, partial);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  const int count = p.kdim * p.ndim;
+  const int count = p.a.cols * p.b.cols;
   const int blocks = (count + NTHREADS - 1) / NTHREADS;
   reduce_partials_kernel<<<blocks, NTHREADS, 0, stream>>>(partial, nsplit, count, out);
   return cudaGetLastError();
+}
+
+// The current device's SM count, read once a device.
+cudaError_t current_sms(int& sms) {
+  constexpr int kMaxDevices = 64;
+  static int cached[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < kMaxDevices && cached[dev] > 0) {
+    sms = cached[dev];
+    return cudaSuccess;
+  }
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess && dev < kMaxDevices) cached[dev] = sms;
+  return e;
 }
 
 // The geometry the kernels take; wn_fused.py check_geometry states the same.
@@ -616,60 +1033,86 @@ extern "C" int wn_fwd(const float* x, const float* w_start, const float* b_start
   return cudaSuccess;
 }
 
+// 32-bit words of wn_bwd's wsplit scratch: the split weights of every layer.
+extern "C" size_t wn_bwd_wsplit_words(int c, int h, int n_layers) {
+  return static_cast<size_t>(n_layers) * wplanes(c, h).layer;
+}
+
 // Backward of one WN from g = dL/dy (R, 2H).  Outputs: gx (R, H);
 // g_in (L, 3C+H+1, 2C) = per layer [gwi (3C rows) | gwc slice (H rows) | gbi];
 // g_rs (L, C+1, 2C) = per layer [gwr | gbr]; g_start (H+1, C) = [gws | gbs].
-// Transposed weights: w_in_t (L, 3, 2C, C), w_rs_t (L, 2C, C), w_cond_t
-// (L, 2C, H), w_start_t (C, H), w_end_t (2H, C).  Scratch: ga (2, R, C),
-// gskip (R, C), gz (R, 2C), acts (R, C), partial (ceil(R/split_rows) *
-// (3C+H+1) * 2C).  4 + 6L kernel launches.
+// Transposed weights: w_start_t (C, H), w_end_t (2H, C).  Scratch: ga (2, R,
+// C), gskip (R, C), gz (R, 2C), acts (R, C), partial (ceil(R/split_rows) *
+// (3C+H+1) * 2C), wsplit (wn_bwd_wsplit_words).  5 + 6L kernel launches.
 extern "C" int wn_bwd(const float* x, const float* g, const float* aud, const float* w_cond,
-                      const float* w_in, const float* b_z, const float* w_in_t,
-                      const float* w_rs_t, const float* w_cond_t, const float* w_start_t,
-                      const float* w_end_t, float* gx, float* g_in, float* g_rs,
-                      float* g_start, float* ga, float* gskip, float* gz, float* acts,
-                      float* partial, int rows, int t_len, int h, int c, int n_layers,
-                      int split_rows, void* stream_ptr) {
-  if (bad_geometry(rows, t_len, h, c, n_layers) || split_rows < RB || split_rows % RB)
+                      const float* w_in, const float* b_z, const float* w_rs,
+                      const float* w_start_t, const float* w_end_t, float* gx, float* g_in,
+                      float* g_rs, float* g_start, float* ga, float* gskip, float* gz,
+                      float* acts, float* partial, void* wsplit, int rows, int t_len, int h,
+                      int c, int n_layers, int split_rows, void* stream_ptr) {
+  if (bad_geometry(rows, t_len, h, c, n_layers) || split_rows < WG_RB || split_rows % WG_RB)
     return cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  cudaError_t e = rowgemm(g, w_end_t, nullptr, gskip, rows, 2 * h, c, 0, stream);
+  const WPlanes P = wplanes(c, h);
+  uint32_t* planes = static_cast<uint32_t*>(wsplit);
+  wsplit_kernel<<<dim3(max(2 * P.cp, P.hp), 4, n_layers), NTHREADS, 0, stream>>>(
+      w_in, w_cond, w_rs, planes, c, h, n_layers);
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  e = allow_smem(wn_layer_gz_kernel, GEMM_SMEM);
+  e = rowgemm(g, w_end_t, nullptr, gskip, rows, 2 * h, c, 0, stream);
   if (e != cudaSuccess) return e;
-  e = allow_smem(wn_layer_ga_kernel, GEMM_SMEM);
+  e = allow_smem(wn_layer_gz_kernel, RT_SMEM);
   if (e != cudaSuccess) return e;
+  e = allow_smem(wn_layer_ga_kernel, RT_SMEM);
+  if (e != cudaSuccess) return e;
+  e = allow_smem(wgrad_kernel, WG_SMEM);
+  if (e != cudaSuccess) return e;
+  int sms = 0;
+  e = current_sms(sms);
+  if (e != cudaSuccess) return e;
+  // row tiles, and the share of column units a block takes: 1, 2 or 4
+  // blocks a tile, so that short series still give the card a block an SM
+  const int rt = (rows + RT_M - 1) / RT_M;
+  int ny = 1;
+  while (ny < 4 && rt * ny < sms) ny *= 2;
   const size_t rc = static_cast<size_t>(rows) * c;
   const int k_in = 3 * c + h + 1;
   const float* ga_next = nullptr;
   for (int i = n_layers - 1; i >= 0; --i) {
+    const int d = 1 << i;
     const float* aud_i = aud + i * rc;
     float* ga_out = ga + (i % 2) * rc;
-    wn_layer_gz_kernel<<<tiles(rows), NTHREADS, GEMM_SMEM, stream>>>(
-        x, aud_i, w_in + static_cast<size_t>(i) * 3 * c * 2 * c, w_cond,
-        b_z + static_cast<size_t>(i) * 2 * c, w_rs_t + static_cast<size_t>(i) * 2 * c * c,
-        ga_next, gskip, gz, acts, rows, t_len, h, c, i, n_layers);
+    const uint32_t* planes_i = planes + i * P.layer;
+    const GzArgs gzp{
+        operand({rows_of(aud_i, c, -d, kLo), rows_of(aud_i, c), rows_of(aud_i, c, d, kHi),
+                 rows_of(x, h)}),
+        operand({rows_of(ga_next, c), rows_of(gskip, c)}), planes_i,
+        b_z + static_cast<size_t>(i) * 2 * c, gz, acts, rows, t_len, h, c, d};
+    wn_layer_gz_kernel<<<dim3(rt, ny), RT_THREADS, RT_SMEM, stream>>>(gzp);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
-    WGradArgs p{kLayerRs, aud_i, x, gz, acts, ga_next, gskip, nullptr,
-                rows, t_len, h, c, 1 << i, c + 1, 2 * c, split_rows};
-    e = wgrad(p, partial, g_rs + static_cast<size_t>(i) * (c + 1) * 2 * c, stream);
+    const WGrad rs{operand({rows_of(acts, c), ones()}),
+                   operand({rows_of(ga_next, c), rows_of(gskip, c)}), x, rows, t_len, d,
+                   split_rows};
+    e = wgrad(rs, partial, g_rs + static_cast<size_t>(i) * (c + 1) * 2 * c, stream);
     if (e != cudaSuccess) return e;
-    p.mode = kLayerIn;
-    p.kdim = k_in;
-    e = wgrad(p, partial, g_in + static_cast<size_t>(i) * k_in * 2 * c, stream);
+    const WGrad in{operand({rows_of(aud_i, c, -d, kLo), rows_of(aud_i, c), rows_of(aud_i, c, d, kHi),
+                            rows_of(x, h), ones()}),
+                   operand({rows_of(gz, 2 * c)}), x, rows, t_len, d, split_rows};
+    e = wgrad(in, partial, g_in + static_cast<size_t>(i) * k_in * 2 * c, stream);
     if (e != cudaSuccess) return e;
-    wn_layer_ga_kernel<<<dim3(tiles(rows), 1 + col_chunks(h)), NTHREADS, GEMM_SMEM, stream>>>(
-        gz, w_in_t + static_cast<size_t>(i) * 3 * 2 * c * c,
-        w_cond_t + static_cast<size_t>(i) * 2 * c * h, ga_next, ga_out, gx, rows, t_len, h, c,
-        i, i == n_layers - 1);
+    const GaArgs gap{
+        operand({rows_of(gz, 2 * c, d, kHi), rows_of(gz, 2 * c), rows_of(gz, 2 * c, -d, kLo)}),
+        operand({rows_of(gz, 2 * c)}), planes_i, ga_next, ga_out, gx, rows, t_len, h, c, d,
+        i == n_layers - 1, ny};
+    wn_layer_ga_kernel<<<dim3(rt, (1 + col_chunks(h)) * ny), RT_THREADS, RT_SMEM, stream>>>(gap);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
     ga_next = ga_out;
   }
-  WGradArgs p{kStart, nullptr, x, nullptr, nullptr, nullptr, nullptr, ga_next,
-              rows, t_len, h, c, 1, h + 1, c, split_rows};
-  e = wgrad(p, partial, g_start, stream);
+  const WGrad st{operand({rows_of(x, h), ones()}), operand({rows_of(ga_next, c)}), x, rows,
+                 t_len, 1, split_rows};
+  e = wgrad(st, partial, g_start, stream);
   if (e != cudaSuccess) return e;
   return rowgemm(ga_next, w_start_t, nullptr, gx, rows, c, h, 1, stream);
 }

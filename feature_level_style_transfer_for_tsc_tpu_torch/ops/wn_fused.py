@@ -35,8 +35,15 @@ from . import _build, use_kernel
 #: Launches of each host entry, counted by its wrapper where it launches.
 LAUNCHES = {"wn_fwd": 0, "wn_bwd": 0}
 
-#: Rows per weight-gradient slice of ``wn_bwd`` (partials summed in order).
+#: Input rows a stage of ``wn_bwd``'s weight-gradient kernel (``WG_RB`` in
+#: ``csrc/wn_fused.cu``); a row slice is a whole number of stages, which the
+#: C entry checks.
+STAGE_ROWS = 32
+#: Most rows a weight-gradient slice of ``wn_bwd`` (partials summed in slice order).
 SPLIT_ROWS = 1024
+#: Fewest slices a weight-gradient reduction is cut into, where the rows allow:
+#: enough blocks to fill the card on short series.
+MIN_SLICES = 64
 #: Widest WN channel count C the kernels take (``FlowConfig.wn_channels`` is
 #: 120); the half width H may be any.
 MAX_C = 128
@@ -49,9 +56,17 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
+def wgrad_split_rows(rows: int) -> int:
+    """Rows of each slice of ``wn_bwd``'s weight-gradient reductions: a
+    multiple of STAGE_ROWS, at most SPLIT_ROWS, and small enough for
+    MIN_SLICES slices where ``rows`` allows."""
+    per = -(-rows // MIN_SLICES)
+    return min(SPLIT_ROWS, -(-per // STAGE_ROWS) * STAGE_ROWS)
+
+
 def global_launches(n_layers: int) -> Dict[str, int]:
     """``__global__`` launches per call of each host entry."""
-    return {"wn_fwd": 1 + n_layers, "wn_bwd": 4 + 6 * n_layers}
+    return {"wn_fwd": 1 + n_layers, "wn_bwd": 5 + 6 * n_layers}
 
 
 def stack_effective(params: Dict, weight_norm_weight) -> Tuple[torch.Tensor, ...]:
@@ -171,6 +186,97 @@ def wn_bwd_plain(x2, g2, aud, skip, w_start, w_cond, b_cond, w_in, b_in, w_rs, w
     )
 
 
+def _stage_rows(a: torch.Tensor, r0: int, r1: int, shift: int = 0, keep=None) -> torch.Tensor:
+    """Rows ``[r0 + shift, r1 + shift)`` of ``a``, zero outside ``a`` and
+    where ``keep`` (one bool a row) is false: one segment of a staged
+    operand of ``wn_bwd``, a contiguous row range and one mask a row."""
+    idx = torch.arange(r0 + shift, r1 + shift, device=a.device)
+    ok = (idx >= 0) & (idx < a.shape[0])
+    if keep is not None:
+        ok &= keep
+    out = torch.zeros(r1 - r0, a.shape[1], dtype=a.dtype, device=a.device)
+    out[ok] = a[idx[ok]]
+    return out
+
+
+def wn_bwd_tiles_plain(x2, g2, aud, skip, w_start, w_cond, b_cond, w_in, b_in, w_rs, w_end,
+                       t_len: int, split_rows: int | None = None):
+    """``wn_bwd_plain``'s contract, computed as ``wn_bwd``'s kernels stage it.
+    The tap operands are row ranges ``aud[r -+ d]`` with a mask a row (``pos
+    >= d``, ``pos < T - d``), and the transposed taps of g_z likewise
+    (``g_z[u + d]`` live iff ``pos(u + d) >= d``, ``g_z[u - d]`` iff ``pos(u
+    - d) < T - d``, each tested at the source row).  Every weight gradient
+    is a sum of row-slice partials ``A_s^T B_s`` in slice order, with A = [lo
+    aud[r-d] | aud[r] | hi aud[r+d] | x | 1] against g_z, [acts | 1] against
+    [g_audio | g_skip] and [x | 1] against g_audio_0, and its rows laid out
+    as the kernel writes them (``_unpack``)."""
+    n_layers, _, c, _ = w_in.shape
+    rows, h = x2.shape
+    split = split_rows or wgrad_split_rows(rows)
+    pos = torch.arange(rows, device=x2.device) % t_len
+    ones = torch.ones(rows, 1, dtype=x2.dtype, device=x2.device)
+
+    def wgrad(a_of, b):
+        total = None
+        for r0 in range(0, rows, split):
+            r1 = min(r0 + split, rows)
+            part = a_of(r0, r1).T @ b[r0:r1]
+            total = part if total is None else total + part
+        return total
+
+    b_z = b_in + b_cond.reshape(n_layers, 2 * c)
+    g_skip = g2 @ w_end.T
+    g_audio = torch.zeros_like(g_skip)
+    g_x = torch.zeros_like(x2)
+    g_in, g_rs = [None] * n_layers, [None] * n_layers
+    for i in reversed(range(n_layers)):
+        d, audio = 2 ** i, aud[i]
+        w_c = w_cond[:, 2 * c * i : 2 * c * (i + 1)]
+
+        def a_in(r0, r1, audio=audio, d=d):
+            p = pos[r0:r1]
+            return torch.cat([_stage_rows(audio, r0, r1, -d, p >= d), audio[r0:r1],
+                              _stage_rows(audio, r0, r1, d, p < t_len - d), x2[r0:r1],
+                              ones[r0:r1]], dim=1)
+
+        z = a_in(0, rows)[:, : 3 * c + h] @ torch.cat([w_in[i].reshape(3 * c, 2 * c), w_c]) + b_z[i]
+        tt, ss = torch.tanh(z[:, :c]), torch.sigmoid(z[:, c:])
+        acts = tt * ss
+        grs = torch.cat([g_audio, g_skip], dim=1)
+        g_rs[i] = wgrad(lambda r0, r1: torch.cat([acts[r0:r1], ones[r0:r1]], dim=1), grs)
+        g_acts = grs @ w_rs[i].T
+        g_z = torch.cat([g_acts * ss * (1 - tt * tt), g_acts * tt * ss * (1 - ss)], dim=1)
+        g_in[i] = wgrad(a_in, g_z)
+        g_x = g_x + g_z @ w_c.T
+        src_pos_up = (pos + d) % t_len  # pos(u + d)
+        src_pos_dn = (pos - d) % t_len  # pos(u - d)
+        g_audio = g_audio + torch.cat([
+            _stage_rows(g_z, 0, rows, d, src_pos_up >= d), g_z,
+            _stage_rows(g_z, 0, rows, -d, src_pos_dn < t_len - d),
+        ], dim=1) @ w_in[i].transpose(1, 2).reshape(3 * 2 * c, c)
+    g_start = wgrad(lambda r0, r1: torch.cat([x2[r0:r1], ones[r0:r1]], dim=1), g_audio)
+    gx = g_x + g_audio @ w_start.T
+    return _unpack(gx, torch.stack(g_in), torch.stack(g_rs), g_start, skip, g2)
+
+
+def _unpack(gx, g_in, g_rs, g_start, skip, g2):
+    """``wn_bwd``'s outputs in ``wn_bwd_plain``'s order from the kernel's
+    layouts: g_in (L, 3C+H+1, 2C) = per layer [gwi | gwc slice | gbi], g_rs
+    (L, C+1, 2C) = [gwr | gbr], g_start (H+1, C) = [gws | gbs]; the end
+    projection's gradients are taken here, as the JAX package does."""
+    n_layers, k_in, c2 = g_in.shape
+    c, h = c2 // 2, g_start.shape[0] - 1
+    gbi = g_in[:, -1]
+    return (
+        gx, g_start[:h], g_start[h],
+        g_in[:, 3 * c : 3 * c + h].permute(1, 0, 2).reshape(h, n_layers * 2 * c),
+        gbi.reshape(-1),
+        g_in[:, : 3 * c].reshape(n_layers, 3, c, 2 * c), gbi,
+        g_rs[:, :c], g_rs[:, c],
+        skip.T @ g2, g2.sum(0),
+    )
+
+
 # ---------------------------------------------------- kernel wrappers -----
 
 @functools.lru_cache(maxsize=None)
@@ -180,8 +286,10 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.wn_fwd.argtypes = [p] * 13 + [i] * 5 + [p]
     lib.wn_fwd.restype = i
-    lib.wn_bwd.argtypes = [p] * 20 + [i] * 6 + [p]
+    lib.wn_bwd.argtypes = [p] * 19 + [i] * 6 + [p]
     lib.wn_bwd.restype = i
+    lib.wn_bwd_wsplit_words.argtypes = [i] * 3
+    lib.wn_bwd_wsplit_words.restype = ctypes.c_size_t
     return lib
 
 
@@ -246,17 +354,14 @@ def wn_bwd(x2, g2, aud, skip, w_start, w_cond, b_cond, w_in, b_in, w_rs, w_end, 
     n_layers, _, c, _ = w_in.shape
     h = x2.shape[1]
     b_z = (b_in + b_cond.reshape(n_layers, 2 * c)).contiguous()
-    w_in_t = w_in.transpose(2, 3).contiguous()
-    w_rs_t = w_rs.transpose(1, 2).contiguous()
-    w_cond_t = w_cond.reshape(h, n_layers, 2 * c).permute(1, 2, 0).contiguous()
-    ins = [x2, g2, aud, w_cond, w_in, b_z, w_in_t, w_rs_t, w_cond_t,
-           w_start.T.contiguous(), w_end.T.contiguous()]
+    ins = [x2, g2, aud, w_cond, w_in, b_z, w_rs, w_start.T.contiguous(), w_end.T.contiguous()]
     rows, h, c, n_layers = _check(x2, t_len, w_in, *ins)
     if g2.shape != (rows, 2 * h) or aud.shape != (n_layers, rows, c):
         raise ValueError(f"g {tuple(g2.shape)} / aud {tuple(aud.shape)} do not match x")
     lib = _lib()
     dev = x2.device
     k_in = 3 * c + h + 1
+    split = wgrad_split_rows(rows)
     gx = torch.empty(rows, h, device=dev)
     g_in = torch.empty(n_layers, k_in, 2 * c, device=dev)
     g_rs = torch.empty(n_layers, c + 1, 2 * c, device=dev)
@@ -266,23 +371,16 @@ def wn_bwd(x2, g2, aud, skip, w_start, w_cond, b_cond, w_in, b_in, w_rs, w_end, 
         torch.empty(rows, c, device=dev),  # g_skip
         torch.empty(rows, 2 * c, device=dev),  # g_z
         torch.empty(rows, c, device=dev),  # acts
-        torch.empty(-(-rows // SPLIT_ROWS) * k_in * 2 * c, device=dev),  # partial sums
+        torch.empty(-(-rows // split) * k_in * 2 * c, device=dev),  # partial sums
+        torch.empty(lib.wn_bwd_wsplit_words(c, h, n_layers), dtype=torch.int32, device=dev),  # split weights
     ]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.wn_bwd(*_ptrs(*ins, gx, g_in, g_rs, g_start, *scratch),
-                         rows, t_len, h, c, n_layers, SPLIT_ROWS, stream)
+                         rows, t_len, h, c, n_layers, split, stream)
     LAUNCHES["wn_bwd"] += 1
     _raise_on(err, "wn_bwd")
-    gbi = g_in[:, -1]
-    return (
-        gx, g_start[:h], g_start[h],
-        g_in[:, 3 * c : 3 * c + h].permute(1, 0, 2).reshape(h, n_layers * 2 * c),
-        gbi.reshape(-1),
-        g_in[:, : 3 * c].reshape(n_layers, 3, c, 2 * c), gbi,
-        g_rs[:, :c], g_rs[:, c],
-        skip.T @ g2, g2.sum(0),
-    )
+    return _unpack(gx, g_in, g_rs, g_start, skip, g2)
 
 
 # ------------------------------------------------------------ the op ------

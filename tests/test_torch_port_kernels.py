@@ -13,14 +13,17 @@ of 1, 2, 3, 5, 89), and the real masked weights of the serving model's
 layers (C_in 7, 25, 50 and 225; C_out 25, 225 and 50), with a column group
 whose taps are all zero and a stray nonzero weight outside the mask, so the
 tap windows of the pre-pass are exercised; for the WN kernels, rows not a multiple of the 64-row
-tile, T < 2^7 (the deep layers' taps all masked), B = 1, C, H off the
-thread tiling, and H of 65 and 168 (VendGunPoint's and VendCoffee's, past
-one 128-column chunk); for the gate, rows and n off the thread grid and a
+tile or below one tile, T < 2^7 (the deep layers' taps all masked), B = 1,
+C, H off the mma tiling, a last weight-gradient slice of one row or one row
+short, and H of 65 and 168 (VendGunPoint's and VendCoffee's, past one
+128-column chunk, and VendCoffee's pair pass); for the gate, rows and n off the thread grid and a
 row-strided operand; for the tap conv, time and C_out off the 128 x 64 tile,
 C_in off the 8-channel chunk, dilations up to 128 (also with t_out < d).  Tolerance: max|kernel - plain| <= 1e-4 * max|plain| for
 forward values, both exact float32 with TF32 off, the sums taken in another
-order; 1e-3 for the WN weight gradients, sums over every row in another
-order.
+order; 1e-5 for every ``wn_bwd`` output (3xTF32 stage sums, fixed-order
+row-slice partials), and 1e-3 for the other weight gradients, sums over
+every row in another order.  The last three tests pin what the 3xTF32
+kernels return for non-finite inputs, which their contract leaves out.
 """
 
 import pytest
@@ -36,6 +39,7 @@ from feature_level_style_transfer_for_tsc_tpu_torch.train.classifier import buil
 
 REL_TOL = 1e-4
 GRAD_REL_TOL = 1e-3
+WN_BWD_REL_TOL = 1e-5  # every wn_bwd output: 3xTF32 staged sums, fixed-order slice partials
 
 
 @pytest.fixture
@@ -171,6 +175,10 @@ def _wn_operands(card, b, t, h, c, n_layers, seed):
         (4, 20, 3, 33, 3),  # C and H off the thread tiling
         (2, 150, 65, 120, 8),  # VendGunPoint's H: 2H past one column chunk
         (3, 60, 168, 120, 8),  # VendCoffee's H: H and 2H past one chunk
+        (1, 40, 25, 120, 8),  # 40 rows: below one row tile and one slice stage
+        (1, 65, 25, 120, 8),  # 32-row slices: a last slice of one row
+        (1, 63, 25, 120, 8),  # a last slice one row short
+        (40, 60, 168, 120, 8),  # VendCoffee's pair pass: 38 slices of 64, d >= T from layer 6
     ],
 )
 def test_wn_kernels_match_plain(card, b, t, h, c, n_layers):
@@ -191,7 +199,7 @@ def test_wn_kernels_match_plain(card, b, t, h, c, n_layers):
     assert wn_fused.LAUNCHES["wn_bwd"] == before["wn_bwd"] + 2
     for gv, wv, av in zip(grads, wn_fused.wn_bwd_plain(*bwd_args), again):
         assert gv.shape == wv.shape
-        _close(gv, wv, GRAD_REL_TOL)
+        _close(gv, wv, WN_BWD_REL_TOL)
         assert torch.equal(gv, av)  # fixed-order reductions: the same bits every run
 
 
@@ -347,3 +355,77 @@ def test_op_by_op_wn_on_card_matches_cpu(card, impl, monkeypatch):
     assert osconv.LAUNCHES["tap_conv_fwd"] == before["tap_conv_fwd"] + taps
     for got, want in zip(out[str(card)], out["cpu"]):
         _close(got, want, GRAD_REL_TOL)
+
+
+# The 3xTF32 kernels hold their results for finite inputs only (ROADMAP.md,
+# "Semantics the port holds").  These tests pin what they return otherwise:
+# the split of an inf is hi = inf, lo = inf - inf = NaN, so a product that
+# reads it is NaN where the plain version has +-inf; and a tap that a mask
+# makes dead is never multiplied, so its 0 * inf is not formed where the
+# plain version forms it and gets NaN.
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel, d", [("os_conv", 1), ("tap_conv", 2)])
+def test_conv_kernels_give_nan_for_an_inf_input(card, kernel, d):
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(1, 40 + 2 * d, 8, generator=g)
+    w = torch.randn(3, 8, 16, generator=g)
+    x[0, 20, 3] = float("inf")
+    x, w = x.to(card), w.to(card)
+    if kernel == "os_conv":
+        got, want = osconv.os_conv(x, w), osconv.os_conv_plain(x, w)
+    else:
+        got, want = osconv.tap_conv_fwd(x, w, d), osconv.tap_conv_plain(x, w, d)
+    hit = torch.zeros(got.shape[1], dtype=torch.bool)
+    hit[[20 - j * d for j in range(3)]] = True  # y[t] reads x[t + j*d]
+    assert torch.isinf(want[0, hit]).all() and torch.isnan(got[0, hit]).all()
+    assert torch.isfinite(got[0, ~hit]).all()
+    _close(got[0, ~hit], want[0, ~hit])
+
+
+@pytest.mark.gpu
+def test_os_conv_does_not_form_a_dead_taps_zero_times_inf(card):
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn(1, 42, 8, generator=g)
+    w = torch.randn(3, 8, 16, generator=g)
+    w[2, :, :8] = 0.0  # column group 0's window is taps [0, 2)
+    finite = x.clone()
+    x[0, 20, 3] = float("inf")  # read by y[18] through tap 2, dead for group 0
+    got = osconv.os_conv(x.to(card), w.to(card))
+    want = osconv.os_conv_plain(x.to(card), w.to(card))
+    assert torch.isnan(want[0, 18, :8]).all()
+    assert torch.isfinite(got[0, 18, :8]).all()
+    _close(got[0, 18, :8], osconv.os_conv_plain(finite.to(card), w.to(card))[0, 18, :8])
+    assert torch.isnan(got[0, 18, 8:]).all() and torch.isinf(want[0, 18, 8:]).all()
+
+
+@pytest.mark.gpu
+def test_wn_bwd_gives_nan_for_an_inf_input_and_skips_a_dead_taps_zero_times_inf(card):
+    b, t, h, c, n_layers, layer = 2, 40, 5, 16, 4, 2
+    _, eff, x = _wn_operands(card, b, t, h, c, n_layers, seed=3)
+    x2 = x.reshape(b * t, h).contiguous()
+    g2 = torch.randn(b * t, 2 * h, device=card, generator=torch.Generator(card).manual_seed(8))
+    _, aud, skip = wn_fused.wn_fwd_plain(x2, *eff, t)
+
+    def both(g2, aud):
+        args = (x2, g2, aud, skip, eff[0], eff[2], eff[3], eff[4], eff[5], eff[6], eff[8], t)
+        return wn_fused.wn_bwd(*args), wn_fused.wn_bwd_plain(*args)
+
+    # an inf upstream gradient: g_skip's row 7 is +-inf, and so is the last
+    # layer's skip-column weight gradient in the plain version; NaN in the kernel
+    g_inf = g2.clone()
+    g_inf[7, 1] = float("inf")
+    got, want = both(g_inf, aud)
+    gwr, gwr_plain = got[7][-1][:, c:], want[7][-1][:, c:]
+    assert torch.isinf(gwr_plain).all() and torch.isnan(gwr).all()
+    # an inf in aud of one layer at the first row q of series 1: series 0
+    # reads it only through taps that cross the series boundary (row q - d's
+    # tap at r + d, masked there by pos = T - d), so the kernels, which never
+    # multiply a masked tap, keep series 0's input gradient finite, where the
+    # plain version forms 0 * inf at row q - d
+    d, q = 2 ** layer, t
+    aud_inf = aud.clone()
+    aud_inf[layer, q, 3] = float("inf")
+    got, want = both(g2, aud_inf)
+    assert torch.isnan(want[0][q - d]).all()
+    assert torch.isfinite(got[0][:t]).all()
