@@ -40,11 +40,11 @@ non-zero when any check fails.  Phases:
    weight-normed parameters and a non-zero end projection), and at the
    pair pass (B=40) of the widest half widths the vendored datasets give,
    VendGunPoint's (T=150, n_half 65) and VendCoffee's (T=60, n_half 168),
-   every ``wn_bwd`` output within 1e-5 of its plain version and two runs
-   the same bits, timed beside their bounds (the tensor-core bound of
-   f32-accurate products, which with the bytes bound is ``bound_ms``, and
-   the FP32-pipe bound beside it), with ``wn_bwd``'s device time by
-   ``__global__`` kernel (``torch.profiler``);
+   every ``wn_fwd`` and ``wn_bwd`` output within 1e-5 of its plain version
+   and two runs the same bits, timed beside their bounds (the tensor-core
+   bound of f32-accurate products, which with the bytes bound is
+   ``bound_ms``, and the FP32-pipe bound beside it), with each one's device
+   time by ``__global__`` kernel (``torch.profiler``);
 7. the OS conv's gradient on the card: dx and dw through ``OSConvCore``
    against the plain path's autograd at the six full-width conv shapes;
 8. training through ``cli.main.main([... "--device", "cuda"])``: SCP2 <-
@@ -68,9 +68,9 @@ non-zero when any check fails.  Phases:
     route's kernels against its plain versions on the card (all kernels,
     and the WN route's kernels alone);
 11. one more phase-5 step of that fresh state under ``torch.profiler``: the
-    device time by kernel, summed by group (WN kernels, OS conv kernel,
-    the rest), and the device's idle share of the traced step's wall time,
-    measured and not checked;
+    device time by kernel, summed by group (WN kernels, both weight splits
+    included; OS conv kernel; the rest), and the device's idle share of the
+    traced step's wall time, measured and not checked;
 12. the op-by-op WN's kernels at full width: ``gate_fwd`` against
     ``gate_plain`` at the pair (46,080 rows) and infer (23,040) shapes,
     with ``b`` a column slice of a cond projection, beside its bytes bound;
@@ -132,6 +132,7 @@ BATCH = 20
 SCP2 = {"channels": 7, "length": 1152, "classes": 2, "n_train": 200, "n_test": 180}
 GRAD_REL_TOL = 1e-3  # weight gradients: sums over every row (23k-46k) in another order
 WN_BWD_REL_TOL = 1e-5  # every output of wn_bwd: 3xTF32 staged sums, fixed-order slice partials
+WN_FWD_REL_TOL = 1e-5  # every output of wn_fwd: 3xTF32 staged sums through 8 layers
 STEP_GRAD_L2_TOL = 1e-2  # a whole phase-5 step's gradients per module, every kernel on
 SOURCE = "feature_level_style_transfer_for_tsc_tpu_torch/ops/csrc/os_conv.cu"
 WN_SOURCE = "feature_level_style_transfer_for_tsc_tpu_torch/ops/csrc/wn_fused.cu"
@@ -552,8 +553,10 @@ def wn_phase(wn_fused, wn_init, weight_norm_weight, cases, c: int, n_layers: int
         x2 = torch.randn(rows, h, device="cuda", generator=gen)
         g2 = torch.randn(rows, 2 * h, device="cuda", generator=gen)
         got = wn_fused.wn_fwd(x2, *eff, t)
+        twice = wn_fused.wn_fwd(x2, *eff, t)
         want = wn_fused.wn_fwd_plain(x2, *eff, t)
         fwd_err = [rel_err(a, w) for a, w in zip(got, want)]
+        fwd_same = all(torch.equal(a, b_) for a, b_ in zip(got, twice))
         _, aud, skip = want
         bwd_args = (x2, g2, aud, skip, eff[0], eff[2], eff[3], eff[4], eff[5], eff[6], eff[8], t)
         grads = wn_fused.wn_bwd(*bwd_args)
@@ -569,7 +572,7 @@ def wn_phase(wn_fused, wn_init, weight_norm_weight, cases, c: int, n_layers: int
             "fwd_rel": {k: e[1] for k, e in zip(("y", "aud", "skip"), fwd_err)},
             "bwd_rel": {k: e[1] for k, e in zip(names, bwd_err)},
             "fwd_max_abs": max(e[0] for e in fwd_err), "bwd_max_abs": max(e[0] for e in bwd_err),
-            "bwd_deterministic": same_bits,
+            "fwd_deterministic": fwd_same, "bwd_deterministic": same_bits,
             "fwd_ms": cuda_ms(lambda: wn_fused.wn_fwd(x2, *eff, t), reps=5),
             "fwd_plain_ms": cuda_ms(lambda: wn_fused.wn_fwd_plain(x2, *eff, t), reps=3),
             "bwd_ms": cuda_ms(lambda: wn_fused.wn_bwd(*bwd_args), reps=5),
@@ -584,9 +587,11 @@ def wn_phase(wn_fused, wn_init, weight_norm_weight, cases, c: int, n_layers: int
             row[f"{d}_bound_ms"] = max(row[f"{d}_tc_flop_ms"], row[f"{d}_bytes_ms"])
             row[f"{d}_fp32_bound_ms"] = max(row[f"{d}_flop_ms"], row[f"{d}_bytes_ms"])
             row[f"{d}_tflops"] = work[f"{d}_flops"] / row[f"{d}_ms"] / 1e9
+        row["fwd_by_kernel"] = kernel_breakdown(lambda: wn_fused.wn_fwd(x2, *eff, t))
         row["bwd_by_kernel"] = kernel_breakdown(lambda: wn_fused.wn_bwd(*bwd_args))
         log("wn " + json.dumps(row))
-        check(max(row["fwd_rel"].values()) <= REL_TOL, f"wn_fwd {what}: rel err {row['fwd_rel']}")
+        check(max(row["fwd_rel"].values()) <= WN_FWD_REL_TOL, f"wn_fwd {what}: rel err {row['fwd_rel']}")
+        check(fwd_same, f"wn_fwd {what}: two runs gave different bits")
         check(max(row["bwd_rel"].values()) <= WN_BWD_REL_TOL, f"wn_bwd {what}: rel err {row['bwd_rel']}")
         check(same_bits, f"wn_bwd {what}: two runs gave different bits")
         rows_out.append(row)

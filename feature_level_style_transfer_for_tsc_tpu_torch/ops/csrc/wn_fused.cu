@@ -34,33 +34,36 @@
 //   launch over tiles of rows, and the launch boundary is the grid-wide
 //   barrier between layers.  The start projection is its own launch; the end
 //   projection is folded into the last layer.
-// * Forward (FP32 FMA): in a layer, each of the 256 threads owns 4 rows x 8
-//   column pairs (j and j + C), so the tanh and sigmoid halves of the gate
-//   meet in one thread's registers.  Every product is a block-level FMA GEMM
-//   whose reduction axis is staged 16 at a time through shared memory: the
-//   three masked taps and the cond slice form one 3C+H deep reduction (w_in[i]
-//   is 345 KB and is streamed, never resident); acts stay in shared memory
-//   for the res/skip product.
+// * Forward: one launch a layer (wn_layer_fwd_kernel) over tiles of 64 rows:
+//   z over the three masked taps and the cond slice (one 3C+H deep
+//   reduction; w_in[i] is 345 KB and is streamed, never resident), the gate,
+//   acts through an (R, C) scratch, res/skip, and in the last layer the end
+//   projection.  On short series the row tiles shrink to 32 or 16 rows
+//   where that still fits one wave.
 // * H is any width: every product over H is a reduction staged in chunks, and
 //   every product with H or 2H output columns (the end projection, g_x, the
-//   start's input gradient) walks them in chunks of CMAX columns, in a loop
-//   (the end projection) or over blockIdx.y (the others).
+//   start's input gradient) walks them in chunks, in a loop (the end
+//   projection) or over blockIdx.y (the others).
 // * Backward: the layers in reverse with two launches each: one recomputes
 //   z, forms g_z and keeps acts; the next, after the barrier, takes the
 //   transposed taps of g_z at u +- d (and the cond input gradient); between
-//   them the weight gradients.  Every product of a layer runs on the tensor
-//   cores as 3xTF32 mma.sync (mma_tf32.cuh's helpers, as the conv tap GEMM),
+//   them the weight gradients.
+// * Every layer product in both directions runs on the tensor cores as
+//   3xTF32 mma.sync (mma_tf32.cuh's helpers, as the conv tap GEMM),
 //   each stage summed into zeroed registers and added to the running sum with
 //   one rounded f32 add (the tensor core's accumulate truncates).  Operands
 //   are staged as shifted row ranges with one mask a row (16-byte cp.async,
 //   no divide or modulo an element) and each staged element is split once
 //   into TF32 hi/lo planes that ldmatrix reads.
-//   - Row-tile products (wn_layer_gz_kernel, wn_layer_ga_kernel): tiles of 64
-//     rows, 16 warps; the weights are split once a call by wsplit_kernel into
+//   - Row-tile products (wn_layer_fwd_kernel, wn_layer_gz_kernel,
+//     wn_layer_ga_kernel): tiles of 64 rows, 16 warps; the weights are split
+//     once a call by wsplit_fwd_kernel / wsplit_kernel into
 //     planes laid out (output column, reduction), so a stage copies them as
 //     they are.  A warp keeps the gate pair (j, C + j) of its n8 tiles, with C
 //     padded to a multiple of 8.  On short series (a row-tile grid under one
-//     block an SM) blockIdx.y deals the column tiles to 2 or 4 blocks.
+//     block an SM) the backward's blockIdx.y deals the column tiles to 2 or
+//     4 blocks, and the forward halves its row tile (a tile's res/skip and
+//     end projection need all of its acts and skip columns).
 //   - Weight gradients (wgrad_kernel): A^T B over a slice of rows, both
 //     operands data, so both are split a stage into planes stored transposed.
 //     One tensor-core accumulator over 46,080 rows loses f32 accuracy; the
@@ -68,8 +71,8 @@
 //     slices a reduction so that short series fill the card (wn_fused.py
 //     wgrad_split_rows), and a second pass adds them in a fixed order: no
 //     float atomics, so every run gives the same bits.
-//   - The start's input gradient and g_skip (rowgemm_kernel) stay FP32 FMA:
-//     under 1% of the FLOPs.
+//   - The start projection, its input gradient and g_skip (rowgemm_kernel)
+//     stay FP32 FMA: under 1% of the FLOPs.
 //   A non-finite input is not carried as f32 would carry it (hi = inf gives
 //   lo = NaN): the contract is for finite inputs.
 // Unlike the TPU kernel there is no pad of T to a multiple of 8 (a TPU
@@ -95,11 +98,9 @@ constexpr int KC = 16;        // reduction depth staged per pass
 constexpr int AS_STRIDE = KC + 1;
 constexpr int WMAX = 256;     // staged weight columns
 constexpr int CMAX = 128;     // widest C; also the output columns of one block
-constexpr int SK_STRIDE = CMAX + 1;
-constexpr int CP = CMAX / NTX;  // column pairs per thread
+constexpr int CP = CMAX / NTX;  // columns per thread
 
 constexpr size_t GEMM_SMEM = (TR * AS_STRIDE + KC * WMAX) * sizeof(float);
-constexpr size_t LAYER_SMEM = GEMM_SMEM + TR * SK_STRIDE * sizeof(float);
 
 __device__ __forceinline__ float sigmoidf_(float v) { return 1.f / (1.f + expf(-v)); }
 
@@ -149,41 +150,6 @@ __device__ __forceinline__ void zero(float (&acc)[RMX][NQ]) {
     for (int q = 0; q < NQ; ++q) acc[m][q] = 0.f;
 }
 
-// A of the z product: [lo*aud[r-d] | aud[r] | hi*aud[r+d] | x[r]], 3C+H deep.
-struct ZA {
-  const float* aud;
-  const float* x;
-  int r0, rows, t_len, c, h, d;
-  __device__ float operator()(int m, int k) const {
-    const int r = r0 + m;
-    if (r >= rows) return 0.f;
-    if (k >= 3 * c) return x[static_cast<size_t>(r) * h + (k - 3 * c)];
-    const int tap = k / c;
-    const int ch = k - tap * c;
-    const int pos = r % t_len;
-    int src = r;
-    if (tap == 0) {
-      if (pos < d) return 0.f;
-      src = r - d;
-    } else if (tap == 2) {
-      if (pos >= t_len - d) return 0.f;
-      src = r + d;
-    }
-    return aud[static_cast<size_t>(src) * c + ch];
-  }
-};
-
-// W of the z product: [w_in[i] (3C, 2C) ; w_cond[:, coff:coff+2C] (H, 2C)].
-struct ZW {
-  const float* w_in_i;
-  const float* w_cond;
-  int c, ldc, coff;
-  __device__ float operator()(int k, int n) const {
-    if (k < 3 * c) return w_in_i[static_cast<size_t>(k) * 2 * c + n];
-    return w_cond[static_cast<size_t>(k - 3 * c) * ldc + coff + n];
-  }
-};
-
 // A row-major (rows, lda) matrix; rows past the end read zero.
 struct RowA {
   const float* a;
@@ -194,12 +160,6 @@ struct RowA {
   }
 };
 
-// A tile kept in shared memory, (TR, SK_STRIDE).
-struct SmemA {
-  const float* s;
-  __device__ float operator()(int m, int k) const { return s[m * SK_STRIDE + k]; }
-};
-
 // A row-major (K, ldw) weight.
 struct RowW {
   const float* w;
@@ -207,10 +167,11 @@ struct RowW {
   __device__ float operator()(int k, int n) const { return w[static_cast<size_t>(k) * ldw + n]; }
 };
 
-// ------------------------------------------------------------- forward ----
+// ------------------------------------------- FP32 FMA row products ----
 
 // out[r, n] = (accumulate ? out[r, n] : 0) + a[r] @ w[:, n] + bias[n]; each
-// block takes CMAX columns from n0 = blockIdx.y * CMAX.
+// block takes CMAX columns from n0 = blockIdx.y * CMAX.  The start
+// projection, g_skip and the start's input gradient: under 1% of the FLOPs.
 __global__ void __launch_bounds__(NTHREADS)
 rowgemm_kernel(const float* __restrict__ a, const float* __restrict__ w,
                const float* __restrict__ bias, float* __restrict__ out, int rows, int k,
@@ -240,86 +201,6 @@ rowgemm_kernel(const float* __restrict__ a, const float* __restrict__ w,
       float v = acc[m][q] + (bias ? bias[n0 + j] : 0.f);
       if (accumulate) v += out[o];
       out[o] = v;
-    }
-  }
-}
-
-// One WN layer of the forward over a tile of TR rows.
-template <bool LAST>
-__global__ void __launch_bounds__(NTHREADS, 2)
-wn_layer_fwd_kernel(const float* __restrict__ x, const float* __restrict__ aud_i,
-                    const float* __restrict__ w_in_i, const float* __restrict__ w_cond,
-                    const float* __restrict__ b_z_i, const float* __restrict__ w_rs_i,
-                    const float* __restrict__ b_rs_i, const float* __restrict__ w_end,
-                    const float* __restrict__ b_end, float* __restrict__ aud_next,
-                    float* __restrict__ skip, float* __restrict__ y, int rows, int t_len,
-                    int h, int c, int layer, int n_layers) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* sk = smem + TR * AS_STRIDE + KC * WMAX;  // acts, then the final skip
-  const int tx = threadIdx.x % NTX;
-  const int ty = threadIdx.x / NTX;
-  const int r0 = blockIdx.x * TR;
-  const int d = 1 << layer;
-
-  int col[2 * CP];
-#pragma unroll
-  for (int q = 0; q < CP; ++q) {
-    col[q] = tx + NTX * q;
-    col[CP + q] = c + tx + NTX * q;
-  }
-  float acc[RM][2 * CP];
-  zero(acc);
-  tile_gemm(acc, col, 3 * c + h, 2 * c, ZA{aud_i, x, r0, rows, t_len, c, h, d},
-            ZW{w_in_i, w_cond, c, 2 * c * n_layers, 2 * c * layer}, smem);
-#pragma unroll
-  for (int m = 0; m < RM; ++m) {
-#pragma unroll
-    for (int q = 0; q < CP; ++q) {
-      const int j = col[q];
-      if (j < c) {
-        const float t = tanhf(acc[m][q] + b_z_i[j]);
-        const float s = sigmoidf_(acc[m][CP + q] + b_z_i[c + j]);
-        sk[(ty * RM + m) * SK_STRIDE + j] = t * s;
-      }
-    }
-  }
-  zero(acc);
-  tile_gemm(acc, col, c, 2 * c, SmemA{sk}, RowW{w_rs_i, 2 * c}, smem);
-#pragma unroll
-  for (int m = 0; m < RM; ++m) {
-    const int r = r0 + ty * RM + m;
-#pragma unroll
-    for (int q = 0; q < CP; ++q) {
-      const int j = col[q];
-      if (r < rows && j < c) {
-        const size_t o = static_cast<size_t>(r) * c + j;
-        if (!LAST) aud_next[o] = aud_i[o] + acc[m][q] + b_rs_i[j];
-        const float s = acc[m][CP + q] + b_rs_i[c + j] + (layer > 0 ? skip[o] : 0.f);
-        skip[o] = s;
-        if (LAST) sk[(ty * RM + m) * SK_STRIDE + j] = s;
-      }
-    }
-  }
-  if (LAST) {  // y = skip @ w_end + b_end, CMAX of the 2H columns at a time
-    int ecol[CP];
-#pragma unroll
-    for (int q = 0; q < CP; ++q) ecol[q] = tx + NTX * q;
-    for (int n0 = 0; n0 < 2 * h; n0 += CMAX) {
-      const int nc = min(CMAX, 2 * h - n0);
-      float e[RM][CP];
-      zero(e);
-      tile_gemm(e, ecol, c, nc, SmemA{sk}, RowW{w_end + n0, 2 * h}, smem);
-#pragma unroll
-      for (int m = 0; m < RM; ++m) {
-        const int r = r0 + ty * RM + m;
-#pragma unroll
-        for (int q = 0; q < CP; ++q) {
-          const int j = ecol[q];
-          if (r < rows && j < nc)
-            y[static_cast<size_t>(r) * 2 * h + n0 + j] = e[m][q] + b_end[n0 + j];
-        }
-      }
     }
   }
 }
@@ -587,10 +468,12 @@ inline Operand operand(std::initializer_list<Seg> segs) {
 // ---------------------------------------------------- row-tile products ----
 //
 // Y[r, n] = sum_k A(r, k) W(k, n) over a tile of RT_M rows, on the tensor
-// cores (3xTF32), for the layer's other products: z over [lo*aud[r-d] |
-// aud[r] | hi*aud[r+d] | x[r]], g_acts over [g_audio_{i+1} | g_skip], the
-// transposed taps over [g_z[u+d] | g_z[u] | g_z[u-d]], and g_x over g_z.  The
-// weights are split once a call (wsplit_kernel) into TF32 hi/lo planes laid
+// cores (3xTF32), for every layer product but the weight gradients: z over
+// [lo*aud[r-d] | aud[r] | hi*aud[r+d] | x[r]], in both directions; forward,
+// res/skip over acts and the end projection over skip; backward, g_acts over
+// [g_audio_{i+1} | g_skip], the transposed taps over [g_z[u+d] | g_z[u] |
+// g_z[u-d]], and g_x over g_z.  The weights are split once a call
+// (wsplit_fwd_kernel, wsplit_kernel) into TF32 hi/lo planes laid
 // out (output column n, reduction k), so a stage copies its RT_KS columns of
 // the planes as they are (16-byte cp.async, double-buffered) and B
 // fragments load by ldmatrix.  A stage stages RT_KS columns of A as the
@@ -599,11 +482,13 @@ inline Operand operand(std::initializer_list<Seg> segs) {
 // registers.  A warp owns one m16 row tile and up to RT_NQ column units: a
 // gate pair of n8 tiles (z columns j and C + j, at plane rows j and Cp + j
 // with C padded to Cp = a multiple of 8, so tanh and sigmoid of one z meet in
-// one thread) or one n8 tile.  On short series the units are dealt over
-// blockIdx.y as well, so that the grid fills the card.
+// one thread) or one n8 tile.  On short series the backward deals the units
+// over blockIdx.y as well and the forward takes fewer rows a tile, so that
+// the grid fills the card.
 
-constexpr int RT_M = 64;             // rows a block: 4 m16 tiles
-constexpr int RT_THREADS = 512;      // 16 warps: 4 m16 tiles x 4 unit slots
+constexpr int RT_M = 64;             // rows a block: RT_MT m16 tiles (the forward halves it on short series)
+constexpr int RT_MT = RT_M / 16;
+constexpr int RT_THREADS = 512;      // 16 warps: MT m16 tiles x 16 / MT unit slots
 constexpr int RT_KS = 32;            // reduction columns a stage: 4 mma k-steps
 constexpr int RT_NQ = 4;             // column units a warp
 constexpr int RT_NMAX = 2 * CMAX;    // most plane rows a stage: the padded z columns
@@ -637,6 +522,22 @@ __host__ __device__ inline WPlanes wplanes(int c, int h) {
   return p;
 }
 
+// The z column at plane row n of the gate-pair layout: row n < Cp is column
+// n, row Cp + j is column C + j; -1 in the padding.
+__device__ __forceinline__ int pair_col(int n, int c, int cp) {
+  return n < cp ? (n < c ? n : -1) : (n - cp < c ? c + n - cp : -1);
+}
+
+// W(k, col) of layer i's z product, [w_in[i] (3C, 2C); w_cond[:, 2Ci:2C(i+1)]
+// (H, 2C)], zero past it and for col = -1.
+__device__ __forceinline__ float z_weight(const float* w_in, const float* w_cond, int c, int h,
+                                          int n_layers, int i, int col, int k) {
+  if (col < 0) return 0.f;
+  if (k < 3 * c) return w_in[(static_cast<size_t>(i) * 3 * c + k) * 2 * c + col];
+  if (k < 3 * c + h) return w_cond[(k - 3 * c) * static_cast<size_t>(2 * c) * n_layers + 2 * c * i + col];
+  return 0.f;
+}
+
 // Splits W(k, n) of every layer (blockIdx.z) and matrix (blockIdx.y: z,
 // g_acts, the transposed taps, the cond input gradient) into its planes,
 // one block a plane row n (blockIdx.x), zero past W and in the padding:
@@ -659,13 +560,12 @@ wsplit_kernel(const float* __restrict__ w_in, const float* __restrict__ w_cond,
   const size_t off = m == 0 ? P.z : m == 1 ? P.g : m == 2 ? P.t : P.x;
   uint32_t* hi = out + i * P.layer + off + static_cast<size_t>(n) * k_pad;
   uint32_t* lo = hi + static_cast<size_t>(rows_m) * k_pad;
-  const int col = n < P.cp ? (n < c ? n : -1) : (n - P.cp < c ? c + n - P.cp : -1);
+  const int col = pair_col(n, c, P.cp);
   const size_t ldc = static_cast<size_t>(2 * c) * n_layers;
   for (int k = threadIdx.x; k < k_pad; k += NTHREADS) {
     float v = 0.f;
     if (m == 0) {
-      if (col >= 0 && k < 3 * c) v = w_in[(static_cast<size_t>(i) * 3 * c + k) * 2 * c + col];
-      else if (col >= 0 && k < 3 * c + h) v = w_cond[(k - 3 * c) * ldc + 2 * c * i + col];
+      v = z_weight(w_in, w_cond, c, h, n_layers, i, col, k);
     } else if (m == 1) {
       if (n < c && k < 2 * c) v = w_rs[(static_cast<size_t>(i) * c + n) * 2 * c + k];
     } else if (m == 2) {
@@ -678,11 +578,68 @@ wsplit_kernel(const float* __restrict__ w_in, const float* __restrict__ w_cond,
   }
 }
 
+// The forward's split weights in the caller's scratch, a hi then a lo plane
+// a matrix as WPlanes: per layer z (2Cp, kz), laid out as the backward's, and
+// res/skip (2Cp, kr), C deep, in the gate-pair layout (plane row j is audio
+// column j, row Cp + j skip column C + j, so one thread holds both outputs of
+// column j); after the layers, once, the end projection (Ep, kr), Ep = 2H
+// rounded up to 8.  wn_fwd_wsplit_words gives the caller the size.
+struct FPlanes {
+  int cp, ep, kz, kr;
+  size_t z, rs, layer;  // word offsets in a layer's block, and its size
+};
+__host__ __device__ inline FPlanes fplanes(int c, int h) {
+  FPlanes p;
+  p.cp = round8(c);
+  p.ep = round8(2 * h);
+  p.kz = round_ks(3 * c + h);
+  p.kr = round_ks(c);
+  p.z = 0;
+  p.rs = p.z + 2 * static_cast<size_t>(2 * p.cp) * p.kz;
+  p.layer = p.rs + 2 * static_cast<size_t>(2 * p.cp) * p.kr;
+  return p;
+}
+
+// Splits the forward's W(k, n) (blockIdx.y: z and res/skip of layer
+// blockIdx.z, or the end projection) into its planes, one block a plane row
+// n (blockIdx.x), zero past W and in the padding:
+//   z:        as wsplit_kernel
+//   res/skip: W(k, col) = w_rs[i][k][col], plane row n holds col = pair_col(n)
+//   end:      W(k, n) = w_end[k][n]
+__global__ void __launch_bounds__(NTHREADS)
+wsplit_fwd_kernel(const float* __restrict__ w_in, const float* __restrict__ w_cond,
+                  const float* __restrict__ w_rs, const float* __restrict__ w_end,
+                  uint32_t* __restrict__ out, int c, int h, int n_layers) {
+  const int i = blockIdx.z;
+  const int m = blockIdx.y;
+  const int n = blockIdx.x;
+  const FPlanes P = fplanes(c, h);
+  if (m == 2 && i > 0) return;
+  const int rows_m = m == 2 ? P.ep : 2 * P.cp;
+  if (n >= rows_m) return;
+  const int k_pad = m == 0 ? P.kz : P.kr;
+  const size_t off = m == 2 ? n_layers * P.layer : i * P.layer + (m == 0 ? P.z : P.rs);
+  uint32_t* hi = out + off + static_cast<size_t>(n) * k_pad;
+  uint32_t* lo = hi + static_cast<size_t>(rows_m) * k_pad;
+  const int col = pair_col(n, c, P.cp);
+  for (int k = threadIdx.x; k < k_pad; k += NTHREADS) {
+    float v = 0.f;
+    if (m == 0) {
+      v = z_weight(w_in, w_cond, c, h, n_layers, i, col, k);
+    } else if (m == 1) {
+      if (col >= 0 && k < c) v = w_rs[(static_cast<size_t>(i) * c + k) * 2 * c + col];
+    } else if (n < 2 * h && k < c) {
+      v = w_end[static_cast<size_t>(k) * 2 * h + n];
+    }
+    split_tf32(v, hi[k], lo[k]);
+  }
+}
+
 // acc[j][t] += A(tile rows, :k_dim) @ W(:k_dim, n8 tile tiles[j][t]) for the
-// units j < nu of this warp.  W is its split planes: w_hi (row n at
-// w_hi + n * k_pad, the lo plane w_lo), of which the stage copies rows
-// [0, w_rows).
-template <int NTU>
+// units j < nu of this warp, over a tile of 16 * MT rows (MT m16 tiles, each
+// taken by 16 / MT warps).  W is its split planes: w_hi (row n at w_hi + n *
+// k_pad, the lo plane w_lo), of which the stage copies rows [0, w_rows).
+template <int NTU, int MT = RT_MT>
 __device__ __forceinline__ void rt_phase(float (&acc)[RT_NQ][NTU][4], const Operand& a,
                                          const uint32_t* w_hi, const uint32_t* w_lo, int k_pad,
                                          int w_rows, int k_dim, int r0, int rows, int t_len, int d,
@@ -699,7 +656,7 @@ __device__ __forceinline__ void rt_phase(float (&acc)[RT_NQ][NTU][4], const Oper
 
   auto load = [&](int s, int buf) {
     const int k0 = s * RT_KS;
-    {  // A: RT_M rows x RT_KS columns, one 4-column group a thread
+    if (tid < 16 * MT * (RT_KS / 4)) {  // A: 16 * MT rows x RT_KS columns, one 4-column group a thread
       const int rr = tid / (RT_KS / 4);
       const int g = tid % (RT_KS / 4);
       const int r = r0 + rr;
@@ -719,7 +676,7 @@ __device__ __forceinline__ void rt_phase(float (&acc)[RT_NQ][NTU][4], const Oper
 
   // ldmatrix rows of this lane: A rows of the warp's m16 tile; for B, lanes
   // 0-15 read the hi plane and 16-31 the lo plane of one n8 tile
-  const int a_row = (warp & 3) * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int a_row = (warp % MT) * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
   const int a_col = (lane >> 4) * 4;
   const int b_off = ((lane >> 4) * RT_NMAX + (lane & 7)) * RT_AS + ((lane >> 3) & 1) * 4;
 
@@ -738,7 +695,7 @@ __device__ __forceinline__ void rt_phase(float (&acc)[RT_NQ][NTU][4], const Oper
       cp_async_commit();
     }
     const float* xa = raw_a + (s & 1) * RT_M * RT_AS;
-    for (int e = tid; e < RT_M * RT_KS; e += RT_THREADS) {
+    for (int e = tid; e < 16 * MT * RT_KS; e += RT_THREADS) {
       const int i = (e / RT_KS) * RT_AS + e % RT_KS;
       split_tf32(xa[i], ah[i], al[i]);
     }
@@ -782,19 +739,21 @@ __device__ __forceinline__ void rt_phase(float (&acc)[RT_NQ][NTU][4], const Oper
 
 // A row and column of this lane's element i of an m16n8 C fragment of the
 // warp's m16 tile (column within the n8 tile).
+template <int MT = RT_MT>
 __device__ __forceinline__ int frag_row(int i) {
-  return ((threadIdx.x >> 5) & 3) * 16 + ((threadIdx.x & 31) >> 2) + (i >> 1) * 8;
+  return ((threadIdx.x >> 5) % MT) * 16 + ((threadIdx.x & 31) >> 2) + (i >> 1) * 8;
 }
 __device__ __forceinline__ int frag_col(int i) { return (threadIdx.x & 3) * 2 + (i & 1); }
 
-// The n8 tiles (or gate pairs) of this warp: unit p = slot + 4j of the
-// block's share is unit y + ny*p of the whole; returns how many exist.
+// The n8 tiles (or gate pairs) of this warp: unit p = slot + (16 / MT) j of
+// the block's share is unit y + ny*p of the whole; returns how many exist.
+template <int MT = RT_MT>
 __device__ __forceinline__ int rt_units(int y, int ny, int n_units, int (&unit)[RT_NQ]) {
-  const int slot = threadIdx.x >> 7;
+  const int slot = (threadIdx.x >> 5) / MT;
   int nu = 0;
 #pragma unroll
   for (int j = 0; j < RT_NQ; ++j) {
-    unit[j] = y + ny * (slot + 4 * j);
+    unit[j] = y + ny * (slot + 16 / MT * j);
     if (unit[j] < n_units) nu = j + 1;
   }
   return nu;
@@ -934,6 +893,122 @@ __global__ void __launch_bounds__(RT_THREADS, 1) wn_layer_ga_kernel(GaArgs p) {
   }
 }
 
+// One forward layer over a tile of 16 * MT rows, three products, each an
+// rt_phase:
+//   z = [taps of aud_i | x] @ [w_in[i]; w_cond_i] + b_z, then acts = tanh(z[:,
+//       :C]) * sigmoid(z[:, C:]) into the acts scratch;
+//   rs = acts @ w_rs[i]: aud_next = aud_i + rs[:, :C] + b_rs, skip (+)= rs[:,
+//       C:] + b_rs (the last layer has no aud_next);
+//   in the last layer y = skip @ w_end + b_end, RT_END_COLS columns a pass.
+// A product reads rows that the one before it wrote to global memory, the
+// block's own rows; rt_phase opens with a barrier, so its cp.async sees them.
+// Res/skip needs every acts column of a row and the end projection every
+// skip column, so a block takes all columns of its rows; on short series the
+// tiles shrink (MT 2 or 1) instead, so that the grid fills the card.
+constexpr int RT_END_COLS = RT_MT * RT_NQ * 8;  // one n8 tile a unit: 16 units
+struct FwdArgs {
+  Operand a_z, a_acts, a_skip;
+  const uint32_t* planes;      // the layer's split weights (FPlanes)
+  const uint32_t* end_planes;  // the end projection's
+  const float* aud_i;
+  const float* b_z;
+  const float* b_rs;
+  const float* b_end;
+  float* acts;
+  float* aud_next;  // null in the last layer
+  float* skip;
+  float* y;
+  int rows, t_len, h, c, d, first, last;
+};
+
+template <int MT>
+__global__ void __launch_bounds__(RT_THREADS, 1) wn_layer_fwd_kernel(FwdArgs p) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int r0 = blockIdx.x * 16 * MT;
+  const int c = p.c;
+  const FPlanes P = fplanes(c, p.h);
+  int unit[RT_NQ], pair[RT_NQ][2];
+  const int nu = rt_units<MT>(0, 1, P.cp / 8, unit);
+#pragma unroll
+  for (int j = 0; j < RT_NQ; ++j) {
+    pair[j][0] = unit[j];
+    pair[j][1] = unit[j] + P.cp / 8;
+  }
+  {
+    float z[RT_NQ][2][4];
+#pragma unroll
+    for (int j = 0; j < RT_NQ; ++j)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) z[j][i >> 2][i & 3] = 0.f;
+    const uint32_t* wz = p.planes + P.z;
+    rt_phase<2, MT>(z, p.a_z, wz, wz + static_cast<size_t>(2 * P.cp) * P.kz, P.kz, 2 * P.cp,
+                    p.a_z.cols, r0, p.rows, p.t_len, p.d, p.aud_i, pair, nu, smem);
+#pragma unroll
+    for (int j = 0; j < RT_NQ; ++j) {
+      if (j >= nu) continue;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = r0 + frag_row<MT>(i);
+        const int col = unit[j] * 8 + frag_col(i);
+        if (r < p.rows && col < c)
+          p.acts[static_cast<size_t>(r) * c + col] =
+              tanhf(z[j][0][i] + p.b_z[col]) * sigmoidf_(z[j][1][i] + p.b_z[c + col]);
+      }
+    }
+  }
+  {
+    float rs[RT_NQ][2][4];
+#pragma unroll
+    for (int j = 0; j < RT_NQ; ++j)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) rs[j][i >> 2][i & 3] = 0.f;
+    const uint32_t* wr = p.planes + P.rs;
+    rt_phase<2, MT>(rs, p.a_acts, wr, wr + static_cast<size_t>(2 * P.cp) * P.kr, P.kr, 2 * P.cp,
+                    c, r0, p.rows, p.t_len, p.d, p.aud_i, pair, nu, smem);
+#pragma unroll
+    for (int j = 0; j < RT_NQ; ++j) {
+      if (j >= nu) continue;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = r0 + frag_row<MT>(i);
+        const int col = unit[j] * 8 + frag_col(i);
+        if (r >= p.rows || col >= c) continue;
+        const size_t o = static_cast<size_t>(r) * c + col;
+        if (p.aud_next) p.aud_next[o] = p.aud_i[o] + rs[j][0][i] + p.b_rs[col];
+        p.skip[o] = (p.first ? 0.f : p.skip[o]) + rs[j][1][i] + p.b_rs[c + col];
+      }
+    }
+  }
+  if (!p.last) return;
+  for (int n0 = 0; n0 < 2 * p.h; n0 += RT_END_COLS) {
+    const int nc = min(RT_END_COLS, 2 * p.h - n0);
+    int eu[RT_NQ], tile[RT_NQ][1];
+    const int ne = rt_units<MT>(0, 1, (nc + 7) / 8, eu);
+    float e[RT_NQ][1][4];
+#pragma unroll
+    for (int j = 0; j < RT_NQ; ++j) {
+      tile[j][0] = eu[j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) e[j][0][i] = 0.f;
+    }
+    rt_phase<1, MT>(e, p.a_skip, p.end_planes + static_cast<size_t>(n0) * P.kr,
+                    p.end_planes + static_cast<size_t>(P.ep + n0) * P.kr, P.kr, round8(nc), c, r0,
+                    p.rows, p.t_len, p.d, p.aud_i, tile, ne, smem);
+#pragma unroll
+    for (int j = 0; j < RT_NQ; ++j) {
+      if (j >= ne) continue;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = r0 + frag_row<MT>(i);
+        const int col = eu[j] * 8 + frag_col(i);
+        if (r < p.rows && col < nc)
+          p.y[static_cast<size_t>(r) * 2 * p.h + n0 + col] = e[j][0][i] + p.b_end[n0 + col];
+      }
+    }
+  }
+}
+
 // out[e] = sum_s partial[s][e], s in order: the same bits on every run.
 __global__ void __launch_bounds__(NTHREADS)
 reduce_partials_kernel(const float* __restrict__ partial, int nsplit, int count,
@@ -1003,34 +1078,62 @@ bool bad_geometry(int rows, int t_len, int h, int c, int n_layers) {
 }  // namespace
 
 // Forward of one WN: y (R, 2H), aud (L, R, C), skip (R, C).  b_z = b_in + b_cond
-// as (L, 2C).  1 + L kernel launches.
+// as (L, 2C).  Scratch: acts (R, C), wsplit (wn_fwd_wsplit_words).  2 + L
+// kernel launches.
 extern "C" int wn_fwd(const float* x, const float* w_start, const float* b_start,
                       const float* w_cond, const float* b_z, const float* w_in,
                       const float* w_rs, const float* b_rs, const float* w_end,
-                      const float* b_end, float* y, float* aud, float* skip, int rows,
-                      int t_len, int h, int c, int n_layers, void* stream_ptr) {
+                      const float* b_end, float* y, float* aud, float* skip, float* acts,
+                      void* wsplit, int rows, int t_len, int h, int c, int n_layers,
+                      void* stream_ptr) {
   if (bad_geometry(rows, t_len, h, c, n_layers)) return cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  cudaError_t e = rowgemm(x, w_start, b_start, aud, rows, h, c, 0, stream);
+  const FPlanes P = fplanes(c, h);
+  uint32_t* planes = static_cast<uint32_t*>(wsplit);
+  wsplit_fwd_kernel<<<dim3(max(2 * P.cp, P.ep), 3, n_layers), NTHREADS, 0, stream>>>(
+      w_in, w_cond, w_rs, w_end, planes, c, h, n_layers);
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  e = allow_smem(wn_layer_fwd_kernel<false>, LAYER_SMEM);
+  e = rowgemm(x, w_start, b_start, aud, rows, h, c, 0, stream);
   if (e != cudaSuccess) return e;
-  e = allow_smem(wn_layer_fwd_kernel<true>, LAYER_SMEM);
+  int sms = 0;
+  e = current_sms(sms);
   if (e != cudaSuccess) return e;
+  // m16 tiles a row tile: RT_MT, halved while the smaller tiles still fit
+  // one wave of a block an SM (on an H100, PERF.md: at VendCoffee's 2,400
+  // rows 32-row tiles took 0.67-0.71 ms, 64-row 0.92 and 16-row, two waves,
+  // 1.06-1.08; at VendGunPoint's 6,000 rows 64-row tiles 0.82 ms, 32-row
+  // 1.09-1.14)
+  int mt = RT_MT;
+  while (mt > 1 && (rows + 8 * mt - 1) / (8 * mt) <= sms) mt /= 2;
+  auto kernel = mt == 4 ? wn_layer_fwd_kernel<4> : mt == 2 ? wn_layer_fwd_kernel<2> : wn_layer_fwd_kernel<1>;
+  e = allow_smem(kernel, RT_SMEM);
+  if (e != cudaSuccess) return e;
+  const int tiles_fwd = (rows + 16 * mt - 1) / (16 * mt);
   const size_t rc = static_cast<size_t>(rows) * c;
   for (int i = 0; i < n_layers; ++i) {
-    const float* w_in_i = w_in + static_cast<size_t>(i) * 3 * c * 2 * c;
-    const float* w_rs_i = w_rs + static_cast<size_t>(i) * c * 2 * c;
+    const int d = 1 << i;
+    const float* aud_i = aud + i * rc;
     const bool last = i == n_layers - 1;
-    auto kernel = last ? wn_layer_fwd_kernel<true> : wn_layer_fwd_kernel<false>;
-    kernel<<<tiles(rows), NTHREADS, LAYER_SMEM, stream>>>(
-        x, aud + i * rc, w_in_i, w_cond, b_z + static_cast<size_t>(i) * 2 * c, w_rs_i,
-        b_rs + static_cast<size_t>(i) * 2 * c, w_end, b_end, last ? nullptr : aud + (i + 1) * rc,
-        skip, y, rows, t_len, h, c, i, n_layers);
+    const FwdArgs p{
+        operand({rows_of(aud_i, c, -d, kLo), rows_of(aud_i, c), rows_of(aud_i, c, d, kHi),
+                 rows_of(x, h)}),
+        operand({rows_of(acts, c)}), operand({rows_of(skip, c)}), planes + i * P.layer,
+        planes + n_layers * P.layer, aud_i, b_z + static_cast<size_t>(i) * 2 * c,
+        b_rs + static_cast<size_t>(i) * 2 * c, b_end, acts, last ? nullptr : aud + (i + 1) * rc,
+        skip, y, rows, t_len, h, c, d, i == 0, last};
+    kernel<<<tiles_fwd, RT_THREADS, RT_SMEM, stream>>>(p);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
   return cudaSuccess;
+}
+
+// 32-bit words of wn_fwd's wsplit scratch: the split weights of every layer
+// and the end projection.
+extern "C" size_t wn_fwd_wsplit_words(int c, int h, int n_layers) {
+  const FPlanes p = fplanes(c, h);
+  return n_layers * p.layer + 2 * static_cast<size_t>(p.ep) * p.kr;
 }
 
 // 32-bit words of wn_bwd's wsplit scratch: the split weights of every layer.

@@ -7,7 +7,8 @@ zero-embedded, the end 1x1) runs on the batch collapsed into rows,
 ``(B*T, C)``, with position masks ``pos = row % T`` in place of padding:
 
 * ``wn_fwd`` (CUDA, ``csrc/wn_fused.cu``) replaces ``_wn_fwd_kernel``; it
-  returns y, the per-layer audio ``aud`` (L, R, C) and the skip sum;
+  returns y, the per-layer audio ``aud`` (L, R, C) and the skip sum, every
+  layer product a 3xTF32 tensor-core GEMM over tiles of rows;
 * ``wn_bwd`` replaces ``_wn_bwd_kernel``: the reverse layer walk recomputing
   z from ``aud``, the input gradient and every weight gradient; the end
   projection's gradients (and ``gbc``, equal to ``gbi``) are taken outside,
@@ -66,7 +67,7 @@ def wgrad_split_rows(rows: int) -> int:
 
 def global_launches(n_layers: int) -> Dict[str, int]:
     """``__global__`` launches per call of each host entry."""
-    return {"wn_fwd": 1 + n_layers, "wn_bwd": 5 + 6 * n_layers}
+    return {"wn_fwd": 2 + n_layers, "wn_bwd": 5 + 6 * n_layers}
 
 
 def stack_effective(params: Dict, weight_norm_weight) -> Tuple[torch.Tensor, ...]:
@@ -186,79 +187,6 @@ def wn_bwd_plain(x2, g2, aud, skip, w_start, w_cond, b_cond, w_in, b_in, w_rs, w
     )
 
 
-def _stage_rows(a: torch.Tensor, r0: int, r1: int, shift: int = 0, keep=None) -> torch.Tensor:
-    """Rows ``[r0 + shift, r1 + shift)`` of ``a``, zero outside ``a`` and
-    where ``keep`` (one bool a row) is false: one segment of a staged
-    operand of ``wn_bwd``, a contiguous row range and one mask a row."""
-    idx = torch.arange(r0 + shift, r1 + shift, device=a.device)
-    ok = (idx >= 0) & (idx < a.shape[0])
-    if keep is not None:
-        ok &= keep
-    out = torch.zeros(r1 - r0, a.shape[1], dtype=a.dtype, device=a.device)
-    out[ok] = a[idx[ok]]
-    return out
-
-
-def wn_bwd_tiles_plain(x2, g2, aud, skip, w_start, w_cond, b_cond, w_in, b_in, w_rs, w_end,
-                       t_len: int, split_rows: int | None = None):
-    """``wn_bwd_plain``'s contract, computed as ``wn_bwd``'s kernels stage it.
-    The tap operands are row ranges ``aud[r -+ d]`` with a mask a row (``pos
-    >= d``, ``pos < T - d``), and the transposed taps of g_z likewise
-    (``g_z[u + d]`` live iff ``pos(u + d) >= d``, ``g_z[u - d]`` iff ``pos(u
-    - d) < T - d``, each tested at the source row).  Every weight gradient
-    is a sum of row-slice partials ``A_s^T B_s`` in slice order, with A = [lo
-    aud[r-d] | aud[r] | hi aud[r+d] | x | 1] against g_z, [acts | 1] against
-    [g_audio | g_skip] and [x | 1] against g_audio_0, and its rows laid out
-    as the kernel writes them (``_unpack``)."""
-    n_layers, _, c, _ = w_in.shape
-    rows, h = x2.shape
-    split = split_rows or wgrad_split_rows(rows)
-    pos = torch.arange(rows, device=x2.device) % t_len
-    ones = torch.ones(rows, 1, dtype=x2.dtype, device=x2.device)
-
-    def wgrad(a_of, b):
-        total = None
-        for r0 in range(0, rows, split):
-            r1 = min(r0 + split, rows)
-            part = a_of(r0, r1).T @ b[r0:r1]
-            total = part if total is None else total + part
-        return total
-
-    b_z = b_in + b_cond.reshape(n_layers, 2 * c)
-    g_skip = g2 @ w_end.T
-    g_audio = torch.zeros_like(g_skip)
-    g_x = torch.zeros_like(x2)
-    g_in, g_rs = [None] * n_layers, [None] * n_layers
-    for i in reversed(range(n_layers)):
-        d, audio = 2 ** i, aud[i]
-        w_c = w_cond[:, 2 * c * i : 2 * c * (i + 1)]
-
-        def a_in(r0, r1, audio=audio, d=d):
-            p = pos[r0:r1]
-            return torch.cat([_stage_rows(audio, r0, r1, -d, p >= d), audio[r0:r1],
-                              _stage_rows(audio, r0, r1, d, p < t_len - d), x2[r0:r1],
-                              ones[r0:r1]], dim=1)
-
-        z = a_in(0, rows)[:, : 3 * c + h] @ torch.cat([w_in[i].reshape(3 * c, 2 * c), w_c]) + b_z[i]
-        tt, ss = torch.tanh(z[:, :c]), torch.sigmoid(z[:, c:])
-        acts = tt * ss
-        grs = torch.cat([g_audio, g_skip], dim=1)
-        g_rs[i] = wgrad(lambda r0, r1: torch.cat([acts[r0:r1], ones[r0:r1]], dim=1), grs)
-        g_acts = grs @ w_rs[i].T
-        g_z = torch.cat([g_acts * ss * (1 - tt * tt), g_acts * tt * ss * (1 - ss)], dim=1)
-        g_in[i] = wgrad(a_in, g_z)
-        g_x = g_x + g_z @ w_c.T
-        src_pos_up = (pos + d) % t_len  # pos(u + d)
-        src_pos_dn = (pos - d) % t_len  # pos(u - d)
-        g_audio = g_audio + torch.cat([
-            _stage_rows(g_z, 0, rows, d, src_pos_up >= d), g_z,
-            _stage_rows(g_z, 0, rows, -d, src_pos_dn < t_len - d),
-        ], dim=1) @ w_in[i].transpose(1, 2).reshape(3 * 2 * c, c)
-    g_start = wgrad(lambda r0, r1: torch.cat([x2[r0:r1], ones[r0:r1]], dim=1), g_audio)
-    gx = g_x + g_audio @ w_start.T
-    return _unpack(gx, torch.stack(g_in), torch.stack(g_rs), g_start, skip, g2)
-
-
 def _unpack(gx, g_in, g_rs, g_start, skip, g2):
     """``wn_bwd``'s outputs in ``wn_bwd_plain``'s order from the kernel's
     layouts: g_in (L, 3C+H+1, 2C) = per layer [gwi | gwc slice | gbi], g_rs
@@ -284,8 +212,10 @@ def _lib() -> ctypes.CDLL:
     """Build (at first use) and bind ``csrc/wn_fused.cu``."""
     lib = _build.load("wn_fused")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.wn_fwd.argtypes = [p] * 13 + [i] * 5 + [p]
+    lib.wn_fwd.argtypes = [p] * 15 + [i] * 5 + [p]
     lib.wn_fwd.restype = i
+    lib.wn_fwd_wsplit_words.argtypes = [i] * 3
+    lib.wn_fwd_wsplit_words.restype = ctypes.c_size_t
     lib.wn_bwd.argtypes = [p] * 19 + [i] * 6 + [p]
     lib.wn_bwd.restype = i
     lib.wn_bwd_wsplit_words.argtypes = [i] * 3
@@ -338,12 +268,17 @@ def wn_fwd(x2, w_start, b_start, w_cond, b_cond, w_in, b_in, w_rs, b_rs, w_end, 
     ins = [x2, w_start, b_start, w_cond, b_z, w_in, w_rs, b_rs, w_end, b_end]
     rows, h, c, n_layers = _check(x2, t_len, w_in, *ins)
     lib = _lib()
-    y = torch.empty(rows, 2 * h, device=x2.device)
-    aud = torch.empty(n_layers, rows, c, device=x2.device)
-    skip = torch.empty(rows, c, device=x2.device)
-    with torch.cuda.device(x2.device):
+    dev = x2.device
+    y = torch.empty(rows, 2 * h, device=dev)
+    aud = torch.empty(n_layers, rows, c, device=dev)
+    skip = torch.empty(rows, c, device=dev)
+    scratch = [
+        torch.empty(rows, c, device=dev),  # acts
+        torch.empty(lib.wn_fwd_wsplit_words(c, h, n_layers), dtype=torch.int32, device=dev),  # split weights
+    ]
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.wn_fwd(*_ptrs(*ins, y, aud, skip), rows, t_len, h, c, n_layers, stream)
+        err = lib.wn_fwd(*_ptrs(*ins, y, aud, skip, *scratch), rows, t_len, h, c, n_layers, stream)
     LAUNCHES["wn_fwd"] += 1
     _raise_on(err, "wn_fwd")
     return y, aud, skip

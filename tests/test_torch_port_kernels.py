@@ -15,15 +15,18 @@ whose taps are all zero and a stray nonzero weight outside the mask, so the
 tap windows of the pre-pass are exercised; for the WN kernels, rows not a multiple of the 64-row
 tile or below one tile, T < 2^7 (the deep layers' taps all masked), B = 1,
 C, H off the mma tiling, a last weight-gradient slice of one row or one row
-short, and H of 65 and 168 (VendGunPoint's and VendCoffee's, past one
-128-column chunk, and VendCoffee's pair pass); for the gate, rows and n off the thread grid and a
+short, H of 65 and 168 (VendGunPoint's and VendCoffee's, past one
+128-column chunk, and VendCoffee's pair pass), and each of ``wn_fwd``'s row
+tiles (64 rows, and 32 or 16 where the smaller tiles still fit one wave of
+a block an SM); for the gate, rows and n off the thread grid and a
 row-strided operand; for the tap conv, time and C_out off the 128 x 64 tile,
 C_in off the 8-channel chunk, dilations up to 128 (also with t_out < d).  Tolerance: max|kernel - plain| <= 1e-4 * max|plain| for
 forward values, both exact float32 with TF32 off, the sums taken in another
-order; 1e-5 for every ``wn_bwd`` output (3xTF32 stage sums, fixed-order
-row-slice partials), and 1e-3 for the other weight gradients, sums over
-every row in another order.  The last three tests pin what the 3xTF32
-kernels return for non-finite inputs, which their contract leaves out.
+order; 1e-5 for every ``wn_fwd`` and ``wn_bwd`` output (3xTF32 stage sums,
+fixed-order row-slice partials), and 1e-3 for the other weight gradients,
+sums over every row in another order.  The last four tests pin what the
+3xTF32 kernels return for non-finite inputs, which their contract leaves
+out.
 """
 
 import pytest
@@ -39,7 +42,7 @@ from feature_level_style_transfer_for_tsc_tpu_torch.train.classifier import buil
 
 REL_TOL = 1e-4
 GRAD_REL_TOL = 1e-3
-WN_BWD_REL_TOL = 1e-5  # every wn_bwd output: 3xTF32 staged sums, fixed-order slice partials
+WN_REL_TOL = 1e-5  # every wn_fwd and wn_bwd output: 3xTF32 staged sums, fixed-order slice partials
 
 
 @pytest.fixture
@@ -179,6 +182,9 @@ def _wn_operands(card, b, t, h, c, n_layers, seed):
         (1, 65, 25, 120, 8),  # 32-row slices: a last slice of one row
         (1, 63, 25, 120, 8),  # a last slice one row short
         (40, 60, 168, 120, 8),  # VendCoffee's pair pass: 38 slices of 64, d >= T from layer 6
+        (8, 1152, 25, 120, 8),  # 144 tiles of 64 rows: wn_fwd's widest tile
+        (9, 1000, 7, 33, 3),  # 141 tiles of 64 rows, the last ragged, C and H off the tiling
+        (3, 1000, 9, 40, 4),  # 3,000 rows: wn_fwd's 32-row tiles (16 from 2,112 rows down)
     ],
 )
 def test_wn_kernels_match_plain(card, b, t, h, c, n_layers):
@@ -186,20 +192,22 @@ def test_wn_kernels_match_plain(card, b, t, h, c, n_layers):
     x2 = x.reshape(b * t, h).contiguous()
     before = dict(wn_fused.LAUNCHES)
     got = wn_fused.wn_fwd(x2, *eff, t)
+    twice = wn_fused.wn_fwd(x2, *eff, t)
     want = wn_fused.wn_fwd_plain(x2, *eff, t)
-    for gv, wv in zip(got, want):
-        _close(gv, wv)
+    for gv, wv, av in zip(got, want, twice):
+        _close(gv, wv, WN_REL_TOL)
+        assert torch.equal(gv, av)
     g2 = torch.randn(b * t, 2 * h, device=card, generator=torch.Generator(card).manual_seed(7))
     _, aud, skip = want
     bwd_args = (x2, g2, aud, skip, eff[0], eff[2], eff[3], eff[4], eff[5], eff[6], eff[8], t)
     grads = wn_fused.wn_bwd(*bwd_args)
     again = wn_fused.wn_bwd(*bwd_args)
     torch.cuda.synchronize()
-    assert wn_fused.LAUNCHES["wn_fwd"] == before["wn_fwd"] + 1
+    assert wn_fused.LAUNCHES["wn_fwd"] == before["wn_fwd"] + 2
     assert wn_fused.LAUNCHES["wn_bwd"] == before["wn_bwd"] + 2
     for gv, wv, av in zip(grads, wn_fused.wn_bwd_plain(*bwd_args), again):
         assert gv.shape == wv.shape
-        _close(gv, wv, WN_BWD_REL_TOL)
+        _close(gv, wv, WN_REL_TOL)
         assert torch.equal(gv, av)  # fixed-order reductions: the same bits every run
 
 
@@ -429,3 +437,35 @@ def test_wn_bwd_gives_nan_for_an_inf_input_and_skips_a_dead_taps_zero_times_inf(
     got, want = both(g2, aud_inf)
     assert torch.isnan(want[0][q - d]).all()
     assert torch.isfinite(got[0][:t]).all()
+
+
+@pytest.mark.gpu
+def test_wn_fwd_gives_nan_for_an_inf_weight_and_skips_a_masked_taps_zero_times_inf(card):
+    b, t, h, c, n_layers = 2, 40, 5, 16, 4
+    _, eff, x = _wn_operands(card, b, t, h, c, n_layers, seed=4)
+    x2 = x.reshape(b * t, h).contiguous()
+    # an inf in the end projection's weight: every row's y in that column is
+    # +-inf in the plain version and NaN in the kernel's split (lo = inf -
+    # inf); the other columns stay within tolerance.  (An inf in x reaches
+    # both versions' FP32 start projection first and sums to NaN in both.)
+    w_end = eff[8].clone()
+    w_end[3, 2] = float("inf")
+    args = eff[:8] + [w_end, eff[9]]
+    got, want = wn_fused.wn_fwd(x2, *args, t)[0], wn_fused.wn_fwd_plain(x2, *args, t)[0]
+    assert torch.isinf(want[:, 2]).all() and torch.isnan(got[:, 2]).all()
+    keep = torch.arange(2 * h, device=card) != 2
+    _close(got[:, keep], want[:, keep], WN_REL_TOL)
+    # an inf in x at the first row q of series 1: the audio of row q is +-inf
+    # from the start projection on; series 0 reads it only through taps that
+    # cross the series boundary (row q - d's tap at r + d, masked by pos = T -
+    # d), which the kernel never multiplies, where the plain version forms
+    # 0 * inf and turns series 0 NaN
+    q = t
+    x_inf = x2.clone()
+    x_inf[q, 1] = float("inf")
+    got, want = wn_fused.wn_fwd(x_inf, *eff, t), wn_fused.wn_fwd_plain(x_inf, *eff, t)
+    assert torch.isnan(want[0][q - 1]).all()
+    for gv, wv in zip(got, wn_fused.wn_fwd_plain(x2, *eff, t)):
+        rows = gv[..., :t, :]  # series 0 of y, of every layer's aud and of skip
+        assert torch.isfinite(rows).all()
+        _close(rows, wv[..., :t, :], WN_REL_TOL)

@@ -1,6 +1,6 @@
 """How ``wn_bwd`` stages its work, held on the CPU against the JAX package.
 
-``wn_fused.wn_bwd_tiles_plain`` is the plain mirror of the kernels' staging:
+``wn_bwd_tiles_plain`` (here) is the plain mirror of the kernels' staging:
 tap operands as row ranges of ``aud`` with one mask a row, the transposed
 taps of g_z masked at their source row, and every weight gradient a sum of
 row-slice partials in slice order.  Its gradients go through the port's
@@ -35,6 +35,79 @@ from test_torch_port_train_ops import WN_TOL, _close_trees, _grads_tree, _port, 
 MIRROR_TOL = 1e-6
 
 
+def _stage_rows(a: torch.Tensor, r0: int, r1: int, shift: int = 0, keep=None) -> torch.Tensor:
+    """Rows ``[r0 + shift, r1 + shift)`` of ``a``, zero outside ``a`` and
+    where ``keep`` (one bool a row) is false: one segment of a staged
+    operand of the WN kernels, a contiguous row range and one mask a row."""
+    idx = torch.arange(r0 + shift, r1 + shift, device=a.device)
+    ok = (idx >= 0) & (idx < a.shape[0])
+    if keep is not None:
+        ok &= keep
+    out = torch.zeros(r1 - r0, a.shape[1], dtype=a.dtype, device=a.device)
+    out[ok] = a[idx[ok]]
+    return out
+
+
+def wn_bwd_tiles_plain(x2, g2, aud, skip, w_start, w_cond, b_cond, w_in, b_in, w_rs, w_end,
+                       t_len: int, split_rows: int | None = None):
+    """``wn_bwd_plain``'s contract, computed as ``wn_bwd``'s kernels stage it.
+    The tap operands are row ranges ``aud[r -+ d]`` with a mask a row (``pos
+    >= d``, ``pos < T - d``), and the transposed taps of g_z likewise
+    (``g_z[u + d]`` live iff ``pos(u + d) >= d``, ``g_z[u - d]`` iff ``pos(u
+    - d) < T - d``, each tested at the source row).  Every weight gradient
+    is a sum of row-slice partials ``A_s^T B_s`` in slice order, with A = [lo
+    aud[r-d] | aud[r] | hi aud[r+d] | x | 1] against g_z, [acts | 1] against
+    [g_audio | g_skip] and [x | 1] against g_audio_0, and its rows laid out
+    as the kernel writes them (``_unpack``)."""
+    n_layers, _, c, _ = w_in.shape
+    rows, h = x2.shape
+    split = split_rows or wn_fused.wgrad_split_rows(rows)
+    pos = torch.arange(rows, device=x2.device) % t_len
+    ones = torch.ones(rows, 1, dtype=x2.dtype, device=x2.device)
+
+    def wgrad(a_of, b):
+        total = None
+        for r0 in range(0, rows, split):
+            r1 = min(r0 + split, rows)
+            part = a_of(r0, r1).T @ b[r0:r1]
+            total = part if total is None else total + part
+        return total
+
+    b_z = b_in + b_cond.reshape(n_layers, 2 * c)
+    g_skip = g2 @ w_end.T
+    g_audio = torch.zeros_like(g_skip)
+    g_x = torch.zeros_like(x2)
+    g_in, g_rs = [None] * n_layers, [None] * n_layers
+    for i in reversed(range(n_layers)):
+        d, audio = 2 ** i, aud[i]
+        w_c = w_cond[:, 2 * c * i : 2 * c * (i + 1)]
+
+        def a_in(r0, r1, audio=audio, d=d):
+            p = pos[r0:r1]
+            return torch.cat([_stage_rows(audio, r0, r1, -d, p >= d), audio[r0:r1],
+                              _stage_rows(audio, r0, r1, d, p < t_len - d), x2[r0:r1],
+                              ones[r0:r1]], dim=1)
+
+        z = a_in(0, rows)[:, : 3 * c + h] @ torch.cat([w_in[i].reshape(3 * c, 2 * c), w_c]) + b_z[i]
+        tt, ss = torch.tanh(z[:, :c]), torch.sigmoid(z[:, c:])
+        acts = tt * ss
+        grs = torch.cat([g_audio, g_skip], dim=1)
+        g_rs[i] = wgrad(lambda r0, r1: torch.cat([acts[r0:r1], ones[r0:r1]], dim=1), grs)
+        g_acts = grs @ w_rs[i].T
+        g_z = torch.cat([g_acts * ss * (1 - tt * tt), g_acts * tt * ss * (1 - ss)], dim=1)
+        g_in[i] = wgrad(a_in, g_z)
+        g_x = g_x + g_z @ w_c.T
+        src_pos_up = (pos + d) % t_len  # pos(u + d)
+        src_pos_dn = (pos - d) % t_len  # pos(u - d)
+        g_audio = g_audio + torch.cat([
+            _stage_rows(g_z, 0, rows, d, src_pos_up >= d), g_z,
+            _stage_rows(g_z, 0, rows, -d, src_pos_dn < t_len - d),
+        ], dim=1) @ w_in[i].transpose(1, 2).reshape(3 * 2 * c, c)
+    g_start = wgrad(lambda r0, r1: torch.cat([x2[r0:r1], ones[r0:r1]], dim=1), g_audio)
+    gx = g_x + g_audio @ w_start.T
+    return wn_fused._unpack(gx, torch.stack(g_in), torch.stack(g_rs), g_start, skip, g2)
+
+
 @pytest.mark.parametrize(
     "b, t, h, split",
     [
@@ -51,7 +124,7 @@ def test_tiles_mirror_matches_jax_wn_apply(b, t, h, split, monkeypatch):
     c = 16
     params, x = _wn_case(b, t, h, c, seed=t + split)
     monkeypatch.setattr(wn_fused, "wn_bwd_plain",
-                        functools.partial(wn_fused.wn_bwd_tiles_plain, split_rows=split))
+                        functools.partial(wn_bwd_tiles_plain, split_rows=split))
 
     def jloss(p, xx):
         return jnp.sum(jnp.sin(j_flow.wn_apply(p, xx, c)))
@@ -87,7 +160,7 @@ def test_tiles_mirror_matches_wn_bwd_plain(b, t, h, c):
     """The mirror with ``wgrad_split_rows``'s slices equals ``wn_bwd_plain``
     output by output, the layouts of ``_unpack`` included."""
     args = _bwd_args(b, t, h, c, 8, seed=b + t)
-    got = wn_fused.wn_bwd_tiles_plain(*args)
+    got = wn_bwd_tiles_plain(*args)
     want = wn_fused.wn_bwd_plain(*args)
     assert len(got) == len(want) == 11
     for g, w in zip(got, want):
@@ -98,9 +171,9 @@ def test_tiles_mirror_matches_wn_bwd_plain(b, t, h, c):
 def test_stage_rows_is_a_masked_row_range():
     a = torch.arange(20.0).reshape(10, 2)
     keep = torch.tensor([True, False, True, True])
-    got = wn_fused._stage_rows(a, 7, 11, 2, keep)  # rows 9, 10, 11, 12 of a: only 9 exists
+    got = _stage_rows(a, 7, 11, 2, keep)  # rows 9, 10, 11, 12 of a: only 9 exists
     assert got.tolist() == [[18.0, 19.0], [0.0, 0.0], [0.0, 0.0], [0.0, 0.0]]
-    assert wn_fused._stage_rows(a, 0, 3, -1).tolist() == [[0.0, 0.0], [0.0, 1.0], [2.0, 3.0]]
+    assert _stage_rows(a, 0, 3, -1).tolist() == [[0.0, 0.0], [0.0, 1.0], [2.0, 3.0]]
 
 
 @pytest.mark.parametrize(
