@@ -54,6 +54,11 @@ non-zero when any check fails.  Phases:
    losses in phases 1-4 and phase 5's first step (the rest of phase 5 is
    recorded), the checkpoints, ``epoch_0.npz`` served by ``cli.predict``,
    and the phase-5 step time;
+8b. ``cli.main ... --resume --device cuda`` on a copy of phase 8's out
+   directory (its ``final_state.npz``, the whole training state), phases
+   1-4 of 0 epochs and phase 5 of 1, deterministic, with exact launch
+   counts: its first phase-5 step's losses must be the same bits as those
+   of ``pipe.run`` from a deep copy of the state phase 8 returned;
 9. one full-width phase-5 step against the plain path on the card (kernels
    swapped for their plain versions; CPC anchors and CDAN dropout pinned):
    the 9 losses, the trunk-norm vectors, the new GradNorm weights and the
@@ -73,7 +78,9 @@ non-zero when any check fails.  Phases:
     traced step's wall time, measured and not checked;
 12. the op-by-op WN's kernels at full width: ``gate_fwd`` against
     ``gate_plain`` at the pair (46,080 rows) and infer (23,040) shapes,
-    with ``b`` a column slice of a cond projection, beside its bytes bound;
+    with ``b`` a column slice of a cond projection, beside its bytes bound,
+    timed back to back on one input set and over a rotation of sets that
+    exceed twice the L2 (each call reads from device memory);
     ``tap_conv_fwd`` against ``tap_conv_plain`` at the 8 dilations of the
     pair pass's forward (120 -> 240) and of its input-gradient pass (240 ->
     120), beside its tensor-core and FP32 bounds (as phase 2), its TFLOP/s,
@@ -90,13 +97,14 @@ non-zero when any check fails.  Phases:
     VendEthanol (source), the default fused route, reference budgets, two
     epochs of phases 1-4 and one of phase 5; finiteness as phase 8.
 
-The ``cli.main`` drives (phases 8, 13, 14) run with PyTorch's deterministic
+The ``cli.main`` drives (phases 8, 8b, 13, 14) run with PyTorch's deterministic
 algorithms, so each repeats bit for bit from run to run.  The launch counts
 are set to 0 just before each drive of the main path and read just after
 it.  The line before the last lists every kernel as JSON,
 with the launches of the main-path drives (serving: single and ensemble,
 not the VendGunPoint check; training: the two ``cli.main`` drives of phases
-8 and 13, not phase 14's) and a bound from the FLOPs or bytes these inputs
+8 and 13, not those of phases 8b and 14, whose counts are checked and kept
+apart) and a bound from the FLOPs or bytes these inputs
 need; the last line is {"ok": true, "device": {...}}.  Everything measured is also written to
 chiprun_out/chip_smoke_results.json.
 """
@@ -109,6 +117,7 @@ import copy
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -127,6 +136,7 @@ FP32_PEAK = 67e12  # H100 SXM FP32 FLOP/s outside the tensor cores (NVIDIA data 
 TC_PEAK = 494.7e12  # H100 SXM dense TF32 FLOP/s on the tensor cores (NVIDIA data sheet)
 TF32_PRODUCTS = 3  # the tap-GEMM kernels' f32-accurate product: lo*hi + hi*lo + hi*hi
 HBM_RATE = 3.35e12  # H100 SXM device memory bytes/s
+L2_BYTES = 50e6  # H100 SXM L2
 REL_TOL = 1e-4  # max_abs / max|plain|, exact f32 both sides, sums in another order
 BATCH = 20
 SCP2 = {"channels": 7, "length": 1152, "classes": 2, "n_train": 200, "n_test": 180}
@@ -160,6 +170,7 @@ TRAIN_SERIES = 40  # per split and domain in the training drive
 # epoch_0.npz meaningful; they are not what makes the checks pass.
 PHASE_EPOCHS = {"p1": 1, "p2": 1, "p3": 2, "p4": 2, "p5": 1}
 VENDORED_EPOCHS = {"p1": 2, "p2": 2, "p3": 2, "p4": 2, "p5": 1}
+RESUME_EPOCHS = {"p1": 0, "p2": 0, "p3": 0, "p4": 0, "p5": 1}  # the --resume drive (phase 8b)
 OP_BY_OP = {"FLSTTSC_WN_FUSED": "0", "FLSTTSC_CONV_IMPL": "pallas"}
 WIDE_WN = (("VendGunPoint", 150, 65), ("VendCoffee", 60, 168))  # (dataset, T, n_half)
 GATE_OPS = 5  # per output: two adds, one multiply, tanh and sigmoid, each counted once
@@ -219,6 +230,28 @@ def single_call_ms(fn, warmup: int = 2, reps: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def rotated_ms(fn, sets) -> float:
+    """Time of one call ``fn(*args)`` over a rotation of input sets, a call
+    each, that together exceed the L2, so each call reads from device
+    memory: CUDA events around 4 passes, median of 3 runs, after a warm-up
+    pass."""
+    rounds = 4
+    for args in sets:
+        fn(*args)
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(rounds):
+            for args in sets:
+                fn(*args)
+        end.record()
+        end.synchronize()
+        runs.append(start.elapsed_time(end) / (rounds * len(sets)))
+    return statistics.median(runs)
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor):
@@ -682,12 +715,13 @@ def expected_training_launches(pipe, n_series: int, epochs: dict, op_by_op: bool
     ev = 2 * nb  # eval batches of a domain: train and test splits
     ev_t, ev_s = ev * (te + cl), ev * (se + cl)
     e = epochs
+    sup4 = math.ceil(e["p4"] / pipe.config.nf_supervised_every)  # phase 4's supervised epochs
     conv = (
         e["p1"] * (nb * (te + cl) + ev_t)
         + e["p2"] * (nb * (se + cl) + ev_s)
         + e["p3"] * (nb * (te + se + 2 * cl) + ev_t + ev_s)
-        + nb * (te + se + 2 * cl) + ev_t + ev_s  # phase 4, supervised epoch 0
-        + (e["p4"] - 1) * nb * (te + se)  # phase 4, unsupervised
+        + sup4 * (nb * (te + se + 2 * cl) + ev_t + ev_s)
+        + (e["p4"] - sup4) * nb * (te + se)  # phase 4, unsupervised
         + e["p5"] * nb * (te + se + 3 * cl)
         + math.ceil(e["p5"] / pipe.config.eval_every) * (ev_t + ev_s)
     )
@@ -862,27 +896,49 @@ def phase5_against_plain(pipe, state, batch, osconv, wn_fused, gate, gradnorm_st
 
 # ----------------------------------------------------------------- phase 12 --
 
+def gate_operands(rows: int, c: int, n_layers: int, gen: torch.Generator):
+    """The gate's ``a`` (rows, 2C) and ``b``, layer 3's column slice of a
+    (rows, 2*C*L) cond projection, whose rows are 2*C*L floats apart."""
+    a = torch.randn(rows, 2 * c, device="cuda", generator=gen)
+    spect = torch.randn(rows, 2 * c * n_layers, device="cuda", generator=gen)
+    return a, spect[:, 2 * c * 3 : 2 * c * 4]
+
+
+def gate_sets(rows: int, c: int, n_layers: int, gen: torch.Generator):
+    """Enough ``gate_operands`` sets to exceed twice the L2, and the bytes
+    one call must move (a and b read once, out written once)."""
+    n_bytes = 4 * (2 * rows * 2 * c + rows * c)
+    return [gate_operands(rows, c, n_layers, gen)
+            for _ in range(int(2 * L2_BYTES // n_bytes) + 2)], n_bytes
+
+
 def gate_phase(gate, c: int, n_layers: int):
     """``gate_fwd`` against ``gate_plain`` at the pair and infer rows of
-    phase 5, ``b`` a column slice of a (rows, 2*C*L) cond projection."""
+    phase 5 (``gate_operands``), timed back to back on one input set
+    (``ms``; the infer call's 55 MB nearly fit in L2) and over a rotation of
+    sets that exceed twice the L2 (``rot_ms``)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     out = []
+
+    def call(a, b):
+        return gate.gate_fwd(a, b, c)
+
     for what, b in (("pair", 2 * BATCH), ("infer", BATCH)):
         rows = b * SCP2["length"]
-        a = torch.randn(rows, 2 * c, device="cuda", generator=gen)
-        spect = torch.randn(rows, 2 * c * n_layers, device="cuda", generator=gen)
-        b_view = spect[:, 2 * c * 3 : 2 * c * 4]  # layer 3's slice, rows 2*C*L apart
-        y = gate.gate_fwd(a, b_view, c)
+        sets, n_bytes = gate_sets(rows, c, n_layers, gen)
+        a, b_view = sets[0]
+        y = call(a, b_view)
         err, rel = rel_err(y, gate.gate_plain(a, b_view, c))
         torch.cuda.synchronize()
-        n_bytes = 4 * (2 * rows * 2 * c + rows * c)  # a and b read once, out written once
         row = {"shape": what, "rows": rows, "n": c, "max_abs": err, "rel": rel,
-               "ms": cuda_ms(lambda: gate.gate_fwd(a, b_view, c), reps=20),
+               "ms": cuda_ms(lambda: call(a, b_view), reps=20),
+               "rot_ms": rotated_ms(call, sets), "rotated_sets": len(sets),
                "plain_ms": cuda_ms(lambda: gate.gate_plain(a, b_view, c), reps=20),
                "bytes_ms": n_bytes / HBM_RATE * 1e3,
                "flop_ms": GATE_OPS * rows * c / FP32_PEAK * 1e3}
         row["bound_ms"] = max(row["bytes_ms"], row["flop_ms"])
         row["gb_per_s"] = n_bytes / row["ms"] / 1e6
+        row["rot_gb_per_s"] = n_bytes / row["rot_ms"] / 1e6
         log("gate " + json.dumps(row))
         check(rel <= REL_TOL, f"gate_fwd {what}: rel err {rel:.3e}")
         out.append(row)
@@ -986,6 +1042,39 @@ def training_drive(run, train_cli, pipeline_cls, what: str, args, expect: dict, 
     p5 = check_history(what, history, first[0])
     check_files(what, out)
     return state, history, step_s, p5
+
+
+def resume_phase(run, train_cli, pipeline_cls, pipe, state, datasets, out: Path, args) -> dict:
+    """``cli.main --resume`` on a copy of phase 8's out directory (its
+    ``final_state.npz``, one phase-5 epoch) against ``pipe.run`` from a deep
+    copy of the state phase 8 returned, both deterministic: the first
+    phase-5 step's losses, taken before any update, and every key of the
+    whole state after the epoch (``state_to_flat``: params, moments, counts,
+    learning rates, schedulers, GradNorm, generator; NaN equal to NaN, as a
+    truncated pretrain's flow can run away) must be the same bits."""
+    memory = copy.deepcopy(state)
+    resumed = out.with_name(out.name + "_resumed")
+    shutil.copytree(out, resumed)
+    expect = {**run.idle(), **expected_training_launches(pipe, TRAIN_SERIES, RESUME_EPOCHS)}
+    with watched_phase5(pipeline_cls) as (_, from_file), deterministic():
+        file_state, history = run.drive("training resumed",
+                               lambda: train_cli.main(args(resumed, RESUME_EPOCHS) + ["--resume"]),
+                               expect)
+    with watched_phase5(pipeline_cls) as (_, from_memory), deterministic():
+        memory_state, _ = pipe.run(*datasets, epochs=RESUME_EPOCHS, state=memory, seed=0,
+                                   verbose=False)
+    check(from_file[0] == from_memory[0],
+          f"resumed from the file {from_file[0]} != from memory {from_memory[0]}")
+    got, want = pipe.state_to_flat(file_state), pipe.state_to_flat(memory_state)
+    differ = sorted(set(got) ^ set(want)) + sorted(
+        k for k in set(got) & set(want) if not np.array_equal(got[k], want[k], equal_nan=True))
+    check(not differ, f"resumed state from the file != from memory at {differ[:8]}")
+    row = {"first_step_from_file": from_file[0], "first_step_from_memory": from_memory[0],
+           "state_keys": len(want), "same_bits": not differ,
+           "p5": check_history("training resumed", history, from_file[0])}
+    log(f"[training resumed] first phase-5 step and all {len(want)} state keys the same bits "
+        f"from the file and from memory: {json.dumps(from_file[0])}")
+    return row
 
 
 def check_history(what: str, history, first_step: dict) -> dict:
@@ -1368,6 +1457,14 @@ def main() -> int:
             "epoch0_served_accuracy": acc_served, "phase5": p5_record,
         }
 
+        # ---- phase 8b: --resume of phase 8's run against pipe.run from its
+        # returned state
+        tt_train, tt_test, ss_train, ss_test = predict.build_datasets(
+            train_data, "SynSCP2", train_data, "SynEthanol")
+        results["resume"] = resume_phase(
+            run, train_cli, StyleTransferPipeline, pipe, state,
+            (tt_train, tt_test, ss_train, ss_test), train_out, train_args)
+
         # ---- phase 9: one full-width phase-5 step against the plain path.
         # Checked on a fresh state whose WN end projections are 0.1*N(0,1):
         # the WN output (log_s about N(0,1)) and every WN gradient are near
@@ -1377,7 +1474,6 @@ def main() -> int:
         # measured, not checked.  Both states also run the plain path on the
         # CPU, held against the plain path on the card: a witness of how far
         # another summation order alone moves the same step.
-        tt_train, _, ss_train, _ = predict.build_datasets(train_data, "SynSCP2", train_data, "SynEthanol")
         batch = (
             torch.as_tensor(tt_train.x[:BATCH]).cuda(), torch.as_tensor(tt_train.y[:BATCH]).long().cuda(),
             torch.as_tensor(ss_train.x[:BATCH]).cuda(), torch.as_tensor(ss_train.y[:BATCH]).long().cuda(),

@@ -9,9 +9,15 @@ TF32 off for cuDNN and matmuls: the JAX package trains in exact float32.
 It writes what the JAX CLI writes, under the JAX key layout: ``epoch_*.npz``
 and ``epoch_*_source.npz`` at the phase-5 eval cadence,
 ``p*_{target,source}_classifier_itself.npz`` at each phase end,
-``final_state.npz`` (params, mstate, consts), ``history.json``,
-``log.jsonl`` and the ``feature_of_*`` dumps.  ``--resume`` is refused: the
-optimizer moments are not carried across yet.
+``final_state.npz``, ``history.json``, ``log.jsonl`` and the
+``feature_of_*`` dumps.  ``final_state.npz`` is the whole training state
+(``StyleTransferPipeline.state_to_flat``): params, mstate, consts, the
+optimizer moments, learning rates and counts, the schedulers, the GradNorm
+weights and the PRNG, under every key of the JAX package's ``init_state``,
+plus the port's generator state.  ``--resume`` does what the JAX CLI does:
+when ``<out>/final_state.npz`` exists (written by either package), the run
+starts from it, the given ``--phase-epochs`` replayed with the batch order
+reseeded from ``seed + 1``; the JAX CLI resumes a file the port wrote.
 
 The JAX package's route switches of the flow's coupling net hold here too:
 ``FLSTTSC_WN_FUSED=0`` trains with the op-by-op WN (the gate kernel) and
@@ -35,7 +41,7 @@ import os
 import torch
 
 from ..config import PipelineConfig
-from ..io.checkpoint import save_checkpoint
+from ..io.checkpoint import load_flat, save_checkpoint, save_flat
 from ..ops import resolve_device
 from ..train.pipeline import StyleTransferPipeline
 from .predict import build_datasets
@@ -75,15 +81,10 @@ def main(argv=None):
     )
     p.add_argument("--budget-multiplier", type=float, default=1.0)
     p.add_argument("--resume", action="store_true",
-                   help="not supported yet: the optimizer moments are not carried across")
+                   help="start from <out>/final_state.npz (either package's) when it exists")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain PyTorch path")
     args = p.parse_args(argv)
-    if args.resume:
-        raise NotImplementedError(
-            "--resume is not ported: final_state.npz holds params, mstate and consts "
-            "but no optimizer moments (ROADMAP.md A2)"
-        )
     device = resolve_device(args.device)
     if device.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
@@ -113,14 +114,19 @@ def main(argv=None):
         save_checkpoint(os.path.join(args.out, f"{phase}_source_classifier_itself.npz"),
                         source_member(state))
 
+    state = None
+    resume_path = os.path.join(args.out, "final_state.npz")
+    if args.resume and os.path.exists(resume_path):
+        state = pipe.state_from_flat(load_flat(resume_path))
+        print(f"resumed from {resume_path}")
+
     epochs = json.loads(args.phase_epochs) if args.phase_epochs else None
     state, history = pipe.run(
-        t_train, t_test, s_train, s_test, epochs=epochs, seed=args.seed,
+        t_train, t_test, s_train, s_test, epochs=epochs, state=state, seed=args.seed,
         checkpoint_hook=checkpoint_hook, phase_checkpoint_hook=phase_checkpoint_hook,
         artifact_dir=args.out, log_file=os.path.join(args.out, "log.jsonl"),
     )
-    save_checkpoint(os.path.join(args.out, "final_state.npz"),
-                    {k: state[k] for k in ("params", "mstate", "consts")})
+    save_flat(resume_path, pipe.state_to_flat(state))
     with open(os.path.join(args.out, "history.json"), "w") as f:
         json.dump(history, f)
     print("done; final:", history[-1])

@@ -8,19 +8,25 @@ field of a NamedTuple (``BNStats``, ``NoiseTransferState``, ``CriticState``).
 The port's state is the same nesting of dictionaries, lists and those
 NamedTuples over tensors, so both packages read each other's files:
 
-* ``save_checkpoint`` writes a port state under those keys;
+* ``save_checkpoint`` writes a port state under those keys (``flatten``
+  gives the flat mapping, ``save_flat`` writes one);
 * ``from_jax_params`` turns such a flat ``{key: array}`` mapping back into
   a port state;
 * ``restore_checkpoint`` does both for a file, keeping only the keys under
   the given prefixes (serving needs params and BatchNorm statistics, not the
-  optimizer state a training checkpoint also holds).
+  optimizer state a training checkpoint also holds); ``load_flat`` reads
+  the flat mapping alone.
+
+A leaf is a tensor, a numpy array or a numpy or Python scalar (the counters,
+flags and learning rates of a full training state); any NamedTuple is
+written by its fields.
 """
 
 from __future__ import annotations
 
 import os
 import re
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,31 +36,53 @@ from ..models.critics import CriticState
 from ..ops.batchnorm import BNStats
 
 #: the NamedTuples of a state, by their sorted field names
-_NAMED = {tuple(sorted(t._fields)): t for t in (BNStats, NoiseTransferState, CriticState)}
+_NAMED = {}
 _TOKEN = re.compile(r"\['([^'\]]*)'\]|\[(\d+)\]|\.(\w+)")
 
 
-def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
-    if isinstance(tree, torch.Tensor):
-        return {prefix: tree.detach().cpu().numpy()}
+def register_namedtuples(*types) -> None:
+    """Let ``from_jax_params`` rebuild these NamedTuples from their fields."""
+    for t in types:
+        fields = tuple(sorted(t._fields))
+        if _NAMED.setdefault(fields, t) is not t:
+            raise ValueError(f"{t.__name__} and {_NAMED[fields].__name__} share fields {fields}")
+
+
+register_namedtuples(BNStats, NoiseTransferState, CriticState)
+
+
+def tree_items(tree, prefix: str = "") -> Iterator[Tuple[str, object]]:
+    """(key, leaf) of every leaf of a tree of dicts, lists and NamedTuples,
+    in order."""
+    if isinstance(tree, (torch.Tensor, np.ndarray, np.generic, bool, int, float)):
+        yield prefix, tree
+        return
     if isinstance(tree, dict):
         items = ((f"[{k!r}]", v) for k, v in tree.items())
-    elif isinstance(tree, tuple(_NAMED.values())):
+    elif hasattr(tree, "_fields"):
         items = ((f".{f}", getattr(tree, f)) for f in tree._fields)
     elif isinstance(tree, (list, tuple)):
         items = ((f"[{i}]", v) for i, v in enumerate(tree))
     else:
         raise TypeError(f"cannot checkpoint a {type(tree).__name__} at {prefix!r}")
-    flat = {}
     for suffix, value in items:
-        flat.update(_flatten(value, prefix + suffix))
-    return flat
+        yield from tree_items(value, prefix + suffix)
+
+
+def flatten(tree) -> Dict[str, np.ndarray]:
+    """``{key: array}`` of a tree's leaves, keyed by their tree paths."""
+    return {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+            for k, v in tree_items(tree)}
+
+
+def save_flat(path: str, flat: Dict[str, np.ndarray]) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez_compressed(path, **flat)
 
 
 def save_checkpoint(path: str, state) -> None:
-    """Serialize a state's tensors keyed by their tree paths."""
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    np.savez_compressed(path, **_flatten(state))
+    """Serialize a state's leaves keyed by their tree paths."""
+    save_flat(path, flatten(state))
 
 
 def _parse_key(key: str):
@@ -106,8 +134,8 @@ def from_jax_params(flat: Dict[str, np.ndarray], device="cpu"):
     return _build(root, device)
 
 
-def restore_checkpoint(path: str, prefixes: Optional[Iterable[str]] = None, device="cpu"):
-    """Load ``path`` (``.npz`` added if missing) into a port state, keeping
+def load_flat(path: str, prefixes: Optional[Iterable[str]] = None) -> Dict[str, np.ndarray]:
+    """The ``{key: array}`` mapping of ``path`` (``.npz`` added if missing),
     only the keys that start with one of ``prefixes`` (all when None)."""
     if not path.endswith(".npz"):
         path = path + ".npz"
@@ -116,4 +144,10 @@ def restore_checkpoint(path: str, prefixes: Optional[Iterable[str]] = None, devi
         flat = {k: data[k] for k in data.files if k.startswith(keep)}
     if not flat:
         raise KeyError(f"{path} holds no key under {keep}")
-    return from_jax_params(flat, device)
+    return flat
+
+
+def restore_checkpoint(path: str, prefixes: Optional[Iterable[str]] = None, device="cpu"):
+    """Load ``path`` into a port state, keeping only the keys under
+    ``prefixes`` (all when None)."""
+    return from_jax_params(load_flat(path, prefixes), device)

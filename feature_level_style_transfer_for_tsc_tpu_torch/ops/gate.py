@@ -75,8 +75,10 @@ def gate_fwd(a: torch.Tensor, b: torch.Tensor, n: int) -> torch.Tensor:
     a2, b2 = _rows(a, n), _rows(b, n)
     if a2 is None or b2 is None:
         raise ValueError("gate_fwd takes contiguous tensors or row-strided (M, 2n) views")
-    lib = _lib()
     out = torch.empty(a2.shape[0], n, device=a.device)
+    if a2.shape[0] == 0:  # nothing to launch
+        return out.reshape(*a.shape[:-1], n)
+    lib = _lib()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.gate_fwd(a2.data_ptr(), a2.stride(0), b2.data_ptr(), b2.stride(0),

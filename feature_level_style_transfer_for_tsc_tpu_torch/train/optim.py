@@ -15,13 +15,19 @@ from typing import Iterable, NamedTuple
 
 import torch
 
+#: the hyperparameters but the learning rate, under the JAX package's optax names
+RMSPROP_HYPERPARAMS = {"decay": 0.99, "eps": 1e-8, "initial_scale": 0.0}
+ADAM_HYPERPARAMS = {"b1": 0.9, "b2": 0.999, "eps": 1e-8, "eps_root": 0.0}
+
 
 def make_rmsprop(params: Iterable[torch.Tensor], lr: float) -> torch.optim.Optimizer:
-    return torch.optim.RMSprop(list(params), lr=lr, alpha=0.99, eps=1e-8)
+    h = RMSPROP_HYPERPARAMS
+    return torch.optim.RMSprop(list(params), lr=lr, alpha=h["decay"], eps=h["eps"])
 
 
 def make_adam(params: Iterable[torch.Tensor], lr: float) -> torch.optim.Optimizer:
-    return torch.optim.Adam(list(params), lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    h = ADAM_HYPERPARAMS
+    return torch.optim.Adam(list(params), lr=lr, betas=(h["b1"], h["b2"]), eps=h["eps"])
 
 
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:

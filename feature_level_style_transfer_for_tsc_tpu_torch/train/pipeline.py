@@ -36,7 +36,7 @@ kernel for each dilated conv), so both variables take effect in
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -73,6 +73,7 @@ from ..models.os_cnn import (
 )
 from ..ops import resolve_device
 from ..structure import total_out_channels
+from . import jax_state
 from .classifier import build_specs
 from .optim import (
     clip_params,
@@ -287,6 +288,20 @@ class StyleTransferPipeline(TargetPredictor):
 
     def init_state(self, generator: torch.Generator) -> Dict:
         return self.training_state(self.init_models(generator), int(generator.initial_seed()) + 1)
+
+    # ------------------------------------------ the JAX package's layout ---
+
+    def state_to_flat(self, state: Dict) -> Dict[str, np.ndarray]:
+        """``state`` as ``{keystr: array}`` under every key of the JAX
+        package's ``init_state`` (``jax_state.state_to_flat``)."""
+        return jax_state.state_to_flat(state)
+
+    def state_from_flat(self, flat: Mapping[str, np.ndarray]) -> Dict:
+        """A fresh ``init_state`` of the config's seed filled from ``flat``,
+        a file of either package (``jax_state.load_state``), as the JAX
+        package's restore fills its ``init_state`` template."""
+        return jax_state.load_state(self.init_state(torch.Generator().manual_seed(self.config.seed)),
+                                    flat)
 
     # ----------------------------------------------- forward building blocks
 

@@ -18,8 +18,9 @@ C, H off the mma tiling, a last weight-gradient slice of one row or one row
 short, H of 65 and 168 (VendGunPoint's and VendCoffee's, past one
 128-column chunk, and VendCoffee's pair pass), and each of ``wn_fwd``'s row
 tiles (64 rows, and 32 or 16 where the smaller tiles still fit one wave of
-a block an SM); for the gate, rows and n off the thread grid and a
-row-strided operand; for the tap conv, time and C_out off the 128 x 64 tile,
+a block an SM); for the gate, rows and n off the thread grid, n and row
+strides off multiples of 4, operands one column off a 16-byte boundary, the
+pair pass's cond slice, no row and one row, the same bits twice; for the tap conv, time and C_out off the 128 x 64 tile,
 C_in off the 8-channel chunk, dilations up to 128 (also with t_out < d).  Tolerance: max|kernel - plain| <= 1e-4 * max|plain| for
 forward values, both exact float32 with TF32 off, the sums taken in another
 order; 1e-5 for every ``wn_fwd`` and ``wn_bwd`` output (3xTF32 stage sums,
@@ -248,20 +249,33 @@ def test_os_conv_autograd_on_card(card):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("lead, n", [((2, 37), 120), ((1, 5), 3), ((4, 33), 65)])
-def test_gate_kernel_matches_plain(card, lead, n):
-    """``gate_fwd`` against ``gate_plain``, with ``b`` a column slice of a
-    wider tensor (a row-strided view, as the WN's cond projection)."""
-    g = torch.Generator(device=card).manual_seed(n)
-    a = torch.randn(*lead, 2 * n, device=card, generator=g)
-    wide = torch.randn(*lead, 6 * n, device=card, generator=g)
-    b = wide[..., 2 * n : 4 * n]
+@pytest.mark.parametrize("lead, n, b_width, b_col, a_col", [
+    ((2, 37), 120, 720, 240, 0),
+    ((1, 5), 3, 18, 6, 0),
+    ((4, 33), 65, 390, 130, 0),
+    ((40 * 1152,), 120, 1920, 720, 0),  # the pair pass: b is layer 3's slice of the cond projection
+    ((3, 50), 61, 245, 61, 0),  # n % 4 != 0, b's row stride % 4 != 0
+    ((2, 45), 120, 481, 1, 1),  # a and b one column off a 16-byte boundary, b's stride 481
+    ((0,), 120, 240, 0, 0),  # M = 0
+    ((1,), 120, 1920, 720, 0),  # M = 1
+])
+def test_gate_kernel_matches_plain(card, lead, n, b_width, b_col, a_col):
+    """``gate_fwd`` against ``gate_plain``, ``a`` and ``b`` column slices of
+    wider tensors (row-strided views, as the WN's cond projection), the same
+    bits twice; one launch a call with rows, none without."""
+    g = torch.Generator(device=card).manual_seed(n + b_width)
+    a = torch.randn(*lead, a_col + 2 * n, device=card, generator=g)[..., a_col:]
+    b = torch.randn(*lead, b_width, device=card, generator=g)[..., b_col : b_col + 2 * n]
     before = gate.LAUNCHES["gate_fwd"]
     got = gate.gate_fwd(a, b, n)
+    again = gate.gate_fwd(a, b, n)
     torch.cuda.synchronize()
-    assert gate.LAUNCHES["gate_fwd"] == before + 1
+    rows = a.numel() // (2 * n)
+    assert gate.LAUNCHES["gate_fwd"] == before + (2 if rows else 0)
     assert got.shape == (*lead, n)
-    _close(got, gate.gate_plain(a, b, n))
+    assert torch.equal(got, again)
+    if rows:
+        _close(got, gate.gate_plain(a, b, n))
     column_major = torch.randn(2 * n, 7, device=card).T  # no (M, 2n) view with unit column stride
     with pytest.raises(ValueError, match="row-strided"):
         gate.gate_fwd(column_major, column_major, n)

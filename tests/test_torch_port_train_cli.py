@@ -3,9 +3,12 @@
 A tiny archive (target 2 channels, T=16, 2 classes; source 1 channel, T=12,
 3 classes; ``--budget-multiplier 0.02``) is trained for one or two epochs of
 each phase.  The port writes the files the JAX CLI's hooks write, in the JAX
-key layout: the JAX package restores its ``final_state.npz`` into a state of
-its own, and both packages' ``cli.predict`` serve its ``epoch_0.npz`` with
-equal predictions.  Without ``--device cpu`` and with no CUDA it raises.
+key layout: its ``final_state.npz`` holds every key of the JAX package's
+``init_state`` with its shape and restores into that template, its flat
+moments cut in JAX leaf order are the port's per-parameter optimizer state,
+and both packages' ``cli.predict`` serve its ``epoch_0.npz`` with equal
+predictions.  Without ``--device cpu`` and with no CUDA it raises.
+tests/test_torch_port_resume.py holds ``--resume`` in both directions.
 """
 
 import json
@@ -78,6 +81,31 @@ def test_final_state_restores_into_the_jax_package(trained):
     assert int(restored["mstate"]["ad"].iter_num) == int(state["mstate"]["ad"].iter_num) > 0
 
 
+def test_final_state_is_the_whole_jax_state(trained):
+    """Every key of the JAX ``init_state`` template, with its shape, plus the
+    port's generator state; the JAX package restores the whole file, and the
+    moments and counts are the port's, cut in ``jax.tree_util`` order."""
+    from test_torch_port_resume import check_moments, jax_flat
+
+    _, out, _, state, _ = trained
+    pipe = StyleTransferPipeline(2, 16, 2, 1, 12, 3, JaxConfig(budget_multiplier=0.02))
+    template = jax_flat(pipe.init_state(jax.random.PRNGKey(0)))
+    with np.load(out / "final_state.npz") as data:
+        saved = {k: data[k] for k in data.files}
+    assert set(saved) == set(template) | {"['generator']"}
+    for k, v in template.items():
+        assert saved[k].shape == v.shape, k
+    jstate = jax_restore(str(out / "final_state.npz"), pipe.init_state(jax.random.PRNGKey(0)))
+    restored = jax_flat(jstate)
+    check_moments(restored, jstate["params"], state)
+    for side in ("t", "s"):
+        np.testing.assert_array_equal(restored[f"['gradnorm']['{side}'].weights"],
+                                      state["gradnorm"][side].weights.numpy())
+        assert bool(restored[f"['gradnorm']['{side}'].initialized"])
+    assert restored["['rng']"].dtype == np.uint32
+    assert int(restored["['sched']['noise']"]) == state["sched"]["noise"] == PHASES["p5"]
+
+
 def test_epoch_checkpoint_serves_equally_in_both_packages(trained, tmp_path):
     root, out, _, _, _ = trained
     common = ["--target-root", str(root), "--target", "TinyTarget", "--source-root", str(root),
@@ -90,10 +118,10 @@ def test_epoch_checkpoint_serves_equally_in_both_packages(trained, tmp_path):
     assert acc_p == pytest.approx(acc_j)
 
 
-def test_cuda_by_default_and_no_resume(trained, monkeypatch):
+def test_cuda_by_default(trained, monkeypatch):
     _, _, args, _, _ = trained
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA was requested"):
         port_main.main(args)
-    with pytest.raises(NotImplementedError, match="--resume"):
-        port_main.main(args + ["--device", "cpu", "--resume"])
+    with pytest.raises(RuntimeError, match="CUDA was requested"):
+        port_main.main(args + ["--resume"])

@@ -70,9 +70,9 @@ def _t(a, grad=False):
 
 def _close_trees(port_tree, jax_tree, tol):
     """Every leaf of a port tree against the JAX tree's leaf of the same key."""
-    from feature_level_style_transfer_for_tsc_tpu_torch.io.checkpoint import _flatten
+    from feature_level_style_transfer_for_tsc_tpu_torch.io.checkpoint import flatten
 
-    got, want = _flatten({"t": port_tree}), _flat({"t": jax_tree})
+    got, want = flatten({"t": port_tree}), _flat({"t": jax_tree})
     assert set(got) == set(want)
     for k in want:
         np.testing.assert_allclose(got[k], want[k], **tol, err_msg=k)

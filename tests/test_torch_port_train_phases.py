@@ -56,9 +56,9 @@ def _flat(tree):
 
 
 def _port_flat(tree):
-    from feature_level_style_transfer_for_tsc_tpu_torch.io.checkpoint import _flatten
+    from feature_level_style_transfer_for_tsc_tpu_torch.io.checkpoint import flatten
 
-    return _flatten(tree)
+    return flatten(tree)
 
 
 @pytest.fixture(scope="module")

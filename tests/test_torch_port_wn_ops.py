@@ -43,7 +43,7 @@ from feature_level_style_transfer_for_tsc_tpu.ops import osconv as j_osconv
 from feature_level_style_transfer_for_tsc_tpu_torch.cli import main as port_main
 from feature_level_style_transfer_for_tsc_tpu_torch.config import PipelineConfig
 from feature_level_style_transfer_for_tsc_tpu_torch.data.synthetic import make_arrays, write_ts_file
-from feature_level_style_transfer_for_tsc_tpu_torch.io.checkpoint import _flatten, from_jax_params
+from feature_level_style_transfer_for_tsc_tpu_torch.io.checkpoint import flatten, from_jax_params
 from feature_level_style_transfer_for_tsc_tpu_torch.models import flow
 from feature_level_style_transfer_for_tsc_tpu_torch.ops import gate, osconv, wn_fused
 from feature_level_style_transfer_for_tsc_tpu_torch.train import pipeline as port_pipeline
@@ -200,7 +200,7 @@ def _wn_against_jax(params, x, c, port_conv=None, jax_conv=None):
     loss = torch.sin(y).sum()
     grads = torch.autograd.grad(loss, [xt] + leaves(pp))
     np.testing.assert_allclose(grads[0].numpy(), np.asarray(want_gx), **WN_TOL)
-    got = dict(zip(_flatten({"t": pp}), grads[1:]))
+    got = dict(zip(flatten({"t": pp}), grads[1:]))
     want_flat = _flat({"t": want_gp})
     assert set(got) == set(want_flat)
     for k, g in got.items():
