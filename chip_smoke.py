@@ -95,16 +95,36 @@ non-zero when any check fails.  Phases:
 14. the repair of the WN kernels' width on real data: ``cli.main`` from
     disk on the vendored VendSCP2 (target, T=144, n_half 72) <-
     VendEthanol (source), the default fused route, reference budgets, two
-    epochs of phases 1-4 and one of phase 5; finiteness as phase 8.
+    epochs of phases 1-4 and one of phase 5; finiteness as phase 8;
+15. multi-source member training through ``cli.multi_source.main``: the
+    SCP2 target of phase 8 <- EthanolLevel (1 x 1751, 4 classes) and Worms
+    (1 x 900, 5) shapes, 40 train / 40 test series a domain,
+    ``PipelineConfig()`` defaults, ``PHASE_EPOCHS``: exact launch counts
+    (each member's training drive and the vote's member logits), finiteness
+    per member as phase 8, the JAX CLI's file set, each member's wall time
+    and phase-5 step time, and ``cli.predict`` over the two saved members
+    giving ``final_predict.npy`` bit for bit;
+16. the baselines through ``cli.baselines.main``, reference budgets, batch
+    30, the default discriminator (128 wide, depth 8, 8 heads, MLP 64), 60
+    train / 30 test series a domain: CoDATS on Haptics (1 x 1092, 5) <-
+    InlineSkate (1 x 1882, 7), Worms (1 x 900, 5), SemgHandMovementCh2 (1 x
+    1500, 6) shapes, 2 epochs; SLARDA on SelfRegulationSCP2 (7 x 1152, 2)
+    <- MotorImagery (64 x 3000, 2) shapes, 2 source and 2 target epochs:
+    exact ``os_conv_fwd`` launches, finite histories, epoch times; and one
+    step of each (CoDATS, SLARDA's source step with a pinned CPC anchor and
+    its target step) from a fresh state against the same step with the
+    plain OS conv on the card: losses within REL_TOL, each module's
+    gradients within BASELINE_GRAD_L2_TOL (relative L2).
 
-The ``cli.main`` drives (phases 8, 8b, 13, 14) run with PyTorch's deterministic
+The ``cli.main`` drives (phases 8, 8b, 13, 14) and the drives of phases 15
+and 16 run with PyTorch's deterministic
 algorithms, so each repeats bit for bit from run to run.  The launch counts
 are set to 0 just before each drive of the main path and read just after
 it.  The line before the last lists every kernel as JSON,
 with the launches of the main-path drives (serving: single and ensemble,
 not the VendGunPoint check; training: the two ``cli.main`` drives of phases
-8 and 13, not those of phases 8b and 14, whose counts are checked and kept
-apart) and a bound from the FLOPs or bytes these inputs
+8 and 13, not those of phases 8b, 14, 15 and 16, whose counts are checked
+and kept apart) and a bound from the FLOPs or bytes these inputs
 need; the last line is {"ok": true, "device": {...}}.  Everything measured is also written to
 chiprun_out/chip_smoke_results.json.
 """
@@ -144,6 +164,10 @@ GRAD_REL_TOL = 1e-3  # weight gradients: sums over every row (23k-46k) in anothe
 WN_BWD_REL_TOL = 1e-5  # every output of wn_bwd: 3xTF32 staged sums, fixed-order slice partials
 WN_FWD_REL_TOL = 1e-5  # every output of wn_fwd: 3xTF32 staged sums through 8 layers
 STEP_GRAD_L2_TOL = 1e-2  # a whole phase-5 step's gradients per module, every kernel on
+# one baseline step's gradients per module, OS conv kernel on; on an H100 the kernel's largest
+# gap read 3.2e-4 and the same steps with single-pass TF32 products 8.1e-3 to 1.7e-2
+# (experiments/baseline_step_gap.py)
+BASELINE_GRAD_L2_TOL = 1e-3
 SOURCE = "feature_level_style_transfer_for_tsc_tpu_torch/ops/csrc/os_conv.cu"
 WN_SOURCE = "feature_level_style_transfer_for_tsc_tpu_torch/ops/csrc/wn_fused.cu"
 GATE_SOURCE = "feature_level_style_transfer_for_tsc_tpu_torch/ops/csrc/gate.cu"
@@ -175,6 +199,17 @@ OP_BY_OP = {"FLSTTSC_WN_FUSED": "0", "FLSTTSC_CONV_IMPL": "pallas"}
 WIDE_WN = (("VendGunPoint", 150, 65), ("VendCoffee", 60, 168))  # (dataset, T, n_half)
 GATE_OPS = 5  # per output: two adds, one multiply, tanh and sigmoid, each counted once
 ANCHORS = (100, 37)  # pinned CPC anchors of the phase-5 comparison (< 1152 // 4)
+WORMS = {"channels": 1, "length": 900, "classes": 5}  # a second source of phase 15
+# phase 16: the JAX CLI's example pairs, (C, T, classes) of each domain
+CODATS_TARGET, SLARDA_TARGET = "SynHaptics", "SynSCP2b"
+CODATS_SOURCES, SLARDA_SOURCE = ["SynInlineSkate", "SynWorms", "SynSemgCh2"], "SynMotorImagery"
+CODATS_DOMAINS = {"SynHaptics": (1, 1092, 5), "SynInlineSkate": (1, 1882, 7),
+                  "SynWorms": (1, 900, 5), "SynSemgCh2": (1, 1500, 6)}
+SLARDA_DOMAINS = {"SynSCP2b": (7, 1152, 2), "SynMotorImagery": (64, 3000, 2)}
+BASELINE_SERIES = (60, 30)  # train, test series a domain
+BASELINE_BATCH = 30  # the Comparison/ code's batch size
+BASELINE_EPOCHS = 2  # CoDATS epochs; SLARDA source and target epochs each
+SLARDA_ANCHOR = 300  # pinned CPC anchor of the SLARDA source-step comparison (< 3000 // 4)
 WN_END_SCALE = 0.1  # std of the WN end projections of the checked phase-5 state
 
 
@@ -1195,12 +1230,308 @@ def vendored_drive(train_cli, pipeline_cls, modules, tmp: Path) -> dict:
     return row
 
 
+# ----------------------------------------------------------------- phase 15 --
+
+@contextlib.contextmanager
+def watched_members(pipeline_cls):
+    """Each ``run`` of a member pipeline: its wall time, phase-5 step times,
+    first phase-5 step's losses and history; yields the list of runs."""
+    runs = []
+    untimed = pipeline_cls.run
+
+    def run(self, *a, **kw):
+        with watched_phase5(pipeline_cls) as (step_s, first):
+            t0 = time.perf_counter()
+            state, history = untimed(self, *a, **kw)
+            torch.cuda.synchronize()
+            runs.append({"wall_s": time.perf_counter() - t0, "phase5_step_s": step_s,
+                         "first_step": first[0], "history": history})
+        return state, history
+
+    pipeline_cls.run = run
+    try:
+        yield runs
+    finally:
+        pipeline_cls.run = untimed
+
+
+def multi_source_phase(run, ms_cli, predict, pipeline_cls, cfg, data: Path, target: str,
+                       sources: dict, out: Path, smi: str) -> dict:
+    """``cli.multi_source`` on the card: one member per source, full width,
+    ``PHASE_EPOCHS``, deterministic; exact launches (each member's training
+    drive plus the vote's member logits on the train and test splits);
+    finiteness per member as ``check_history``; the JAX CLI's file set; and
+    ``cli.predict`` over the saved members the same predictions, bit for bit."""
+    c, t, n_cls = SCP2["channels"], SCP2["length"], SCP2["classes"]
+    pipes = [pipeline_cls(c, t, n_cls, d["channels"], d["length"], d["classes"], cfg,
+                          device="cuda") for d in sources.values()]
+    expect = run.idle()
+    for pipe in pipes:
+        for name, k in expected_training_launches(pipe, TRAIN_SERIES, PHASE_EPOCHS).items():
+            expect[name] += k
+    member_convs = len(pipes[0].t_ext_specs) + len(pipes[0].cls_specs)
+    expect["os_conv_fwd"] += 2 * len(sources) * member_convs  # train split, test split
+    args = ["--target-root", str(data), "--target", target, "--source-root", str(data),
+            "--sources", ",".join(sources), "--out", str(out),
+            "--phase-epochs", json.dumps(PHASE_EPOCHS), "--device", "cuda"]
+    with watched_members(pipeline_cls) as members, deterministic():
+        result = run.drive("multi-source", lambda: ms_cli.main(args), expect)
+    rows = {}
+    for name, m in zip(sources, members):
+        rows[name] = {"wall_s": m["wall_s"], "phase5_step_s": m["phase5_step_s"],
+                      "phase5": check_history(f"member {name}", m["history"], m["first_step"])}
+    want = {f"member_{name}.npz" for name in sources} | {
+        "final_predict.npy", "true_label.npy", "prediction_strip.png", "ensemble.json"}
+    have = {f.name for f in out.iterdir()}
+    check(have == want, f"multi-source wrote {sorted(have)}, want {sorted(want)}")
+    preds = np.load(out / "final_predict.npy")
+    check(preds.shape == (TRAIN_SERIES,) and bool(np.all((preds >= 0) & (preds < n_cls))),
+          f"multi-source predictions {preds.shape}")
+    check(all(math.isfinite(v) for v in result["member_accs"])
+          and bool(np.all(np.isfinite(result["class_weights"]))), "multi-source: non-finite vote")
+    served = out.with_name(out.name + "_served")
+    members_csv = ",".join(str(out / f"member_{name}.npz") for name in sources)
+    predict.main(["--target-root", str(data), "--target", target, "--source-root", str(data),
+                  "--source", next(iter(sources)), "--checkpoint", members_csv,
+                  "--vote", "entropy_precision", "--out", str(served), "--device", "cuda"])
+    check(np.array_equal(np.load(f"{served}_predict.npy"), preds),
+          "cli.predict over the members differs from cli.multi_source's final_predict.npy")
+    row = {"members": rows, "ensemble_acc": result["ensemble_acc"],
+           "member_accs": result["member_accs"], "vote_variants": result["vote_variants"],
+           "launches": run.by_drive["multi-source"]}
+    for name, r in rows.items():
+        step_s = r["phase5_step_s"]
+        log(f"[multi-source member {name}] wall s={r['wall_s']:.2f} phase-5 step s="
+            f"{[round(x, 4) for x in step_s]} median after the first="
+            f"{statistics.median(step_s[1:] or step_s):.4f} on {smi}")
+    log(f"[multi-source] ensemble={result['ensemble_acc']:.4f} members={result['member_accs']} "
+        f"served by cli.predict: same predictions")
+    return row
+
+
+# ----------------------------------------------------------------- phase 16 --
+
+@contextlib.contextmanager
+def timed_methods(cls, names):
+    """Wall time of every call of ``cls``'s methods ``names`` (synchronized)."""
+    times = {n: [] for n in names}
+    saved = {n: getattr(cls, n) for n in names}
+
+    def timed(n):
+        def call(self, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = saved[n](self, *a, **kw)
+            torch.cuda.synchronize()
+            times[n].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    for n in names:
+        setattr(cls, n, timed(n))
+    try:
+        yield times
+    finally:
+        for n, f in saved.items():
+            setattr(cls, n, f)
+
+
+def baseline_step(pipe, epoch, ctx) -> dict:
+    """``epoch(state)`` of one batch from a fresh seeded state, with the
+    gradients each optimizer step is given recorded by module."""
+    state = pipe.init_state(torch.Generator().manual_seed(0))
+    grads = {}
+    cls = type(pipe)
+    apply = cls._apply_updates
+
+    def record(self, opt, params, names, gs):
+        for n in names:
+            grads[n] = [None if g is None else g.detach().clone() for g in gs[n]]
+        return apply(self, opt, params, names, gs)
+
+    cls._apply_updates = record
+    try:
+        with ctx:
+            losses = {k: v.detach().clone() for k, v in epoch(state).items()}
+            torch.cuda.synchronize()
+    finally:
+        cls._apply_updates = apply
+    return {"losses": losses, "grads": grads}
+
+
+def baseline_gap_row(pipe, epoch, osconv, wn_fused, gate) -> dict:
+    """One step with the OS conv kernel against the same step with its plain
+    version on the card: the kernel's launches, each loss's relative error
+    and each module's gradients as relative L2 distance (unchecked)."""
+    osconv.reset_launch_counts()
+    kern = baseline_step(pipe, epoch, contextlib.nullcontext())
+    launched = osconv.LAUNCHES["os_conv_fwd"]
+    plain = baseline_step(pipe, epoch, plain_convs(osconv, wn_fused, gate, convs=True, wn=False))
+    row = {"os_conv_fwd": launched,
+           "loss_rel": {k: rel_err(v, plain["losses"][k])[1] for k, v in kern["losses"].items()},
+           "losses": {k: v.tolist() for k, v in kern["losses"].items()},
+           "grad_l2_rel": {}}
+    for name, gs in plain["grads"].items():
+        pairs = [(a, b) for a, b in zip(kern["grads"][name], gs) if b is not None]
+        d2 = sum(float(((a - b) ** 2).sum()) for a, b in pairs)
+        n2 = sum(float((b ** 2).sum()) for _, b in pairs)
+        row["grad_l2_rel"][name] = math.sqrt(d2 / n2) if n2 > 0 else math.sqrt(d2)
+    return row
+
+
+def baseline_batches(make_arrays) -> dict:
+    """Every baseline domain's splits, as ``make_arrays`` makes them from
+    their seeds (the CLI reads no source test split)."""
+    n_train, n_test = BASELINE_SERIES
+    data = {}
+    for i, (name, (c, t, n)) in enumerate({**CODATS_DOMAINS, **SLARDA_DOMAINS}.items()):
+        data[name] = {"TRAIN": make_arrays(n_train, c, t, n, seed=30 + 2 * i)}
+        if name in (CODATS_TARGET, SLARDA_TARGET):
+            data[name]["TEST"] = make_arrays(n_test, c, t, n, seed=31 + 2 * i)
+    return data
+
+
+def first_batch(splits) -> tuple:
+    """The train split's first batch as one epoch's stacked (x, y)."""
+    x, y = splits["TRAIN"]
+    return (x[:BASELINE_BATCH].transpose(0, 2, 1)[None],
+            np.array([int(v.split("_")[1]) for v in y[:BASELINE_BATCH]])[None])
+
+
+def baseline_pipes(baselines, cfg_cls) -> dict:
+    """CoDATS and SLARDA on the card at phase 16's shapes, batch 30."""
+    cfg = cfg_cls(batch_size=BASELINE_BATCH)
+    return {
+        "codats": baselines.CoDATSPipeline(CODATS_DOMAINS[CODATS_TARGET],
+                                           [CODATS_DOMAINS[d] for d in CODATS_SOURCES], config=cfg,
+                                           device="cuda"),
+        "slarda": baselines.SLARDAPipeline(SLARDA_DOMAINS[SLARDA_TARGET],
+                                           SLARDA_DOMAINS[SLARDA_SOURCE], config=cfg,
+                                           device="cuda"),
+    }
+
+
+def baseline_step_rows(pipes, data, osconv, wn_fused, gate) -> dict:
+    """``baseline_gap_row`` of one step of each from a fresh state, on each
+    domain's first batch: CoDATS, SLARDA's source step with a pinned CPC
+    anchor and its target step after ``transfer_weights``."""
+    codats, slarda = pipes["codats"], pipes["slarda"]
+    xt, yt = first_batch(data[CODATS_TARGET])
+    src = [first_batch(data[d]) for d in CODATS_SOURCES]
+    (xst, yst), (xs, ys) = first_batch(data[SLARDA_TARGET]), first_batch(data[SLARDA_SOURCE])
+    steps = {
+        "CoDATS": (codats, lambda st: codats.train_epoch(st, xt, yt, [a[0] for a in src],
+                                                          [a[1] for a in src])),
+        "SLARDA source": (slarda, lambda st: slarda.source_epoch(st, xs, ys,
+                                                                  cpc_anchor=SLARDA_ANCHOR)),
+        "SLARDA target": (slarda, lambda st: slarda.target_epoch(slarda.transfer_weights(st),
+                                                                  xst, yst, xs)),
+    }
+    return {what: baseline_gap_row(pipe, epoch, osconv, wn_fused, gate)
+            for what, (pipe, epoch) in steps.items()}
+
+
+def check_baseline_step(what: str, row: dict) -> None:
+    """Losses within REL_TOL of the plain OS conv's, each module's gradients
+    within BASELINE_GRAD_L2_TOL (relative L2 distance)."""
+    log(f"[{what} step, kernel vs plain on the card, checked] {json.dumps(row)}")
+    check(row["os_conv_fwd"] > 0, f"{what} step: os_conv_fwd never launched")
+    for k, v in row["loss_rel"].items():
+        check(bool(np.all(np.isfinite(row["losses"][k]))), f"{what} step: {k} not finite")
+        check(v <= REL_TOL, f"{what} step: loss {k} rel err {v:.3e} against plain")
+    for n, v in row["grad_l2_rel"].items():
+        check(v <= BASELINE_GRAD_L2_TOL, f"{what} step grads, {n}: relative L2 {v:.3e}")
+
+
+@contextlib.contextmanager
+def source_epochs(cls, n: int):
+    """``cls.fit`` with ``source_epochs=n`` whatever its caller asks for
+    (``cli.baselines`` passes the reference's 70)."""
+    fit = cls.fit
+    cls.fit = lambda self, *a, **kw: fit(self, *a, **{**kw, "source_epochs": n})
+    try:
+        yield
+    finally:
+        cls.fit = fit
+
+
+def expected_baseline_launches(run, which: str, pipe, epochs: int) -> dict:
+    """``os_conv_fwd`` launches of a ``cli.baselines`` drive, derived from the
+    pipelines' code (no fused conv: their eval passes fold no BatchNorm):
+    CoDATS, per batch the target trunk and head and per source the trunk
+    (eval mode) and its head, then every epoch the train and test splits'
+    evaluation; SLARDA, per source batch the source trunk and head, per
+    target batch the frozen source trunk, the critic's target pre-pass, the
+    encoder's trunk and the head, then every target epoch the test split."""
+    te, cl = len(pipe.ext_specs), len(pipe.cls_specs)
+    n_train, n_test = BASELINE_SERIES
+    nb, ev = math.ceil(n_train / BASELINE_BATCH), math.ceil(n_test / BASELINE_BATCH)
+    if which == "codats":
+        k = len(pipe.source_shapes)
+        conv = epochs * (nb * (k + 1) * (te + cl) + (nb + ev) * (te + cl))
+    else:
+        conv = epochs * nb * (te + cl) + epochs * (nb * (3 * te + cl) + ev * (te + cl))
+    return {**run.idle(), "os_conv_fwd": conv}
+
+
+def baselines_phase(run, bl_cli, baselines, cfg_cls, make_arrays, write_ts_file, osconv,
+                    wn_fused, gate, tmp: Path, smi: str) -> dict:
+    """``cli.baselines codats|slarda`` on the card at the JAX CLI's example
+    shapes, reference budgets, batch 30, the default discriminator,
+    ``BASELINE_EPOCHS`` (SLARDA's source pretrain cut to them by
+    ``source_epochs``), deterministic: exact launches, finite histories,
+    epoch times; and one step of each from a fresh state against the same
+    step with the plain OS conv on the card (``baseline_step_rows``)."""
+    root = tmp / "baseline_data"
+    t0 = time.perf_counter()
+    data = baseline_batches(make_arrays)
+    for name, splits in data.items():
+        write_dataset(root, name, splits, write_ts_file)
+    log(f"baseline data written in {time.perf_counter() - t0:.2f} s")
+    pipes = baseline_pipes(baselines, cfg_cls)
+    timed = {"codats": ("train_epoch",), "slarda": ("source_epoch", "target_epoch")}
+    rows = {}
+    for which, target, sources in (("codats", CODATS_TARGET, CODATS_SOURCES),
+                                   ("slarda", SLARDA_TARGET, [SLARDA_SOURCE])):
+        pipe, out = pipes[which], tmp / f"{which}_run"
+        args = [which, "--target-root", str(root), "--target", target, "--source-root", str(root),
+                "--sources", ",".join(sources), "--epochs", str(BASELINE_EPOCHS),
+                "--out", str(out), "--device", "cuda"]
+        expect = expected_baseline_launches(run, which, pipe, BASELINE_EPOCHS)
+        with timed_methods(type(pipe), timed[which]) as times, deterministic(), \
+                source_epochs(baselines.SLARDAPipeline, BASELINE_EPOCHS):
+            t0 = time.perf_counter()
+            _, history = run.drive(which, lambda: bl_cli.main(args), expect)
+            wall = time.perf_counter() - t0
+        written = json.loads((out / f"{which}_history.json").read_text())
+        check(len(written) == len(history) == BASELINE_EPOCHS * (1 if which == "codats" else 2),
+              f"{which}: {len(written)} history records")
+        for h in written:
+            for k, v in h.items():
+                check(k == "phase" or bool(np.all(np.isfinite(v))), f"{which}: {k} = {v} in {h}")
+        rows[which] = {"wall_s": wall, "epoch_s": times, "last": written[-1],
+                       "launches": run.by_drive[which]}
+        log(f"[{which}] wall s={wall:.2f} epoch s={json.dumps(times)} last={json.dumps(written[-1])} "
+            f"on {smi}")
+
+    steps = baseline_step_rows(pipes, data, osconv, wn_fused, gate)
+    for what, row in steps.items():
+        check_baseline_step(what, row)
+    rows["codats"]["step"] = steps["CoDATS"]
+    rows["slarda"]["source_step"] = steps["SLARDA source"]
+    rows["slarda"]["target_step"] = steps["SLARDA target"]
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
               file=sys.stderr)
         return 2
+    from feature_level_style_transfer_for_tsc_tpu_torch import baselines
+    from feature_level_style_transfer_for_tsc_tpu_torch.cli import baselines as bl_cli
     from feature_level_style_transfer_for_tsc_tpu_torch.cli import main as train_cli
+    from feature_level_style_transfer_for_tsc_tpu_torch.cli import multi_source as ms_cli
     from feature_level_style_transfer_for_tsc_tpu_torch.cli import predict
     from feature_level_style_transfer_for_tsc_tpu_torch.losses.gradnorm import gradnorm_step
     from feature_level_style_transfer_for_tsc_tpu_torch.models.common import weight_norm_weight
@@ -1528,6 +1859,22 @@ def main() -> int:
 
         # ---- phase 14: the widened WN kernels on real data
         results["vendored_training"] = vendored_drive(train_cli, StyleTransferPipeline, (osconv, wn_fused, gate), tmp)
+
+        # ---- phase 15: multi-source member training and the vote on the card
+        write_dataset(train_data, "SynWorms", {
+            "TRAIN": make_arrays(TRAIN_SERIES, WORMS["channels"], WORMS["length"],
+                                 WORMS["classes"], seed=15),
+            "TEST": make_arrays(TRAIN_SERIES, WORMS["channels"], WORMS["length"],
+                                WORMS["classes"], seed=16),
+        }, write_ts_file)
+        results["multi_source"] = multi_source_phase(
+            run, ms_cli, predict, StyleTransferPipeline, cfg, train_data, "SynSCP2",
+            {"SynEthanol": ETHANOL, "SynWorms": WORMS}, tmp / "multi_source_run", smi)
+
+        # ---- phase 16: the CoDATS and SLARDA baselines on the card
+        results["baselines"] = baselines_phase(
+            run, bl_cli, baselines, PipelineConfig, make_arrays, write_ts_file, osconv, wn_fused,
+            gate, tmp, smi)
 
     for name, n in run.launches.items():
         check(n > 0, f"{name} was never launched on the main path")

@@ -157,3 +157,14 @@ def dropout_mask(shape, rate: float, generator: torch.Generator) -> torch.Tensor
     """A keep-mask multiplier: 1/(1 - rate) with probability 1 - rate, else 0."""
     keep = torch.rand(shape, generator=generator) >= rate
     return keep.to(torch.float32) / (1.0 - rate)
+
+
+def layer_norm(params: Dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis, biased variance (torch ``nn.LayerNorm``)."""
+    mean = x.mean(dim=-1, keepdim=True)
+    var = torch.square(x - mean).mean(dim=-1, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + eps) * params["scale"] + params["bias"]
+
+
+def layer_norm_init(dim: int, device="cpu") -> Dict:
+    return {"scale": torch.ones(dim, device=device), "bias": torch.zeros(dim, device=device)}

@@ -2,32 +2,36 @@
 
 Counterpart of the JAX package's ``parallel/multi_source.py``
 ``MultiSourceEnsemble`` (``stack``, ``member_logits``,
-``compute_class_weights``).  The K members (feature extractor + classifier)
-share the target architecture, so their states stack along a leading model
-axis as in the JAX package; on one card the members then run one after
-another over the shared input batch, with no mesh.
+``compute_class_weights``, ``predict``, ``evaluate``).  The K members
+(feature extractor + classifier) share the target architecture, so their
+states stack along a leading model axis as in the JAX package; on one card
+the members then run one after another over the shared input batch, with no
+mesh, and the vote sums over the model axis.
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from ..config import PipelineConfig, VotingConfig
 from ..evaluation.metrics import normalize_model_weights, per_class_precision_weights
+from ..evaluation.voting import entropy_only_vote, entropy_precision_vote, predicted_label_vote
 from ..ops.batchnorm import BNStats
 from ..train.classifier import OSCNNClassifier
 
 
-def _tree_map(fn, *trees):
+def tree_map(fn, *trees):
+    """``fn`` over the leaves of member states (dicts, lists, BNStats)."""
     first = trees[0]
     if isinstance(first, dict):
-        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in first}
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
     if isinstance(first, BNStats):
-        return BNStats(*(_tree_map(fn, *leaves) for leaves in zip(*trees)))
+        return BNStats(*(tree_map(fn, *leaves) for leaves in zip(*trees)))
     if isinstance(first, (list, tuple)):
-        return [_tree_map(fn, *leaves) for leaves in zip(*trees)]
+        return [tree_map(fn, *leaves) for leaves in zip(*trees)]
     return fn(*trees)
 
 
@@ -52,8 +56,10 @@ class MultiSourceEnsemble:
         self.voting = voting or VotingConfig()
 
     def stack(self, members: List[Dict]) -> Dict:
-        """Stack member ``{'params', 'mstate'}`` states along a model axis."""
-        return _tree_map(lambda *leaves: torch.stack(leaves), *members)
+        """Stack member ``{'params', 'mstate'}`` states along a model axis, on
+        the ensemble's device."""
+        device = self.model_def.device
+        return tree_map(lambda *leaves: torch.stack([l.to(device) for l in leaves]), *members)
 
     def member_logits(self, stacked: Dict, x) -> torch.Tensor:
         """(M, N, C) logits, one row per model (shared input batch)."""
@@ -61,7 +67,7 @@ class MultiSourceEnsemble:
         x = torch.as_tensor(x, dtype=torch.float32).to(self.model_def.device)
         out = []
         for m in range(n_models):
-            member = _tree_map(lambda leaf: leaf[m], stacked)
+            member = tree_map(lambda leaf: leaf[m], stacked)
             out.append(self.model_def.predict_logits(member["params"], member["mstate"], x))
         return torch.stack(out)
 
@@ -74,3 +80,37 @@ class MultiSourceEnsemble:
             [per_class_precision_weights(p, labels, self.num_class) for p in preds]
         )
         return normalize_model_weights(weights)
+
+    def predict(self, stacked: Dict, x_test, class_weights: torch.Tensor) -> np.ndarray:
+        """The entropy+precision vote (reference :405-429) on ``x_test``."""
+        logits = self.member_logits(stacked, x_test)
+        return entropy_precision_vote(logits, class_weights, self.voting).cpu().numpy()
+
+    def evaluate(self, stacked: Dict, train_ds, test_ds) -> Dict:
+        """Full ensemble evaluation: weights from the train split, vote on
+        the test split.
+
+        Reports all three vote rules the reference tree contains: the active
+        entropy+precision vote (multi_source_voting.py:405-429), the
+        commented entropy-only variant (:118-227) and the per-predicted-label
+        variant (visualization.py:231-440).  The test split's member logits
+        are computed once and feed every rule."""
+        weights = self.compute_class_weights(stacked, train_ds.x, train_ds.y)
+        logits = self.member_logits(stacked, test_ds.x)
+        y = np.asarray(test_ds.y)
+        pred = entropy_precision_vote(logits, weights, self.voting).cpu().numpy()
+        variants = {
+            "entropy_precision": float(np.mean(pred == y)),
+            "entropy_only": float(np.mean(entropy_only_vote(logits).cpu().numpy() == y)),
+            "predicted_label": float(
+                np.mean(predicted_label_vote(logits, weights).cpu().numpy() == y)
+            ),
+        }
+        member_accs = [float(np.mean(torch.argmax(l, -1).cpu().numpy() == y)) for l in logits]
+        return {
+            "ensemble_acc": variants["entropy_precision"],
+            "vote_variants": variants,
+            "member_accs": member_accs,
+            "class_weights": weights.cpu().numpy(),
+            "predictions": pred,
+        }

@@ -25,9 +25,11 @@ C_in off the 8-channel chunk, dilations up to 128 (also with t_out < d).  Tolera
 forward values, both exact float32 with TF32 off, the sums taken in another
 order; 1e-5 for every ``wn_fwd`` and ``wn_bwd`` output (3xTF32 stage sums,
 fixed-order row-slice partials), and 1e-3 for the other weight gradients,
-sums over every row in another order.  The last four tests pin what the
+sums over every row in another order.  Four tests pin what the
 3xTF32 kernels return for non-finite inputs, which their contract leaves
-out.
+out.  The last two hold one training step of each baseline (CoDATS, a
+SLARDA target step) with the OS conv kernel against the same step with its
+plain version on the card.
 """
 
 import pytest
@@ -483,3 +485,87 @@ def test_wn_fwd_gives_nan_for_an_inf_weight_and_skips_a_masked_taps_zero_times_i
         rows = gv[..., :t, :]  # series 0 of y, of every layer's aud and of skip
         assert torch.isfinite(rows).all()
         _close(rows, wv[..., :t, :], WN_REL_TOL)
+
+
+# One training step of each baseline, with the OS conv kernel on, against the
+# same step with its plain version on the card (tests/test_baselines.py's
+# tiny sizes).  Both start from one seeded state; the gradients each
+# optimizer step is given are recorded by module: losses within REL_TOL,
+# each module's gradients within GRAD_REL_TOL as relative L2 distance.
+BASELINE_KW = dict(batch_size=6, max_kernel_size=5, budget_multiplier=0.02)
+BASELINE_DISC = dict(disc_hid=16, disc_depth=2, disc_heads=2, disc_mlp=8)
+
+
+def _baseline_step(pipe, monkeypatch, plain, epoch):
+    """``epoch(state)`` from a fresh seeded state: (metrics, gradients by
+    module, os_conv_fwd launches)."""
+    state = pipe.init_state(torch.Generator().manual_seed(0))
+    seen = {}
+    apply = type(pipe)._apply_updates
+
+    def record(self, opt, params, names, grads):
+        for n in names:
+            seen[n] = torch.cat([g.flatten() for g in grads[n] if g is not None])
+        return apply(self, opt, params, names, grads)
+
+    with monkeypatch.context() as m:
+        m.setattr(type(pipe), "_apply_updates", record)
+        if plain:
+            m.setattr(osconv, "os_conv", osconv.os_conv_plain)
+        osconv.reset_launch_counts()
+        metrics = epoch(state)
+        torch.cuda.synchronize()
+    return metrics, seen, osconv.LAUNCHES["os_conv_fwd"]
+
+
+def _check_baseline_step(kern, plain):
+    (km, kg, k_launches), (pm, pg, p_launches) = kern, plain
+    assert k_launches > 0 and p_launches == 0
+    for k in km:
+        _close(km[k], pm[k])
+    assert set(kg) == set(pg)
+    for n in kg:
+        rel_l2 = ((kg[n] - pg[n]).norm() / pg[n].norm().clamp_min(1e-30)).item()
+        assert rel_l2 <= GRAD_REL_TOL, (n, rel_l2)
+
+
+@pytest.mark.gpu
+def test_codats_step_on_card_matches_plain(card, monkeypatch):
+    from feature_level_style_transfer_for_tsc_tpu_torch.baselines.codats import CoDATSPipeline
+
+    shapes = [(2, 16, 2), (1, 12, 3), (3, 20, 4)]
+    pipe = CoDATSPipeline(shapes[0], shapes[1:], config=PipelineConfig(**BASELINE_KW),
+                          **BASELINE_DISC, device=card)
+    g = torch.Generator().manual_seed(1)
+    batches = [(torch.randn(1, 6, t, c, generator=g).numpy(),
+                torch.randint(0, n, (1, 6), generator=g).numpy()) for c, t, n in shapes]
+
+    def epoch(state):
+        (xt, yt), *src = batches
+        return pipe.train_epoch(state, xt, yt, [s[0] for s in src], [s[1] for s in src])
+
+    kern = _baseline_step(pipe, monkeypatch, False, epoch)
+    te, cl = len(pipe.ext_specs), len(pipe.cls_specs)
+    assert kern[2] == 3 * (te + cl)  # the target and two sources: trunk + head each
+    _check_baseline_step(kern, _baseline_step(pipe, monkeypatch, True, epoch))
+
+
+@pytest.mark.gpu
+def test_slarda_target_step_on_card_matches_plain(card, monkeypatch):
+    from feature_level_style_transfer_for_tsc_tpu_torch.baselines.slarda import SLARDAPipeline
+
+    t_shape, s_shape = (2, 16, 2), (1, 12, 3)
+    pipe = SLARDAPipeline(t_shape, s_shape, config=PipelineConfig(**BASELINE_KW),
+                          **BASELINE_DISC, device=card)
+    g = torch.Generator().manual_seed(2)
+    xt = torch.randn(1, 6, t_shape[1], t_shape[0], generator=g).numpy()
+    yt = torch.randint(0, t_shape[2], (1, 6), generator=g).numpy()
+    xs = torch.randn(1, 6, s_shape[1], s_shape[0], generator=g).numpy()
+
+    def epoch(state):
+        return pipe.target_epoch(pipe.transfer_weights(state), xt, yt, xs)
+
+    kern = _baseline_step(pipe, monkeypatch, False, epoch)
+    te, cl = len(pipe.ext_specs), len(pipe.cls_specs)
+    assert kern[2] == 3 * te + cl  # frozen source, critic pre-pass, encoder; its head
+    _check_baseline_step(kern, _baseline_step(pipe, monkeypatch, True, epoch))
