@@ -114,17 +114,34 @@ non-zero when any check fails.  Phases:
     step of each (CoDATS, SLARDA's source step with a pinned CPC anchor and
     its target step) from a fresh state against the same step with the
     plain OS conv on the card: losses within REL_TOL, each module's
-    gradients within BASELINE_GRAD_L2_TOL (relative L2).
+    gradients within BASELINE_GRAD_L2_TOL (relative L2);
+17. the archive sweep through ``cli.archive_sweep.main``, reference
+    budgets: the vendored ``datasets/Univariate_ts`` (six datasets) and
+    ``datasets/Multivariate_ts`` (VendSCP2), ``SWEEP_EPOCHS`` unbucketed
+    (once more with FLSTTSC_FUSE_EPILOGUE=1, its evaluation in
+    ``os_conv_fused_fwd``) and ``--bucket``, and one epoch ``--with-cpc``
+    over the univariate root; then a synthetic archive at four UCR 2018
+    shapes (``UCR_SHAPES``: FordA, Earthquakes, Computers, StarLightCurves,
+    the last one's test split cut to 1000 series), written by the port's
+    ``write_ts_file``, one epoch unbucketed and ``--bucket`` (buckets of
+    length 729 and 1094): exact conv launches from the layer specs, every
+    dataset with ``test_acc`` and no ``error``, finite histories, the
+    native parser for every file (``ts_parser.PARSES``), each dataset's
+    wall time and series/s; native against Python parse time of the FordA
+    files; and one FordA-bucket train step (500 padded to 729) and one
+    evaluation batch against the plain OS conv on the card: the loss and
+    the logits within REL_TOL, each module's gradients within
+    BASELINE_GRAD_L2_TOL.
 
-The ``cli.main`` drives (phases 8, 8b, 13, 14) and the drives of phases 15
-and 16 run with PyTorch's deterministic
+The ``cli.main`` drives (phases 8, 8b, 13, 14) and the drives of phases
+15, 16 and 17 run with PyTorch's deterministic
 algorithms, so each repeats bit for bit from run to run.  The launch counts
 are set to 0 just before each drive of the main path and read just after
 it.  The line before the last lists every kernel as JSON,
 with the launches of the main-path drives (serving: single and ensemble,
 not the VendGunPoint check; training: the two ``cli.main`` drives of phases
-8 and 13, not those of phases 8b, 14, 15 and 16, whose counts are checked
-and kept apart) and a bound from the FLOPs or bytes these inputs
+8 and 13, not those of phases 8b, 14, 15, 16 and 17, whose counts are
+checked and kept apart) and a bound from the FLOPs or bytes these inputs
 need; the last line is {"ok": true, "device": {...}}.  Everything measured is also written to
 chiprun_out/chip_smoke_results.json.
 """
@@ -211,6 +228,11 @@ BASELINE_BATCH = 30  # the Comparison/ code's batch size
 BASELINE_EPOCHS = 2  # CoDATS epochs; SLARDA source and target epochs each
 SLARDA_ANCHOR = 300  # pinned CPC anchor of the SLARDA source-step comparison (< 3000 // 4)
 WN_END_SCALE = 0.1  # std of the WN end projections of the checked phase-5 state
+# phase 17: (train, test, T, classes) of four UCR 2018 datasets, from the archive's
+# DataSummary.csv; StarLightCurves' test split (8236 series) cut to 1000
+UCR_SHAPES = {"FordA": (3601, 1320, 500, 2), "Earthquakes": (322, 139, 512, 2),
+              "Computers": (250, 250, 720, 2), "StarLightCurves": (1000, 1000, 1024, 3)}
+SWEEP_EPOCHS = 2  # the vendored sweeps (1 under --with-cpc, and over the UCR shapes)
 
 
 def log(msg: str) -> None:
@@ -1523,6 +1545,241 @@ def baselines_phase(run, bl_cli, baselines, cfg_cls, make_arrays, write_ts_file,
     return rows
 
 
+# ----------------------------------------------------------------- phase 17 --
+
+@contextlib.contextmanager
+def watched_fits(*classes):
+    """Every ``fit`` of the classifiers: its synchronized wall time, the
+    training series and the history; yields the list of fits."""
+    fits = []
+    saved = {cls: cls.fit for cls in classes}
+
+    def wrap(fit):
+        def call(self, train_ds, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, history = fit(self, train_ds, *a, **kw)
+            torch.cuda.synchronize()
+            fits.append({"fit_s": time.perf_counter() - t0, "n_train": train_ds.len,
+                         "history": history})
+            return state, history
+        return call
+
+    for cls, fit in saved.items():
+        cls.fit = wrap(fit)
+    try:
+        yield fits
+    finally:
+        for cls, fit in saved.items():
+            cls.fit = fit
+
+
+def archive_splits(native, root: Path) -> dict:
+    """name -> (n_train, n_test, C, T, classes) of every dataset of ``root``,
+    read by the native parser without counting."""
+    splits = {}
+    for d in sorted(p for p in root.iterdir() if p.is_dir()):
+        x, y = native.load_from_tsfile_native(str(d / f"{d.name}_TRAIN.ts"))
+        x_test, _ = native.load_from_tsfile_native(str(d / f"{d.name}_TEST.ts"))
+        splits[d.name] = (len(x), len(x_test), x.shape[1], x.shape[2], len(set(y.tolist())))
+    return splits
+
+
+def expected_sweep_launches(run, modules, splits: dict, epochs: int, bucket: bool,
+                            fused: bool, cfg) -> dict:
+    """Conv launches of one ``cli.archive_sweep`` drive, from the layer
+    specs: every train step (``ceil(n_train / 20)`` an epoch) launches
+    ``os_conv_fwd`` once a layer of ``ext`` and ``cls``; the evaluation of
+    the test and train splits once a layer a batch of 20, into
+    ``os_conv_fused_fwd`` under ``FLSTTSC_FUSE_EPILOGUE=1`` (the unbucketed
+    model's folded BatchNorm; the padded model folds none)."""
+    classifier, bucketed = modules
+    expect = run.idle()
+    for n_train, n_test, c, t, n_cls in splits.values():
+        if bucket:
+            key = bucketed.bucket_key(c, t, n_cls, cfg.max_kernel_size)
+            model = bucketed.BucketedOSCNNClassifier(*key, config=cfg, device="cuda")
+        else:
+            model = classifier.OSCNNClassifier(c, t, n_cls, config=cfg, with_cpc=False,
+                                               device="cuda")
+        layers = len(model.ext_specs) + len(model.cls_specs)
+        expect["os_conv_fwd"] += layers * epochs * math.ceil(n_train / BATCH)
+        evals = layers * (math.ceil(n_test / BATCH) + math.ceil(n_train / BATCH))
+        expect["os_conv_fused_fwd" if fused and not bucket else "os_conv_fwd"] += evals
+    return expect
+
+
+def sweep_drive(run, sweep_cli, ts_parser, modules, what: str, root: Path, flags, splits: dict,
+                epochs: int, out: Path, cfg, fused: bool = False) -> dict:
+    """``cli.archive_sweep.main`` over ``root`` on the card, deterministic:
+    exact conv launches, every dataset with ``test_acc`` and no ``error``
+    (the CLI's ``except`` would hide a kernel fault there), finite
+    histories, the native parser for every file; each dataset's wall time
+    and series/s of its ``fit``."""
+    bucket = "--bucket" in flags
+    expect = expected_sweep_launches(run, modules, splits, epochs, bucket, fused, cfg)
+    args = ["--root", str(root), "--epochs", str(epochs), "--out", str(out),
+            "--budget-multiplier", "1.0", "--device", "cuda", *flags]
+    ts_parser.reset_parse_counts()
+    fit_cls = modules[1].BucketedOSCNNClassifier if bucket else modules[0].OSCNNClassifier
+    with watched_fits(fit_cls) as fits, deterministic(), \
+            environ(FLSTTSC_FUSE_EPILOGUE="1" if fused else "0"):
+        t0 = time.perf_counter()
+        results = run.drive(what, lambda: sweep_cli.main(args), expect)
+        wall = time.perf_counter() - t0
+    check(json.loads(out.read_text()) == results, f"{what}: the results file differs")
+    check(list(results) == list(splits), f"{what}: datasets {list(results)}, want {list(splits)}")
+    check(ts_parser.PARSES == {"native": 2 * len(splits), "python": 0},
+          f"{what}: parsers {ts_parser.PARSES}, want the native one for all {2 * len(splits)} files")
+    check(len(fits) == len(splits), f"{what}: {len(fits)} fits")
+    rows = {}
+    for (name, r), fit in zip(results.items(), fits):
+        check("error" not in r and "test_acc" in r, f"{what}: {name} gave {r}")
+        check(("bucket" in r) == bucket, f"{what}: {name}'s keys {sorted(r)}")
+        for h in fit["history"]:
+            check(all(math.isfinite(v) for k, v in h.items() if k != "epoch"),
+                  f"{what}: {name}'s history {h}")
+        check(len(fit["history"]) == epochs, f"{what}: {name}: {len(fit['history'])} epochs")
+        rows[name] = {**r, "fit_s": fit["fit_s"],
+                      "series_per_s": fit["n_train"] * epochs / fit["fit_s"],
+                      "last": fit["history"][-1]}
+    log(f"[{what}] wall s={wall:.2f} " + " ".join(
+        f"{n}: acc={r['test_acc']:.3f} wall={r['wall_s']} fit={r['fit_s']:.2f}s "
+        f"series/s={r['series_per_s']:.1f}" for n, r in rows.items()))
+    return {"wall_s": wall, "datasets": rows, "launches": run.by_drive[what]}
+
+
+def parse_times(native, ts_parser, files) -> dict:
+    """Native and Python parse times (host clock) of ``files``, and the same
+    arrays and labels from both."""
+    row = {"native_s": 0.0, "python_s": 0.0}
+    for path in files:
+        t0 = time.perf_counter()
+        xn, yn = native.load_from_tsfile_native(str(path))
+        t1 = time.perf_counter()
+        xp, yp = ts_parser._load_from_tsfile_py(str(path))
+        t2 = time.perf_counter()
+        check(np.array_equal(xn, xp) and list(yn) == list(yp), f"{path.name}: parsers differ")
+        row["native_s"] += t1 - t0
+        row["python_s"] += t2 - t1
+    return row
+
+
+def bucket_step_row(bucketed, cfg, x_train, y_train, x_test, osconv, wn_fused, gate,
+                    bn_stats_type) -> dict:
+    """The FordA bucket (500 padded to 729, 2 of 4 classes) on the card: one
+    ``train_batch`` from a fresh state and one evaluation batch of a state
+    with random BatchNorm statistics, with the OS conv kernel and with its
+    plain version: the loss's relative error, each module's gradients as
+    relative L2 distance, the valid classes' logits' relative error."""
+    clf = bucketed.BucketedOSCNNClassifier(*bucketed.bucket_key(1, 500, 2, cfg.max_kernel_size),
+                                           config=cfg, device="cuda")
+    check(clf.t_bucket == 729, f"FordA's bucket length {clf.t_bucket}")
+    t_valid, cmask = clf.t_valid(500), clf.cmask(2)
+    x, y, xe = clf._pad_x(x_train[:BATCH]), y_train[:BATCH], clf._pad_x(x_test[:BATCH])
+    evaluated = with_random_bn(clf.init_models(torch.Generator().manual_seed(1)),
+                               np.random.default_rng(1), bn_stats_type)
+
+    def step(ctx):
+        state = clf.init_state(torch.Generator().manual_seed(0))
+        grads, apply = {}, clf._apply_updates
+
+        def record(st, names, gs):
+            for n in names:
+                grads[n] = [None if g is None else g.detach().clone() for g in gs[n]]
+            return apply(st, names, gs)
+
+        clf._apply_updates = record
+        try:
+            with ctx:
+                ce = clf.train_batch(state, x, y, t_valid, cmask)
+                logits = clf.predict_logits(evaluated["params"], evaluated["mstate"], xe, t_valid,
+                                            cmask)[:, :2]
+                torch.cuda.synchronize()
+        finally:
+            del clf._apply_updates
+        return ce, grads, logits
+
+    osconv.reset_launch_counts()
+    kern = step(contextlib.nullcontext())
+    launched = osconv.LAUNCHES["os_conv_fwd"]
+    plain = step(plain_convs(osconv, wn_fused, gate, convs=True, wn=False))
+    row = {"os_conv_fwd": launched, "loss": float(kern[0]), "loss_rel": rel_err(kern[0], plain[0])[1],
+           "logits_rel": rel_err(kern[2], plain[2])[1], "grad_l2_rel": {}}
+    for name, gs in plain[1].items():
+        pairs = [(a, b) for a, b in zip(kern[1][name], gs) if b is not None]
+        d2 = sum(float(((a - b) ** 2).sum()) for a, b in pairs)
+        n2 = sum(float((b ** 2).sum()) for _, b in pairs)
+        row["grad_l2_rel"][name] = math.sqrt(d2 / n2) if n2 > 0 else math.sqrt(d2)
+    layers = len(clf.ext_specs) + len(clf.cls_specs)
+    log(f"[FordA bucket step, kernel vs plain on the card, checked] {json.dumps(row)}")
+    check(launched == 2 * layers, f"FordA bucket step: {launched} launches, want {2 * layers}")
+    check(math.isfinite(row["loss"]) and row["loss_rel"] <= REL_TOL,
+          f"FordA bucket step: loss rel err {row['loss_rel']:.3e}")
+    check(row["logits_rel"] <= REL_TOL, f"FordA bucket: logits rel err {row['logits_rel']:.3e}")
+    for n, v in row["grad_l2_rel"].items():
+        check(v <= BASELINE_GRAD_L2_TOL, f"FordA bucket step grads, {n}: relative L2 {v:.3e}")
+    return row
+
+
+def sweep_phase(run, sweep_cli, modules, data_modules, osconv, wn_fused, gate, cfg,
+                bn_stats_type, make_arrays, write_ts_file, tmp: Path, smi: str) -> dict:
+    """``cli.archive_sweep`` on the card: (a) the vendored roots, ``SWEEP_EPOCHS``
+    unbucketed (once more with ``FLSTTSC_FUSE_EPILOGUE=1``) and ``--bucket``,
+    one epoch ``--with-cpc`` over the univariate root; (b) a synthetic archive
+    at the UCR 2018 shapes of ``UCR_SHAPES`` (StarLightCurves' test split cut
+    from 8236 to 1000 series for the drive's time), written by the port's
+    ``write_ts_file`` and parsed back by the native parser, one epoch
+    unbucketed and ``--bucket``; the native and Python parse times of the
+    FordA files; one FordA-bucket step against the plain OS conv."""
+    native, ts_parser = data_modules
+    t_phase = time.perf_counter()
+    rows = {}
+    for root_name in ("Univariate_ts", "Multivariate_ts"):
+        root = REPO / "datasets" / root_name
+        splits = archive_splits(native, root)
+        for tag, flags, fused in (("unbucketed", [], False), ("unbucketed fused", [], True),
+                                  ("bucketed", ["--bucket"], False)):
+            what = f"sweep {root_name} {tag}"
+            rows[what] = sweep_drive(run, sweep_cli, ts_parser, modules, what, root, flags, splits,
+                                     SWEEP_EPOCHS, tmp / f"{what.replace(' ', '_')}.json", cfg,
+                                     fused)
+    uni = REPO / "datasets" / "Univariate_ts"
+    rows["sweep Univariate_ts with CPC"] = sweep_drive(
+        run, sweep_cli, ts_parser, modules, "sweep Univariate_ts with CPC", uni, ["--with-cpc"],
+        archive_splits(native, uni), 1, tmp / "sweep_cpc.json", cfg)
+
+    ucr = tmp / "ucr_archive"
+    t0 = time.perf_counter()
+    for i, (name, (n_train, n_test, t, n_cls)) in enumerate(UCR_SHAPES.items()):
+        write_dataset(ucr, name, {"TRAIN": make_arrays(n_train, 1, t, n_cls, seed=40 + 2 * i),
+                                  "TEST": make_arrays(n_test, 1, t, n_cls, seed=41 + 2 * i)},
+                      write_ts_file)
+    written_s = time.perf_counter() - t0
+    rows["parse_FordA"] = parse_times(native, ts_parser, [ucr / "FordA" / "FordA_TRAIN.ts",
+                                                          ucr / "FordA" / "FordA_TEST.ts"])
+    log(f"[UCR-shaped archive] written in {written_s:.2f} s; FordA parsed natively in "
+        f"{rows['parse_FordA']['native_s']:.3f} s, by the Python parser in "
+        f"{rows['parse_FordA']['python_s']:.3f} s (host clock) on {smi}")
+    splits = archive_splits(native, ucr)
+    for tag, flags in (("unbucketed", []), ("bucketed", ["--bucket"])):
+        what = f"sweep UCR shapes {tag}"
+        rows[what] = sweep_drive(run, sweep_cli, ts_parser, modules, what, ucr, flags, splits, 1,
+                                 tmp / f"sweep_ucr_{tag}.json", cfg)
+    buckets = {tuple(r["bucket"]) for r in rows["sweep UCR shapes bucketed"]["datasets"].values()}
+    check(buckets == {(1, 89, 729, 4), (1, 89, 1094, 4)}, f"UCR-shaped buckets {sorted(buckets)}")
+    x_tr, y_tr = make_arrays(BATCH, 1, 500, 2, seed=40)
+    x_te, _ = make_arrays(BATCH, 1, 500, 2, seed=41)
+    rows["FordA_bucket_step"] = bucket_step_row(
+        modules[1], cfg, x_tr.transpose(0, 2, 1).copy(),
+        np.array([int(v.split("_")[1]) for v in y_tr]), x_te.transpose(0, 2, 1).copy(),
+        osconv, wn_fused, gate, bn_stats_type)
+    rows["written_s"] = written_s
+    rows["wall_s"] = time.perf_counter() - t_phase
+    log(f"[archive sweep] phase wall s={rows['wall_s']:.1f} on {smi}")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
@@ -1530,6 +1787,7 @@ def main() -> int:
         return 2
     from feature_level_style_transfer_for_tsc_tpu_torch import baselines
     from feature_level_style_transfer_for_tsc_tpu_torch.cli import baselines as bl_cli
+    from feature_level_style_transfer_for_tsc_tpu_torch.cli import archive_sweep as sweep_cli
     from feature_level_style_transfer_for_tsc_tpu_torch.cli import main as train_cli
     from feature_level_style_transfer_for_tsc_tpu_torch.cli import multi_source as ms_cli
     from feature_level_style_transfer_for_tsc_tpu_torch.cli import predict
@@ -1537,6 +1795,7 @@ def main() -> int:
     from feature_level_style_transfer_for_tsc_tpu_torch.models.common import weight_norm_weight
     from feature_level_style_transfer_for_tsc_tpu_torch.models.flow import wn_init
     from feature_level_style_transfer_for_tsc_tpu_torch.config import PipelineConfig
+    from feature_level_style_transfer_for_tsc_tpu_torch.data import native, ts_parser
     from feature_level_style_transfer_for_tsc_tpu_torch.data.synthetic import (
         make_arrays,
         write_ts_file,
@@ -1548,6 +1807,7 @@ def main() -> int:
         MultiSourceEnsemble,
     )
     from feature_level_style_transfer_for_tsc_tpu_torch.structure import total_out_channels
+    from feature_level_style_transfer_for_tsc_tpu_torch.train import bucketed, classifier
     from feature_level_style_transfer_for_tsc_tpu_torch.train.classifier import OSCNNClassifier
     from feature_level_style_transfer_for_tsc_tpu_torch.train.pipeline import (
         StyleTransferPipeline,
@@ -1616,10 +1876,10 @@ def main() -> int:
         state = with_random_bn(predictor.init_state(torch.Generator().manual_seed(0)), rng, BNStats)
         single = tmp / "ckpt" / "final_state.npz"
         save_checkpoint(str(single), state)
-        member_def = OSCNNClassifier(c, t, n_cls, config=cfg, device="cuda")
+        member_def = OSCNNClassifier(c, t, n_cls, config=cfg, with_cpc=False, device="cuda")
         members = [tmp / "ckpt" / f"member{i}.npz" for i in (1, 2)]
         for i, path in enumerate(members):
-            member = member_def.init_state(torch.Generator().manual_seed(10 + i))
+            member = member_def.init_models(torch.Generator().manual_seed(10 + i))
             save_checkpoint(str(path), with_random_bn(member, rng, BNStats))
         ensemble = [members[0], single, members[1]]
 
@@ -1875,6 +2135,11 @@ def main() -> int:
         results["baselines"] = baselines_phase(
             run, bl_cli, baselines, PipelineConfig, make_arrays, write_ts_file, osconv, wn_fused,
             gate, tmp, smi)
+
+        # ---- phase 17: the archive sweep on the card
+        results["archive_sweep"] = sweep_phase(
+            run, sweep_cli, (classifier, bucketed), (native, ts_parser), osconv, wn_fused, gate,
+            cfg, BNStats, make_arrays, write_ts_file, tmp, smi)
 
     for name, n in run.launches.items():
         check(n > 0, f"{name} was never launched on the main path")

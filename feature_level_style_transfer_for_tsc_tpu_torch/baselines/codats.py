@@ -32,7 +32,7 @@ from ..models.common import conv1x1, conv1x1_init, linear_init
 from ..models.os_cnn import os_cnn_apply, os_cnn_init, os_cnn_res_apply, os_cnn_res_init
 from ..models.transformer import discriminator_att_apply, discriminator_att_init
 from ..train.optim import set_lr
-from ..train.pipeline import detached, leaves
+from ..train.steps import detached, leaves
 from .common import BaselinePipeline, epoch_means, make_adam_steplr, steplr_value, to_record
 
 GRL_COEFF = 1.2  # discriminator.py:27-28

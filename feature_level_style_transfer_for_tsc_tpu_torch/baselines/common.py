@@ -26,7 +26,7 @@ from ..ops import resolve_device
 from ..structure import total_out_channels
 from ..train.classifier import build_specs
 from ..train.optim import make_adam
-from ..train.pipeline import leaves
+from ..train.steps import batched_argmax, leaves
 
 LR = 2e-3  # every Comparison/ optimizer (CoDATS main.py:81-103, SLARDA train.py:149-187)
 
@@ -101,16 +101,9 @@ class BaselinePipeline:
     def evaluate_target(self, state: Dict, x: np.ndarray, y: np.ndarray) -> float:
         """Accuracy over ``config.batch_size`` batches; the last batch is
         padded by repeating its last series, and the padded rows dropped."""
-        bs = self.config.batch_size
-        preds = []
-        for i in range(0, x.shape[0], bs):
-            xe = x[i : i + bs]
-            pad = bs - xe.shape[0]
-            if pad:
-                xe = np.concatenate([xe, np.repeat(xe[-1:], pad, 0)], 0)
-            logits = self.predict_target(state["params"], state["mstate"], self._batch(xe))
-            preds.append(torch.argmax(logits, -1)[: bs - pad].cpu().numpy())
-        return float(np.mean(np.concatenate(preds) == y))
+        pred = batched_argmax(self.predict_target, state["params"], state["mstate"], x,
+                              self.config.batch_size, self.device)
+        return float(np.mean(pred == y))
 
 
 def epoch_means(losses: Dict[str, list]) -> Dict[str, torch.Tensor]:

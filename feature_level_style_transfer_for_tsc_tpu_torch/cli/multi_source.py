@@ -110,9 +110,10 @@ def main(argv=None):
     members = []
     if args.member_checkpoints:
         model_def = OSCNNClassifier(
-            *shape, config=PipelineConfig(budget_multiplier=args.budget_multiplier), device=device
+            *shape, config=PipelineConfig(budget_multiplier=args.budget_multiplier), with_cpc=False,
+            device=device,
         )
-        template = model_def.init_state(torch.Generator().manual_seed(0))
+        template = model_def.init_models(torch.Generator().manual_seed(0))
         for path in args.member_checkpoints.split(","):
             members.append(restore_member(path, template, device))
         sources = []

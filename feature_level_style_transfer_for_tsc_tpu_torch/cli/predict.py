@@ -125,7 +125,7 @@ def main(argv=None):
         # A single cli.multi_source member: classify with plain argmax (the
         # reference's single-model path, utils.py:27-52 — voting needs >=2
         # models).
-        model_def = OSCNNClassifier(*shape, config=cfg, device=device)
+        model_def = OSCNNClassifier(*shape, config=cfg, with_cpc=False, device=device)
         member = _load_member(paths[0], device)
         logits = model_def.predict_logits(member["params"], member["mstate"], ds.x)
         preds = torch.argmax(logits, -1).cpu().numpy()

@@ -1,4 +1,4 @@
-"""Pure-python `.ts` (UCR/UEA sktime format) parser.
+"""`.ts` (UCR/UEA sktime format) parser: native fast path, Python reader.
 
 The reference loads datasets with `sktime.datasets.load_from_tsfile`
 (reference `DataSource.py:3,12-14`) returning a numpy3d ``[N, C, T]``
@@ -21,6 +21,9 @@ series of any other length.  Unequal-length datasets (``@equalLength
 false``) are right-padded with NaN to the maximum length (sktime's numpy3d
 would refuse them; padding is the TPU-friendly choice — static shapes — and
 the z-normalized UCR archive is equal-length anyway).
+
+As in the JAX package, ``load_from_tsfile`` hands plain files to the C++
+parser of ``data/native.py`` and checks its result against the header.
 """
 
 from __future__ import annotations
@@ -32,6 +35,14 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 _TUPLE_RE = re.compile(r"\(([^)]*)\)")
+
+#: Files parsed by each parser, counted by ``load_from_tsfile``.
+PARSES = {"native": 0, "python": 0}
+
+
+def reset_parse_counts() -> None:
+    for name in PARSES:
+        PARSES[name] = 0
 
 
 def _read_header(path: str) -> Dict[str, str]:
@@ -120,15 +131,32 @@ def _parse_dim(dim: str, timestamps: bool) -> np.ndarray:
 def load_from_tsfile(path: str) -> Tuple[np.ndarray, np.ndarray]:
     """Parse a .ts file -> (X[N, C, T] float32, y[N] of strings).
 
-    The port keeps only the pure-python parser of the JAX package's
-    ``data/ts_parser.py`` (not its native C++ fast path).
+    Uses the native C++ parser (``data/native.py``) for the common clean
+    layout; files using @timestamps or quoted labels take the pure-python
+    path (the native parser handles only the fast plain format), as does
+    every file where the native library cannot be built.  ``PARSES``
+    counts which parser served each file.
     """
+    from .native import load_from_tsfile_native, native_available
+
     if not os.path.exists(path):
         raise FileNotFoundError(f"no such .ts file: {path}")
-    return _load_from_tsfile_py(path)
+    tags = _read_header(path)
+    declared = _declared_labels(tags)
+    needs_py = _is_true(tags, "timestamps") or any(
+        q in tags.get("classlabel", tags.get("targetlabel", "")) for q in ("\"", "'")
+    )
+    if native_available() and not needs_py:
+        x, y = load_from_tsfile_native(path)
+        _check_consistency(path, tags, declared, x=x, y=y)
+        PARSES["native"] += 1
+        return x, y
+    x, y = _load_from_tsfile_py(path)
+    PARSES["python"] += 1
+    return x, y
 
 
-def _check_consistency(path, tags, declared, *, y=None, lengths=None):
+def _check_consistency(path, tags, declared, *, x=None, y=None, lengths=None):
     """sktime-parity validation of declared-header vs observed data."""
     if declared is not None and y is not None:
         seen = set(str(v) for v in y) - set(declared)
@@ -141,6 +169,25 @@ def _check_consistency(path, tags, declared, *, y=None, lengths=None):
     if "serieslength" in tags:
         want = int(tags["serieslength"].split()[0])
     if _is_true(tags, "equallength") or want is not None:
+        if lengths is None and x is not None:
+            # native path: padded [N,C,T]. NaN can mean either a '?' missing
+            # value or pad from a length mismatch — disambiguate by checking
+            # whether the file contains any '?' marker at all.
+            if np.isnan(x).any():
+                with open(path, "r", encoding="utf-8") as f:
+                    has_missing_marker = "?" in f.read()
+                if not has_missing_marker:
+                    raise ValueError(
+                        f"{path}: @equalLength/@seriesLength declared but "
+                        "series lengths differ (NaN padding without any '?' "
+                        "missing-value markers)"
+                    )
+            if want is not None and x.shape[2] != want:
+                raise ValueError(
+                    f"{path}: @seriesLength {want} but longest series has "
+                    f"{x.shape[2]} values"
+                )
+            return
         if lengths:
             want = want if want is not None else lengths[0][1]
             for idx, ln in lengths:

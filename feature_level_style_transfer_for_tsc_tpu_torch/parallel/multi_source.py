@@ -50,7 +50,7 @@ class MultiSourceEnsemble:
         # Member model definition = the target classification stack
         # (reference multi_source_voting.py:240-263 rebuilds exactly this).
         self.model_def = OSCNNClassifier(
-            in_channels, time_length, num_class, config=config, device=device
+            in_channels, time_length, num_class, config=config, with_cpc=False, device=device
         )
         self.num_class = num_class
         self.voting = voting or VotingConfig()

@@ -12,7 +12,7 @@ params, mstate and consts:
   weights' Adam as ``opt_state[0]``;
 * ``['rng']``, a threefry key.
 
-``state_to_flat`` writes the port's state (torch optimizers, ``PlateauState``
+``state_to_flat`` writes the port's pipeline state (torch optimizers, ``PlateauState``
 of floats, ``GradNormState``, a ``torch.Generator``) as those NamedTuples,
 flattened by ``io.checkpoint``; ``load_state`` reads a file of either
 package back through the same NamedTuples (``from_jax_params``) into a
@@ -21,6 +21,10 @@ port writes two words drawn from it as ``['rng']`` and its full state under
 a key of its own, ``['generator']``, which the JAX package's restore does
 not read; a file without it (a JAX-written one) seeds the generator from
 the two ``['rng']`` words.
+
+``classifier_state_to_flat`` / ``load_classifier_state`` do the same for
+the state of ``OSCNNClassifier`` and ``BucketedOSCNNClassifier`` (params,
+mstate, ``['opt'][m]``, ``['rng']``, ``['epoch']``).
 """
 
 from __future__ import annotations
@@ -202,22 +206,35 @@ def state_to_flat(state: Dict) -> Dict[str, np.ndarray]:
     })
 
 
-def load_state(state: Dict, flat: Mapping[str, np.ndarray]) -> Dict:
-    """``flat`` (``state_to_flat``'s, or the JAX package's) into ``state``,
-    a fresh port state, as the JAX package's restore fills its template:
-    each model leaf read under its key and copied in place (the optimizers
-    hold the parameters), the rest through ``from_jax_params``."""
-    model = {k: state[k] for k in MODEL_KEYS}
+def _load_model(state: Dict, flat: Mapping[str, np.ndarray], keys) -> Dict:
+    """Each model leaf of ``state[k]`` (k in ``keys``) read from ``flat``
+    under its key and copied in place (the optimizers hold the parameters),
+    as the JAX package's restore fills its template; the other entries of
+    ``flat`` as ``from_jax_params`` rebuilds them, with every module's
+    optimizer state loaded."""
     with torch.no_grad():
-        for key, leaf in tree_items(model):
+        for key, leaf in tree_items({k: state[k] for k in keys}):
             saved = torch.from_numpy(np.array(flat[key]))
             if saved.shape != leaf.shape:
                 raise ValueError(f"{key}: {tuple(saved.shape)}, the port's {tuple(leaf.shape)}")
             leaf.copy_(saved)
-    skip = tuple(f"[{k!r}]" for k in MODEL_KEYS)
+    skip = tuple(f"[{k!r}]" for k in keys)
     saved = from_jax_params({k: v for k, v in flat.items() if not k.startswith(skip)})
     for m, o in state["opt"].items():
         load_optax_state(o, state["params"][m], saved["opt"][m])
+    return saved
+
+
+def _seed_from_rng(generator: torch.Generator, rng) -> None:
+    """Seed ``generator`` from the two words of a JAX PRNG key."""
+    hi, lo = (int(w) for w in rng)
+    generator.manual_seed(hi << 32 | lo)
+
+
+def load_state(state: Dict, flat: Mapping[str, np.ndarray]) -> Dict:
+    """``flat`` (``state_to_flat``'s, or the JAX package's) into ``state``,
+    a fresh port state, as the JAX package's restore fills its template."""
+    saved = _load_model(state, flat, MODEL_KEYS)
     state["sched"] = {m: int(saved["sched"][m]) for m in state["sched"]}
     state["plateau"] = {m: PlateauState(float(saved["plateau"][m].lr), float(saved["plateau"][m].best),
                                         int(saved["plateau"][m].num_bad))
@@ -227,6 +244,30 @@ def load_state(state: Dict, flat: Mapping[str, np.ndarray]) -> Dict:
     if "generator" in saved:
         state["generator"].set_state(saved["generator"])
     else:
-        hi, lo = (int(w) for w in saved["rng"])
-        state["generator"].manual_seed(hi << 32 | lo)
+        _seed_from_rng(state["generator"], saved["rng"])
+    return state
+
+
+def classifier_state_to_flat(state: Dict) -> Dict[str, np.ndarray]:
+    """An ``OSCNNClassifier`` or ``BucketedOSCNNClassifier`` training state
+    under the keys of the JAX package's: params, mstate, ``['opt'][m]`` per
+    module (``optax_state``), ``['rng']`` (two words of the generator, see
+    ``rng_words``) and ``['epoch']``."""
+    return flatten({
+        "params": state["params"],
+        "mstate": state["mstate"],
+        "opt": {m: optax_state(o, state["params"][m]) for m, o in state["opt"].items()},
+        "rng": rng_words(state["generator"]),
+        "epoch": np.int32(state["epoch"]),
+    })
+
+
+def load_classifier_state(state: Dict, flat: Mapping[str, np.ndarray]) -> Dict:
+    """The inverse of ``classifier_state_to_flat``: ``flat`` (the port's,
+    or a JAX classifier's state flattened by ``jax.tree_util`` key paths)
+    into ``state``, a fresh port state of the same model; the generator is
+    seeded from the two ``['rng']`` words."""
+    saved = _load_model(state, flat, ("params", "mstate"))
+    state["epoch"] = int(saved["epoch"])
+    _seed_from_rng(state["generator"], saved["rng"])
     return state

@@ -75,15 +75,8 @@ from ..ops import resolve_device
 from ..structure import total_out_channels
 from . import jax_state
 from .classifier import build_specs
-from .optim import (
-    clip_params,
-    make_adam,
-    make_rmsprop,
-    plateau_init,
-    plateau_step,
-    set_lr,
-    step_lr,
-)
+from .optim import clip_params, make_adam, make_rmsprop, plateau_init, plateau_step, set_lr
+from .steps import ModuleSteps, batched_argmax, detached, leaves
 
 #: checkpoint key prefixes of the target model within a full pipeline state
 TARGET_PREFIXES = (
@@ -96,26 +89,6 @@ ALL_MODULES = ("t_ext", "t_cls", "s_ext", "dim_uni", "s_cls", "prob_trans",
                "nf", "noise", "ad", "fd", "cpc")
 #: the feature sets dumped for t-SNE (reference train_and_test.py:792-797)
 FEATURE_KEYS = ("t_feat", "s2t_feat", "s_feat", "s_pool", "t2s_pool", "s2t2s_pool")
-
-
-def leaves(tree) -> List[torch.Tensor]:
-    """The tensors of a tree of dicts, lists and NamedTuples, in order."""
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    if isinstance(tree, dict):
-        return [leaf for v in tree.values() for leaf in leaves(v)]
-    return [leaf for v in tree for leaf in leaves(v)]
-
-
-def detached(tree):
-    """A tree of dicts, lists and NamedTuples with every tensor detached."""
-    if isinstance(tree, torch.Tensor):
-        return tree.detach()
-    if isinstance(tree, dict):
-        return {k: detached(v) for k, v in tree.items()}
-    if hasattr(tree, "_fields"):
-        return type(tree)(*(detached(v) for v in tree))
-    return [detached(v) for v in tree]
 
 
 def _batch(a, device, dtype=None) -> torch.Tensor:
@@ -173,27 +146,13 @@ class TargetPredictor:
         logits, _, _ = self.classify_target(params, mstate, feat, False, fused_infer=True)
         return logits
 
-    def _batched_predictions(self, predict, state: Dict, x: np.ndarray) -> np.ndarray:
-        """Argmax class predictions in fixed-size batches of
-        ``config.batch_size``; the last batch is padded by repeating its
-        last series, and the padded rows are dropped."""
-        bs = self.config.batch_size
-        xs = torch.as_tensor(x, dtype=torch.float32).to(self.device)
-        preds = []
-        for i in range(0, xs.shape[0], bs):
-            xe = xs[i : i + bs]
-            pad = bs - xe.shape[0]
-            if pad:
-                xe = torch.cat([xe, xe[-1:].expand(pad, *xe.shape[1:])], 0)
-            logits = predict(state["params"], state["mstate"], xe)
-            preds.append(torch.argmax(logits, -1)[: bs - pad])
-        return torch.cat(preds).cpu().numpy()
-
     def predict_target(self, state: Dict, x: np.ndarray) -> np.ndarray:
-        return self._batched_predictions(self.predict_logits, state, x)
+        """Argmax class predictions in batches of ``config.batch_size``."""
+        return batched_argmax(self.predict_logits, state["params"], state["mstate"], x,
+                              self.config.batch_size, self.device)
 
 
-class StyleTransferPipeline(TargetPredictor):
+class StyleTransferPipeline(TargetPredictor, ModuleSteps):
     """The paired target/source model stack and its five training phases."""
 
     def __init__(
@@ -321,50 +280,12 @@ class StyleTransferPipeline(TargetPredictor):
 
     # ---------------------------------------------------- optimizer steps --
 
-    def _apply_updates(self, state: Dict, names: Sequence[str], grads: Dict[str, list]) -> None:
-        """One step of each named module's optimizer.  A parameter that got
-        no gradient steps with zero, as in the JAX package."""
-        for name in names:
-            for p, g in zip(leaves(state["params"][name]), grads[name]):
-                p.grad = torch.zeros_like(p) if g is None else g
-            state["opt"][name].step()
-            state["opt"][name].zero_grad(set_to_none=True)
-
-    def _grads(self, loss: torch.Tensor, state: Dict, names: Sequence[str],
-               retain_graph: bool = False) -> Dict[str, list]:
-        """d loss / d params of each named module (None where unused)."""
-        params = [leaves(state["params"][n]) for n in names]
-        flat = torch.autograd.grad(loss, [p for ps in params for p in ps],
-                                   retain_graph=retain_graph, allow_unused=True)
-        out, i = {}, 0
-        for name, ps in zip(names, params):
-            out[name] = list(flat[i : i + len(ps)])
-            i += len(ps)
-        return out
-
-    def _step_steplr(self, state: Dict, names: Sequence[str]) -> None:
-        """Increment scheduler counters and refresh LRs (torch StepLR)."""
-        o = self.config.optim
-        for n in names:
-            state["sched"][n] += 1
-            step, gamma = o.steplr_step, o.steplr_gamma
-            if n == "noise":
-                step, gamma = o.noise_steplr_step, o.noise_steplr_gamma
-            elif n == "cpc":
-                gamma = o.cpc_steplr_gamma
-            set_lr(state["opt"][n], step_lr(self.base_lr[n], state["sched"][n], step, gamma))
-
     def _step_plateau(self, state: Dict, name: str, metric: float) -> None:
         o = self.config.optim
         ps = plateau_step(state["plateau"][name], metric, factor=o.plateau_factor,
                           min_lr=o.plateau_min_lr)
         state["plateau"][name] = ps
         set_lr(state["opt"][name], ps.lr)
-
-    def _train_step(self, state, loss, new_m, names) -> None:
-        grads = self._grads(loss, state, names)
-        self._apply_updates(state, names, grads)
-        state["mstate"] = detached(new_m)
 
     # ------------------------------------------------------------ phases ---
 
@@ -629,7 +550,9 @@ class StyleTransferPipeline(TargetPredictor):
         return float(np.mean(self.predict_target(state, x) == y))
 
     def evaluate_source(self, state: Dict, x, y) -> float:
-        return float(np.mean(self._batched_predictions(self.predict_source_logits, state, x) == y))
+        pred = batched_argmax(self.predict_source_logits, state["params"], state["mstate"], x,
+                              self.config.batch_size, self.device)
+        return float(np.mean(pred == y))
 
     # ------------------------------------------------------ orchestration --
 

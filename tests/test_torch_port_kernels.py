@@ -27,9 +27,13 @@ order; 1e-5 for every ``wn_fwd`` and ``wn_bwd`` output (3xTF32 stage sums,
 fixed-order row-slice partials), and 1e-3 for the other weight gradients,
 sums over every row in another order.  Four tests pin what the
 3xTF32 kernels return for non-finite inputs, which their contract leaves
-out.  The last two hold one training step of each baseline (CoDATS, a
+out.  Two hold one training step of each baseline (CoDATS, a
 SLARDA target step) with the OS conv kernel against the same step with its
-plain version on the card.
+plain version on the card.  The last ones run the archive sweep's shapes:
+``os_conv_fwd`` and ``OSConvCore``'s dx and dw at the bucket lengths 729
+and 1094 for every layer of the (1, 89) bucket's model (C_in = 1 first),
+and one padded ``BucketedOSCNNClassifier.train_batch`` of the FordA bucket
+against the same step with the plain OS conv.
 """
 
 import pytest
@@ -569,3 +573,91 @@ def test_slarda_target_step_on_card_matches_plain(card, monkeypatch):
     te, cl = len(pipe.ext_specs), len(pipe.cls_specs)
     assert kern[2] == 3 * te + cl  # frozen source, critic pre-pass, encoder; its head
     _check_baseline_step(kern, _baseline_step(pipe, monkeypatch, True, epoch))
+
+
+# ------------------------------------------------ the archive sweep's shapes --
+
+def _bucket_layer(i):
+    """Spec of layer ``i`` of the (1, 89) bucket's model at reference budgets
+    (extractor then classifier): FordA, Earthquakes, Computers and
+    StarLightCurves train it, padded to 729 or 1094."""
+    ext, cls = build_specs(1, 500, PipelineConfig())
+    return (ext + cls)[i]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [729, 1094])
+@pytest.mark.parametrize("layer", range(6))
+def test_os_conv_and_its_core_at_bucket_lengths(card, monkeypatch, t, layer):
+    """``os_conv_fwd`` and ``OSConvCore``'s dx and dw at the bucket lengths
+    (not multiples of the 128-row tile), C_in = 1 in the first layer."""
+    spec = _bucket_layer(layer)
+    params = osconv.init_os_conv_params(torch.Generator().manual_seed(layer), spec, card)
+    mask = torch.from_numpy(osconv.build_os_mask(spec)).to(card)
+    x = torch.randn(20, t, spec[0][0], device=card, generator=torch.Generator(card).manual_seed(t))
+    k = mask.shape[0]
+    x_pad = torch.nn.functional.pad(x, (0, 0, (k - 1) // 2, k // 2))
+    w = params["weight"] * mask
+    osconv.reset_launch_counts()
+    _close(osconv.os_conv(x_pad, w), osconv.os_conv_plain(x_pad, w))
+    assert osconv.LAUNCHES["os_conv_fwd"] == 1
+    grads = {}
+    for plain in (False, True):
+        with monkeypatch.context() as m:
+            if plain:
+                m.setattr(osconv, "os_conv", osconv.os_conv_plain)
+            xd = x.clone().requires_grad_(True)
+            wd = params["weight"].clone().requires_grad_(True)
+            y = osconv.masked_os_conv(xd, wd, params["bias"], mask)
+            grads[plain] = torch.autograd.grad(torch.sin(y).sum(), (xd, wd))
+    _close(grads[False][0], grads[True][0])
+    _close(grads[False][1], grads[True][1], GRAD_REL_TOL)
+
+
+@pytest.mark.gpu
+def test_padded_train_batch_on_card_matches_plain(card, monkeypatch):
+    """One ``BucketedOSCNNClassifier.train_batch`` of the FordA bucket
+    (T 500 padded to 729, 2 of 4 classes, reference budgets) with the OS
+    conv kernel against the same step with its plain version on the card:
+    the loss within REL_TOL, each module's gradients within GRAD_REL_TOL
+    (relative L2), six launches.  The series are the port's synthetic ones
+    (``make_arrays``, as ``chip_smoke.py`` phase 17's archive), not white
+    noise: on white noise this untrained step's gradients move by about
+    2e-3 when the conv's forward is multiplied by (1 + 1e-7 N(0, 1)), so no
+    gate at 1e-3 could tell a kernel fault from rounding there; on these
+    series by 4e-4 (``experiments/sweep_step_conditioning.py``)."""
+    from feature_level_style_transfer_for_tsc_tpu_torch.data.synthetic import make_arrays
+    from feature_level_style_transfer_for_tsc_tpu_torch.train.bucketed import (
+        BucketedOSCNNClassifier,
+        bucket_key,
+    )
+
+    clf = BucketedOSCNNClassifier(*bucket_key(1, 500, 2), config=PipelineConfig(), device=card)
+    assert clf.t_bucket == 729
+    xa, ya = make_arrays(20, 1, 500, 2, seed=40)  # the series of the experiment
+    x = clf._pad_x(xa.transpose(0, 2, 1).copy())
+    y = torch.tensor([int(v.split("_")[1]) for v in ya]).numpy()
+    runs = {}
+    for plain in (False, True):
+        state = clf.init_state(torch.Generator().manual_seed(0))
+        seen = {}
+
+        def record(state, names, grads, apply=clf._apply_updates):
+            for n in names:
+                seen[n] = torch.cat([gr.flatten() for gr in grads[n] if gr is not None])
+            return apply(state, names, grads)
+
+        with monkeypatch.context() as m:
+            m.setattr(clf, "_apply_updates", record)
+            if plain:
+                m.setattr(osconv, "os_conv", osconv.os_conv_plain)
+            osconv.reset_launch_counts()
+            ce = clf.train_batch(state, x, y, clf.t_valid(500), clf.cmask(2))
+            torch.cuda.synchronize()
+        runs[plain] = (ce, seen, osconv.LAUNCHES["os_conv_fwd"])
+    (kc, kg, kl), (pc, pg, pl) = runs[False], runs[True]
+    assert kl == len(clf.ext_specs) + len(clf.cls_specs) and pl == 0
+    _close(kc, pc)
+    for n in pg:
+        rel_l2 = ((kg[n] - pg[n]).norm() / pg[n].norm().clamp_min(1e-30)).item()
+        assert rel_l2 <= GRAD_REL_TOL, (n, rel_l2)

@@ -54,6 +54,17 @@ P1_P5 = {"p1": 1, "p2": 0, "p3": 0, "p4": 0, "p5": 1}
 ANCHOR = 2
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the suite runs several worker processes at once,
+    and the tiny CPU ops of these runs, spread over every core by each
+    process, slow each other down by orders of magnitude."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def write_archive(root):
     for name, c, t, n, seed in (("TinyTarget", 2, 16, 2, 0), ("TinySource", 1, 12, 3, 5)):
         for split, count, s in (("TRAIN", 10, seed), ("TEST", 8, seed + 1)):

@@ -29,6 +29,17 @@ from feature_level_style_transfer_for_tsc_tpu_torch.data.synthetic import make_a
 PHASES = {"p1": 1, "p2": 1, "p3": 2, "p4": 2, "p5": 3}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the suite runs several worker processes at once,
+    and the tiny CPU ops of these runs, spread over every core by each
+    process, slow each other down by orders of magnitude."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def trained(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("train")

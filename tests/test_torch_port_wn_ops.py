@@ -58,6 +58,17 @@ IMPLS = ["conv", "im2col", "pallas"]
 DATASETS = Path(__file__).resolve().parents[1] / "datasets"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the suite runs several worker processes at once,
+    and the tiny CPU ops of these runs, spread over every core by each
+    process, slow each other down by orders of magnitude."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _rand(rng, *shape, scale=1.0):
     return (scale * rng.standard_normal(shape)).astype(np.float32)
 
