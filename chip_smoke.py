@@ -131,7 +131,26 @@ non-zero when any check fails.  Phases:
     files; and one FordA-bucket train step (500 padded to 729) and one
     evaluation batch against the plain OS conv on the card: the loss and
     the logits within REL_TOL, each module's gradients within
-    BASELINE_GRAD_L2_TOL.
+    BASELINE_GRAD_L2_TOL;
+18. K = MULTIRUN_K runs of the curriculum in one launch set
+    (``train.multirun.MultiRunStylePipeline``, seeds 0..K-1) at phase 8's
+    shapes, data and lengths: exact launches of the run-axis kernels
+    (``os_conv_fwd_runs``, ``wn_fwd_runs``, ``wn_bwd_runs``; the
+    evaluation under FLSTTSC_FUSE_EPILOGUE=1 ``os_conv_fused_fwd_runs``,
+    as often as one run's evaluation launches ``os_conv_fused_fwd``, with
+    the same accuracies); run 3 unstacked, written by ``state_to_flat``
+    and loaded by ``state_from_flat`` unchanged, its next phase-5 losses
+    against the K-run's for run 3; one phase-5 step of K fresh runs against
+    K one-run steps from the same states (losses within STEP_LOSS_REL_TOL,
+    gradients within MULTIRUN_GRAD_L2_TOL relative L2 per module per run,
+    each kernel launched as often as by one run); every run-axis kernel at
+    the shapes that step and the evaluation gave it, each run against the
+    one-run kernel (the same bits, else RUN_AXIS_REL_TOL) and against the
+    plain version, timed beside the K one-run calls, the plain version and,
+    for the conv, a grouped ``F.conv1d``; and the step's K sweep
+    (``experiments/multirun_time.py`` in a process of its own, without
+    ``CUBLAS_WORKSPACE_CONFIG``): step ms, aggregate series/s, device ms and
+    idle share, peak memory a K.
 
 The ``cli.main`` drives (phases 8, 8b, 13, 14) and the drives of phases
 15, 16 and 17 run with PyTorch's deterministic
@@ -141,7 +160,8 @@ it.  The line before the last lists every kernel as JSON,
 with the launches of the main-path drives (serving: single and ensemble,
 not the VendGunPoint check; training: the two ``cli.main`` drives of phases
 8 and 13, not those of phases 8b, 14, 15, 16 and 17, whose counts are
-checked and kept apart) and a bound from the FLOPs or bytes these inputs
+checked and kept apart; the run-axis kernels, phase 18's drive and its
+fused evaluation) and a bound from the FLOPs or bytes these inputs
 need; the last line is {"ok": true, "device": {...}}.  Everything measured is also written to
 chiprun_out/chip_smoke_results.json.
 """
@@ -233,6 +253,26 @@ WN_END_SCALE = 0.1  # std of the WN end projections of the checked phase-5 state
 UCR_SHAPES = {"FordA": (3601, 1320, 500, 2), "Earthquakes": (322, 139, 512, 2),
               "Computers": (250, 250, 720, 2), "StarLightCurves": (1000, 1000, 1024, 3)}
 SWEEP_EPOCHS = 2  # the vendored sweeps (1 under --with-cpc, and over the UCR shapes)
+# phase 18: K runs of the multirun; the Ks of its step sweep (experiments/multirun_time.py)
+MULTIRUN_K = 8
+MULTIRUN_SWEEP = (1, 2, 4, 8)
+RUN_AXIS_REL_TOL = 1e-6  # a run of a run-axis kernel against the one-run kernel, where not equal
+# A K-run phase-5 step against K one-run steps is held to phase 9's gates (REL_TOL for the
+# losses, STEP_GRAD_L2_TOL for each module's gradients per run): its kernels give each run the
+# one-run bits, but vmap's batched products and reductions sum in another order, and the
+# OS-CNN turns last-bit differences into gradient gaps where a ReLU input is within rounding
+# of zero.  Measured on an H100 (fresh states): the one-run step taken
+# twice 1.1e-6, K = 1 under vmap 1.1e-6, K = 8 up to 4.4e-5 (losses) and 9.1e-3 (gradients:
+# one run's "ad", which the same one-run step with the plain OS conv moves by as much).  So
+# the phase takes that control for every run and module, and a module passes within
+# MULTIRUN_GRAD_L2_TOL or within twice its control's gap.
+STEP_LOSS_REL_TOL = REL_TOL
+MULTIRUN_GRAD_L2_TOL = STEP_GRAD_L2_TOL
+RUN_AXIS = {  # run-axis kernel: (one-run kernel, source)
+    "os_conv_fwd_runs": ("os_conv_fwd", SOURCE), "os_conv_fused_fwd_runs": ("os_conv_fused_fwd", SOURCE),
+    "wn_fwd_runs": ("wn_fwd", WN_SOURCE), "wn_bwd_runs": ("wn_bwd", WN_SOURCE),
+}
+RUN_AXIS_IDLE = {name: 0 for name in RUN_AXIS}  # no run-axis launch outside phase 18
 
 
 def log(msg: str) -> None:
@@ -908,7 +948,8 @@ def phase5_against_plain(pipe, state, batch, osconv, wn_fused, gate, gradnorm_st
         m.reset_launch_counts()
     kern = once(contextlib.nullcontext())
     launched = {**osconv.LAUNCHES, **wn_fused.LAUNCHES, **gate.LAUNCHES}  # one forward, 4 pulls
-    want = {"os_conv_fwd": convs, "os_conv_fused_fwd": 0, "tap_conv_fwd": 0, "wn_fwd": 2 * flows,
+    want = {**RUN_AXIS_IDLE, "os_conv_fwd": convs, "os_conv_fused_fwd": 0, "tap_conv_fwd": 0,
+            "wn_fwd": 2 * flows,
             "wn_bwd": 5 * flows, "gate_fwd": 0}
     check(launched == want, f"phase-5 step launches {launched} != {want}")
     plain = once(plain_convs(osconv, wn_fused, gate))
@@ -1192,8 +1233,9 @@ def phase5_routes(pipe, state, batch, osconv, wn_fused, gate, gradnorm_step, smi
         m.reset_launch_counts()
     op = once(environ(**OP_BY_OP))
     launched = {**osconv.LAUNCHES, **wn_fused.LAUNCHES, **gate.LAUNCHES}
-    want = {"os_conv_fwd": convs, "os_conv_fused_fwd": 0, "wn_fwd": 0, "wn_bwd": 0,
-            "gate_fwd": layers * 2 * flows, "tap_conv_fwd": layers * (2 * flows + 5 * flows)}
+    want = {**RUN_AXIS_IDLE, "os_conv_fwd": convs, "os_conv_fused_fwd": 0, "wn_fwd": 0,
+            "wn_bwd": 0, "gate_fwd": layers * 2 * flows,
+            "tap_conv_fwd": layers * (2 * flows + 5 * flows)}
     check(launched == want, f"op-by-op phase-5 step launches {launched} != {want}")
     plain = once(environ(**OP_BY_OP), plain_convs(osconv, wn_fused, gate))
     wn_only = once(environ(**OP_BY_OP), plain_convs(osconv, wn_fused, gate, wn=False))
@@ -1780,6 +1822,343 @@ def sweep_phase(run, sweep_cli, modules, data_modules, osconv, wn_fused, gate, c
     return rows
 
 
+# ----------------------------------------------------------------- phase 18 --
+
+def expected_multirun_launches(pipe, n_series: int, epochs: dict) -> dict:
+    """Launches of a ``MultiRunStylePipeline.run`` of any K: the run-axis
+    kernels as often as one run (``expected_training_launches``) launches
+    the one-run ones, less the pretrain evaluations, which the multirun
+    does not take (as the JAX package's)."""
+    one = expected_training_launches(pipe, n_series, epochs)
+    te, cl, se = len(pipe.t_ext_specs), len(pipe.cls_specs), len(pipe.s_ext_specs)
+    ev = 2 * math.ceil(n_series / BATCH)
+    sup4 = math.ceil(epochs["p4"] / pipe.config.nf_supervised_every)
+    pretrain_evals = (epochs["p1"] * ev * (te + cl) + epochs["p2"] * ev * (se + cl)
+                      + (epochs["p3"] + sup4) * ev * (te + se + 2 * cl))
+    return {"os_conv_fwd_runs": one["os_conv_fwd"] - pretrain_evals,
+            "wn_fwd_runs": one["wn_fwd"], "wn_bwd_runs": one["wn_bwd"]}
+
+
+@contextlib.contextmanager
+def recorded_calls(module, names):
+    """``module.<name>`` for each of ``names`` wrapped to keep a copy of the
+    arguments of its first call of each distinct set of shapes."""
+    seen = {n: {} for n in names}
+    saved = {n: getattr(module, n) for n in names}
+
+    def wrap(name, fn):
+        def inner(*args):
+            key = tuple(tuple(a.shape) if isinstance(a, torch.Tensor) else a for a in args)
+            if key not in seen[name]:
+                seen[name][key] = [a.detach().clone() if isinstance(a, torch.Tensor) else a
+                                   for a in args]
+            return fn(*args)
+        return inner
+
+    for n in names:
+        setattr(module, n, wrap(n, saved[n]))
+    try:
+        yield seen
+    finally:
+        for n in names:
+            setattr(module, n, saved[n])
+
+
+def run_axis_row(name, args, runs_fn, one_fn, plain_fn, plain_tol, work, library=None,
+                 library_outputs=0) -> dict:
+    """A run-axis kernel on one recorded call's arguments: each run against
+    the one-run kernel (the same bits, else the largest relative error,
+    gated at RUN_AXIS_REL_TOL; the last ``library_outputs`` outputs are taken
+    outside the kernel by one batched library product and are held to
+    ``plain_tol``) and against the plain version (``plain_tol``), timed with
+    the K one-run calls, the plain version run by run and ``library``."""
+    runs = args[0].shape[0]
+
+    def per_run(fn):
+        outs = [fn(*[a[r] if isinstance(a, torch.Tensor) else a for a in args])
+                for r in range(runs)]
+        return [torch.stack(o) for o in zip(*outs)] if isinstance(outs[0], tuple) else [
+            torch.stack(outs)]
+
+    got = runs_fn(*args)
+    got = list(got) if isinstance(got, tuple) else [got]
+    one, plain = per_run(one_fn), per_run(plain_fn)
+    torch.cuda.synchronize()
+    n_kernel = len(got) - library_outputs
+    same = all(torch.equal(a, b) for a, b in zip(got[:n_kernel], one[:n_kernel]))
+    one_rel = max(rel_err(a, b)[1] for a, b in zip(got, one))
+    errs = [rel_err(a, b) for a, b in zip(got, plain)]
+    row = {
+        "kernel": name, "runs": runs, "shapes": [list(a.shape) for a in args
+                                                 if isinstance(a, torch.Tensor)][:2],
+        "same_bits_as_one_run": same, "one_run_rel": one_rel,
+        "kernel_outputs_one_run_rel": max(rel_err(a, b)[1] for a, b in
+                                          zip(got[:n_kernel], one[:n_kernel])),
+        "max_abs": max(e[0] for e in errs), "rel": max(e[1] for e in errs),
+        "ms": cuda_ms(lambda: runs_fn(*args), reps=3),
+        "one_run_calls_ms": cuda_ms(lambda: per_run(one_fn), warmup=1, reps=2),
+        "plain_ms": cuda_ms(lambda: per_run(plain_fn), warmup=0, reps=1),
+        "library_ms": cuda_ms(library, reps=3) if library else None,
+        **work,
+    }
+    row["tc_flop_ms"] = TF32_PRODUCTS * work["flops"] / TC_PEAK * 1e3
+    row["bytes_ms"] = work["bytes"] / HBM_RATE * 1e3
+    row["bound_ms"] = max(row["tc_flop_ms"], row["bytes_ms"])
+    log(f"run-axis {json.dumps(row)}")
+    check(same or row["kernel_outputs_one_run_rel"] <= RUN_AXIS_REL_TOL,
+          f"{name} {row['shapes']}: runs against the one-run kernel, rel {one_rel:.3e}")
+    check(one_rel <= plain_tol, f"{name} {row['shapes']}: library outputs rel {one_rel:.3e}")
+    check(row["rel"] <= plain_tol, f"{name} {row['shapes']}: rel err {row['rel']:.3e} vs plain")
+    return row
+
+
+def conv_runs_work(x_pad, w, out_numel, vectors: int = 0) -> dict:
+    """Live-tap FLOPs (each run's own windows of nonzero weights) and bytes
+    of one run-axis conv call."""
+    runs, b, t_pad, c_in = x_pad.shape
+    k = w.shape[1]
+    live = int((w != 0).any(dim=2).sum().item())  # (run, tap, column) with a nonzero weight
+    flops = 2 * b * (t_pad - k + 1) * c_in * live
+    return {"flops": flops, "bytes": 4 * (x_pad.numel() + w.numel() + out_numel
+                                          + vectors * runs * w.shape[-1])}
+
+
+def run_axis_rows(osconv, wn_fused, conv_calls, fused_calls, wn_calls) -> dict:
+    """Every recorded run-axis call of phase 18's checks, held and timed."""
+    import torch.nn.functional as F
+
+    rows = {"os_conv_fwd_runs": [], "os_conv_fused_fwd_runs": [], "wn_fwd_runs": [],
+            "wn_bwd_runs": []}
+    for args in conv_calls.values():
+        x_pad, w = args
+        runs, b, t_pad, c_in = x_pad.shape
+        k, c_out = w.shape[1], w.shape[3]
+        x_ncw = x_pad.permute(1, 0, 3, 2).reshape(b, runs * c_in, t_pad).contiguous()
+        w_oik = w.permute(0, 3, 2, 1).reshape(runs * c_out, c_in, k).contiguous()
+        rows["os_conv_fwd_runs"].append(run_axis_row(
+            "os_conv_fwd_runs", args, osconv.os_conv_runs, osconv.os_conv, osconv.os_conv_plain,
+            REL_TOL, conv_runs_work(x_pad, w, runs * b * (t_pad - k + 1) * c_out),
+            library=lambda: F.conv1d(x_ncw, w_oik, groups=runs)))
+    for args in fused_calls.values():
+        x_pad, w = args[:2]
+        runs, b, t_pad, _ = x_pad.shape
+        rows["os_conv_fused_fwd_runs"].append(run_axis_row(
+            "os_conv_fused_fwd_runs", args, osconv.os_conv_fused_runs, osconv.os_conv_fused,
+            osconv.os_conv_fused_plain, REL_TOL,
+            conv_runs_work(x_pad, w, runs * b * (t_pad - w.shape[1] + 1) * w.shape[3], 2)))
+    for name, (runs_fn, one_fn, plain_fn, d, outs) in {
+        "wn_fwd_runs": (wn_fused.wn_fwd_runs, wn_fused.wn_fwd, wn_fused.wn_fwd_plain, "fwd", 0),
+        "wn_bwd_runs": (wn_fused.wn_bwd_runs, wn_fused.wn_bwd, wn_fused.wn_bwd_plain, "bwd", 2),
+    }.items():
+        for args in wn_calls[name].values():
+            x2, t = args[0], args[-1]
+            runs, rows_n, h = x2.shape
+            w_in = args[5] if name == "wn_fwd_runs" else args[7]
+            work = wn_work(rows_n // t, t, h, w_in.shape[3], w_in.shape[1])
+            tol = WN_FWD_REL_TOL if d == "fwd" else WN_BWD_REL_TOL
+            rows[name].append(run_axis_row(
+                name, args, runs_fn, one_fn, plain_fn, tol,
+                {"flops": runs * work[f"{d}_flops"], "bytes": runs * work[f"{d}_bytes"]},
+                library_outputs=outs))
+    return rows
+
+
+def multirun_phase(run, pipe, modules, make_dataset, smi) -> dict:
+    """Phase 18: K = MULTIRUN_K runs of the curriculum at once
+    (``MultiRunStylePipeline``), at phase 8's shapes and lengths."""
+    from feature_level_style_transfer_for_tsc_tpu_torch.train.multirun import (
+        MultiRunData,
+        MultiRunStylePipeline,
+        unstack_state,
+    )
+
+    osconv, wn_fused, gate = modules
+    k_runs = MULTIRUN_K
+    c, t, n_cls = SCP2["channels"], SCP2["length"], SCP2["classes"]
+    e_c, e_t, e_n = ETHANOL["channels"], ETHANOL["length"], ETHANOL["classes"]
+    t_labels, s_labels = {}, {}
+    pair = {split: (ds.x, ds.y) for split, ds in (
+        ("t_train", make_dataset(TRAIN_SERIES, c, t, n_cls, seed=11, label_dict=t_labels)),
+        ("t_test", make_dataset(TRAIN_SERIES, c, t, n_cls, seed=12, label_dict=t_labels)),
+        ("s_train", make_dataset(TRAIN_SERIES, e_c, e_t, e_n, seed=13, label_dict=s_labels)),
+        ("s_test", make_dataset(TRAIN_SERIES, e_c, e_t, e_n, seed=14, label_dict=s_labels)))}
+    data = MultiRunData.broadcast(pair, k_runs)
+    mp = MultiRunStylePipeline(pipe)
+    seeds = list(range(k_runs))
+    out = {"k": k_runs}
+
+    # the drive: K runs of PHASE_EPOCHS, launches counted
+    expect = {**run.idle(), **expected_multirun_launches(pipe, TRAIN_SERIES, PHASE_EPOCHS)}
+    t0 = time.perf_counter()
+    states, history = run.drive(f"multirun K={k_runs}",
+                                lambda: mp.run(data, seeds, epochs=PHASE_EPOCHS), expect,
+                                path="multirun")
+    out["drive_wall_s"] = time.perf_counter() - t0
+    for rec in history:
+        if rec["phase"] in ("p1", "p2", "p3", "p4"):
+            for key, v in rec.items():
+                if key not in ("phase", "epoch"):
+                    check(bool(np.isfinite(v).all()), f"multirun {rec['phase']} {key} not finite")
+    out["history"] = [{k: (v.tolist() if hasattr(v, "tolist") else v) for k, v in r.items()}
+                      for r in history]
+    log(f"[multirun K={k_runs}] wall s={out['drive_wall_s']:.2f} last record "
+        f"{json.dumps(out['history'][-1])}")
+
+    t_block = time.perf_counter()
+
+    def lap(what: str) -> None:
+        nonlocal t_block
+        now = time.perf_counter()
+        out.setdefault("block_s", {})[what] = now - t_block
+        log(f"[multirun] {what}: {now - t_block:.1f} s")
+        t_block = now
+
+    # the evaluation in the fused conv: K runs at once against one run, launches and accuracies
+    with environ(FLSTTSC_FUSE_EPILOGUE="1"), recorded_calls(osconv, ["os_conv_fused_runs"]) as fused:
+        ev = {**run.idle(), "os_conv_fused_fwd_runs": math.ceil(TRAIN_SERIES / BATCH) * (
+            len(pipe.t_ext_specs) + len(pipe.s_ext_specs) + 2 * len(pipe.cls_specs))}
+        accs = run.drive("multirun evaluation, fused", lambda: (
+            mp.evaluate_target(states, *data.t_test), mp.evaluate_source(states, *data.s_test)),
+            ev, path="multirun")
+        one = unstack_state(states, 0)
+        want = {**run.idle(), "os_conv_fused_fwd": ev["os_conv_fused_fwd_runs"]}
+        one_accs = run.drive("one-run evaluation, fused", lambda: (
+            pipe.evaluate_target(one, pair["t_test"][0], pair["t_test"][1]),
+            pipe.evaluate_source(one, pair["s_test"][0], pair["s_test"][1])), want)
+    check(accs[0][0] == one_accs[0] and accs[1][0] == one_accs[1],
+          f"multirun evaluation {accs} != one run's {one_accs}")
+    out["fused_eval_launches"] = {"k_runs": ev["os_conv_fused_fwd_runs"],
+                                  "one_run": want["os_conv_fused_fwd"]}
+    log(f"[multirun evaluation] os_conv_fused_fwd_runs={ev['os_conv_fused_fwd_runs']} for "
+        f"{k_runs} runs, os_conv_fused_fwd={want['os_conv_fused_fwd']} for one")
+
+    # a trained run, unstacked and through the JAX package's file layout,
+    # continues in one-run training: its next phase-5 step from the loaded
+    # state is the step from the unstacked state in memory, bit for bit
+    # (deterministic, as phase 8b); beside it, measured, the K-run's own
+    # next step for run 3 (the truncated curriculum may have let the flow
+    # run away, which magnifies the last bits, see PHASE_EPOCHS)
+    batch = [torch.as_tensor(np.asarray(a[:BATCH])).cuda() for a in (
+        pair["t_train"][0], pair["t_train"][1], pair["s_train"][0], pair["s_train"][1])]
+    batch = [b.long() if i % 2 else b for i, b in enumerate(batch)]
+    k_batch = [b.expand(k_runs, *b.shape).contiguous() for b in batch]
+    _, card_masks = pinned_masks()
+    e5 = PHASE_EPOCHS["p5"]
+    mem = unstack_state(states, 3)
+    flat = pipe.state_to_flat(mem)
+    loaded = pipe.state_from_flat(flat)
+    again = pipe.state_to_flat(loaded)
+    check(set(again) == set(flat) and all(np.array_equal(again[k], v) for k, v in flat.items()),
+          "run 3's state changed through state_to_flat / state_from_flat")
+    with deterministic():
+        from_file = pipe.phase5_grads(loaded, *batch, e5, ANCHORS, card_masks)[0]
+        from_memory = pipe.phase5_grads(mem, *batch, e5, ANCHORS, card_masks)[0]
+        k_next = mp.phase5_grads(states, *k_batch, e5, ANCHORS, card_masks)[0]
+    check(all(torch.equal(from_file[k], from_memory[k]) for k in from_memory),
+          "run 3's next phase-5 losses from its file differ from those from memory")
+    cont = {k: {"one_run": float(v.detach()), "k_run": float(k_next[k][3].detach())}
+            for k, v in from_file.items()}
+    out["unstacked_run3_next_step"] = cont
+    log(f"[multirun] run 3 unstacked, written, loaded ({len(flat)} keys, the same): its next "
+        f"phase-5 losses the same bits as from memory; beside the K-run's for run 3 "
+        f"{json.dumps(cont)}")
+    del states, mem, loaded, k_next, from_file, from_memory
+    torch.cuda.empty_cache()
+    lap("evaluation and run 3's continuation")
+
+    # the K sweep, in a process of its own without CUBLAS_WORKSPACE_CONFIG
+    env = {k: v for k, v in os.environ.items() if k != "CUBLAS_WORKSPACE_CONFIG"}
+    proc = subprocess.run([sys.executable, str(REPO / "experiments" / "multirun_time.py"),
+                           "--ks", ",".join(map(str, MULTIRUN_SWEEP))],
+                          capture_output=True, text=True, timeout=600, env=env, cwd=REPO)
+    check(proc.returncode == 0, f"multirun_time.py exited {proc.returncode}: {proc.stderr[-2000:]}")
+    sweep = json.loads(proc.stdout.strip().splitlines()[-1])
+    out["sweep"] = sweep
+    for k, r in sweep["by_k"].items():
+        log(f"[multirun sweep K={k}] step ms={r['median_ms']:.1f} ({[round(x, 1) for x in r['step_ms']]}) "
+            f"series/s={r['series_per_s']:.1f} device ms={r['device_ms']:.1f} idle share="
+            f"{r['device_idle_share']:.3f} peak MiB={r['peak_mib']:.0f} on {sweep['card']}")
+    log(f"[multirun] max_memory_allocated at K=1: {sweep['by_k']['1']['peak_mib']:.0f} MiB, at "
+        f"K={k_runs}: {sweep['by_k'][str(k_runs)]['peak_mib']:.0f} MiB on {smi}")
+    lap("the K sweep (experiments/multirun_time.py)")
+
+    # one phase-5 step of K fresh runs against K one-run steps from the same states
+    fresh = mp.init_states(seeds)
+    with recorded_calls(osconv, ["os_conv_runs"]) as convs, \
+            recorded_calls(wn_fused, ["wn_fwd_runs", "wn_bwd_runs"]) as wns:
+        for m in modules:
+            m.reset_launch_counts()
+        losses, _, _, grads, n_t, n_s = mp.phase5_grads(fresh, *k_batch, 0, ANCHORS, card_masks)
+        torch.cuda.synchronize()
+        k_counts = run.counts()
+    def gap(losses_a, grads_a, i, losses_b, grads_b) -> dict:
+        """Run i of (K-leading) step a against one-run step b."""
+        loss_rel = {k: abs(float(losses_a[k][i].detach()) - float(v.detach()))
+                    / max(abs(float(v.detach())), 1e-30) for k, v in losses_b.items()}
+        grad_l2 = {}
+        for name, gs in grads_b.items():
+            pairs_ = [(a[i], b) for a, b in zip(grads_a[name], gs) if b is not None]
+            d2 = sum(float(((a - b) ** 2).sum()) for a, b in pairs_)
+            n2 = sum(float((b ** 2).sum()) for _, b in pairs_)
+            grad_l2[name] = math.sqrt(d2 / n2) if n2 > 0 else math.sqrt(d2)
+        return {"loss_rel": loss_rel, "grad_l2_rel": grad_l2}
+
+    gaps, control = [], []
+    for i in range(k_runs):
+        st = unstack_state(fresh, i)
+        for m in modules:
+            m.reset_launch_counts()
+        l1, _, _, g1, nt1, ns1 = pipe.phase5_grads(st, *batch, 0, ANCHORS, card_masks)
+        torch.cuda.synchronize()
+        one_counts = run.counts()
+        gaps.append({**gap(losses, grads, i, l1, g1),
+                     "n_t_rel": rel_err(n_t[i], nt1)[1], "n_s_rel": rel_err(n_s[i], ns1)[1]})
+        # the control: how far the same one-run step moves with the plain OS conv
+        with plain_convs(osconv, wn_fused, gate, wn=False):
+            lp, _, _, gp, _, _ = pipe.phase5_grads(st, *batch, 0, ANCHORS, card_masks)
+        control.append(gap({k: v[None] for k, v in lp.items()},
+                           {k: [None if g is None else g[None] for g in v] for k, v in gp.items()},
+                           0, l1, g1))
+        del st, l1, g1, lp, gp
+    worst = {"loss_rel": max(max(g["loss_rel"].values()) for g in gaps),
+             "grad_l2_rel": max(max(g["grad_l2_rel"].values()) for g in gaps),
+             "n_rel": max(max(g["n_t_rel"], g["n_s_rel"]) for g in gaps),
+             "control_loss_rel": max(max(g["loss_rel"].values()) for g in control),
+             "control_grad_l2_rel": max(max(g["grad_l2_rel"].values()) for g in control)}
+    out["step_vs_one_run"] = {"per_run": gaps, "worst": worst, "control_plain_os_conv": control}
+    for i, g in enumerate(gaps):
+        log(f"  run {i}: loss rel {max(g['loss_rel'].values()):.2e} grads rel L2 "
+            f"{ {k: float(f'{v:.2e}') for k, v in g['grad_l2_rel'].items()} }; control (plain "
+            f"OS conv, one run) {max(control[i]['grad_l2_rel'].values()):.2e}")
+    launches = {"k_runs": {n: k_counts[n] for n in ("os_conv_fwd_runs", "wn_fwd_runs", "wn_bwd_runs")},
+                "one_run": {n: one_counts[n] for n in ("os_conv_fwd", "wn_fwd", "wn_bwd")}}
+    out["step_launches"] = launches
+    log(f"[multirun phase-5 step, {k_runs} runs vs {k_runs} one-run steps] worst {json.dumps(worst)}; "
+        f"launches {json.dumps(launches)}")
+    for n in ("os_conv_fwd", "wn_fwd", "wn_bwd"):
+        check(launches["k_runs"][f"{n}_runs"] == launches["one_run"][n] > 0,
+              f"a K-run step launched {n}_runs {launches['k_runs'][f'{n}_runs']} times, "
+              f"a one-run step {n} {launches['one_run'][n]}")
+    lap("the step against K one-run steps and their controls")
+    check(worst["loss_rel"] <= STEP_LOSS_REL_TOL, f"multirun step losses rel {worst['loss_rel']:.3e}")
+    for i, (g, ctl) in enumerate(zip(gaps, control)):
+        for name, v in g["grad_l2_rel"].items():
+            allowed = max(MULTIRUN_GRAD_L2_TOL, 2 * ctl["grad_l2_rel"][name])
+            check(v <= allowed, f"multirun step, run {i} {name}: gradients relative L2 {v:.3e} "
+                                f"> {allowed:.3e}")
+
+    # the run-axis kernels at this phase's shapes
+    out["run_axis"] = run_axis_rows(osconv, wn_fused, convs["os_conv_runs"],
+                                    fused["os_conv_fused_runs"], wns)
+    del convs, wns, fused
+    lap("the run-axis kernels")
+
+    del fresh
+    torch.cuda.empty_cache()
+
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
@@ -1798,6 +2177,7 @@ def main() -> int:
     from feature_level_style_transfer_for_tsc_tpu_torch.data import native, ts_parser
     from feature_level_style_transfer_for_tsc_tpu_torch.data.synthetic import (
         make_arrays,
+        make_dataset,
         write_ts_file,
     )
     from feature_level_style_transfer_for_tsc_tpu_torch.io.checkpoint import save_checkpoint
@@ -2141,6 +2521,9 @@ def main() -> int:
             run, sweep_cli, (classifier, bucketed), (native, ts_parser), osconv, wn_fused, gate,
             cfg, BNStats, make_arrays, write_ts_file, tmp, smi)
 
+        # ---- phase 18: K runs of the curriculum in one launch set
+        results["multirun"] = multirun_phase(run, pipe, (osconv, wn_fused, gate), make_dataset, smi)
+
     for name, n in run.launches.items():
         check(n > 0, f"{name} was never launched on the main path")
     results["launches_by_drive"] = run.by_drive
@@ -2202,6 +2585,20 @@ def main() -> int:
         >= sum(r["bytes_ms"] for r in tap_rows) else "bytes",
         "library_ms": sum(r["library_ms"] for r in tap_rows),
     })
+    for name, (one_run, source) in RUN_AXIS.items():
+        # every recorded call of phase 18's checks (its shapes), summed
+        rows_k = results["multirun"]["run_axis"][name]
+        line["kernels"].append({
+            "name": name, "route": "cuda", "source": source, "replaces": REPLACES[one_run],
+            "launches": run.launches[name],
+            "max_abs_err": max(r["max_abs"] for r in rows_k),
+            "ms": sum(r["ms"] for r in rows_k), "plain_ms": sum(r["plain_ms"] for r in rows_k),
+            "bound_ms": sum(r["bound_ms"] for r in rows_k),
+            "bound_by": "operations" if sum(r["tc_flop_ms"] for r in rows_k)
+            >= sum(r["bytes_ms"] for r in rows_k) else "bytes",
+            "library_ms": (sum(r["library_ms"] for r in rows_k)
+                           if all(r["library_ms"] is not None for r in rows_k) else None),
+        })
     results["summary"] = line
     out_dir = REPO / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -1,0 +1,139 @@
+"""Time the port's K-run phase-5 step (``train/multirun.py``) on one CUDA card.
+
+Builds ``StyleTransferPipeline`` at the reference main.py pair's shapes
+(SelfRegulationSCP2 7 x 1152, 2 classes <- EthanolLevel 1 x 1751, 4
+classes; ``PipelineConfig()``: batch 20, a 3-flow WaveGlow with a
+120-channel 8-layer WN, ``cdan_dim`` 1024) with random weights from seeds
+0..K-1, one batch of 20 target and 20 source synthetic series a run, and
+times ``MultiRunStylePipeline.phase5_step`` (one vmapped forward, the four
+merged pulls, GradNorm and the stacked optimizer steps; anchors and dropout
+drawn from each run's generator, as in training) at each K of ``--ks``:
+
+* a warm-up step a K, then ``--rounds`` rounds that take one step of each
+  K in turn (ascending, then descending, and so on), each step timed by
+  the host clock between ``torch.cuda.synchronize()`` calls;
+* one more step a K under ``torch.profiler``: its device time (the sum of
+  the CUDA kernels' self time) and the device's idle share of the traced
+  step's wall time;
+* the peak device memory of the K's warm-up step (``max_memory_allocated``
+  after ``reset_peak_memory_stats``), less what the other Ks' states, which
+  stay resident for the turns, hold;
+* aggregate series/s: 40 K series (20 target, 20 source a run) a step.
+
+TF32 is off, as in chip_smoke.py.  Run it without ``CUBLAS_WORKSPACE_CONFIG``
+(which adds 0.4-0.5 s a step on an H100): chip_smoke.py phase 18 starts it
+with that variable removed.  It imports only torch, numpy and the port of
+the tree it sits in.
+
+Usage: python experiments/multirun_time.py [--ks 1,2,4,8] [--rounds 2]
+Prints the card's name and power limit, then one JSON line (the last).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
+
+BATCH = 20
+TARGET = (7, 1152, 2)  # channels, length, classes
+SOURCE = (1, 1751, 4)
+
+
+def batches(k: int, make_dataset):
+    """One (K, 20, ...) batch of each domain: every run the same series."""
+    t, s = make_dataset(BATCH, *TARGET, seed=11), make_dataset(BATCH, *SOURCE, seed=13)
+    out = []
+    for a, dtype in ((t.x, torch.float32), (t.y, torch.long), (s.x, torch.float32),
+                     (s.y, torch.long)):
+        t = torch.as_tensor(np.asarray(a)).to("cuda", dtype)
+        out.append(t.expand(k, *t.shape).contiguous())
+    return out
+
+
+def sweep(mp, ks, rounds: int, make_dataset) -> dict:
+    """The K sweep on ``mp`` (a ``MultiRunStylePipeline``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    runs = {}
+    for k in ks:  # every K's states stay resident, so that the steps can take turns
+        before = torch.cuda.memory_allocated()
+        runs[k] = {"states": mp.init_states(range(k)), "batch": batches(k, make_dataset),
+                   "step_ms": []}
+        runs[k]["resident"] = torch.cuda.memory_allocated() - before
+
+    def step(k) -> float:
+        r = runs[k]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mp.phase5_step(r["states"], *r["batch"], 0)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    for k in ks:  # warm-up, and the peak memory of one K's step, less the other Ks' states
+        others = sum(runs[o]["resident"] for o in ks if o != k)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step(k)
+        runs[k]["peak_mib"] = (torch.cuda.max_memory_allocated() - others) / 2**20
+    order = list(ks)
+    for _ in range(rounds):
+        for k in order:
+            runs[k]["step_ms"].append(step(k))
+        order.reverse()
+    out = {}
+    for k in ks:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            traced_ms = step(k)
+        device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                        if str(e.device_type).endswith("CUDA")) / 1e3
+        med = statistics.median(runs[k]["step_ms"])
+        out[str(k)] = {
+            "step_ms": runs[k]["step_ms"], "median_ms": med,
+            "series_per_s": 2 * BATCH * k / (med / 1e3),
+            "traced_ms": traced_ms, "device_ms": device_ms,
+            "device_idle_share": 1.0 - device_ms / traced_ms,
+            "peak_mib": runs[k]["peak_mib"],
+        }
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--ks", default="1,2,4,8")
+    ap.add_argument("--rounds", type=int, default=2)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("multirun_time: needs a CUDA card", file=sys.stderr)
+        return 2
+    from feature_level_style_transfer_for_tsc_tpu_torch.config import PipelineConfig
+    from feature_level_style_transfer_for_tsc_tpu_torch.data.synthetic import make_dataset
+    from feature_level_style_transfer_for_tsc_tpu_torch.train.multirun import MultiRunStylePipeline
+    from feature_level_style_transfer_for_tsc_tpu_torch.train.pipeline import StyleTransferPipeline
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True).stdout.strip().splitlines()[0]
+    print(f"card: {smi}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pipe = StyleTransferPipeline(*TARGET, *SOURCE, PipelineConfig(), device="cuda")
+    ks = [int(k) for k in args.ks.split(",")]
+    by_k = sweep(MultiRunStylePipeline(pipe), ks, args.rounds, make_dataset)
+    print(json.dumps({"card": smi, "kind": torch.cuda.get_device_name(0), "by_k": by_k}),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

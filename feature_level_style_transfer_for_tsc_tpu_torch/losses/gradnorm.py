@@ -8,6 +8,11 @@ Counterpart of the JAX package's ``losses/gradnorm.py`` (reference
   detached), and ``d gap / d w_i = sign(w_i N_i - const_i) * N_i``;
 * a torch Adam step on the weights, then clamp at 0 and renormalize to a
   fixed sum (7 for the target group, 8 for the source group).
+
+The weights may carry leading run axes, ``(K, 2)`` and ``(K, 3)`` in
+multi-run training (``train/multirun.py``): every reduction is over the
+last axis, one row a run (Adam is elementwise); the first-step flag is
+shared, as every run takes the same steps.
 """
 
 from __future__ import annotations
@@ -40,11 +45,11 @@ def gradnorm_step(state: GradNormState, losses: torch.Tensor, trunk_grad_norms: 
         state.initial_sigmoid_loss = sig.clone()
         state.initialized = True
     loss_ratio = sig / state.initial_sigmoid_loss
-    inverse_train_rate = loss_ratio / loss_ratio.mean()
+    inverse_train_rate = loss_ratio / loss_ratio.mean(-1, keepdim=True)
     norms = state.weights * trunk_grad_norms
-    const = norms.mean() * inverse_train_rate ** alpha
+    const = norms.mean(-1, keepdim=True) * inverse_train_rate ** alpha
     state.weights.grad = torch.sign(norms - const) * trunk_grad_norms
     state.optimizer.step()
     state.weights.clamp_(min=0.0)
-    state.weights.mul_(weight_sum / state.weights.sum())
+    state.weights.mul_(weight_sum / state.weights.sum(-1, keepdim=True))
     return state

@@ -8,12 +8,15 @@ z[:, t+1 .. t+timestep] from the context c_t, and InfoNCE over the batch.
 As in the JAX package the GRU runs over the static prefix of
 ``timestep//2`` steps and the output is taken at the anchor: a causal GRU's
 output at t depends only on steps <= t, so this is exact.  The anchor is
-drawn on the host from a ``torch.Generator`` or passed in (``anchor=``).
+drawn on the host from a ``torch.Generator`` or passed in (``anchor=``): a
+Python int, or a 0-d integer tensor, one a run under ``torch.func.vmap``
+(``train/multirun.py``), where the steps are gathered as the JAX package's
+dynamic slice takes them.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -40,25 +43,31 @@ def _context(params: Dict, features: torch.Tensor) -> torch.Tensor:
     return gru_scan(params["gru"], features[:, :prefix], features.new_zeros(features.shape[0], hidden))
 
 
-def _info_nce(params: Dict, z: torch.Tensor, context: torch.Tensor, anchor: int) -> torch.Tensor:
+Anchor = Union[int, torch.Tensor]
+
+
+def _info_nce(params: Dict, z: torch.Tensor, context: torch.Tensor, anchor: Anchor) -> torch.Tensor:
     b = z.shape[0]
     timestep = len(params["wk"])
-    encode_samples = z[:, anchor + 1 : anchor + 1 + timestep].transpose(0, 1)  # (ts, B, C)
-    c_t = context[:, anchor]  # (B, hidden)
+    if isinstance(anchor, torch.Tensor):
+        anchor = anchor.to(z.device)
+    steps = anchor + 1 + torch.arange(timestep, device=z.device)
+    encode_samples = z.index_select(1, steps).transpose(0, 1)  # (ts, B, C)
+    c_t = context.index_select(1, steps[:1] - 1)[:, 0]  # (B, hidden)
     pred = torch.stack([c_t @ p["weight"] + p["bias"] for p in params["wk"]])  # (ts, B, C)
     total = torch.einsum("sbc,sdc->sbd", encode_samples, pred)  # (ts, B, B)
     nce = torch.diagonal(torch.log_softmax(total, dim=-1), dim1=1, dim2=2).sum()
     return nce / (-1.0 * b * timestep)
 
 
-def cpc_apply(params: Dict, features: torch.Tensor, anchor: int) -> torch.Tensor:
+def cpc_apply(params: Dict, features: torch.Tensor, anchor: Anchor) -> torch.Tensor:
     """InfoNCE loss of features (B, T, C) at anchor ``anchor``."""
     return _info_nce(params, features, _context(params, features), anchor)
 
 
 def cpc_apply_pair(params: Dict, feats_a: torch.Tensor, feats_b: torch.Tensor,
                    generator: Optional[torch.Generator] = None,
-                   anchors: Optional[Sequence[int]] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                   anchors: Optional[Sequence[Anchor]] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Two independent CPC losses with one batched GRU scan over both feature
     batches; the anchors are drawn from ``generator`` unless given."""
     if anchors is None:

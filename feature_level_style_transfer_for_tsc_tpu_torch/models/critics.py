@@ -9,13 +9,13 @@ reversal; here the counter is explicit state (``CriticState``), starting at
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..ops.grl import gradient_reversal, grl_coeff
-from .common import dropout, linear, linear_init, xavier_normal_linear_init
+from .common import dropout, dropout_mask, linear, linear_init, xavier_normal_linear_init
 
 
 class CriticState(NamedTuple):
@@ -70,6 +70,16 @@ def ad_net_apply(params: Dict, state: CriticState, x: torch.Tensor, *, training:
     h = torch.relu(linear(params["l2"], h))
     h = dropout(h, 0.2, training, generator, masks[1])
     return linear(params["l3"], h), new_state
+
+
+def draw_dropout_masks(generator: torch.Generator, batch: int,
+                       hidden: int) -> List[List[torch.Tensor]]:
+    """The dropout multipliers of one ``cdan_loss`` call, drawn from
+    ``generator`` as it draws them: the target call's two (after l1 and l2),
+    then the s2t call's, each (batch, hidden).  Multi-run training draws
+    each run's outside ``torch.func.vmap`` and passes them as
+    ``dropout_masks``."""
+    return [[dropout_mask((batch, hidden), 0.2, generator) for _ in range(2)] for _ in range(2)]
 
 
 # --------------------------------------- FeatureDiscriminatorforSource -----

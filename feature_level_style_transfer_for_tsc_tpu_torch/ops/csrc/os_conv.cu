@@ -2,9 +2,9 @@
 // tensor cores (3xTF32).
 //
 // Replaces the TPU kernels of feature_level_style_transfer_for_tsc_tpu/ops/osconv.py:
-//   _os_conv_kernel        (osconv.py:258)  ->  os_conv_fwd
+//   _os_conv_kernel        (osconv.py:258)  ->  os_conv_fwd_runs (one run: os_conv_fwd)
 //       y[b, t, o] = sum_{j<K} sum_i x_pad[b, t + j, i] * w[j, i, o]
-//   _os_conv_fused_kernel  (osconv.py:288)  ->  os_conv_fused_fwd
+//   _os_conv_fused_kernel  (osconv.py:288)  ->  os_conv_fused_fwd_runs (os_conv_fused_fwd)
 //       y[b, t, o] = relu?(conv[b, t, o] * scale[o] + shift[o])
 // with x_pad (B, T+K-1, C_in), w (K, C_in, C_out) already masked, y (B, T, C_out),
 // scale and shift (C_out,), all row-major float32.  The conv bias stays outside
@@ -30,19 +30,27 @@
 
 #include "tap_gemm.cuh"
 
-extern "C" int os_conv_fwd(const float* x_pad, const float* w, void* work, float* y,
-                           int batch, int t_pad, int c_in, int k, int c_out, void* stream) {
+// R runs of one shape at once (R = 1 for a one-run call): x_pad (R, B, T+K-1,
+// C_in), w (R, K, C_in, C_out), y (R, B, T, C_out), scale and shift (R,
+// C_out), work R * tap_gemm::work_words(K, C_in, C_out) words.  The same two
+// kernel launches whatever R, with the run on the grid (tap_gemm.cuh); each
+// run's arithmetic is the one-run call's.  For R > 1 they are the JAX
+// package's vmapped kernels of its multi-run training (train/multirun.py),
+// where jax.vmap adds a grid axis.
+extern "C" int os_conv_fwd_runs(const float* x_pad, const float* w, void* work, float* y,
+                                int runs, int batch, int t_pad, int c_in, int k, int c_out,
+                                void* stream) {
   return static_cast<int>(tap_gemm::run(x_pad, w, work, true, nullptr, nullptr, tap_gemm::kNone,
-                                        y, batch, t_pad, c_in, k, c_out, 1,
+                                        y, runs, batch, t_pad, c_in, k, c_out, 1,
                                         static_cast<cudaStream_t>(stream)));
 }
 
-extern "C" int os_conv_fused_fwd(const float* x_pad, const float* w, void* work,
-                                 const float* scale, const float* shift, int relu, float* y,
-                                 int batch, int t_pad, int c_in, int k, int c_out,
-                                 void* stream) {
+extern "C" int os_conv_fused_fwd_runs(const float* x_pad, const float* w, void* work,
+                                      const float* scale, const float* shift, int relu, float* y,
+                                      int runs, int batch, int t_pad, int c_in, int k, int c_out,
+                                      void* stream) {
   return static_cast<int>(tap_gemm::run(x_pad, w, work, true, scale, shift,
-                                        relu ? tap_gemm::kAffineRelu : tap_gemm::kAffine, y, batch,
-                                        t_pad, c_in, k, c_out, 1,
+                                        relu ? tap_gemm::kAffineRelu : tap_gemm::kAffine, y, runs,
+                                        batch, t_pad, c_in, k, c_out, 1,
                                         static_cast<cudaStream_t>(stream)));
 }

@@ -32,6 +32,10 @@
 //   registers that are added to the running sum with one rounded f32 add.
 //   A non-finite input is not carried through as f32 would carry it (hi =
 //   inf gives lo = NaN): the contract is for finite inputs.
+// * runs: one call takes R independent convs of one shape (x_pad (R, B,
+//   t_pad, C_in), w (R, K, C_in, C_out)); the prep grid's y and the main
+//   grid's z (= run * B + b) carry the run, which offsets the weights, the
+//   split, the windows and the epilogue vectors, nothing else.
 // * one block per (TM time rows, TN output columns, batch element); warps
 //   WM x WN x WK, each with a 32 x 32 tile (2 x 4 mma tiles).  WK > 1 splits
 //   each stage's taps among warp groups, summed through shared memory at the
@@ -103,19 +107,26 @@ enum Epilogue { kNone = 0, kAffine = 1, kAffineRelu = 2 };
 
 __host__ __device__ inline int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
-// 32-bit words of the caller's scratch: the split weights, then 2 ints a
-// column group for the windows (ops/osconv.py:_work mirrors it).
+// 32-bit words of one run's split weights (two planes).
+__host__ __device__ inline size_t split_words(int k, int c_in, int c_out) {
+  return 2 * static_cast<size_t>(k) * round_up(c_in, KC) * round_up(c_out, PAD_N);
+}
+
+// 32-bit words of the caller's scratch for one run: the split weights, then
+// 2 ints a column group for the windows (ops/osconv.py:_work mirrors it).
+// With R runs the scratch is R times this: the R runs' split weights, then
+// the R runs' windows, so one memset clears every window.
 inline size_t work_words(int k, int c_in, int c_out) {
-  return 2 * static_cast<size_t>(k) * round_up(c_in, KC) * round_up(c_out, PAD_N) +
-         2 * static_cast<size_t>((c_out + GROUP - 1) / GROUP);
+  return split_words(k, c_in, c_out) + 2 * static_cast<size_t>((c_out + GROUP - 1) / GROUP);
 }
 
 // Word of half h (k 0-3 or 4-7) of row n in a block of 8-word rows: the halves
 // of rows n and n + 4 trade places, so ldmatrix's 8 rows hit 32 banks.
 __device__ __forceinline__ int swizzled(int n, int h) { return n * 8 + ((h ^ (n >> 2)) & 1) * 4; }
 
-// One block per (tap j, chunk of 8 input channels), one thread per column n
-// of the padded width: the thread reads w[j, chunk, n] (8 values, each warp
+// One block per (tap j, chunk of 8 input channels) and run (blockIdx.y: w,
+// the split and the windows offset by the run's share), one thread per
+// column n of the padded width: the thread reads w[j, chunk, n] (8 values, each warp
 // reading 32 neighbouring columns) and writes their split as two 16-byte
 // halves per plane.  With ``win`` (2 * n_groups ints, zeroed before the
 // launch) it also folds j into the window of n's column group when any of
@@ -128,6 +139,10 @@ prep_kernel(const float* __restrict__ w, int k, int c_in, int c_out,
   const int c_in_pad = round_up(c_in, KC);
   const int c_out_pad = round_up(c_out, PAD_N);
   const size_t plane = static_cast<size_t>(k) * c_in_pad * c_out_pad;
+  const int run = blockIdx.y;
+  w += static_cast<size_t>(run) * k * c_in * c_out;
+  split += run * split_words(k, c_in, c_out);
+  if (win != nullptr) win += run * 2 * ((c_out + GROUP - 1) / GROUP);
   const int chunk = blockIdx.x;  // j * c_in_pad / KC + c
   const int j = chunk / (c_in_pad / KC);
   const int i0 = (chunk - j * (c_in_pad / KC)) * KC;
@@ -191,12 +206,15 @@ __host__ __device__ inline size_t smem_words(int xrows, int jgs) {
 }
 
 // KS input channels a stage (a multiple of the mma's k, 8), JG taps.
+// blockIdx.z = run * batch + b: x_pad and y hold the runs' batches one after
+// the other, and the run picks its split weights, windows, scale and shift;
+// a run's arithmetic is the one-run kernel's.
 template <int WM, int WN, int WK, int JG, int KS>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 tap_gemm_kernel(const float* __restrict__ x_pad, const uint32_t* __restrict__ split,
                 const int* __restrict__ win, const float* __restrict__ scale,
                 const float* __restrict__ shift, int epilogue, float* __restrict__ y,
-                int t_pad, int c_in, int k, int c_out, int d, int xrows, int jgs) {
+                int batch, int t_pad, int c_in, int k, int c_out, int d, int xrows, int jgs) {
   static_assert(WM * WN * WK * 32 == THREADS, "one warp a (WM, WN, WK) slot");
   static_assert(KS % KC == 0 && (KS == 8 || KS == 16 || KS == 32), "8, 16 or 32 channels");
   constexpr int TM = WM * MT * 16;
@@ -215,7 +233,14 @@ tap_gemm_kernel(const float* __restrict__ x_pad, const uint32_t* __restrict__ sp
   const int t_out = t_pad - (k - 1) * d;
   const int t0 = blockIdx.x * TM;
   const int n0 = blockIdx.y * TN;
-  const int b = blockIdx.z;
+  const int b = blockIdx.z;  // run * batch + the run's batch element
+  const int run = b / batch;
+  split += run * split_words(k, c_in, c_out);
+  if (win != nullptr) win += run * 2 * ((c_out + GROUP - 1) / GROUP);
+  if (epilogue != kNone) {
+    scale += static_cast<size_t>(run) * c_out;
+    shift += static_cast<size_t>(run) * c_out;
+  }
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -494,7 +519,7 @@ struct Call {
   const float* shift;
   int epilogue;
   float* y;
-  int batch, t_pad, c_in, k, c_out, d, dev;
+  int runs, batch, t_pad, c_in, k, c_out, d, dev;
   cudaStream_t stream;
 };
 
@@ -514,10 +539,10 @@ cudaError_t launch(const Call& c) {
     if (c.dev < kMaxDevices) opted_in[c.dev] = smem;
   }
   const int t_out = c.t_pad - (c.k - 1) * c.d;
-  const dim3 grid((t_out + TM - 1) / TM, (c.c_out + TN - 1) / TN, c.batch);
+  const dim3 grid((t_out + TM - 1) / TM, (c.c_out + TN - 1) / TN, c.runs * c.batch);
   kernel<<<grid, THREADS, smem, c.stream>>>(c.x_pad, c.split, c.win, c.scale, c.shift,
-                                            c.epilogue, c.y, c.t_pad, c.c_in, c.k, c.c_out, c.d,
-                                            xrows, jgs);
+                                            c.epilogue, c.y, c.batch, c.t_pad, c.c_in, c.k,
+                                            c.c_out, c.d, xrows, jgs);
   return cudaGetLastError();
 }
 
@@ -540,17 +565,22 @@ cudaError_t launch_taps(const Call& c) {
   return launch<WM, WN, WK, 4, SHORT_KS>(c);
 }
 
-// y = the tap conv, windowed when ``with_windows``; two kernel launches
-// (prep_kernel, tap_gemm_kernel) on ``stream``, after one memset of the
-// windows.  ``work`` is the caller's scratch of work_words(k, c_in, c_out)
-// 32-bit words.  Tiles, all of 8 warps: 128 x 64 where that grid fills two
-// blocks an SM; else 64 x 64 with two split-K groups; narrow outputs (C_out
-// <= 32) 64 x 32 with four.
+// y = the tap conv, windowed when ``with_windows``, of ``runs`` independent
+// runs at once: x_pad (runs, batch, t_pad, c_in), w (runs, k, c_in, c_out),
+// scale and shift (runs, c_out), y (runs, batch, t_out, c_out); two kernel
+// launches (prep_kernel, tap_gemm_kernel) on ``stream``, after one memset of
+// the windows, whatever the number of runs.  ``work`` is the caller's
+// scratch of runs * work_words(k, c_in, c_out) 32-bit words.  Tiles, all of
+// 8 warps: 128 x 64 where one run's grid fills two blocks an SM; else 64 x
+// 64 with two split-K groups; narrow outputs (C_out <= 32) 64 x 32 with
+// four.  The tiles are chosen from one run's batch, so each run of a
+// many-run call takes the one-run call's tiles and gives its bits.
 inline cudaError_t run(const float* x_pad, const float* w, void* work, bool with_windows,
-                       const float* scale, const float* shift, int epilogue, float* y, int batch,
-                       int t_pad, int c_in, int k, int c_out, int d, cudaStream_t stream) {
-  if (batch < 1 || batch > 65535 || k < 1 || d < 1 || c_in < 1 || c_out < 1 ||
-      t_pad - (k - 1) * d < 1)
+                       const float* scale, const float* shift, int epilogue, float* y, int runs,
+                       int batch, int t_pad, int c_in, int k, int c_out, int d,
+                       cudaStream_t stream) {
+  if (runs < 1 || batch < 1 || static_cast<long>(runs) * batch > 65535 || k < 1 || d < 1 ||
+      c_in < 1 || c_out < 1 || t_pad - (k - 1) * d < 1)
     return cudaErrorInvalidValue;
   int dev = 0, sms = 0;
   cudaError_t e = current_sms(dev, sms);
@@ -559,16 +589,16 @@ inline cudaError_t run(const float* x_pad, const float* w, void* work, bool with
   const int n_groups = (c_out + GROUP - 1) / GROUP;
   int* win = nullptr;
   if (with_windows) {
-    win = reinterpret_cast<int*>(split + work_words(k, c_in, c_out) - 2 * n_groups);
-    e = cudaMemsetAsync(win, 0, 2 * n_groups * sizeof(int), stream);
+    win = reinterpret_cast<int*>(split + runs * split_words(k, c_in, c_out));
+    e = cudaMemsetAsync(win, 0, static_cast<size_t>(runs) * 2 * n_groups * sizeof(int), stream);
     if (e != cudaSuccess) return e;
   }
-  prep_kernel<<<k * (round_up(c_in, KC) / KC), THREADS, 0, stream>>>(w, k, c_in, c_out, split,
-                                                                    win);
+  prep_kernel<<<dim3(k * (round_up(c_in, KC) / KC), runs), THREADS, 0, stream>>>(
+      w, k, c_in, c_out, split, win);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  const Call c{x_pad, split, win, scale, shift, epilogue, y, batch, t_pad, c_in, k, c_out, d,
-               dev, stream};
+  const Call c{x_pad, split, win, scale, shift, epilogue, y, runs, batch, t_pad, c_in, k, c_out,
+               d, dev, stream};
   const int t_out = t_pad - (k - 1) * d;
   if (c_out <= 32) return launch_taps<2, 1, 4>(c);
   const long wide_blocks = static_cast<long>((t_out + 127) / 128) * ((c_out + 63) / 64) * batch;

@@ -2,8 +2,8 @@
 // Hopper (sm_90a), exact float32.
 //
 // Replaces the TPU kernels of feature_level_style_transfer_for_tsc_tpu/ops/wn_fused.py:
-//   _wn_fwd_kernel  (wn_fused.py:164)  ->  wn_fwd
-//   _wn_bwd_kernel  (wn_fused.py:195)  ->  wn_bwd
+//   _wn_fwd_kernel  (wn_fused.py:164)  ->  wn_fwd_runs (one run: the wrapper wn_fwd)
+//   _wn_bwd_kernel  (wn_fused.py:195)  ->  wn_bwd_runs (one run: wn_bwd)
 // on the batch collapsed into rows: x (R, H) with R = B*T, position
 // pos(r) = r % T.  With C the WN width, L the layers and d = 2^i:
 //   audio_0 = x @ w_start + b_start
@@ -75,6 +75,16 @@
 //     stay FP32 FMA: under 1% of the FLOPs.
 //   A non-finite input is not carried as f32 would carry it (hi = inf gives
 //   lo = NaN): the contract is for finite inputs.
+// * Runs (wn_fwd_runs, wn_bwd_runs): R independent WNs of one geometry in
+//   one call, as the JAX package's multi-run training gets them from
+//   jax.vmap (one more grid axis).  Every tensor holds the runs one after
+//   the other; the run rides on a free grid axis of each kernel (y of the
+//   forward layer kernel, z of the others, folded with the layer of the
+//   weight splits and the slice of the weight gradients) and only offsets
+//   pointers: each run's arithmetic, tiles and slices are the one-run
+//   call's, and the launches are those of one run.  A one-run call is
+//   runs = 1, which takes the kernels' RUNS = false instances (no run
+//   offsets, as before the run axis).
 // Unlike the TPU kernel there is no pad of T to a multiple of 8 (a TPU
 // sublane rule) and no roll: each block reads the rows it needs.
 
@@ -170,14 +180,21 @@ struct RowW {
 // ------------------------------------------- FP32 FMA row products ----
 
 // out[r, n] = (accumulate ? out[r, n] : 0) + a[r] @ w[:, n] + bias[n]; each
-// block takes CMAX columns from n0 = blockIdx.y * CMAX.  The start
-// projection, g_skip and the start's input gradient: under 1% of the FLOPs.
+// block takes CMAX columns from n0 = blockIdx.y * CMAX, of run blockIdx.z
+// (each operand offset by its run stride).  The start projection, g_skip
+// and the start's input gradient: under 1% of the FLOPs.
 __global__ void __launch_bounds__(NTHREADS)
 rowgemm_kernel(const float* __restrict__ a, const float* __restrict__ w,
                const float* __restrict__ bias, float* __restrict__ out, int rows, int k,
-               int n, int accumulate) {
+               int n, int accumulate, long long a_rs, long long w_rs, long long bias_rs,
+               long long out_rs) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
+  const long long run = blockIdx.z;
+  a += run * a_rs;
+  w += run * w_rs;
+  if (bias) bias += run * bias_rs;
+  out += run * out_rs;
   const int tx = threadIdx.x % NTX;
   const int ty = threadIdx.x / NTX;
   const int r0 = blockIdx.x * TR;
@@ -220,12 +237,14 @@ rowgemm_kernel(const float* __restrict__ a, const float* __restrict__ w,
 
 enum SegKind { kRows = 0, kLo = 1, kHi = 2, kOnes = 3, kZero = 4 };
 
-// Columns [base, base + width) of an operand: src[(r + shift) * ld + j], zero
-// where the row's mask is off (kLo: pos(r) >= d, kHi: pos(r) < T - d); kOnes
-// is a column of ones, kZero a zero block.  vec: 16-byte copies are aligned.
+// Columns [base, base + width) of an operand: src[run * rs + (r + shift) * ld
+// + j] for run ``run``, zero where the row's mask is off (kLo: pos(r) >= d,
+// kHi: pos(r) < T - d); kOnes is a column of ones, kZero a zero block.  vec:
+// 16-byte copies are aligned in every run.
 struct Seg {
   const float* src;
   int ld, width, shift, kind, vec;
+  long long rs;
 };
 constexpr int MAX_SEGS = 5;
 struct Operand {
@@ -237,6 +256,7 @@ struct WGrad {
   const float* any;  // a valid address for the zero-filling copies
   int rows, t_len, d, split_rows;
 };
+inline int n_splits(const WGrad& p) { return (p.rows + p.split_rows - 1) / p.split_rows; }
 
 constexpr int WG_KT = 64;         // weight-gradient rows a block (the mma's m)
 constexpr int WG_NT = 256;        // weight-gradient columns a block (n)
@@ -248,12 +268,13 @@ constexpr int WG_PS = WG_RB + 4;  // split plane row stride: ldmatrix's 8 rows h
 constexpr size_t WG_SMEM =
     (2 * WG_RB * (WG_AS + WG_BS) + 2 * (WG_KT + WG_NT) * WG_PS) * sizeof(float);
 
-// Row r's columns [k, k + 4) of an operand into dst (16-byte aligned): one
-// 16-byte cp.async where the four lie in one aligned segment, else one a
-// column; zero past the slice (row_ok false), past the operand, or where the
-// segment's row mask is off.
+// Row r of run ``run``'s columns [k, k + 4) of an operand into dst (16-byte
+// aligned): one 16-byte cp.async where the four lie in one aligned segment,
+// else one a column; zero past the slice (row_ok false), past the operand,
+// or where the segment's row mask is off.
 __device__ __forceinline__ void stage4(const Operand& op, const float* any, int k, int r,
-                                       bool row_ok, int pos, int d, int t_len, float* dst) {
+                                       bool row_ok, int pos, int d, int t_len, float* dst,
+                                       int run) {
   int base = 0;
 #pragma unroll
   for (int s = 0; s < MAX_SEGS; ++s) {
@@ -266,7 +287,8 @@ __device__ __forceinline__ void stage4(const Operand& op, const float* any, int 
         if (g.kind == kOnes || g.kind == kZero) {
           for (int j = lo; j < hi; ++j) dst[j - k] = ok && g.kind == kOnes ? 1.f : 0.f;
         } else {
-          const float* row = ok ? g.src + static_cast<size_t>(r + g.shift) * g.ld : any;
+          const float* row =
+              ok ? g.src + run * g.rs + static_cast<long long>(r + g.shift) * g.ld : any;
           if (g.vec && lo == k && hi == k + 4) {
             cp_async16(dst, ok ? row + (k - base) : any, ok);
           } else {
@@ -280,7 +302,8 @@ __device__ __forceinline__ void stage4(const Operand& op, const float* any, int 
   for (int j = max(k, base); j < k + 4; ++j) dst[j - k] = 0.f;
 }
 
-// One block a (64-row, 256-column) tile of P[s] for slice s = blockIdx.z;
+// One block a (64-row, 256-column) tile of P[s] for slice s of run r,
+// blockIdx.z = r * n_splits + s;
 // 16 warps of 32 x 32 (2 x 4 mma tiles); a 128-column tile of 8 warps, two
 // blocks an SM, was 9% slower at the pair shape (PERF.md).  A stage stages WG_RB input rows of
 // the tile's A and B columns (double-buffered cp.async), splits each element
@@ -288,6 +311,7 @@ __device__ __forceinline__ void stage4(const Operand& op, const float* any, int 
 // the stage, so both mma operands come by ldmatrix), and sums its
 // lo*hi + hi*lo + hi*hi products into zeroed registers that are added to the
 // running sum with one rounded f32 add.
+template <bool RUNS>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 wgrad_kernel(WGrad p, float* __restrict__ partial) {
   extern __shared__ float4 smem4[];
@@ -304,7 +328,9 @@ wgrad_kernel(WGrad p, float* __restrict__ partial) {
   const int lane = tid & 31;
   const int k0 = blockIdx.x * WG_KT;
   const int n0 = blockIdx.y * WG_NT;
-  const int rs = blockIdx.z * p.split_rows;
+  const int nsplit = (p.rows + p.split_rows - 1) / p.split_rows;
+  const int run = RUNS ? blockIdx.z / nsplit : 0;  // RUNS = false: one run, its offsets fold away
+  const int rs = (blockIdx.z - run * nsplit) * p.split_rows;
   const int re = min(rs + p.split_rows, p.rows);
   const int n_stages = (re - rs + WG_RB - 1) / WG_RB;
   const int wm0 = (warp & 1) * 32;
@@ -323,7 +349,7 @@ wgrad_kernel(WGrad p, float* __restrict__ partial) {
       const int r = rb + rr;
       const bool ok = r < re;
       stage4(p.a, p.any, k0 + 4 * g, r, ok, ok ? r % p.t_len : 0, p.d, p.t_len,
-             raw_a(buf) + rr * WG_AS + 4 * g);
+             raw_a(buf) + rr * WG_AS + 4 * g, run);
     }
 #pragma unroll
     for (int i = 0; i < WG_RB * WG_NT / 4 / WG_THREADS; ++i) {
@@ -331,7 +357,8 @@ wgrad_kernel(WGrad p, float* __restrict__ partial) {
       const int rr = e / (WG_NT / 4);
       const int g = e % (WG_NT / 4);
       const int r = rb + rr;
-      stage4(p.b, p.any, n0 + 4 * g, r, r < re, 0, p.d, p.t_len, raw_b(buf) + rr * WG_BS + 4 * g);
+      stage4(p.b, p.any, n0 + 4 * g, r, r < re, 0, p.d, p.t_len, raw_b(buf) + rr * WG_BS + 4 * g,
+             run);
     }
   };
   // staged (row, column) -> planes (column, row); lanes take neighbouring
@@ -446,18 +473,18 @@ wgrad_kernel(WGrad p, float* __restrict__ partial) {
   }
 }
 
-// A segment of rows of a row-major (rows, ld) matrix (a zero block where
-// src is null), and a column of ones.
-inline Seg rows_of(const float* src, int ld, int shift = 0, int kind = kRows) {
-  return Seg{src, ld, ld, shift, src ? kind : kZero, 0};
+// A segment of rows of a row-major (rows, ld) matrix whose runs lie rs
+// floats apart (a zero block where src is null), and a column of ones.
+inline Seg rows_of(const float* src, int ld, long long rs, int shift = 0, int kind = kRows) {
+  return Seg{src, ld, ld, shift, src ? kind : kZero, 0, rs};
 }
-inline Seg ones() { return Seg{nullptr, 0, 1, 0, kOnes, 0}; }
+inline Seg ones() { return Seg{nullptr, 0, 1, 0, kOnes, 0, 0}; }
 
 // The segments side by side.
 inline Operand operand(std::initializer_list<Seg> segs) {
   Operand op{};
   for (Seg g : segs) {
-    g.vec = g.kind <= kHi && g.ld % 4 == 0 && op.cols % 4 == 0 &&
+    g.vec = g.kind <= kHi && g.ld % 4 == 0 && op.cols % 4 == 0 && g.rs % 4 == 0 &&
             reinterpret_cast<uintptr_t>(g.src) % 16 == 0;
     op.seg[op.nseg++] = g;
     op.cols += g.width;
@@ -538,7 +565,8 @@ __device__ __forceinline__ float z_weight(const float* w_in, const float* w_cond
   return 0.f;
 }
 
-// Splits W(k, n) of every layer (blockIdx.z) and matrix (blockIdx.y: z,
+// Splits W(k, n) of every run and layer (blockIdx.z = run * L + layer) and
+// matrix (blockIdx.y: z,
 // g_acts, the transposed taps, the cond input gradient) into its planes,
 // one block a plane row n (blockIdx.x), zero past W and in the padding:
 //   z:      W(k, col) = [w_in[i] (3C, 2C); w_cond[:, 2Ci:2C(i+1)] (H, 2C)],
@@ -550,10 +578,15 @@ __global__ void __launch_bounds__(NTHREADS)
 wsplit_kernel(const float* __restrict__ w_in, const float* __restrict__ w_cond,
               const float* __restrict__ w_rs, uint32_t* __restrict__ out, int c, int h,
               int n_layers) {
-  const int i = blockIdx.z;
+  const int run = blockIdx.z / n_layers;
+  const int i = blockIdx.z - run * n_layers;
   const int m = blockIdx.y;
   const int n = blockIdx.x;
   const WPlanes P = wplanes(c, h);
+  w_in += static_cast<size_t>(run) * n_layers * 3 * c * 2 * c;
+  w_cond += static_cast<size_t>(run) * h * 2 * c * n_layers;
+  w_rs += static_cast<size_t>(run) * n_layers * c * 2 * c;
+  out += run * n_layers * P.layer;
   const int rows_m = m == 0 ? 2 * P.cp : m == 3 ? P.hp : P.cp;
   if (n >= rows_m) return;
   const int k_pad = m == 0 ? P.kz : m == 1 ? P.kg : m == 2 ? P.kt : P.kc;
@@ -599,9 +632,15 @@ __host__ __device__ inline FPlanes fplanes(int c, int h) {
   p.layer = p.rs + 2 * static_cast<size_t>(2 * p.cp) * p.kr;
   return p;
 }
+// One run's words of the forward's split weights: every layer, then the end
+// projection.
+__host__ __device__ inline size_t fwd_words(const FPlanes& p, int n_layers) {
+  return n_layers * p.layer + 2 * static_cast<size_t>(p.ep) * p.kr;
+}
 
 // Splits the forward's W(k, n) (blockIdx.y: z and res/skip of layer
-// blockIdx.z, or the end projection) into its planes, one block a plane row
+// blockIdx.z % L of run blockIdx.z / L, or the run's end projection) into
+// its planes, one block a plane row
 // n (blockIdx.x), zero past W and in the padding:
 //   z:        as wsplit_kernel
 //   res/skip: W(k, col) = w_rs[i][k][col], plane row n holds col = pair_col(n)
@@ -610,10 +649,16 @@ __global__ void __launch_bounds__(NTHREADS)
 wsplit_fwd_kernel(const float* __restrict__ w_in, const float* __restrict__ w_cond,
                   const float* __restrict__ w_rs, const float* __restrict__ w_end,
                   uint32_t* __restrict__ out, int c, int h, int n_layers) {
-  const int i = blockIdx.z;
+  const int run = blockIdx.z / n_layers;
+  const int i = blockIdx.z - run * n_layers;
   const int m = blockIdx.y;
   const int n = blockIdx.x;
   const FPlanes P = fplanes(c, h);
+  w_in += static_cast<size_t>(run) * n_layers * 3 * c * 2 * c;
+  w_cond += static_cast<size_t>(run) * h * 2 * c * n_layers;
+  w_rs += static_cast<size_t>(run) * n_layers * c * 2 * c;
+  w_end += static_cast<size_t>(run) * c * 2 * h;
+  out += run * fwd_words(P, n_layers);
   if (m == 2 && i > 0) return;
   const int rows_m = m == 2 ? P.ep : 2 * P.cp;
   if (n >= rows_m) return;
@@ -644,7 +689,7 @@ __device__ __forceinline__ void rt_phase(float (&acc)[RT_NQ][NTU][4], const Oper
                                          const uint32_t* w_hi, const uint32_t* w_lo, int k_pad,
                                          int w_rows, int k_dim, int r0, int rows, int t_len, int d,
                                          const float* any, const int (&tiles)[RT_NQ][NTU], int nu,
-                                         float* smem) {
+                                         float* smem, int run) {
   float* const raw_a = smem;  // 2 x [RT_M][RT_AS]
   uint32_t* const ah = reinterpret_cast<uint32_t*>(raw_a + 2 * RT_M * RT_AS);
   uint32_t* const al = ah + RT_M * RT_AS;
@@ -662,7 +707,7 @@ __device__ __forceinline__ void rt_phase(float (&acc)[RT_NQ][NTU][4], const Oper
       const int r = r0 + rr;
       const bool ok = r < rows;
       stage4(a, any, k0 + 4 * g, r, ok, ok ? r % t_len : 0, d, t_len,
-             raw_a + buf * RT_M * RT_AS + rr * RT_AS + 4 * g);
+             raw_a + buf * RT_M * RT_AS + rr * RT_AS + 4 * g, run);
     }
     uint32_t* wb = wbuf + buf * 2 * RT_NMAX * RT_AS;
     for (int e = tid; e < 2 * w_rows * (RT_KS / 4); e += RT_THREADS) {  // W: 16-byte chunks
@@ -761,22 +806,29 @@ __device__ __forceinline__ int rt_units(int y, int ny, int n_units, int (&unit)[
 
 // Layer i, first half: z = [taps of aud | x] @ [w_in[i]; w_cond_i], g_acts =
 // [g_audio_{i+1} | g_skip] @ w_rs[i]^T, then g_z and acts.  blockIdx.y deals
-// the gate pairs over gridDim.y blocks.
+// the gate pairs over gridDim.y blocks; blockIdx.z is the run (run 0's
+// pointers, every run's own offset by its share).
 struct GzArgs {
   Operand a_z, a_grs;
   const uint32_t* planes;  // the layer's split weights (WPlanes)
   const float* b_z;
   float* gz;
   float* acts;
-  int rows, t_len, h, c, d;
+  int rows, t_len, h, c, d, n_layers;
 };
 
+template <bool RUNS>
 __global__ void __launch_bounds__(RT_THREADS, 1) wn_layer_gz_kernel(GzArgs p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int r0 = blockIdx.x * RT_M;
   const int c = p.c;
   const WPlanes P = wplanes(c, p.h);
+  const int run = RUNS ? blockIdx.z : 0;  // RUNS = false: one run, its offsets fold away
+  const uint32_t* planes = p.planes + run * p.n_layers * P.layer;
+  const float* b_z = p.b_z + static_cast<size_t>(run) * p.n_layers * 2 * c;
+  float* gz = p.gz + static_cast<size_t>(run) * p.rows * 2 * c;
+  float* acts = p.acts + static_cast<size_t>(run) * p.rows * c;
   int unit[RT_NQ];
   const int nu = rt_units(blockIdx.y, gridDim.y, P.cp / 8, unit);
   int pair[RT_NQ][2], one[RT_NQ][1];
@@ -792,16 +844,16 @@ __global__ void __launch_bounds__(RT_THREADS, 1) wn_layer_gz_kernel(GzArgs p) {
     for (int j = 0; j < RT_NQ; ++j)
 #pragma unroll
       for (int i = 0; i < 8; ++i) z[j][i >> 2][i & 3] = 0.f;
-    const uint32_t* wz = p.planes + P.z;
+    const uint32_t* wz = planes + P.z;
     rt_phase(z, p.a_z, wz, wz + static_cast<size_t>(2 * P.cp) * P.kz, P.kz, 2 * P.cp, p.a_z.cols,
-             r0, p.rows, p.t_len, p.d, p.gz, pair, nu, smem);
+             r0, p.rows, p.t_len, p.d, gz, pair, nu, smem, run);
 #pragma unroll
     for (int j = 0; j < RT_NQ; ++j) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int col = min(unit[j] * 8 + frag_col(i), c - 1);
-        t_[j][i] = tanhf(z[j][0][i] + p.b_z[col]);
-        s_[j][i] = sigmoidf_(z[j][1][i] + p.b_z[c + col]);
+        t_[j][i] = tanhf(z[j][0][i] + b_z[col]);
+        s_[j][i] = sigmoidf_(z[j][1][i] + b_z[c + col]);
       }
     }
   }
@@ -810,9 +862,9 @@ __global__ void __launch_bounds__(RT_THREADS, 1) wn_layer_gz_kernel(GzArgs p) {
   for (int j = 0; j < RT_NQ; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) g[j][0][i] = 0.f;
-  const uint32_t* wg = p.planes + P.g;
+  const uint32_t* wg = planes + P.g;
   rt_phase(g, p.a_grs, wg, wg + static_cast<size_t>(P.cp) * P.kg, P.kg, P.cp, 2 * c, r0, p.rows,
-           p.t_len, p.d, p.gz, one, nu, smem);
+           p.t_len, p.d, gz, one, nu, smem, run);
 #pragma unroll
   for (int j = 0; j < RT_NQ; ++j) {
     if (j >= nu) continue;
@@ -823,9 +875,9 @@ __global__ void __launch_bounds__(RT_THREADS, 1) wn_layer_gz_kernel(GzArgs p) {
       if (r < p.rows && col < c) {
         const float t = t_[j][i];
         const float s = s_[j][i];
-        p.gz[static_cast<size_t>(r) * 2 * c + col] = g[j][0][i] * s * (1.f - t * t);
-        p.gz[static_cast<size_t>(r) * 2 * c + c + col] = g[j][0][i] * t * s * (1.f - s);
-        p.acts[static_cast<size_t>(r) * c + col] = t * s;
+        gz[static_cast<size_t>(r) * 2 * c + col] = g[j][0][i] * s * (1.f - t * t);
+        gz[static_cast<size_t>(r) * 2 * c + c + col] = g[j][0][i] * t * s * (1.f - s);
+        acts[static_cast<size_t>(r) * c + col] = t * s;
       }
     }
   }
@@ -836,21 +888,28 @@ __global__ void __launch_bounds__(RT_THREADS, 1) wn_layer_gz_kernel(GzArgs p) {
 // at its source row: g_z[u+d] is live iff pos(u+d) >= d, which is pos(u) <
 // T - d, and g_z[u-d] iff pos(u-d) < T - d, which is pos(u) >= d.  Part 1 +
 // j: g_x[:, jCMAX:(j+1)CMAX] += g_z @ w_cond_i^T, 2C deep.  blockIdx.y % ny
-// deals the n8 tiles.
+// deals the n8 tiles; blockIdx.z is the run, as in wn_layer_gz_kernel.
 struct GaArgs {
   Operand a_taps, a_gz;
   const uint32_t* planes;  // the layer's split weights (WPlanes)
   const float* ga_next;
   float* ga_out;
   float* gx;
-  int rows, t_len, h, c, d, first, ny;
+  int rows, t_len, h, c, d, first, ny, n_layers;
 };
 
+template <bool RUNS>
 __global__ void __launch_bounds__(RT_THREADS, 1) wn_layer_ga_kernel(GaArgs p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int r0 = blockIdx.x * RT_M;
   const WPlanes P = wplanes(p.c, p.h);
+  const int run = RUNS ? blockIdx.z : 0;  // RUNS = false: one run, its offsets fold away
+  const size_t rc2 = 2 * static_cast<size_t>(p.rows) * p.c;  // a run's g_audio ping-pong
+  const uint32_t* planes = p.planes + run * p.n_layers * P.layer;
+  const float* ga_next = p.ga_next ? p.ga_next + run * rc2 : nullptr;
+  float* ga_out = p.ga_out + run * rc2;
+  float* gx = p.gx + static_cast<size_t>(run) * p.rows * p.h;
   const int part = blockIdx.y / p.ny;
   const int n0 = (part - 1) * CMAX;
   const int nc = part == 0 ? p.c : min(CMAX, p.h - n0);
@@ -865,14 +924,14 @@ __global__ void __launch_bounds__(RT_THREADS, 1) wn_layer_ga_kernel(GaArgs p) {
     for (int i = 0; i < 4; ++i) acc[j][0][i] = 0.f;
   const float* any = p.a_gz.seg[0].src;
   if (part == 0) {
-    const uint32_t* wt = p.planes + P.t;
+    const uint32_t* wt = planes + P.t;
     rt_phase(acc, p.a_taps, wt, wt + static_cast<size_t>(P.cp) * P.kt, P.kt, P.cp, 6 * p.c, r0,
-             p.rows, p.t_len, p.d, any, tile, nu, smem);
+             p.rows, p.t_len, p.d, any, tile, nu, smem, run);
   } else {
-    const uint32_t* wx = p.planes + P.x;
+    const uint32_t* wx = planes + P.x;
     rt_phase(acc, p.a_gz, wx + static_cast<size_t>(n0) * P.kc,
              wx + static_cast<size_t>(P.hp + n0) * P.kc, P.kc, round8(nc), 2 * p.c, r0, p.rows,
-             p.t_len, p.d, any, tile, nu, smem);
+             p.t_len, p.d, any, tile, nu, smem, run);
   }
 #pragma unroll
   for (int j = 0; j < RT_NQ; ++j) {
@@ -884,10 +943,10 @@ __global__ void __launch_bounds__(RT_THREADS, 1) wn_layer_ga_kernel(GaArgs p) {
       if (u >= p.rows || n >= nc) continue;
       if (part == 0) {
         const size_t o = static_cast<size_t>(u) * p.c + n;
-        p.ga_out[o] = (p.ga_next ? p.ga_next[o] : 0.f) + acc[j][0][i];
+        ga_out[o] = (ga_next ? ga_next[o] : 0.f) + acc[j][0][i];
       } else {
         const size_t o = static_cast<size_t>(u) * p.h + n0 + n;
-        p.gx[o] = (p.first ? 0.f : p.gx[o]) + acc[j][0][i];
+        gx[o] = (p.first ? 0.f : gx[o]) + acc[j][0][i];
       }
     }
   }
@@ -905,6 +964,10 @@ __global__ void __launch_bounds__(RT_THREADS, 1) wn_layer_ga_kernel(GaArgs p) {
 // Res/skip needs every acts column of a row and the end projection every
 // skip column, so a block takes all columns of its rows; on short series the
 // tiles shrink (MT 2 or 1) instead, so that the grid fills the card.
+// blockIdx.y is the run: the pointers are run 0's, every run's own offset
+// by its share.  The one-run call takes the RUNS = false instance, whose run
+// is the constant 0: its offsets fold away, and with them the registers
+// they cost (the RUNS = true instance spills a few bytes).
 constexpr int RT_END_COLS = RT_MT * RT_NQ * 8;  // one n8 tile a unit: 16 units
 struct FwdArgs {
   Operand a_z, a_acts, a_skip;
@@ -918,16 +981,20 @@ struct FwdArgs {
   float* aud_next;  // null in the last layer
   float* skip;
   float* y;
-  int rows, t_len, h, c, d, first, last;
+  int rows, t_len, h, c, d, first, last, n_layers;
 };
 
-template <int MT>
+template <int MT, bool RUNS>
 __global__ void __launch_bounds__(RT_THREADS, 1) wn_layer_fwd_kernel(FwdArgs p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int r0 = blockIdx.x * 16 * MT;
   const int c = p.c;
   const FPlanes P = fplanes(c, p.h);
+  // the run's pointers, each formed in the part that uses it (few live registers)
+  const int run = RUNS ? blockIdx.y : 0;
+  const size_t rc = static_cast<size_t>(p.rows) * c;
+  const float* aud_i = p.aud_i + run * p.n_layers * rc;
   int unit[RT_NQ], pair[RT_NQ][2];
   const int nu = rt_units<MT>(0, 1, P.cp / 8, unit);
 #pragma unroll
@@ -941,9 +1008,11 @@ __global__ void __launch_bounds__(RT_THREADS, 1) wn_layer_fwd_kernel(FwdArgs p) 
     for (int j = 0; j < RT_NQ; ++j)
 #pragma unroll
       for (int i = 0; i < 8; ++i) z[j][i >> 2][i & 3] = 0.f;
-    const uint32_t* wz = p.planes + P.z;
+    const uint32_t* wz = p.planes + run * fwd_words(P, p.n_layers) + P.z;
     rt_phase<2, MT>(z, p.a_z, wz, wz + static_cast<size_t>(2 * P.cp) * P.kz, P.kz, 2 * P.cp,
-                    p.a_z.cols, r0, p.rows, p.t_len, p.d, p.aud_i, pair, nu, smem);
+                    p.a_z.cols, r0, p.rows, p.t_len, p.d, aud_i, pair, nu, smem, run);
+    const float* b_z = p.b_z + static_cast<size_t>(run) * p.n_layers * 2 * c;
+    float* acts = p.acts + run * rc;
 #pragma unroll
     for (int j = 0; j < RT_NQ; ++j) {
       if (j >= nu) continue;
@@ -952,8 +1021,8 @@ __global__ void __launch_bounds__(RT_THREADS, 1) wn_layer_fwd_kernel(FwdArgs p) 
         const int r = r0 + frag_row<MT>(i);
         const int col = unit[j] * 8 + frag_col(i);
         if (r < p.rows && col < c)
-          p.acts[static_cast<size_t>(r) * c + col] =
-              tanhf(z[j][0][i] + p.b_z[col]) * sigmoidf_(z[j][1][i] + p.b_z[c + col]);
+          acts[static_cast<size_t>(r) * c + col] =
+              tanhf(z[j][0][i] + b_z[col]) * sigmoidf_(z[j][1][i] + b_z[c + col]);
       }
     }
   }
@@ -963,9 +1032,12 @@ __global__ void __launch_bounds__(RT_THREADS, 1) wn_layer_fwd_kernel(FwdArgs p) 
     for (int j = 0; j < RT_NQ; ++j)
 #pragma unroll
       for (int i = 0; i < 8; ++i) rs[j][i >> 2][i & 3] = 0.f;
-    const uint32_t* wr = p.planes + P.rs;
+    const uint32_t* wr = p.planes + run * fwd_words(P, p.n_layers) + P.rs;
     rt_phase<2, MT>(rs, p.a_acts, wr, wr + static_cast<size_t>(2 * P.cp) * P.kr, P.kr, 2 * P.cp,
-                    c, r0, p.rows, p.t_len, p.d, p.aud_i, pair, nu, smem);
+                    c, r0, p.rows, p.t_len, p.d, aud_i, pair, nu, smem, run);
+    const float* b_rs = p.b_rs + static_cast<size_t>(run) * p.n_layers * 2 * c;
+    float* aud_next = p.aud_next ? p.aud_next + run * p.n_layers * rc : nullptr;
+    float* skip = p.skip + run * rc;
 #pragma unroll
     for (int j = 0; j < RT_NQ; ++j) {
       if (j >= nu) continue;
@@ -975,12 +1047,15 @@ __global__ void __launch_bounds__(RT_THREADS, 1) wn_layer_fwd_kernel(FwdArgs p) 
         const int col = unit[j] * 8 + frag_col(i);
         if (r >= p.rows || col >= c) continue;
         const size_t o = static_cast<size_t>(r) * c + col;
-        if (p.aud_next) p.aud_next[o] = p.aud_i[o] + rs[j][0][i] + p.b_rs[col];
-        p.skip[o] = (p.first ? 0.f : p.skip[o]) + rs[j][1][i] + p.b_rs[c + col];
+        if (aud_next) aud_next[o] = aud_i[o] + rs[j][0][i] + b_rs[col];
+        skip[o] = (p.first ? 0.f : skip[o]) + rs[j][1][i] + b_rs[c + col];
       }
     }
   }
   if (!p.last) return;
+  const uint32_t* end_planes = p.end_planes + run * fwd_words(P, p.n_layers);
+  const float* b_end = p.b_end + static_cast<size_t>(run) * 2 * p.h;
+  float* y = p.y + static_cast<size_t>(run) * p.rows * 2 * p.h;
   for (int n0 = 0; n0 < 2 * p.h; n0 += RT_END_COLS) {
     const int nc = min(RT_END_COLS, 2 * p.h - n0);
     int eu[RT_NQ], tile[RT_NQ][1];
@@ -992,9 +1067,9 @@ __global__ void __launch_bounds__(RT_THREADS, 1) wn_layer_fwd_kernel(FwdArgs p) 
 #pragma unroll
       for (int i = 0; i < 4; ++i) e[j][0][i] = 0.f;
     }
-    rt_phase<1, MT>(e, p.a_skip, p.end_planes + static_cast<size_t>(n0) * P.kr,
-                    p.end_planes + static_cast<size_t>(P.ep + n0) * P.kr, P.kr, round8(nc), c, r0,
-                    p.rows, p.t_len, p.d, p.aud_i, tile, ne, smem);
+    rt_phase<1, MT>(e, p.a_skip, end_planes + static_cast<size_t>(n0) * P.kr,
+                    end_planes + static_cast<size_t>(P.ep + n0) * P.kr, P.kr, round8(nc), c, r0,
+                    p.rows, p.t_len, p.d, aud_i, tile, ne, smem, run);
 #pragma unroll
     for (int j = 0; j < RT_NQ; ++j) {
       if (j >= ne) continue;
@@ -1003,16 +1078,20 @@ __global__ void __launch_bounds__(RT_THREADS, 1) wn_layer_fwd_kernel(FwdArgs p) 
         const int r = r0 + frag_row<MT>(i);
         const int col = eu[j] * 8 + frag_col(i);
         if (r < p.rows && col < nc)
-          p.y[static_cast<size_t>(r) * 2 * p.h + n0 + col] = e[j][0][i] + p.b_end[n0 + col];
+          y[static_cast<size_t>(r) * 2 * p.h + n0 + col] = e[j][0][i] + b_end[n0 + col];
       }
     }
   }
 }
 
-// out[e] = sum_s partial[s][e], s in order: the same bits on every run.
+// out[e] = sum_s partial[s][e], s in order: the same bits on every call;
+// blockIdx.y is the run (its partials nsplit * count floats apart, its out
+// out_rs).
 __global__ void __launch_bounds__(NTHREADS)
 reduce_partials_kernel(const float* __restrict__ partial, int nsplit, int count,
-                       float* __restrict__ out) {
+                       float* __restrict__ out, long long out_rs) {
+  partial += static_cast<size_t>(blockIdx.y) * nsplit * count;
+  out += blockIdx.y * out_rs;
   for (int e = blockIdx.x * NTHREADS + threadIdx.x; e < count; e += gridDim.x * NTHREADS) {
     float s = 0.f;
     for (int i = 0; i < nsplit; ++i) s += partial[static_cast<size_t>(i) * count + e];
@@ -1032,24 +1111,34 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-cudaError_t rowgemm(const float* a, const float* w, const float* bias, float* out, int rows,
-                    int k, int n, int accumulate, cudaStream_t stream) {
+// ``runs`` runs of the row product (blockIdx.z), each operand's runs its
+// run stride (in floats) apart.
+cudaError_t rowgemm(const float* a, long long a_rs, const float* w, long long w_rs,
+                    const float* bias, long long bias_rs, float* out, long long out_rs, int rows,
+                    int k, int n, int accumulate, int runs, cudaStream_t stream) {
   cudaError_t e = allow_smem(rowgemm_kernel, GEMM_SMEM);
   if (e != cudaSuccess) return e;
-  rowgemm_kernel<<<dim3(tiles(rows), col_chunks(n)), NTHREADS, GEMM_SMEM, stream>>>(
-      a, w, bias, out, rows, k, n, accumulate);
+  rowgemm_kernel<<<dim3(tiles(rows), col_chunks(n), runs), NTHREADS, GEMM_SMEM, stream>>>(
+      a, w, bias, out, rows, k, n, accumulate, a_rs, w_rs, bias_rs, out_rs);
   return cudaGetLastError();
 }
 
-cudaError_t wgrad(const WGrad& p, float* partial, float* out, cudaStream_t stream) {
-  const int nsplit = (p.rows + p.split_rows - 1) / p.split_rows;
-  const dim3 grid((p.a.cols + WG_KT - 1) / WG_KT, (p.b.cols + WG_NT - 1) / WG_NT, nsplit);
-  wgrad_kernel<<<grid, WG_THREADS, WG_SMEM, stream>>>(p, partial);
+// The weight gradient of every run: the partials of run r's slices at
+// partial + r * n_splits * count, its sum at out + r * out_rs.
+cudaError_t wgrad(const WGrad& p, float* partial, float* out, long long out_rs, int runs,
+                  cudaStream_t stream) {
+  const int nsplit = n_splits(p);
+  const dim3 grid((p.a.cols + WG_KT - 1) / WG_KT, (p.b.cols + WG_NT - 1) / WG_NT, runs * nsplit);
+  // the one-run call takes the RUNS = false instance (no run offsets); the
+  // caller has set both instances' shared memory
+  auto kernel = runs > 1 ? wgrad_kernel<true> : wgrad_kernel<false>;
+  kernel<<<grid, WG_THREADS, WG_SMEM, stream>>>(p, partial);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const int count = p.a.cols * p.b.cols;
   const int blocks = (count + NTHREADS - 1) / NTHREADS;
-  reduce_partials_kernel<<<blocks, NTHREADS, 0, stream>>>(partial, nsplit, count, out);
+  reduce_partials_kernel<<<dim3(blocks, runs), NTHREADS, 0, stream>>>(partial, nsplit, count, out,
+                                                                     out_rs);
   return cudaGetLastError();
 }
 
@@ -1077,24 +1166,33 @@ bool bad_geometry(int rows, int t_len, int h, int c, int n_layers) {
 
 }  // namespace
 
-// Forward of one WN: y (R, 2H), aud (L, R, C), skip (R, C).  b_z = b_in + b_cond
-// as (L, 2C).  Scratch: acts (R, C), wsplit (wn_fwd_wsplit_words).  2 + L
-// kernel launches.
-extern "C" int wn_fwd(const float* x, const float* w_start, const float* b_start,
-                      const float* w_cond, const float* b_z, const float* w_in,
-                      const float* w_rs, const float* b_rs, const float* w_end,
-                      const float* b_end, float* y, float* aud, float* skip, float* acts,
-                      void* wsplit, int rows, int t_len, int h, int c, int n_layers,
-                      void* stream_ptr) {
-  if (bad_geometry(rows, t_len, h, c, n_layers)) return cudaErrorInvalidValue;
+// Forward of ``runs`` independent WNs of one geometry: every tensor below
+// holds the runs one after the other (x (runs, R, H), w_in (runs, L, 3, C,
+// 2C), ...), each run's arithmetic the one-run call's; the run rides on a
+// grid axis of every kernel, so the launches are those of one run.  Per
+// run: y (R, 2H), aud (L, R, C), skip (R, C).  b_z = b_in + b_cond as (L,
+// 2C).  Scratch: acts (runs, R, C), wsplit (runs * wn_fwd_wsplit_words).  2
+// + L kernel launches.  They replace the vmapped Pallas kernel of the JAX
+// package's multi-run training (train/multirun.py), where jax.vmap adds a
+// grid axis.
+extern "C" int wn_fwd_runs(const float* x, const float* w_start, const float* b_start,
+                           const float* w_cond, const float* b_z, const float* w_in,
+                           const float* w_rs, const float* b_rs, const float* w_end,
+                           const float* b_end, float* y, float* aud, float* skip, float* acts,
+                           void* wsplit, int runs, int rows, int t_len, int h, int c,
+                           int n_layers, void* stream_ptr) {
+  if (bad_geometry(rows, t_len, h, c, n_layers) || runs < 1 || runs > 65535)
+    return cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const FPlanes P = fplanes(c, h);
   uint32_t* planes = static_cast<uint32_t*>(wsplit);
-  wsplit_fwd_kernel<<<dim3(max(2 * P.cp, P.ep), 3, n_layers), NTHREADS, 0, stream>>>(
+  wsplit_fwd_kernel<<<dim3(max(2 * P.cp, P.ep), 3, runs * n_layers), NTHREADS, 0, stream>>>(
       w_in, w_cond, w_rs, w_end, planes, c, h, n_layers);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  e = rowgemm(x, w_start, b_start, aud, rows, h, c, 0, stream);
+  const long long rc = static_cast<long long>(rows) * c;
+  e = rowgemm(x, static_cast<long long>(rows) * h, w_start, static_cast<long long>(h) * c,
+              b_start, c, aud, n_layers * rc, rows, h, c, 0, runs, stream);
   if (e != cudaSuccess) return e;
   int sms = 0;
   e = current_sms(sms);
@@ -1103,83 +1201,102 @@ extern "C" int wn_fwd(const float* x, const float* w_start, const float* b_start
   // one wave of a block an SM (on an H100, PERF.md: at VendCoffee's 2,400
   // rows 32-row tiles took 0.67-0.71 ms, 64-row 0.92 and 16-row, two waves,
   // 1.06-1.08; at VendGunPoint's 6,000 rows 64-row tiles 0.82 ms, 32-row
-  // 1.09-1.14)
+  // 1.09-1.14); chosen from one run's rows, so each run takes the one-run
+  // call's tiles
   int mt = RT_MT;
   while (mt > 1 && (rows + 8 * mt - 1) / (8 * mt) <= sms) mt /= 2;
-  auto kernel = mt == 4 ? wn_layer_fwd_kernel<4> : mt == 2 ? wn_layer_fwd_kernel<2> : wn_layer_fwd_kernel<1>;
+  const bool many = runs > 1;
+  auto kernel = mt == 4 ? (many ? wn_layer_fwd_kernel<4, true> : wn_layer_fwd_kernel<4, false>)
+              : mt == 2 ? (many ? wn_layer_fwd_kernel<2, true> : wn_layer_fwd_kernel<2, false>)
+                        : (many ? wn_layer_fwd_kernel<1, true> : wn_layer_fwd_kernel<1, false>);
   e = allow_smem(kernel, RT_SMEM);
   if (e != cudaSuccess) return e;
   const int tiles_fwd = (rows + 16 * mt - 1) / (16 * mt);
-  const size_t rc = static_cast<size_t>(rows) * c;
+  const long long aud_rs = n_layers * rc;
   for (int i = 0; i < n_layers; ++i) {
     const int d = 1 << i;
     const float* aud_i = aud + i * rc;
     const bool last = i == n_layers - 1;
     const FwdArgs p{
-        operand({rows_of(aud_i, c, -d, kLo), rows_of(aud_i, c), rows_of(aud_i, c, d, kHi),
-                 rows_of(x, h)}),
-        operand({rows_of(acts, c)}), operand({rows_of(skip, c)}), planes + i * P.layer,
+        operand({rows_of(aud_i, c, aud_rs, -d, kLo), rows_of(aud_i, c, aud_rs),
+                 rows_of(aud_i, c, aud_rs, d, kHi), rows_of(x, h, static_cast<long long>(rows) * h)}),
+        operand({rows_of(acts, c, rc)}), operand({rows_of(skip, c, rc)}), planes + i * P.layer,
         planes + n_layers * P.layer, aud_i, b_z + static_cast<size_t>(i) * 2 * c,
         b_rs + static_cast<size_t>(i) * 2 * c, b_end, acts, last ? nullptr : aud + (i + 1) * rc,
-        skip, y, rows, t_len, h, c, d, i == 0, last};
-    kernel<<<tiles_fwd, RT_THREADS, RT_SMEM, stream>>>(p);
+        skip, y, rows, t_len, h, c, d, i == 0, last, n_layers};
+    kernel<<<dim3(tiles_fwd, runs), RT_THREADS, RT_SMEM, stream>>>(p);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
   return cudaSuccess;
 }
 
-// 32-bit words of wn_fwd's wsplit scratch: the split weights of every layer
-// and the end projection.
+// 32-bit words of wn_fwd's wsplit scratch for one run: the split weights of
+// every layer and the end projection.
 extern "C" size_t wn_fwd_wsplit_words(int c, int h, int n_layers) {
-  const FPlanes p = fplanes(c, h);
-  return n_layers * p.layer + 2 * static_cast<size_t>(p.ep) * p.kr;
+  return fwd_words(fplanes(c, h), n_layers);
 }
 
-// 32-bit words of wn_bwd's wsplit scratch: the split weights of every layer.
+// 32-bit words of wn_bwd's wsplit scratch for one run: the split weights of
+// every layer.
 extern "C" size_t wn_bwd_wsplit_words(int c, int h, int n_layers) {
   return static_cast<size_t>(n_layers) * wplanes(c, h).layer;
 }
 
-// Backward of one WN from g = dL/dy (R, 2H).  Outputs: gx (R, H);
-// g_in (L, 3C+H+1, 2C) = per layer [gwi (3C rows) | gwc slice (H rows) | gbi];
-// g_rs (L, C+1, 2C) = per layer [gwr | gbr]; g_start (H+1, C) = [gws | gbs].
-// Transposed weights: w_start_t (C, H), w_end_t (2H, C).  Scratch: ga (2, R,
+// Backward of ``runs`` independent WNs of one geometry (every tensor holds
+// the runs one after the other, as wn_fwd_runs; weight gradients are per
+// run and never summed across runs), from g = dL/dy.  Per run: inputs x (R,
+// H), g (R, 2H), aud (L, R, C); outputs gx (R, H); g_in (L, 3C+H+1, 2C) =
+// per layer [gwi (3C rows) | gwc slice (H rows) | gbi]; g_rs (L, C+1, 2C) =
+// per layer [gwr | gbr]; g_start (H+1, C) = [gws | gbs].  Transposed
+// weights: w_start_t (C, H), w_end_t (2H, C).  Scratch per run: ga (2, R,
 // C), gskip (R, C), gz (R, 2C), acts (R, C), partial (ceil(R/split_rows) *
 // (3C+H+1) * 2C), wsplit (wn_bwd_wsplit_words).  5 + 6L kernel launches.
-extern "C" int wn_bwd(const float* x, const float* g, const float* aud, const float* w_cond,
-                      const float* w_in, const float* b_z, const float* w_rs,
-                      const float* w_start_t, const float* w_end_t, float* gx, float* g_in,
-                      float* g_rs, float* g_start, float* ga, float* gskip, float* gz,
-                      float* acts, float* partial, void* wsplit, int rows, int t_len, int h,
-                      int c, int n_layers, int split_rows, void* stream_ptr) {
-  if (bad_geometry(rows, t_len, h, c, n_layers) || split_rows < WG_RB || split_rows % WG_RB)
+extern "C" int wn_bwd_runs(const float* x, const float* g, const float* aud,
+                           const float* w_cond, const float* w_in, const float* b_z,
+                           const float* w_rs, const float* w_start_t, const float* w_end_t,
+                           float* gx, float* g_in, float* g_rs, float* g_start, float* ga,
+                           float* gskip, float* gz, float* acts, float* partial, void* wsplit,
+                           int runs, int rows, int t_len, int h, int c, int n_layers,
+                           int split_rows, void* stream_ptr) {
+  if (bad_geometry(rows, t_len, h, c, n_layers) || split_rows < WG_RB || split_rows % WG_RB ||
+      runs < 1 || runs > 65535)
     return cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const WPlanes P = wplanes(c, h);
   uint32_t* planes = static_cast<uint32_t*>(wsplit);
-  wsplit_kernel<<<dim3(max(2 * P.cp, P.hp), 4, n_layers), NTHREADS, 0, stream>>>(
+  wsplit_kernel<<<dim3(max(2 * P.cp, P.hp), 4, runs * n_layers), NTHREADS, 0, stream>>>(
       w_in, w_cond, w_rs, planes, c, h, n_layers);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  e = rowgemm(g, w_end_t, nullptr, gskip, rows, 2 * h, c, 0, stream);
+  const long long rc = static_cast<long long>(rows) * c;
+  const long long rh = static_cast<long long>(rows) * h;
+  e = rowgemm(g, 2 * rh, w_end_t, 2LL * h * c, nullptr, 0, gskip, rc, rows, 2 * h, c, 0, runs,
+              stream);
   if (e != cudaSuccess) return e;
-  e = allow_smem(wn_layer_gz_kernel, RT_SMEM);
+  // the one-run call takes the RUNS = false instances (no run offsets)
+  auto gz_kernel = runs > 1 ? wn_layer_gz_kernel<true> : wn_layer_gz_kernel<false>;
+  auto ga_kernel = runs > 1 ? wn_layer_ga_kernel<true> : wn_layer_ga_kernel<false>;
+  e = allow_smem(gz_kernel, RT_SMEM);
   if (e != cudaSuccess) return e;
-  e = allow_smem(wn_layer_ga_kernel, RT_SMEM);
+  e = allow_smem(ga_kernel, RT_SMEM);
   if (e != cudaSuccess) return e;
-  e = allow_smem(wgrad_kernel, WG_SMEM);
+  auto wg_kernel = runs > 1 ? wgrad_kernel<true> : wgrad_kernel<false>;
+  e = allow_smem(wg_kernel, WG_SMEM);
   if (e != cudaSuccess) return e;
   int sms = 0;
   e = current_sms(sms);
   if (e != cudaSuccess) return e;
   // row tiles, and the share of column units a block takes: 1, 2 or 4
   // blocks a tile, so that short series still give the card a block an SM
+  // (chosen from one run's rows: each run takes the one-run call's shares)
   const int rt = (rows + RT_M - 1) / RT_M;
   int ny = 1;
   while (ny < 4 && rt * ny < sms) ny *= 2;
-  const size_t rc = static_cast<size_t>(rows) * c;
   const int k_in = 3 * c + h + 1;
+  const long long aud_rs = n_layers * rc;
+  const long long gin_rs = static_cast<long long>(n_layers) * k_in * 2 * c;
+  const long long grs_rs = static_cast<long long>(n_layers) * (c + 1) * 2 * c;
   const float* ga_next = nullptr;
   for (int i = n_layers - 1; i >= 0; --i) {
     const int d = 1 << i;
@@ -1187,35 +1304,38 @@ extern "C" int wn_bwd(const float* x, const float* g, const float* aud, const fl
     float* ga_out = ga + (i % 2) * rc;
     const uint32_t* planes_i = planes + i * P.layer;
     const GzArgs gzp{
-        operand({rows_of(aud_i, c, -d, kLo), rows_of(aud_i, c), rows_of(aud_i, c, d, kHi),
-                 rows_of(x, h)}),
-        operand({rows_of(ga_next, c), rows_of(gskip, c)}), planes_i,
-        b_z + static_cast<size_t>(i) * 2 * c, gz, acts, rows, t_len, h, c, d};
-    wn_layer_gz_kernel<<<dim3(rt, ny), RT_THREADS, RT_SMEM, stream>>>(gzp);
+        operand({rows_of(aud_i, c, aud_rs, -d, kLo), rows_of(aud_i, c, aud_rs),
+                 rows_of(aud_i, c, aud_rs, d, kHi), rows_of(x, h, rh)}),
+        operand({rows_of(ga_next, c, 2 * rc), rows_of(gskip, c, rc)}), planes_i,
+        b_z + static_cast<size_t>(i) * 2 * c, gz, acts, rows, t_len, h, c, d, n_layers};
+    gz_kernel<<<dim3(rt, ny, runs), RT_THREADS, RT_SMEM, stream>>>(gzp);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
-    const WGrad rs{operand({rows_of(acts, c), ones()}),
-                   operand({rows_of(ga_next, c), rows_of(gskip, c)}), x, rows, t_len, d,
-                   split_rows};
-    e = wgrad(rs, partial, g_rs + static_cast<size_t>(i) * (c + 1) * 2 * c, stream);
+    const WGrad rs{operand({rows_of(acts, c, rc), ones()}),
+                   operand({rows_of(ga_next, c, 2 * rc), rows_of(gskip, c, rc)}), x, rows, t_len,
+                   d, split_rows};
+    e = wgrad(rs, partial, g_rs + static_cast<size_t>(i) * (c + 1) * 2 * c, grs_rs, runs, stream);
     if (e != cudaSuccess) return e;
-    const WGrad in{operand({rows_of(aud_i, c, -d, kLo), rows_of(aud_i, c), rows_of(aud_i, c, d, kHi),
-                            rows_of(x, h), ones()}),
-                   operand({rows_of(gz, 2 * c)}), x, rows, t_len, d, split_rows};
-    e = wgrad(in, partial, g_in + static_cast<size_t>(i) * k_in * 2 * c, stream);
+    const WGrad in{operand({rows_of(aud_i, c, aud_rs, -d, kLo), rows_of(aud_i, c, aud_rs),
+                            rows_of(aud_i, c, aud_rs, d, kHi), rows_of(x, h, rh), ones()}),
+                   operand({rows_of(gz, 2 * c, 2 * rc)}), x, rows, t_len, d, split_rows};
+    e = wgrad(in, partial, g_in + static_cast<size_t>(i) * k_in * 2 * c, gin_rs, runs, stream);
     if (e != cudaSuccess) return e;
     const GaArgs gap{
-        operand({rows_of(gz, 2 * c, d, kHi), rows_of(gz, 2 * c), rows_of(gz, 2 * c, -d, kLo)}),
-        operand({rows_of(gz, 2 * c)}), planes_i, ga_next, ga_out, gx, rows, t_len, h, c, d,
-        i == n_layers - 1, ny};
-    wn_layer_ga_kernel<<<dim3(rt, (1 + col_chunks(h)) * ny), RT_THREADS, RT_SMEM, stream>>>(gap);
+        operand({rows_of(gz, 2 * c, 2 * rc, d, kHi), rows_of(gz, 2 * c, 2 * rc),
+                 rows_of(gz, 2 * c, 2 * rc, -d, kLo)}),
+        operand({rows_of(gz, 2 * c, 2 * rc)}), planes_i, ga_next, ga_out, gx, rows, t_len, h, c, d,
+        i == n_layers - 1, ny, n_layers};
+    ga_kernel<<<dim3(rt, (1 + col_chunks(h)) * ny, runs), RT_THREADS, RT_SMEM, stream>>>(gap);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
     ga_next = ga_out;
   }
-  const WGrad st{operand({rows_of(x, h), ones()}), operand({rows_of(ga_next, c)}), x, rows,
-                 t_len, 1, split_rows};
-  e = wgrad(st, partial, g_start, stream);
+  const WGrad st{operand({rows_of(x, h, rh), ones()}), operand({rows_of(ga_next, c, 2 * rc)}), x,
+                 rows, t_len, 1, split_rows};
+  e = wgrad(st, partial, g_start, static_cast<long long>(h + 1) * c, runs, stream);
   if (e != cudaSuccess) return e;
-  return rowgemm(ga_next, w_start_t, nullptr, gx, rows, c, h, 1, stream);
+  return rowgemm(ga_next, 2 * rc, w_start_t, static_cast<long long>(c) * h, nullptr, 0, gx, rh,
+                 rows, c, h, 1, runs, stream);
 }
+

@@ -11,7 +11,8 @@ is channel-last: a, b are (..., 2n) and the result is (..., n).
 * ``GateCore`` is the ``autograd.Function``: the kernel for a CUDA tensor,
   the plain version for a CPU tensor, and the JAX package's ``_gate_bwd``
   (XLA there, no Pallas) in plain PyTorch as its backward, recomputing
-  ``a + b`` from the saved operands.
+  ``a + b`` from the saved operands.  It has no run axis yet, so it raises
+  under ``torch.func.vmap`` (multi-run training, ``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -93,16 +94,21 @@ def gate_fwd(a: torch.Tensor, b: torch.Tensor, n: int) -> torch.Tensor:
 
 class GateCore(torch.autograd.Function):
     """The gate: ``gate_fwd`` on CUDA, ``gate_plain`` on the CPU; the plain
-    backward of JAX's ``_gate_bwd``, the same gradient for a and b."""
+    backward of JAX's ``_gate_bwd``, the same gradient for a and b.  No run
+    axis yet: under ``torch.func.vmap`` it raises."""
 
     @staticmethod
-    def forward(ctx, a: torch.Tensor, b: torch.Tensor, n: int) -> torch.Tensor:
-        ctx.save_for_backward(a, b)
-        ctx.n = n
+    def forward(a: torch.Tensor, b: torch.Tensor, n: int) -> torch.Tensor:
         if not use_kernel(a):
             return gate_plain(a, b, n)
         # an operand with no row-strided view of its memory is copied first
         return gate_fwd(*(t if _rows(t, n) is not None else t.contiguous() for t in (a, b)), n)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        a, b, n = inputs
+        ctx.save_for_backward(a, b)
+        ctx.n = n
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
@@ -113,6 +119,12 @@ class GateCore(torch.autograd.Function):
         s = torch.sigmoid(x[..., n:])
         dx = torch.cat([g * (1.0 - t * t) * s, g * t * s * (1.0 - s)], dim=-1)
         return dx, dx, None
+
+    @staticmethod
+    def vmap(info, in_dims, a, b, n):
+        from .osconv import NO_RUN_AXIS
+
+        raise NotImplementedError(NO_RUN_AXIS.format("gate_fwd (GateCore)"))
 
 
 def fused_add_tanh_sigmoid_multiply(a: torch.Tensor, b: torch.Tensor, n: int) -> torch.Tensor:

@@ -14,10 +14,18 @@ import torch
 
 
 class GradientReversal(torch.autograd.Function):
+    """Identity forward, ``-coeff * g`` backward; its vmap rule is generated
+    (``torch.func.vmap`` over runs, ``train/multirun.py``)."""
+
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, x: torch.Tensor, coeff: float) -> torch.Tensor:
-        ctx.coeff = coeff
+    def forward(x: torch.Tensor, coeff: float) -> torch.Tensor:
         return x.view_as(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.coeff = inputs[1]
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):

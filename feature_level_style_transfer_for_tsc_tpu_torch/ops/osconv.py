@@ -31,6 +31,17 @@ as the JAX package's ``_conv_core`` custom VJP takes its backward from XLA
 convs outside any Pallas kernel.  ``os_conv_fused`` has no gradient and
 refuses inputs that require one.
 
+Runs (``train/multirun.py``): under ``torch.func.vmap`` over K independent
+runs, ``OSConvCore``'s vmap rule moves the run axis to the front and calls
+``OSConvRunCore`` once on ``x_pad (K, B, t_pad, C_in)`` and ``w (K, Kt,
+C_in, C_out)``: on CUDA ``os_conv_runs`` (``os_conv_fwd_runs``, the run on
+the kernel's grid: one launch set for the K runs, each run's bits those of
+a one-run call), its backward one grouped transposed conv (``groups=K``);
+on the CPU the plain version and the one-run backward run by run.  The
+fused path's ``OSConvFusedCore`` does the same for ``os_conv_fused_runs``
+(no gradient).  ``TapConvCore`` (the op-by-op WN route) has no run axis
+yet and raises under ``vmap``.
+
 The tap conv, the flow's dilated kernel-3 conv under
 ``FLSTTSC_CONV_IMPL=pallas`` (``conv_impl``, read per call):
 
@@ -61,8 +72,15 @@ import torch.nn.functional as F
 from ..structure import LayerSpec, mask_bounds
 from . import _build, use_kernel
 
-#: Launches of each kernel, counted by its wrapper where it launches.
-LAUNCHES = {"os_conv_fwd": 0, "os_conv_fused_fwd": 0, "tap_conv_fwd": 0}
+#: Launches of each kernel, counted by its wrapper where it launches; the
+#: ``_runs`` entries count the run-axis calls (one a call, whatever K).
+LAUNCHES = {"os_conv_fwd": 0, "os_conv_fused_fwd": 0, "tap_conv_fwd": 0,
+            "os_conv_fwd_runs": 0, "os_conv_fused_fwd_runs": 0}
+
+#: Why the op-by-op WN route refuses ``torch.func.vmap`` (multi-run training).
+NO_RUN_AXIS = ("{} has no run axis yet, so the op-by-op WN route (FLSTTSC_WN_FUSED=0) cannot "
+               "run under torch.func.vmap (train/multirun.py); ROADMAP.md queues its run axis. "
+               "Use the fused WN route (the default).")
 
 
 def reset_launch_counts() -> None:
@@ -209,10 +227,10 @@ def _lib() -> ctypes.CDLL:
     """Build (at first use) and bind ``csrc/os_conv.cu``."""
     lib = _build.load("os_conv")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.os_conv_fwd.argtypes = [p, p, p, p, i, i, i, i, i, p]
-    lib.os_conv_fwd.restype = i
-    lib.os_conv_fused_fwd.argtypes = [p, p, p, p, p, i, p, i, i, i, i, i, p]
-    lib.os_conv_fused_fwd.restype = i
+    lib.os_conv_fwd_runs.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+    lib.os_conv_fwd_runs.restype = i
+    lib.os_conv_fused_fwd_runs.argtypes = [p, p, p, p, p, i, p, i, i, i, i, i, i, p]
+    lib.os_conv_fused_fwd_runs.restype = i
     return lib
 
 
@@ -239,14 +257,15 @@ def _check_operands(x_pad: torch.Tensor, w: torch.Tensor, *vectors: torch.Tensor
     return (b, t_pad - k + 1, c_out)
 
 
-def _work(w: torch.Tensor) -> torch.Tensor:
+def _work(w: torch.Tensor, runs: int = 1) -> torch.Tensor:
     """The scratch of the tap GEMM's prep kernel (``csrc/tap_gemm.cuh``
-    ``work_words``): w's TF32 hi and lo planes, K x (C_in padded to 8) x
-    (C_out padded to 64) words each, then 2 ints a group of 8 columns for
-    the windows (K - lo, then hi)."""
-    k, c_in, c_out = w.shape
+    ``work_words``) for ``runs`` runs of w (K, C_in, C_out): each run's TF32
+    hi and lo planes, K x (C_in padded to 8) x (C_out padded to 64) words
+    each, then each run's 2 ints a group of 8 columns for the windows (K -
+    lo, then hi)."""
+    k, c_in, c_out = w.shape[-3:]
     words = 2 * k * (-(-c_in // 8) * 8) * (-(-c_out // 64) * 64) + 2 * -(-c_out // 8)
-    return torch.empty(words, device=w.device, dtype=torch.int32)
+    return torch.empty(runs * words, device=w.device, dtype=torch.int32)
 
 
 def _on(device: torch.device):
@@ -262,24 +281,41 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed with cudaError_t {err}")
 
 
+def _launch(name: str, x_pad: torch.Tensor, w: torch.Tensor, out_shape, runs: int,
+            epilogue=None) -> torch.Tensor:
+    """One ``os_conv_fwd_runs`` call, or ``os_conv_fused_fwd_runs`` with
+    ``epilogue`` = (scale, shift, relu), on checked operands with ``runs``
+    leading runs (none for a one-run call, which is the kernel's runs = 1),
+    counted as ``name``."""
+    lib = _lib()
+    y = torch.empty(out_shape, device=x_pad.device, dtype=torch.float32)
+    work = _work(w, runs)
+    dims = (runs, *x_pad.shape[-3:], w.shape[-3], w.shape[-1])
+    with _on(x_pad.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if epilogue is None:
+            err = lib.os_conv_fwd_runs(x_pad.data_ptr(), w.data_ptr(), work.data_ptr(),
+                                       y.data_ptr(), *dims, stream)
+        else:
+            scale, shift, relu = epilogue
+            err = lib.os_conv_fused_fwd_runs(x_pad.data_ptr(), w.data_ptr(), work.data_ptr(),
+                                             scale.data_ptr(), shift.data_ptr(), int(relu),
+                                             y.data_ptr(), *dims, stream)
+    LAUNCHES[name] += 1
+    _raise_on(err, name)
+    return y
+
+
+def _no_grad(name: str, *tensors: torch.Tensor) -> None:
+    if any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} has no gradient; call it under torch.inference_mode()")
+
+
 def os_conv(x_pad: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """VALID conv ``sum_j x_pad[:, t+j] @ w[j]``; kernel on CUDA, plain on CPU."""
     if not use_kernel(x_pad):
         return os_conv_plain(x_pad, w)
-    out_shape = _check_operands(x_pad, w)
-    lib = _lib()
-    y = torch.empty(out_shape, device=x_pad.device, dtype=torch.float32)
-    work = _work(w)
-    with _on(x_pad.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.os_conv_fwd(
-            x_pad.data_ptr(), w.data_ptr(), work.data_ptr(), y.data_ptr(),
-            x_pad.shape[0], x_pad.shape[1], x_pad.shape[2], w.shape[0], w.shape[2],
-            stream,
-        )
-    LAUNCHES["os_conv_fwd"] += 1
-    _raise_on(err, "os_conv_fwd")
-    return y
+    return _launch("os_conv_fwd", x_pad, w, _check_operands(x_pad, w), 1)
 
 
 def os_conv_fused(
@@ -291,28 +327,52 @@ def os_conv_fused(
 ) -> torch.Tensor:
     """``relu?(os_conv(x_pad, w) * scale + shift)`` with one store; kernel on
     CUDA, plain on CPU.  No gradient: inference only."""
-    if any(t.requires_grad for t in (x_pad, w, scale, shift)):
-        raise RuntimeError(
-            "os_conv_fused has no gradient; call it under torch.inference_mode()"
-        )
+    _no_grad("os_conv_fused", x_pad, w, scale, shift)
     if not use_kernel(x_pad):
         return os_conv_fused_plain(x_pad, w, scale, shift, relu)
-    out_shape = _check_operands(x_pad, w, scale, shift)
-    lib = _lib()
-    y = torch.empty(out_shape, device=x_pad.device, dtype=torch.float32)
-    work = _work(w)
-    with _on(x_pad.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.os_conv_fused_fwd(
-            x_pad.data_ptr(), w.data_ptr(), work.data_ptr(),
-            scale.data_ptr(), shift.data_ptr(),
-            int(relu), y.data_ptr(),
-            x_pad.shape[0], x_pad.shape[1], x_pad.shape[2], w.shape[0], w.shape[2],
-            stream,
-        )
-    LAUNCHES["os_conv_fused_fwd"] += 1
-    _raise_on(err, "os_conv_fused_fwd")
-    return y
+    return _launch("os_conv_fused_fwd", x_pad, w, _check_operands(x_pad, w, scale, shift), 1,
+                   (scale, shift, relu))
+
+
+def _check_runs(x_pad: torch.Tensor, w: torch.Tensor, *vectors: torch.Tensor):
+    """x_pad (K, B, t_pad, C_in), w (K, Kt, C_in, C_out) and (K, C_out)
+    vectors with one K: returns K and the output shape."""
+    if x_pad.dim() != 4 or w.dim() != 4 or x_pad.shape[0] != w.shape[0]:
+        raise ValueError(f"run shapes {tuple(x_pad.shape)} and {tuple(w.shape)} do not chain")
+    runs = x_pad.shape[0]
+    if any(v.dim() != 2 or v.shape[0] != runs for v in vectors):
+        raise ValueError(f"epilogue vectors {[tuple(v.shape) for v in vectors]} for {runs} runs")
+    out_shape = _check_operands(x_pad[0], w[0], *(v[0] for v in vectors))
+    for t in (x_pad, w) + vectors:
+        if not t.is_contiguous():
+            raise ValueError("the conv kernels take contiguous tensors")
+    if runs * x_pad.shape[1] > 65535:
+        raise ValueError(f"{runs} runs of batch {x_pad.shape[1]} exceed the grid")
+    return runs, (runs, *out_shape)
+
+
+def os_conv_runs(x_pad: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """K independent ``os_conv`` calls of one shape, x_pad (K, B, t_pad,
+    C_in) and w (K, Kt, C_in, C_out) -> (K, B, T, C_out): on CUDA one
+    ``os_conv_fwd_runs`` call (the kernel with the run on its grid), on the
+    CPU the plain version run by run."""
+    if not use_kernel(x_pad):
+        return torch.stack([os_conv_plain(xk, wk) for xk, wk in zip(x_pad, w)])
+    runs, out_shape = _check_runs(x_pad, w)
+    return _launch("os_conv_fwd_runs", x_pad, w, out_shape, runs)
+
+
+def os_conv_fused_runs(x_pad: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                       shift: torch.Tensor, relu: bool) -> torch.Tensor:
+    """K independent ``os_conv_fused`` calls of one shape (scale and shift
+    (K, C_out)): on CUDA one ``os_conv_fused_fwd_runs`` call, on the CPU the
+    plain version run by run.  No gradient: inference only."""
+    _no_grad("os_conv_fused_runs", x_pad, w, scale, shift)
+    if not use_kernel(x_pad):
+        return torch.stack([os_conv_fused_plain(*args, relu)
+                            for args in zip(x_pad, w, scale, shift)])
+    runs, out_shape = _check_runs(x_pad, w, scale, shift)
+    return _launch("os_conv_fused_fwd_runs", x_pad, w, out_shape, runs, (scale, shift, relu))
 
 
 def tap_conv_fwd(x_pad: torch.Tensor, w: torch.Tensor, dilation: int) -> torch.Tensor:
@@ -339,29 +399,118 @@ def tap_conv_fwd(x_pad: torch.Tensor, w: torch.Tensor, dilation: int) -> torch.T
 
 # ----------------------------------------------------------- gradient -----
 
+def _os_conv_bwd(x_pad, w, g, need_dx: bool, need_dw: bool):
+    """dx and dw of ``os_conv`` (None where not needed): the transposed
+    convs in torch's (N, C, T) layout."""
+    w_oik = w.permute(2, 1, 0)  # (C_out, C_in, K), torch's conv layout
+    g_ncw = g.transpose(1, 2)
+    dx = dw = None
+    if need_dx:
+        dx = torch.nn.grad.conv1d_input(
+            (x_pad.shape[0], x_pad.shape[2], x_pad.shape[1]), w_oik, g_ncw
+        ).transpose(1, 2)
+    if need_dw:
+        dw = torch.nn.grad.conv1d_weight(
+            x_pad.transpose(1, 2), w_oik.shape, g_ncw
+        ).permute(2, 1, 0)
+    return dx, dw
+
+
+def os_conv_runs_bwd_grouped(x_pad, w, g, need_dx: bool, need_dw: bool):
+    """dx and dw of ``os_conv_runs`` for all K runs at once: one transposed
+    conv each with ``groups=K`` over the runs' channels side by side,
+    x_pad (K, B, t_pad, C_in) -> (B, K*C_in, t_pad), w (K, Kt, C_in, C_out)
+    -> (K*C_out, C_in, Kt), g (K, B, T, C_out) -> (B, K*C_out, T)."""
+    runs, b, t_pad, c_in = x_pad.shape
+    _, k, _, c_out = w.shape
+    w_oik = w.permute(0, 3, 2, 1).reshape(runs * c_out, c_in, k)
+    g_ncw = g.permute(1, 0, 3, 2).reshape(b, runs * c_out, g.shape[2])
+    dx = dw = None
+    if need_dx:
+        dx = torch.nn.grad.conv1d_input((b, runs * c_in, t_pad), w_oik, g_ncw, groups=runs)
+        dx = dx.reshape(b, runs, c_in, t_pad).permute(1, 0, 3, 2)
+    if need_dw:
+        x_ncw = x_pad.permute(1, 0, 3, 2).reshape(b, runs * c_in, t_pad)
+        dw = torch.nn.grad.conv1d_weight(x_ncw, w_oik.shape, g_ncw, groups=runs)
+        dw = dw.reshape(runs, c_out, c_in, k).permute(0, 3, 2, 1)
+    return dx, dw
+
+
+def _runs_first(info, in_dims, *tensors):
+    """The vmap rule's operands with the run axis first and contiguous (an
+    operand that is not batched is expanded to every run)."""
+    out = []
+    for t, d in zip(tensors, in_dims):
+        t = t.movedim(d, 0) if d is not None else t.expand(info.batch_size, *t.shape)
+        out.append(t.contiguous())
+    return out
+
+
 class OSConvCore(torch.autograd.Function):
-    """``os_conv`` with the plain transposed conv as its backward."""
+    """``os_conv`` with the plain transposed conv as its backward; under
+    ``torch.func.vmap`` one ``OSConvRunCore`` call for all runs."""
 
     @staticmethod
-    def forward(ctx, x_pad: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        ctx.save_for_backward(x_pad, w)
+    def forward(x_pad: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return os_conv(x_pad, w)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         x_pad, w = ctx.saved_tensors
-        w_oik = w.permute(2, 1, 0)  # (C_out, C_in, K), torch's conv layout
-        g_ncw = g.transpose(1, 2)
-        dx = dw = None
-        if ctx.needs_input_grad[0]:
-            dx = torch.nn.grad.conv1d_input(
-                (x_pad.shape[0], x_pad.shape[2], x_pad.shape[1]), w_oik, g_ncw
-            ).transpose(1, 2)
-        if ctx.needs_input_grad[1]:
-            dw = torch.nn.grad.conv1d_weight(
-                x_pad.transpose(1, 2), w_oik.shape, g_ncw
-            ).permute(2, 1, 0)
-        return dx, dw
+        return _os_conv_bwd(x_pad, w, g, *ctx.needs_input_grad)
+
+    @staticmethod
+    def vmap(info, in_dims, x_pad, w):
+        return OSConvRunCore.apply(*_runs_first(info, in_dims, x_pad, w)), 0
+
+
+class OSConvRunCore(torch.autograd.Function):
+    """K runs of the conv, x_pad (K, B, t_pad, C_in) and w (K, Kt, C_in,
+    C_out): ``os_conv_runs`` forward; backward the grouped transposed conv
+    on CUDA, the one-run backward run by run on the CPU."""
+
+    @staticmethod
+    def forward(x_pad: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        return os_conv_runs(x_pad, w)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x_pad, w = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        if use_kernel(g):
+            return os_conv_runs_bwd_grouped(x_pad, w, g.contiguous(), *need)
+        per_run = [_os_conv_bwd(xk, wk, gk, *need) for xk, wk, gk in zip(x_pad, w, g)]
+        return tuple(torch.stack(d) if n else None for d, n in zip(zip(*per_run), need))
+
+
+class OSConvFusedCore(torch.autograd.Function):
+    """``os_conv_fused`` (no gradient) with a vmap rule: under
+    ``torch.func.vmap`` one ``os_conv_fused_runs`` call for all runs."""
+
+    @staticmethod
+    def forward(x_pad, w, scale, shift, relu: bool):
+        return os_conv_fused(x_pad, w, scale, shift, relu)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        raise RuntimeError("os_conv_fused has no gradient")
+
+    @staticmethod
+    def vmap(info, in_dims, x_pad, w, scale, shift, relu):
+        args = _runs_first(info, in_dims[:4], x_pad, w, scale, shift)
+        return os_conv_fused_runs(*args, relu), 0
 
 
 def _tap(x_pad: torch.Tensor, w: torch.Tensor, dilation: int) -> torch.Tensor:
@@ -372,13 +521,22 @@ def _tap(x_pad: torch.Tensor, w: torch.Tensor, dilation: int) -> torch.Tensor:
 
 
 class TapConvCore(torch.autograd.Function):
-    """The tap conv with the JAX package's hand-written backward."""
+    """The tap conv with the JAX package's hand-written backward; no run
+    axis yet (its vmap rule raises)."""
 
     @staticmethod
-    def forward(ctx, x_pad: torch.Tensor, w: torch.Tensor, dilation: int) -> torch.Tensor:
+    def forward(x_pad: torch.Tensor, w: torch.Tensor, dilation: int) -> torch.Tensor:
+        return _tap(x_pad, w, dilation)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x_pad, w, dilation = inputs
         ctx.save_for_backward(x_pad, w)
         ctx.dilation = dilation
-        return _tap(x_pad, w, dilation)
+
+    @staticmethod
+    def vmap(info, in_dims, x_pad, w, dilation):
+        raise NotImplementedError(NO_RUN_AXIS.format("tap_conv_fwd (TapConvCore)"))
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
@@ -432,7 +590,7 @@ def masked_os_conv(
         # fold bias into the shift: (conv + bias)*scale + shift
         eff_shift = bias * scale + (shift if shift is not None else 0.0)
         if fuse_epilogue_in_kernel():
-            return os_conv_fused(x_pad, w, scale.contiguous(), eff_shift, relu)
+            return OSConvFusedCore.apply(x_pad, w, scale.contiguous(), eff_shift, relu)
         y = OSConvCore.apply(x_pad, w) * scale + eff_shift
         return torch.relu(y) if relu else y
     y = OSConvCore.apply(x_pad, w) + bias

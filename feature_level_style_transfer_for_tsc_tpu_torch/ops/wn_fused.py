@@ -20,6 +20,13 @@ the ``autograd.Function`` over the stacked effective weights; like every op
 of the port it takes the kernels for a CUDA tensor and the plain versions
 for a CPU tensor.  ``stack_effective`` builds those weights from the
 weight-normed parameters in differentiable torch.
+
+Runs (``train/multirun.py``): under ``torch.func.vmap`` over K independent
+runs, ``WNCore``'s vmap rule calls ``WNRunCore`` once on ``x (K, B, T, H)``
+and the K-stacked effective weights: on CUDA ``wn_fwd_runs`` and
+``wn_bwd_runs`` (``csrc/wn_fused.cu`` with the run on a grid axis of every
+kernel: the launches of one run, each run's bits a one-run call's), on the
+CPU the plain versions run by run.
 """
 
 from __future__ import annotations
@@ -33,8 +40,9 @@ import torch.nn.functional as F
 
 from . import _build, use_kernel
 
-#: Launches of each host entry, counted by its wrapper where it launches.
-LAUNCHES = {"wn_fwd": 0, "wn_bwd": 0}
+#: Launches of each host entry, counted by its wrapper where it launches; the
+#: ``_runs`` entries count the run-axis calls (one a call, whatever K).
+LAUNCHES = {"wn_fwd": 0, "wn_bwd": 0, "wn_fwd_runs": 0, "wn_bwd_runs": 0}
 
 #: Input rows a stage of ``wn_bwd``'s weight-gradient kernel (``WG_RB`` in
 #: ``csrc/wn_fused.cu``); a row slice is a whole number of stages, which the
@@ -191,17 +199,19 @@ def _unpack(gx, g_in, g_rs, g_start, skip, g2):
     """``wn_bwd``'s outputs in ``wn_bwd_plain``'s order from the kernel's
     layouts: g_in (L, 3C+H+1, 2C) = per layer [gwi | gwc slice | gbi], g_rs
     (L, C+1, 2C) = [gwr | gbr], g_start (H+1, C) = [gws | gbs]; the end
-    projection's gradients are taken here, as the JAX package does."""
-    n_layers, k_in, c2 = g_in.shape
-    c, h = c2 // 2, g_start.shape[0] - 1
-    gbi = g_in[:, -1]
+    projection's gradients are taken here, as the JAX package does.  Every
+    tensor may carry leading run axes (``wn_bwd_runs``)."""
+    n_layers, k_in, c2 = g_in.shape[-3:]
+    lead = g_in.shape[:-3]
+    c, h = c2 // 2, g_start.shape[-2] - 1
+    gbi = g_in[..., -1, :]
     return (
-        gx, g_start[:h], g_start[h],
-        g_in[:, 3 * c : 3 * c + h].permute(1, 0, 2).reshape(h, n_layers * 2 * c),
-        gbi.reshape(-1),
-        g_in[:, : 3 * c].reshape(n_layers, 3, c, 2 * c), gbi,
-        g_rs[:, :c], g_rs[:, c],
-        skip.T @ g2, g2.sum(0),
+        gx, g_start[..., :h, :], g_start[..., h, :],
+        g_in[..., 3 * c : 3 * c + h, :].movedim(-2, -3).reshape(*lead, h, n_layers * 2 * c),
+        gbi.reshape(*lead, -1),
+        g_in[..., : 3 * c, :].reshape(*lead, n_layers, 3, c, 2 * c), gbi,
+        g_rs[..., :c, :], g_rs[..., c, :],
+        skip.transpose(-1, -2) @ g2, g2.sum(-2),
     )
 
 
@@ -212,14 +222,14 @@ def _lib() -> ctypes.CDLL:
     """Build (at first use) and bind ``csrc/wn_fused.cu``."""
     lib = _build.load("wn_fused")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.wn_fwd.argtypes = [p] * 15 + [i] * 5 + [p]
-    lib.wn_fwd.restype = i
     lib.wn_fwd_wsplit_words.argtypes = [i] * 3
     lib.wn_fwd_wsplit_words.restype = ctypes.c_size_t
-    lib.wn_bwd.argtypes = [p] * 19 + [i] * 6 + [p]
-    lib.wn_bwd.restype = i
     lib.wn_bwd_wsplit_words.argtypes = [i] * 3
     lib.wn_bwd_wsplit_words.restype = ctypes.c_size_t
+    lib.wn_fwd_runs.argtypes = [p] * 15 + [i] * 6 + [p]
+    lib.wn_fwd_runs.restype = i
+    lib.wn_bwd_runs.argtypes = [p] * 19 + [i] * 7 + [p]
+    lib.wn_bwd_runs.restype = i
     return lib
 
 
@@ -260,93 +270,209 @@ def _ptrs(*tensors):
     return [t.data_ptr() for t in tensors]
 
 
-def wn_fwd(x2, w_start, b_start, w_cond, b_cond, w_in, b_in, w_rs, b_rs, w_end, b_end,
-           t_len: int):
-    """The forward kernel; same contract as ``wn_fwd_plain``."""
-    n_layers, c = w_in.shape[0], w_in.shape[2]
-    b_z = (b_in + b_cond.reshape(n_layers, 2 * c)).contiguous()
+def _check_runs(x2: torch.Tensor, *weights: torch.Tensor) -> int:
+    """Every operand (K, ...) with one K, contiguous; returns K."""
+    runs = x2.shape[0]
+    for t in (x2,) + weights:
+        if t.shape[0] != runs:
+            raise ValueError(f"operands of {t.shape[0]} and {runs} runs")
+        if not t.is_contiguous():
+            raise ValueError("the wn kernels take contiguous tensors")
+    return runs
+
+
+def _launch_fwd(name, x2, w_start, b_start, w_cond, b_cond, w_in, b_in, w_rs, b_rs, w_end,
+                b_end, t_len: int):
+    """One ``wn_fwd_runs`` kernel call on K-leading operands (K = 1 for a
+    one-run call), counted as ``name``: (y (K, R, 2H), aud (K, L, R, C),
+    skip (K, R, C))."""
+    runs = _check_runs(x2, w_start, b_start, w_cond, b_cond, w_in, b_in, w_rs, b_rs, w_end,
+                       b_end)
+    n_layers, c = w_in.shape[1], w_in.shape[3]
+    b_z = (b_in + b_cond.reshape(runs, n_layers, 2 * c)).contiguous()
     ins = [x2, w_start, b_start, w_cond, b_z, w_in, w_rs, b_rs, w_end, b_end]
-    rows, h, c, n_layers = _check(x2, t_len, w_in, *ins)
+    rows, h, c, n_layers = _check(x2[0], t_len, w_in[0], *(t[0] for t in ins))
     lib = _lib()
     dev = x2.device
-    y = torch.empty(rows, 2 * h, device=dev)
-    aud = torch.empty(n_layers, rows, c, device=dev)
-    skip = torch.empty(rows, c, device=dev)
+    y = torch.empty(runs, rows, 2 * h, device=dev)
+    aud = torch.empty(runs, n_layers, rows, c, device=dev)
+    skip = torch.empty(runs, rows, c, device=dev)
     scratch = [
-        torch.empty(rows, c, device=dev),  # acts
-        torch.empty(lib.wn_fwd_wsplit_words(c, h, n_layers), dtype=torch.int32, device=dev),  # split weights
+        torch.empty(runs, rows, c, device=dev),  # acts
+        torch.empty(runs * lib.wn_fwd_wsplit_words(c, h, n_layers), dtype=torch.int32,
+                    device=dev),  # split weights
     ]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.wn_fwd(*_ptrs(*ins, y, aud, skip, *scratch), rows, t_len, h, c, n_layers, stream)
-    LAUNCHES["wn_fwd"] += 1
-    _raise_on(err, "wn_fwd")
+        err = lib.wn_fwd_runs(*_ptrs(*ins, y, aud, skip, *scratch), runs, rows, t_len, h, c,
+                              n_layers, stream)
+    LAUNCHES[name] += 1
+    _raise_on(err, name)
     return y, aud, skip
 
 
-def wn_bwd(x2, g2, aud, skip, w_start, w_cond, b_cond, w_in, b_in, w_rs, w_end, t_len: int):
-    """The backward kernel; same contract as ``wn_bwd_plain``."""
-    n_layers, _, c, _ = w_in.shape
-    h = x2.shape[1]
-    b_z = (b_in + b_cond.reshape(n_layers, 2 * c)).contiguous()
-    ins = [x2, g2, aud, w_cond, w_in, b_z, w_rs, w_start.T.contiguous(), w_end.T.contiguous()]
-    rows, h, c, n_layers = _check(x2, t_len, w_in, *ins)
-    if g2.shape != (rows, 2 * h) or aud.shape != (n_layers, rows, c):
+def _launch_bwd(name, x2, g2, aud, w_start, w_cond, b_cond, w_in, b_in, w_rs, w_end,
+                t_len: int):
+    """One ``wn_bwd_runs`` kernel call on K-leading operands (K = 1 for a
+    one-run call), counted as ``name``: the kernel's layouts (gx, g_in,
+    g_rs, g_start) with a leading K (``_unpack`` reads them).  The weight
+    gradients are per run, never summed across runs."""
+    runs = _check_runs(x2, g2, aud, w_start, w_cond, b_cond, w_in, b_in, w_rs, w_end)
+    n_layers, _, c, _ = w_in.shape[1:]
+    b_z = (b_in + b_cond.reshape(runs, n_layers, 2 * c)).contiguous()
+    ins = [x2, g2, aud, w_cond, w_in, b_z, w_rs, w_start.transpose(1, 2).contiguous(),
+           w_end.transpose(1, 2).contiguous()]
+    rows, h, c, n_layers = _check(x2[0], t_len, w_in[0], *(t[0] for t in ins))
+    if g2.shape[1:] != (rows, 2 * h) or aud.shape[1:] != (n_layers, rows, c):
         raise ValueError(f"g {tuple(g2.shape)} / aud {tuple(aud.shape)} do not match x")
     lib = _lib()
     dev = x2.device
     k_in = 3 * c + h + 1
     split = wgrad_split_rows(rows)
-    gx = torch.empty(rows, h, device=dev)
-    g_in = torch.empty(n_layers, k_in, 2 * c, device=dev)
-    g_rs = torch.empty(n_layers, c + 1, 2 * c, device=dev)
-    g_start = torch.empty(h + 1, c, device=dev)
+    gx = torch.empty(runs, rows, h, device=dev)
+    g_in = torch.empty(runs, n_layers, k_in, 2 * c, device=dev)
+    g_rs = torch.empty(runs, n_layers, c + 1, 2 * c, device=dev)
+    g_start = torch.empty(runs, h + 1, c, device=dev)
     scratch = [
-        torch.empty(2, rows, c, device=dev),  # g_audio, ping-pong
-        torch.empty(rows, c, device=dev),  # g_skip
-        torch.empty(rows, 2 * c, device=dev),  # g_z
-        torch.empty(rows, c, device=dev),  # acts
-        torch.empty(-(-rows // split) * k_in * 2 * c, device=dev),  # partial sums
-        torch.empty(lib.wn_bwd_wsplit_words(c, h, n_layers), dtype=torch.int32, device=dev),  # split weights
+        torch.empty(runs, 2, rows, c, device=dev),  # g_audio, ping-pong
+        torch.empty(runs, rows, c, device=dev),  # g_skip
+        torch.empty(runs, rows, 2 * c, device=dev),  # g_z
+        torch.empty(runs, rows, c, device=dev),  # acts
+        torch.empty(runs * -(-rows // split) * k_in * 2 * c, device=dev),  # partial sums
+        torch.empty(runs * lib.wn_bwd_wsplit_words(c, h, n_layers), dtype=torch.int32,
+                    device=dev),  # split weights
     ]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.wn_bwd(*_ptrs(*ins, gx, g_in, g_rs, g_start, *scratch),
-                         rows, t_len, h, c, n_layers, split, stream)
-    LAUNCHES["wn_bwd"] += 1
-    _raise_on(err, "wn_bwd")
-    return _unpack(gx, g_in, g_rs, g_start, skip, g2)
+        err = lib.wn_bwd_runs(*_ptrs(*ins, gx, g_in, g_rs, g_start, *scratch),
+                              runs, rows, t_len, h, c, n_layers, split, stream)
+    LAUNCHES[name] += 1
+    _raise_on(err, name)
+    return gx, g_in, g_rs, g_start
+
+
+def wn_fwd(x2, w_start, b_start, w_cond, b_cond, w_in, b_in, w_rs, b_rs, w_end, b_end,
+           t_len: int):
+    """The forward kernel; same contract as ``wn_fwd_plain``."""
+    ins = (x2, w_start, b_start, w_cond, b_cond, w_in, b_in, w_rs, b_rs, w_end, b_end)
+    return tuple(o[0] for o in _launch_fwd("wn_fwd", *(t[None] for t in ins), t_len))
+
+
+def wn_bwd(x2, g2, aud, skip, w_start, w_cond, b_cond, w_in, b_in, w_rs, w_end, t_len: int):
+    """The backward kernel; same contract as ``wn_bwd_plain``."""
+    ins = (x2, g2, aud, w_start, w_cond, b_cond, w_in, b_in, w_rs, w_end)
+    out = _launch_bwd("wn_bwd", *(t[None] for t in ins), t_len)
+    return _unpack(*(o[0] for o in out), skip, g2)
+
+
+def wn_fwd_runs(x2, w_start, b_start, w_cond, b_cond, w_in, b_in, w_rs, b_rs, w_end, b_end,
+                t_len: int):
+    """K independent ``wn_fwd`` calls of one geometry in one kernel call: x2
+    (K, R, H) and every weight with a leading K -> (y (K, R, 2H), aud (K, L,
+    R, C), skip (K, R, C))."""
+    return _launch_fwd("wn_fwd_runs", x2, w_start, b_start, w_cond, b_cond, w_in, b_in, w_rs,
+                       b_rs, w_end, b_end, t_len)
+
+
+def wn_bwd_runs(x2, g2, aud, skip, w_start, w_cond, b_cond, w_in, b_in, w_rs, w_end,
+                t_len: int):
+    """K independent ``wn_bwd`` calls of one geometry in one kernel call;
+    every operand and gradient with a leading K."""
+    out = _launch_bwd("wn_bwd_runs", x2, g2, aud, w_start, w_cond, b_cond, w_in, b_in, w_rs,
+                      w_end, t_len)
+    return _unpack(*out, skip, g2)
+
+
+def _per_run(fn, *args):
+    """``fn`` run by run over the leading axis of every tensor argument (the
+    last argument, T, is shared), each output stacked."""
+    outs = [fn(*(a[k] for a in args[:-1]), args[-1]) for k in range(args[0].shape[0])]
+    return tuple(torch.stack(o) for o in zip(*outs))
 
 
 # ------------------------------------------------------------ the op ------
 
 class WNCore(torch.autograd.Function):
-    """The WN on stacked effective weights: kernels on CUDA, plain on CPU."""
+    """The WN on stacked effective weights: kernels on CUDA, plain on CPU.
+    Returns (y, aud, skip); aud and skip, the saved activations, carry no
+    gradient.  Under ``torch.func.vmap`` one ``WNRunCore`` call for all
+    runs."""
 
     @staticmethod
-    def forward(ctx, x, w_start, b_start, w_cond, b_cond, w_in, b_in, w_rs, b_rs, w_end, b_end):
+    def forward(x, w_start, b_start, w_cond, b_cond, w_in, b_in, w_rs, b_rs, w_end, b_end):
         b, t, h = x.shape
         x2 = x.reshape(b * t, h).contiguous()
         fwd = wn_fwd if use_kernel(x2) else wn_fwd_plain
         y, aud, skip = fwd(x2, w_start, b_start, w_cond, b_cond, w_in, b_in, w_rs, b_rs,
                            w_end, b_end, t)
-        ctx.save_for_backward(x2, w_start, w_cond, b_cond, w_in, b_in, w_rs, w_end, aud, skip)
-        ctx.shape = (b, t, h)
-        return y.reshape(b, t, 2 * h)
+        return y.reshape(b, t, 2 * h), aud, skip
 
     @staticmethod
-    def backward(ctx, g):
-        b, t, h = ctx.shape
-        x2, w_start, w_cond, b_cond, w_in, b_in, w_rs, w_end, aud, skip = ctx.saved_tensors
+    def setup_context(ctx, inputs, output):
+        x, w_start, _, w_cond, b_cond, w_in, b_in, w_rs, _, w_end, _ = inputs
+        _, aud, skip = output
+        ctx.mark_non_differentiable(aud, skip)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, w_start, w_cond, b_cond, w_in, b_in, w_rs, w_end, aud, skip)
+
+    @staticmethod
+    def backward(ctx, g, _g_aud, _g_skip):
+        x, w_start, w_cond, b_cond, w_in, b_in, w_rs, w_end, aud, skip = ctx.saved_tensors
+        if g is None:
+            return (None,) * 11
+        b, t, h = x.shape
+        x2 = x.reshape(b * t, h).contiguous()
         g2 = g.reshape(b * t, 2 * h).contiguous()
         bwd = wn_bwd if use_kernel(g2) else wn_bwd_plain
         gx, *grads = bwd(x2, g2, aud, skip, w_start, w_cond, b_cond, w_in, b_in, w_rs,
                          w_end, t)
         return (gx.reshape(b, t, h), *grads)
 
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        from .osconv import _runs_first
+
+        return WNRunCore.apply(*_runs_first(info, in_dims, *args)), (0, 0, 0)
+
+
+class WNRunCore(torch.autograd.Function):
+    """K runs of the WN, x (K, B, T, H) and K-stacked effective weights:
+    ``wn_fwd_runs`` / ``wn_bwd_runs`` on CUDA, the plain versions run by run
+    on the CPU.  Returns (y, aud, skip) with a leading K."""
+
+    @staticmethod
+    def forward(x, *weights):
+        runs, b, t, h = x.shape
+        x2 = x.reshape(runs, b * t, h).contiguous()
+        if use_kernel(x2):
+            y, aud, skip = wn_fwd_runs(x2, *weights, t)
+        else:
+            y, aud, skip = _per_run(wn_fwd_plain, x2, *weights, t)
+        return y.reshape(runs, b, t, 2 * h), aud, skip
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w_start, _, w_cond, b_cond, w_in, b_in, w_rs, _, w_end, _ = inputs
+        _, aud, skip = output
+        ctx.mark_non_differentiable(aud, skip)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, w_start, w_cond, b_cond, w_in, b_in, w_rs, w_end, aud, skip)
+
+    @staticmethod
+    def backward(ctx, g, _g_aud, _g_skip):
+        x, w_start, w_cond, b_cond, w_in, b_in, w_rs, w_end, aud, skip = ctx.saved_tensors
+        if g is None:
+            return (None,) * 11
+        runs, b, t, h = x.shape
+        x2 = x.reshape(runs, b * t, h).contiguous()
+        g2 = g.reshape(runs, b * t, 2 * h).contiguous()
+        args = (x2, g2, aud, skip, w_start, w_cond, b_cond, w_in, b_in, w_rs, w_end, t)
+        gx, *grads = wn_bwd_runs(*args) if use_kernel(g2) else _per_run(wn_bwd_plain, *args)
+        return (gx.reshape(runs, b, t, h), *grads)
+
 
 def wn_apply_fused(params: Dict, x: torch.Tensor, weight_norm_weight) -> torch.Tensor:
     """The coupling net x (B, T, n_half) -> (B, T, 2*n_half) through ``WNCore``
     (reference geometry: kernel 3, dilation 2**i)."""
     eff = [t.contiguous() for t in stack_effective(params, weight_norm_weight)]
-    return WNCore.apply(x.float(), *eff)
+    return WNCore.apply(x.float(), *eff)[0]

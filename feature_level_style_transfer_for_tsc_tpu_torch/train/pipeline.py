@@ -25,6 +25,12 @@ elimination of the zero seeds).
 Randomness (batch order, CPC anchors, CDAN dropout) comes from
 ``torch.Generator``s; the anchors and dropout masks can be pinned per call.
 
+Each phase's step is a pure forward ``_phaseN_forward(params, mstate,
+consts, batch..., anchors[, masks]) -> (losses, new mstate)`` that draws
+nothing; the epoch draws the anchors (and phase 5 the dropout masks) and
+takes the gradient.  ``train/multirun.py`` runs the same forwards under
+``torch.func.vmap`` over K stacked runs.
+
 The flow's coupling nets are reached only through ``waveglow_forward_pair``
 (phases 4 and 5) and ``waveglow_infer`` (phase 5's s2t pass), which call
 ``models.flow.wn_apply`` per flow step.  It picks its route per call, as
@@ -87,6 +93,15 @@ STEPLR_MODULES = ("t_ext", "t_cls", "s_ext", "dim_uni", "s_cls", "noise", "cpc")
 PLATEAU_MODULES = ("prob_trans", "nf", "ad", "fd")
 ALL_MODULES = ("t_ext", "t_cls", "s_ext", "dim_uni", "s_cls", "prob_trans",
                "nf", "noise", "ad", "fd", "cpc")
+#: the metrics of a phase-3 and a phase-4 epoch, in the JAX package's order
+PHASE3_METRICS = ("t_c_loss", "t_sl_loss", "s_c_loss", "s_sl_loss")
+PHASE4_METRICS = ("t_nf_loss", "s_nf_loss", "t_c_loss", "s_c_loss")
+#: the losses GradNorm weighs: the target group, then the source group
+GRADNORM_LOSSES = ("t_nf", "t_c", "s_nf", "s_c", "s2t2s_c")
+#: phase 5's StepLR modules, and its plateau modules with the loss each reads
+#: (the epoch's last step's)
+PHASE5_STEPLR = ("t_ext", "t_cls", "cpc", "s_ext", "dim_uni", "s_cls", "noise")
+PHASE5_PLATEAU = (("prob_trans", "s2t2s_c"), ("nf", "t_nf"), ("ad", "cdan"), ("fd", "fd"))
 #: the feature sets dumped for t-SNE (reference train_and_test.py:792-797)
 FEATURE_KEYS = ("t_feat", "s2t_feat", "s_feat", "s_pool", "t2s_pool", "s2t2s_pool")
 
@@ -289,108 +304,164 @@ class StyleTransferPipeline(TargetPredictor, ModuleSteps):
 
     # ------------------------------------------------------------ phases ---
 
+    @staticmethod
+    def _epoch_means(outs: Sequence[Dict], keys: Sequence[str]) -> Dict:
+        """Each key's mean over an epoch's steps (leading run axes kept)."""
+        m = torch.stack([torch.stack([o[k] for k in keys]) for o in outs]).mean(0)
+        return {k: m[i] for i, k in enumerate(keys)}
+
+    def _phase1_forward(self, params, mstate, consts, x, y, anchors):
+        """Target pretrain step (reference :141-180): CE_t + CPC_t."""
+        feat, t_ext_s = self.target_features(params, mstate, x, True)
+        sl = cpc_apply(params["cpc"], feat, anchors[0])
+        logits, _, t_cls_s = self.classify_target(params, mstate, feat, True)
+        ce = cross_entropy(logits, y)
+        losses = {"t_c_loss": ce, "t_sl_loss": sl, "total": ce + sl}
+        return losses, {**mstate, "t_ext": t_ext_s, "t_cls": t_cls_s}
+
     def phase1_epoch(self, state: Dict, xb, yb, cpc_anchor: Optional[int] = None) -> Dict:
         """Target pretrain (reference :141-180): CE_t + CPC_t."""
         names = ("t_ext", "t_cls", "cpc")
-        ces, sls = [], []
+        outs = []
         for x, y in zip(xb, yb):
-            params, mstate = state["params"], state["mstate"]
             x, y = _batch(x, self.device), _batch(y, self.device, torch.long)
-            feat, t_ext_s = self.target_features(params, mstate, x, True)
-            anchor = draw_anchor(params["cpc"], state["generator"]) if cpc_anchor is None else cpc_anchor
-            sl = cpc_apply(params["cpc"], feat, anchor)
-            logits, _, t_cls_s = self.classify_target(params, mstate, feat, True)
-            ce = cross_entropy(logits, y)
-            self._train_step(state, ce + sl, {**mstate, "t_ext": t_ext_s, "t_cls": t_cls_s}, names)
-            ces.append(ce.detach())
-            sls.append(sl.detach())
+            anchor = (draw_anchor(state["params"]["cpc"], state["generator"]) if cpc_anchor is None
+                      else cpc_anchor)
+            losses, new_m = self._phase1_forward(state["params"], state["mstate"], state["consts"],
+                                                 x, y, (anchor,))
+            self._train_step(state, losses["total"], new_m, names)
+            outs.append(detached(losses))
         self._step_steplr(state, names)
-        return {"t_c_loss": torch.stack(ces).mean(), "t_sl_loss": torch.stack(sls).mean()}
+        return self._epoch_means(outs, ("t_c_loss", "t_sl_loss"))
+
+    def _phase2_forward(self, params, mstate, consts, x, y):
+        """Source pretrain step (reference :181-220): CE_s."""
+        feat, s_ext_s = self.source_features(params, mstate, x, True)
+        logits, _, s_cls_s = self.classify_source(params, mstate, feat, True)
+        ce = cross_entropy(logits, y)
+        return {"s_c_loss": ce, "total": ce}, {**mstate, "s_ext": s_ext_s, "s_cls": s_cls_s}
 
     def phase2_epoch(self, state: Dict, xb, yb) -> Dict:
         """Source pretrain (reference :181-220): CE_s."""
         names = ("s_ext", "dim_uni", "s_cls")
-        ces = []
+        outs = []
         for x, y in zip(xb, yb):
-            params, mstate = state["params"], state["mstate"]
             x, y = _batch(x, self.device), _batch(y, self.device, torch.long)
-            feat, s_ext_s = self.source_features(params, mstate, x, True)
-            logits, _, s_cls_s = self.classify_source(params, mstate, feat, True)
-            ce = cross_entropy(logits, y)
-            self._train_step(state, ce, {**mstate, "s_ext": s_ext_s, "s_cls": s_cls_s}, names)
-            ces.append(ce.detach())
+            losses, new_m = self._phase2_forward(state["params"], state["mstate"], state["consts"],
+                                                 x, y)
+            self._train_step(state, losses["total"], new_m, names)
+            outs.append(detached(losses))
         self._step_steplr(state, names)
-        return {"s_c_loss": torch.stack(ces).mean()}
+        return self._epoch_means(outs, ("s_c_loss",))
 
-    def _both_sides(self, params, mstate, bt, lt, bs, ls, generator, cpc_anchors):
+    def _both_sides(self, params, mstate, bt, lt, bs, ls, anchors):
         """The supervised joint forward of phases 3 and 4."""
         new_m = dict(mstate)
         t_feat, new_m["t_ext"] = self.target_features(params, mstate, bt, True)
         t_logits, _, new_m["t_cls"] = self.classify_target(params, mstate, t_feat, True)
         s_feat, new_m["s_ext"] = self.source_features(params, mstate, bs, True)
-        t_sl, s_sl = cpc_apply_pair(params["cpc"], t_feat, s_feat, generator, cpc_anchors)
+        t_sl, s_sl = cpc_apply_pair(params["cpc"], t_feat, s_feat, anchors=anchors)
         s_logits, _, new_m["s_cls"] = self.classify_source(params, mstate, s_feat, True)
         return t_feat, s_feat, cross_entropy(t_logits, lt), t_sl, cross_entropy(s_logits, ls), s_sl, new_m
+
+    @staticmethod
+    def _pair_anchors(state: Dict, cpc_anchors):
+        """Phases 3-5's two CPC anchors: pinned, or drawn from the state's
+        generator (target first)."""
+        if cpc_anchors is not None:
+            return cpc_anchors
+        g = state["generator"]
+        return draw_anchor(state["params"]["cpc"], g), draw_anchor(state["params"]["cpc"], g)
+
+    def _phase3_forward(self, params, mstate, consts, bt, lt, bs, ls, anchors, supervised: bool):
+        """Joint self-supervised step (reference :221-363): CPC_t + CPC_s,
+        plus 0.8 CE_t + 1.2 CE_s when supervised."""
+        _, _, t_ce, t_sl, s_ce, s_sl, new_m = self._both_sides(params, mstate, bt, lt, bs, ls,
+                                                               anchors)
+        total = t_sl + s_sl + (0.8 * t_ce + 1.2 * s_ce if supervised else 0.0)
+        losses = {"t_c_loss": t_ce, "t_sl_loss": t_sl, "s_c_loss": s_ce, "s_sl_loss": s_sl,
+                  "total": total}
+        return losses, new_m
+
+    @staticmethod
+    def _phase3_names(supervised: bool):
+        return (("t_ext", "t_cls", "cpc", "s_ext", "dim_uni", "s_cls") if supervised
+                else ("t_ext", "cpc", "s_ext", "dim_uni"))
 
     def phase3_epoch(self, state: Dict, xt, yt, xs, ys, supervised: bool,
                      cpc_anchors: Optional[Sequence[int]] = None) -> Dict:
         """Joint self-supervised (reference :221-363): CPC_t + CPC_s, plus
         0.8 CE_t + 1.2 CE_s when supervised (heads frozen otherwise)."""
-        names = (("t_ext", "t_cls", "cpc", "s_ext", "dim_uni", "s_cls") if supervised
-                 else ("t_ext", "cpc", "s_ext", "dim_uni"))
-        out = []
+        names = self._phase3_names(supervised)
+        outs = []
         for bt, lt, bs, ls in zip(xt, yt, xs, ys):
-            params, mstate = state["params"], state["mstate"]
             bt, bs = _batch(bt, self.device), _batch(bs, self.device)
             lt, ls = _batch(lt, self.device, torch.long), _batch(ls, self.device, torch.long)
-            _, _, t_ce, t_sl, s_ce, s_sl, new_m = self._both_sides(
-                params, mstate, bt, lt, bs, ls, state["generator"], cpc_anchors
+            losses, new_m = self._phase3_forward(
+                state["params"], state["mstate"], state["consts"], bt, lt, bs, ls,
+                self._pair_anchors(state, cpc_anchors), supervised,
             )
-            total = t_sl + s_sl + (0.8 * t_ce + 1.2 * s_ce if supervised else 0.0)
-            self._train_step(state, total, new_m, names)
-            out.append(torch.stack([t_ce, t_sl, s_ce, s_sl]).detach())
+            self._train_step(state, losses["total"], new_m, names)
+            outs.append(detached(losses))
         self._step_steplr(state, names)
-        m = torch.stack(out).mean(0)
-        return {"t_c_loss": m[0], "t_sl_loss": m[1], "s_c_loss": m[2], "s_sl_loss": m[3]}
+        return self._epoch_means(outs, PHASE3_METRICS)
+
+    def _phase4_forward(self, params, mstate, consts, bt, lt, bs, ls, anchors, supervised: bool):
+        """NF pretrain step (reference :374-494): the flow NLL on detached
+        features, or joint with 5 CE + 3 CPC when supervised."""
+        if supervised:
+            t_feat, s_feat, t_ce, t_sl, s_ce, s_sl, new_m = self._both_sides(
+                params, mstate, bt, lt, bs, ls, anchors
+            )
+        else:
+            new_m = dict(mstate)
+            t_feat, new_m["t_ext"] = self.target_features(params, mstate, bt, True)
+            s_feat, new_m["s_ext"] = self.source_features(params, mstate, bs, True)
+            t_feat, s_feat = t_feat.detach(), s_feat.detach()
+        t_out, s_out = waveglow_forward_pair(params["nf"], t_feat, s_feat,
+                                             self.config.flow.wn_channels, self.log_s_clamp)
+        t_nf, s_nf = waveglow_loss(t_out), waveglow_loss(s_out)
+        if supervised:
+            total = t_nf + s_nf + 5 * t_ce + 5 * s_ce + 3 * t_sl + 3 * s_sl
+        else:
+            t_ce = s_ce = torch.zeros_like(t_nf)
+            total = t_nf + s_nf
+        losses = {"t_nf_loss": t_nf, "s_nf_loss": s_nf, "t_c_loss": t_ce, "s_c_loss": s_ce,
+                  "total": total}
+        return losses, new_m
+
+    @staticmethod
+    def _phase4_names(supervised: bool):
+        """(modules stepped, modules whose StepLR counts the epoch)."""
+        # the reference also steps t_ext/s_ext/dim_uni in the unsupervised
+        # branch, but their grads are None after the detach (:483-489)
+        if supervised:
+            return (("t_ext", "t_cls", "s_ext", "dim_uni", "s_cls", "nf", "cpc"),
+                    ("t_ext", "t_cls", "s_ext", "dim_uni", "s_cls", "cpc"))
+        return ("nf",), ("t_ext", "s_ext", "dim_uni")
+
+    @staticmethod
+    def _phase4_plateau_metric(last: Dict):
+        """The nf plateau steps with the LAST batch's total (:444,:494)."""
+        return last["t_nf_loss"] + last["s_nf_loss"] + 5 * last["t_c_loss"] + 5 * last["s_c_loss"]
 
     def phase4_epoch(self, state: Dict, xt, yt, xs, ys, supervised: bool,
                      cpc_anchors: Optional[Sequence[int]] = None) -> Dict:
         """NF pretrain (reference :374-494): the flow NLL on detached
         features, or joint with 5 CE + 3 CPC when supervised."""
-        wn_ch = self.config.flow.wn_channels
-        # the reference also steps t_ext/s_ext/dim_uni in the unsupervised
-        # branch, but their grads are None after the detach (:483-489)
-        names = (("t_ext", "t_cls", "s_ext", "dim_uni", "s_cls", "nf", "cpc") if supervised
-                 else ("nf",))
-        out = []
+        names, steplr = self._phase4_names(supervised)
+        outs = []
         for bt, lt, bs, ls in zip(xt, yt, xs, ys):
-            params, mstate = state["params"], state["mstate"]
             bt, bs = _batch(bt, self.device), _batch(bs, self.device)
             lt, ls = _batch(lt, self.device, torch.long), _batch(ls, self.device, torch.long)
-            if supervised:
-                t_feat, s_feat, t_ce, t_sl, s_ce, s_sl, new_m = self._both_sides(
-                    params, mstate, bt, lt, bs, ls, state["generator"], cpc_anchors
-                )
-            else:
-                new_m = dict(mstate)
-                t_feat, new_m["t_ext"] = self.target_features(params, mstate, bt, True)
-                s_feat, new_m["s_ext"] = self.source_features(params, mstate, bs, True)
-                t_feat, s_feat = t_feat.detach(), s_feat.detach()
-            t_out, s_out = waveglow_forward_pair(params["nf"], t_feat, s_feat, wn_ch, self.log_s_clamp)
-            t_nf, s_nf = waveglow_loss(t_out), waveglow_loss(s_out)
-            if supervised:
-                total = t_nf + s_nf + 5 * t_ce + 5 * s_ce + 3 * t_sl + 3 * s_sl
-            else:
-                t_ce = s_ce = torch.zeros((), device=self.device)
-                total = t_nf + s_nf
-            self._train_step(state, total, new_m, names)
-            out.append(torch.stack([t_nf, s_nf, t_ce, s_ce]).detach())
-        self._step_steplr(state, ("t_ext", "t_cls", "s_ext", "dim_uni", "s_cls", "cpc")
-                          if supervised else ("t_ext", "s_ext", "dim_uni"))
-        last = out[-1]  # the nf plateau steps with the LAST batch's total (:444,:494)
-        self._step_plateau(state, "nf", float(last[0] + last[1] + 5 * last[2] + 5 * last[3]))
-        m = torch.stack(out).mean(0)
-        return {"t_nf_loss": m[0], "s_nf_loss": m[1], "t_c_loss": m[2], "s_c_loss": m[3]}
+            anchors = self._pair_anchors(state, cpc_anchors) if supervised else None
+            losses, new_m = self._phase4_forward(state["params"], state["mstate"], state["consts"],
+                                                 bt, lt, bs, ls, anchors, supervised)
+            self._train_step(state, losses["total"], new_m, names)
+            outs.append(detached(losses))
+        self._step_steplr(state, steplr)
+        self._step_plateau(state, "nf", float(self._phase4_plateau_metric(outs[-1])))
+        return self._epoch_means(outs, PHASE4_METRICS)
 
     def _phase5_forward(self, params, mstate, consts, bt, lt, bs, ls,
                         generator: Optional[torch.Generator] = None,
@@ -457,30 +528,46 @@ class StyleTransferPipeline(TargetPredictor, ModuleSteps):
         Returns (losses, new_m, feats, grads of the total per module, n_t
         (2,), n_s (3,)): ``n_t`` from the t_nf+t_c pulls on the t_ext trunk,
         ``n_s`` from the s_nf+s_c and s2t2s_c pulls on the s_ext trunk."""
-        params = state["params"]
-        gn = state["gradnorm"]
         losses, new_m, feats = self._phase5_forward(
-            params, state["mstate"], state["consts"], bt, lt, bs, ls, state["generator"],
+            state["params"], state["mstate"], state["consts"], bt, lt, bs, ls, state["generator"],
             cpc_anchors, dropout_masks,
         )
-        loss_t = torch.stack([losses["t_nf"], losses["t_c"]])
-        loss_s = torch.stack([losses["s_nf"], losses["s_c"], losses["s2t2s_c"]])
+        return (losses, new_m, feats) + self._phase5_pulls(state, losses, epoch)
+
+    def _phase5_pulls(self, state: Dict, losses: Dict, epoch: int, per_run: bool = False):
+        """The weighted total's gradients per module and the GradNorm trunk
+        norms (n_t, n_s) of ``losses``.  ``per_run``: the losses are (K,),
+        one a run of stacked parameters (``train/multirun.py``); the total is
+        their sum, whose gradient in each run's slice is that run's (the runs
+        share nothing), and each norm is taken per run, over every axis but
+        the first."""
+        params = state["params"]
+        gn = state["gradnorm"]
+        loss_t = torch.stack([losses["t_nf"], losses["t_c"]], dim=-1)
+        loss_s = torch.stack([losses["s_nf"], losses["s_c"], losses["s2t2s_c"]], dim=-1)
         w = self._staged_weights(epoch)
         total = (
-            torch.sum(gn["t"].weights.clone() * loss_t) + torch.sum(gn["s"].weights.clone() * loss_s)
+            torch.sum(gn["t"].weights.clone() * loss_t, dim=-1)
+            + torch.sum(gn["s"].weights.clone() * loss_s, dim=-1)
             + w[0] * losses["cdan"] + w[1] * losses["fd"] + w[2] * losses["t_sl"]
             + w[3] * losses["s_sl"]
-        )
+        ).sum()
         grads = self._grads(total, state, ALL_MODULES, retain_graph=True)
         t_trunk = leaves(params["t_ext"]["block"])
         s_trunk = leaves(params["s_ext"]["block"])
 
+        def norm(x):
+            if not per_run:
+                return torch.linalg.vector_norm(x)
+            return torch.linalg.vector_norm(x.reshape(x.shape[0], -1), dim=1)
+
         def norms(outputs, trunks, retain=True):
+            outputs = [o.sum() for o in (outputs if isinstance(outputs, list) else [outputs])]
             g = torch.autograd.grad(outputs, [p for t in trunks for p in t],
                                     retain_graph=retain, allow_unused=True)
             out, j = [], 0
             for t in trunks:
-                out.append(sum(torch.linalg.vector_norm(x) for x in g[j : j + len(t)] if x is not None))
+                out.append(sum(norm(x) for x in g[j : j + len(t)] if x is not None))
                 j += len(t)
             return out
 
@@ -489,27 +576,32 @@ class StyleTransferPipeline(TargetPredictor, ModuleSteps):
         n_nf_t, n_nf_s = norms([losses["t_nf"], losses["s_nf"]], (t_trunk, s_trunk))
         n_c_t, n_c_s = norms([losses["t_c"], losses["s_c"]], (t_trunk, s_trunk))
         (n_5_s,) = norms(losses["s2t2s_c"], (s_trunk,), retain=False)
-        n_t = torch.stack([n_nf_t, n_c_t]).detach()
-        n_s = torch.stack([n_nf_s, n_c_s, n_5_s]).detach()
-        return losses, new_m, feats, grads, n_t, n_s
+        n_t = torch.stack([n_nf_t, n_c_t], dim=-1).detach()
+        n_s = torch.stack([n_nf_s, n_c_s, n_5_s], dim=-1).detach()
+        return grads, n_t, n_s
 
-    def phase5_step(self, state: Dict, bt, lt, bs, ls, epoch: int,
-                    cpc_anchors: Optional[Sequence[int]] = None, dropout_masks=None):
-        """One joint step: pulls, GradNorm, all 11 module updates, WGAN clip.
-        Returns (losses, feats), detached."""
+    def _phase5_update(self, state: Dict, losses: Dict, new_m: Dict, grads, n_t, n_s) -> None:
+        """GradNorm, all 11 module updates, the WGAN clip and the new model
+        state, from one step's pulls (leading run axes kept throughout)."""
         cfg = self.config
-        losses, new_m, feats, grads, n_t, n_s = self.phase5_grads(
-            state, bt, lt, bs, ls, epoch, cpc_anchors, dropout_masks
-        )
-        vec = torch.stack([losses[k] for k in ("t_nf", "t_c", "s_nf", "s_c", "s2t2s_c")]).detach()
-        gradnorm_step(state["gradnorm"]["t"], vec[:2], n_t, alpha=cfg.gradnorm.alpha,
+        vec = torch.stack([losses[k] for k in GRADNORM_LOSSES], dim=-1).detach()
+        gradnorm_step(state["gradnorm"]["t"], vec[..., :2], n_t, alpha=cfg.gradnorm.alpha,
                       weight_sum=cfg.gradnorm.weights_t_sum)
-        gradnorm_step(state["gradnorm"]["s"], vec[2:], n_s, alpha=cfg.gradnorm.alpha,
+        gradnorm_step(state["gradnorm"]["s"], vec[..., 2:], n_s, alpha=cfg.gradnorm.alpha,
                       weight_sum=cfg.gradnorm.weights_s_sum)
         self._apply_updates(state, ALL_MODULES, grads)
         clip_params(leaves(state["params"]["ad"]), cfg.optim.ad_net_clip)
         clip_params(leaves(state["params"]["fd"]), cfg.optim.feat_disc_clip)
         state["mstate"] = detached(new_m)
+
+    def phase5_step(self, state: Dict, bt, lt, bs, ls, epoch: int,
+                    cpc_anchors: Optional[Sequence[int]] = None, dropout_masks=None):
+        """One joint step: pulls, GradNorm, all 11 module updates, WGAN clip.
+        Returns (losses, feats), detached."""
+        losses, new_m, feats, grads, n_t, n_s = self.phase5_grads(
+            state, bt, lt, bs, ls, epoch, cpc_anchors, dropout_masks
+        )
+        self._phase5_update(state, losses, new_m, grads, n_t, n_s)
         return ({k: v.detach() for k, v in losses.items()},
                 {k: v.detach() for k, v in feats.items()})
 
@@ -524,12 +616,10 @@ class StyleTransferPipeline(TargetPredictor, ModuleSteps):
                 _batch(bs, self.device), _batch(ls, self.device, torch.long), epoch,
                 cpc_anchors, dropout_masks,
             ))
-        self._step_steplr(state, ("t_ext", "t_cls", "cpc", "s_ext", "dim_uni", "s_cls", "noise"))
+        self._step_steplr(state, PHASE5_STEPLR)
         last = steps[-1][0]
-        self._step_plateau(state, "prob_trans", float(last["s2t2s_c"]))
-        self._step_plateau(state, "nf", float(last["t_nf"]))
-        self._step_plateau(state, "ad", float(last["cdan"]))
-        self._step_plateau(state, "fd", float(last["fd"]))
+        for name, loss in PHASE5_PLATEAU:
+            self._step_plateau(state, name, float(last[loss]))
         metrics = {k: torch.stack([s[0][k] for s in steps]).mean() for k in last}
         metrics["gradnorm_w_t"] = state["gradnorm"]["t"].weights.clone()
         metrics["gradnorm_w_s"] = state["gradnorm"]["s"].weights.clone()

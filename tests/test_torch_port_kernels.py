@@ -33,7 +33,12 @@ plain version on the card.  The last ones run the archive sweep's shapes:
 ``os_conv_fwd`` and ``OSConvCore``'s dx and dw at the bucket lengths 729
 and 1094 for every layer of the (1, 89) bucket's model (C_in = 1 first),
 and one padded ``BucketedOSCNNClassifier.train_batch`` of the FordA bucket
-against the same step with the plain OS conv.
+against the same step with the plain OS conv.  The run-axis forms of the
+multi-run training (``os_conv_fwd_runs``, ``os_conv_fused_fwd_runs``,
+``wn_fwd_runs``, ``wn_bwd_runs``) at small K and B: each run the same bits
+as a one-run call, and within the gates above of the plain versions; the
+run-axis conv's grouped backward and the vmap rules of ``OSConvCore`` and
+``WNCore`` (one run-axis launch for all runs) against per-run calls.
 """
 
 import pytest
@@ -227,7 +232,7 @@ def test_wn_core_on_card_matches_cpu(card):
     out = {}
     for dev in ("cpu", card):
         ins = [a.to(dev).requires_grad_(True) for a in [x] + eff]
-        y = wn_fused.WNCore.apply(*ins)
+        y = wn_fused.WNCore.apply(*ins)[0]
         grads = torch.autograd.grad(torch.sin(y).sum(), ins)
         out[str(dev)] = [y.detach().cpu()] + [gr.cpu() for gr in grads]
     for got, want in zip(out[str(card)], out["cpu"]):
@@ -661,3 +666,120 @@ def test_padded_train_batch_on_card_matches_plain(card, monkeypatch):
     for n in pg:
         rel_l2 = ((kg[n] - pg[n]).norm() / pg[n].norm().clamp_min(1e-30)).item()
         assert rel_l2 <= GRAD_REL_TOL, (n, rel_l2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "runs, b, t, k, c_in, c_out",
+    [
+        (2, 3, 150, 89, 25, 225),
+        (3, 2, 61, 3, 17, 33),
+        (4, 1, 33, 2, 225, 50),
+        (2, 20, 200, 89, 7, 25),  # one run's grid already wide: 128 x 64 tiles
+    ],
+)
+@pytest.mark.parametrize("relu", [False, True])
+def test_os_conv_runs_match_one_run_calls(card, runs, b, t, k, c_in, c_out, relu):
+    """Each run of ``os_conv_runs`` / ``os_conv_fused_runs`` is the one-run
+    kernel's bits (the run only offsets pointers; the tiles come from one
+    run's batch), with one launch for all runs, and the runs' weights masked
+    differently so each run has its own tap windows."""
+    g = torch.Generator(device=card).manual_seed(runs * 100 + k)
+    x_pad = torch.randn(runs, b, t + k - 1, c_in, device=card, generator=g)
+    w = torch.randn(runs, k, c_in, c_out, device=card, generator=g) / (c_in * k) ** 0.5
+    for r in range(runs):  # a different dead column group and tap span in each run
+        w[r, :, :, 8 * r : 8 * r + 8] = 0.0
+        if k > r + 1:
+            w[r, : r + 1] = 0.0
+    scale = torch.rand(runs, c_out, device=card, generator=g) + 0.5
+    shift = torch.randn(runs, c_out, device=card, generator=g)
+    before = dict(osconv.LAUNCHES)
+    got = osconv.os_conv_runs(x_pad, w)
+    fused = osconv.os_conv_fused_runs(x_pad, w, scale, shift, relu)
+    torch.cuda.synchronize()
+    assert osconv.LAUNCHES["os_conv_fwd_runs"] == before["os_conv_fwd_runs"] + 1
+    assert osconv.LAUNCHES["os_conv_fused_fwd_runs"] == before["os_conv_fused_fwd_runs"] + 1
+    assert got.shape == fused.shape == (runs, b, t, c_out)
+    for r in range(runs):
+        assert torch.equal(got[r], osconv.os_conv(x_pad[r], w[r]))
+        assert torch.equal(fused[r], osconv.os_conv_fused(x_pad[r], w[r], scale[r], shift[r], relu))
+        _close(got[r], osconv.os_conv_plain(x_pad[r], w[r]))
+        _close(fused[r], osconv.os_conv_fused_plain(x_pad[r], w[r], scale[r], shift[r], relu))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "runs, b, t, h, c, n_layers",
+    [
+        (2, 3, 150, 25, 120, 8),
+        (3, 2, 37, 5, 16, 8),  # T < 2^7
+        (2, 4, 20, 3, 33, 3),  # C and H off the tiling; odd run strides
+        (2, 3, 60, 168, 120, 8),  # VendCoffee's H
+        (4, 8, 1152, 25, 120, 8),  # the pair pass's rows a run
+    ],
+)
+def test_wn_runs_match_one_run_calls(card, runs, b, t, h, c, n_layers):
+    """Each run of ``wn_fwd_runs`` and ``wn_bwd_runs`` is the one-run
+    kernel's bits and within WN_REL_TOL of the plain versions; one launch
+    for all runs.  The end projection's gradients are taken outside the
+    kernel, as in the JAX package, by one batched product (cuBLAS sums in
+    another order than for one run: within WN_REL_TOL, measured 3.1e-6 of
+    max|g| at the pair rows on an H100)."""
+    ops = [_wn_operands(card, b, t, h, c, n_layers, seed=r * 10 + t) for r in range(runs)]
+    eff = [torch.stack(e).contiguous() for e in zip(*(o[1] for o in ops))]
+    x2 = torch.stack([o[2].reshape(b * t, h) for o in ops]).contiguous()
+    g2 = torch.randn(runs, b * t, 2 * h, device=card, generator=torch.Generator(card).manual_seed(7))
+    before = dict(wn_fused.LAUNCHES)
+    y, aud, skip = wn_fused.wn_fwd_runs(x2, *eff, t)
+    bwd_args = (x2, g2, aud, skip, eff[0], eff[2], eff[3], eff[4], eff[5], eff[6], eff[8], t)
+    grads = wn_fused.wn_bwd_runs(*bwd_args)
+    torch.cuda.synchronize()
+    assert wn_fused.LAUNCHES["wn_fwd_runs"] == before["wn_fwd_runs"] + 1
+    assert wn_fused.LAUNCHES["wn_bwd_runs"] == before["wn_bwd_runs"] + 1
+    for r in range(runs):
+        one = [e[r] for e in eff]
+        for got, want, plain in zip((y[r], aud[r], skip[r]), wn_fused.wn_fwd(x2[r], *one, t),
+                                    wn_fused.wn_fwd_plain(x2[r], *one, t)):
+            assert torch.equal(got, want)
+            _close(got, plain, WN_REL_TOL)
+        args = tuple(a[r] for a in bwd_args[:-1]) + (t,)
+        outs = zip(grads, wn_fused.wn_bwd(*args), wn_fused.wn_bwd_plain(*args))
+        for i, (got, want, plain) in enumerate(outs):
+            if i < len(grads) - 2:  # the kernel's outputs
+                assert torch.equal(got[r], want)
+            else:  # the end projection's, one batched product outside the kernel
+                _close(got[r], want, WN_REL_TOL)
+            _close(got[r], plain, WN_REL_TOL)
+
+
+@pytest.mark.gpu
+def test_vmapped_cores_launch_the_run_kernels_once(card):
+    """Under ``torch.func.vmap`` over 3 runs, ``OSConvCore`` and ``WNCore``
+    launch their run-axis kernels once (forward and backward) and none of
+    the one-run kernels; values and gradients, taken outside the transform,
+    match per-run calls (the conv's backward a grouped transposed conv)."""
+    runs, b, t, k, c_in, c_out = 3, 2, 40, 5, 6, 24
+    g = torch.Generator(device=card).manual_seed(5)
+    x_pad = torch.randn(runs, b, t + k - 1, c_in, device=card, generator=g)
+    w = (torch.randn(runs, k, c_in, c_out, device=card, generator=g) / 6).requires_grad_(True)
+    ops = [_wn_operands(card, b, t, 4, 16, 3, seed=r) for r in range(runs)]
+    eff = [torch.stack(e).contiguous().requires_grad_(True) for e in zip(*(o[1] for o in ops))]
+    xw = torch.stack([o[2] for o in ops]).requires_grad_(True)
+    osconv.reset_launch_counts()
+    wn_fused.reset_launch_counts()
+    y = torch.func.vmap(osconv.OSConvCore.apply)(x_pad, w)
+    z = torch.func.vmap(lambda x, *e: wn_fused.WNCore.apply(x, *e)[0])(xw, *eff)
+    grads = torch.autograd.grad(torch.sin(y).sum() + torch.sin(z).sum(), [w, xw] + eff)
+    torch.cuda.synchronize()
+    assert osconv.LAUNCHES == {**osconv.LAUNCHES, "os_conv_fwd": 0, "os_conv_fwd_runs": 1}
+    assert wn_fused.LAUNCHES == {"wn_fwd": 0, "wn_bwd": 0, "wn_fwd_runs": 1, "wn_bwd_runs": 1}
+    for r in range(runs):
+        wr = w[r].detach().requires_grad_(True)
+        er = [e[r].detach().requires_grad_(True) for e in eff]
+        xr = xw[r].detach().requires_grad_(True)
+        yr = osconv.OSConvCore.apply(x_pad[r], wr)
+        zr = wn_fused.WNCore.apply(xr, *er)[0]
+        want = torch.autograd.grad(torch.sin(yr).sum() + torch.sin(zr).sum(), [wr, xr] + er)
+        assert torch.equal(y[r], yr) and torch.equal(z[r], zr)
+        for got, ref in zip(grads, want):
+            _close(got[r], ref, GRAD_REL_TOL)

@@ -174,6 +174,7 @@ def _imported_modules(path):
 def test_port_never_imports_jax_or_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
+    assert PORT / "train" / "multirun.py" in files  # the multi-run training, too
     for f in files:
         for mod in _imported_modules(f):
             root = mod.split(".")[0]
