@@ -150,7 +150,28 @@ non-zero when any check fails.  Phases:
     for the conv, a grouped ``F.conv1d``; and the step's K sweep
     (``experiments/multirun_time.py`` in a process of its own, without
     ``CUBLAS_WORKSPACE_CONFIG``): step ms, aggregate series/s, device ms and
-    idle share, peak memory a K.
+    idle share, peak memory a K;
+19. both bf16 switches (``FLSTTSC_WN_MXU=bf16`` and
+    ``PipelineConfig(compute_dtype="bfloat16")``) on phase 8's pair: one
+    phase-5 epoch through ``StyleTransferPipeline.run`` from phase 8's state
+    and one of K = MULTIRUN_K runs through ``MultiRunStylePipeline.run``,
+    launching only the bf16 instances (``os_conv_fwd[bf16]``,
+    ``wn_fwd[bf16]``, ``wn_bwd[bf16]`` and their ``_runs`` forms), exactly;
+    one full-width phase-5 step of phase 9's fresh state: every bf16 kernel
+    call of it again on its own operands against the plain version (the
+    conv within BF16_REL_L2, the WN as below); against the free-running
+    plain bf16 step on the card, whose module gradients the controls (the
+    plain step with some sums in float64) move by up to 0.2 (each module
+    within STEP_GRAD_L2_TOL or twice the controls' spread; each loss within
+    STEP_LOSS_REL_TOL or twice the controls' spread); its losses against the
+    f32 step's (all but BF16_NOISY_LOSSES, which the controls move by more
+    than BF16_LOSS_NOISE), the step traced; ``os_conv_fwd[bf16]`` at the six
+    serving convs against its plain bf16 version, the f32 kernel and
+    ``F.conv1d`` in bf16; ``wn_fwd[bf16]`` and ``wn_bwd[bf16]`` at pair +
+    infer, layer by layer and free-running (BF16_REL_L2, BF16_CASCADE), and
+    each layer alone (BF16_FLIPS); the run-axis bf16 forms at one K-run
+    step's shapes (WN end projections non-zero); and
+    ``experiments/multirun_time.py --ks 8 --bf16`` in a process of its own.
 
 The ``cli.main`` drives (phases 8, 8b, 13, 14) and the drives of phases
 15, 16 and 17 run with PyTorch's deterministic
@@ -161,8 +182,9 @@ with the launches of the main-path drives (serving: single and ensemble,
 not the VendGunPoint check; training: the two ``cli.main`` drives of phases
 8 and 13, not those of phases 8b, 14, 15, 16 and 17, whose counts are
 checked and kept apart; the run-axis kernels, phase 18's drive and its
-fused evaluation) and a bound from the FLOPs or bytes these inputs
-need; the last line is {"ok": true, "device": {...}}.  Everything measured is also written to
+fused evaluation; the bf16 instances, phase 19's two drives) and a bound
+from the FLOPs or bytes these inputs need (the bf16 instances' at the
+BF16 peak); the last line is {"ok": true, "device": {...}}.  Everything measured is also written to
 chiprun_out/chip_smoke_results.json.
 """
 
@@ -191,6 +213,7 @@ REPO = Path(__file__).resolve().parent
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 FP32_PEAK = 67e12  # H100 SXM FP32 FLOP/s outside the tensor cores (NVIDIA data sheet)
 TC_PEAK = 494.7e12  # H100 SXM dense TF32 FLOP/s on the tensor cores (NVIDIA data sheet)
+BF16_PEAK = 989.4e12  # H100 SXM dense BF16 FLOP/s on the tensor cores (NVIDIA data sheet)
 TF32_PRODUCTS = 3  # the tap-GEMM kernels' f32-accurate product: lo*hi + hi*lo + hi*hi
 HBM_RATE = 3.35e12  # H100 SXM device memory bytes/s
 L2_BYTES = 50e6  # H100 SXM L2
@@ -273,6 +296,55 @@ RUN_AXIS = {  # run-axis kernel: (one-run kernel, source)
     "wn_fwd_runs": ("wn_fwd", WN_SOURCE), "wn_bwd_runs": ("wn_bwd", WN_SOURCE),
 }
 RUN_AXIS_IDLE = {name: 0 for name in RUN_AXIS}  # no run-axis launch outside phase 18
+# phase 19: the bf16 switches (FLSTTSC_WN_MXU=bf16, PipelineConfig.compute_dtype="bfloat16").
+# Each bf16 instance counts under its own name, "<f32 name>[bf16]"; the JAX code it stands for.
+BF16 = {
+    "os_conv_fwd[bf16]": (SOURCE, "feature_level_style_transfer_for_tsc_tpu/ops/osconv.py:356 "
+                          "XLA conv (bf16 operands and output, compute_dtype)"),
+    "wn_fwd[bf16]": (WN_SOURCE, "feature_level_style_transfer_for_tsc_tpu/ops/wn_fused.py:164 "
+                     "_wn_fwd_kernel (bf16=True)"),
+    "wn_bwd[bf16]": (WN_SOURCE, "feature_level_style_transfer_for_tsc_tpu/ops/wn_fused.py:195 "
+                     "_wn_bwd_kernel (bf16=True)"),
+    "os_conv_fwd_runs[bf16]": (SOURCE, "feature_level_style_transfer_for_tsc_tpu/ops/osconv.py:356 "
+                               "XLA conv (bf16, vmapped)"),
+    "wn_fwd_runs[bf16]": (WN_SOURCE, "feature_level_style_transfer_for_tsc_tpu/ops/wn_fused.py:164 "
+                          "_wn_fwd_kernel (bf16=True, vmapped)"),
+    "wn_bwd_runs[bf16]": (WN_SOURCE, "feature_level_style_transfer_for_tsc_tpu/ops/wn_fused.py:195 "
+                          "_wn_bwd_kernel (bf16=True, vmapped)"),
+}
+BF16_IDLE = {name: 0 for name in BF16}  # no bf16 launch outside phase 19
+BF16_ENV = {"FLSTTSC_WN_MXU": "bf16"}
+# A bf16 instance against its plain bf16 version, relative L2: the products are exact on both
+# sides and only the f32 sums run in another order, so a sum within rounding of a bf16 boundary
+# rounds to the neighbouring bf16 value, 2^-8 apart relatively.  BF16_REL_L2 holds where no such
+# flip feeds a later rounding: the conv, each WN layer taken from the kernel's own input to it
+# (``wn_fused.wn_fwd_plain_layers``), the WN backward's top layer.  Through the WN's 8 layers a
+# flip moves the next layer's sums and flips more of its roundings, up to the bf16 noise floor:
+# the plain bf16 WN with float64 sums (``f64_sums``, the control) sits up to 0.32 of the switch's
+# own effect (plain bf16 against plain f32) from itself with f32 sums (phase 19's
+# ``control_rel_l2`` on an H100).  So a free-running WN output passes within BF16_CASCADE times
+# that effect, measured on the same inputs.  A sum that cancels magnifies a single flip (the
+# phase-5 step's WN gradients), and so do the few roundings a flip carries through with one
+# live layer (``one_live_layer``): there an output passes within BF16_REL_L2 or BF16_FLIPS
+# times its control.  The kernels' tensor-core sums sit further from the exact sums than
+# torch's f32 sums, so they flip more: 0.7-2.7 times the control at 23,040 rows (phase 19's
+# ``one_live_layer`` on an H100), up to 3.7 at 600 (the ``gpu`` test).
+BF16_REL_L2 = 1e-4
+BF16_CASCADE = 0.5
+BF16_FLIPS = 6.0
+BF16_VS_F32_REL_L2 = 2e-2  # a bf16 instance's output against the f32 kernel's on the same data
+# The phase-5 step with both switches.  Its losses against the f32 step's (rtol, atol
+# BF16_LOSS_TOL), except a loss that the controls (the plain bf16 step with some of its sums in
+# float64, against itself) move by more than BF16_LOSS_NOISE: such a loss is at the bf16 noise
+# floor, and it must be one of BF16_NOISY_LOSSES, named with the cause.  Against the plain bf16
+# step, every loss within STEP_LOSS_REL_TOL or twice the controls' spread.
+BF16_LOSS_TOL = 5e-2
+BF16_LOSS_NOISE = 1e-2
+BF16_NOISY_LOSSES = {
+    "cdan": "the difference of the critic's sums over the target and the s2t features; the s2t "
+            "features come through the inverse flow, which magnifies the bf16 WN's roundings "
+            "where log_s is large (3-5% between the controls on an H100)",
+}
 
 
 def log(msg: str) -> None:
@@ -418,7 +490,7 @@ def plain_convs(osconv, wn_fused, gate, convs: bool = True, wn: bool = True):
     finally:
         (osconv.os_conv, osconv.os_conv_fused, wn_fused.wn_fwd, wn_fused.wn_bwd,
          gate.gate_fwd, osconv.tap_conv_fwd) = saved
-    conv_names = ("os_conv_fwd", "os_conv_fused_fwd")
+    conv_names = ("os_conv_fwd", "os_conv_fused_fwd", "os_conv_fwd[bf16]")
     launched = {n: v for n, v in {**osconv.LAUNCHES, **wn_fused.LAUNCHES, **gate.LAUNCHES}.items()
                 if (convs and n in conv_names) or (wn and n not in conv_names)}
     check(not any(launched.values()), f"the plain reference launched {launched}")
@@ -648,6 +720,17 @@ def random_wn(wn_init, wn_fused, weight_norm_weight, h, c, n_layers, seed):
     for layer in params["in_layers"] + params["res_skip_layers"] + [params["start"], params["cond"]]:
         layer["g"] = layer["g"] * (0.5 + torch.rand(layer["g"].shape, generator=g))
     return [e.contiguous().cuda() for e in wn_fused.stack_effective(params, weight_norm_weight)]
+
+
+def with_wn_ends(state, g: torch.Generator, scale: float = WN_END_SCALE):
+    """``state`` (one run's, or K runs' stacked) with its WN end projections
+    drawn as ``scale`` N(0, 1) from ``g``, each run its own draw: the init's
+    zero end makes every layer gradient of the WN backward zero."""
+    with torch.no_grad():
+        for wn in state["params"]["nf"]["wn"]:
+            end = wn["end"]["weight"]
+            end.copy_(scale * torch.randn(end.shape, generator=g))
+    return state
 
 
 def kernel_breakdown(fn, calls: int = 3) -> dict:
@@ -948,9 +1031,8 @@ def phase5_against_plain(pipe, state, batch, osconv, wn_fused, gate, gradnorm_st
         m.reset_launch_counts()
     kern = once(contextlib.nullcontext())
     launched = {**osconv.LAUNCHES, **wn_fused.LAUNCHES, **gate.LAUNCHES}  # one forward, 4 pulls
-    want = {**RUN_AXIS_IDLE, "os_conv_fwd": convs, "os_conv_fused_fwd": 0, "tap_conv_fwd": 0,
-            "wn_fwd": 2 * flows,
-            "wn_bwd": 5 * flows, "gate_fwd": 0}
+    want = {**RUN_AXIS_IDLE, **BF16_IDLE, "os_conv_fwd": convs, "os_conv_fused_fwd": 0,
+            "tap_conv_fwd": 0, "wn_fwd": 2 * flows, "wn_bwd": 5 * flows, "gate_fwd": 0}
     check(launched == want, f"phase-5 step launches {launched} != {want}")
     plain = once(plain_convs(osconv, wn_fused, gate))
     row = phase5_gap(kern, plain)
@@ -1233,8 +1315,8 @@ def phase5_routes(pipe, state, batch, osconv, wn_fused, gate, gradnorm_step, smi
         m.reset_launch_counts()
     op = once(environ(**OP_BY_OP))
     launched = {**osconv.LAUNCHES, **wn_fused.LAUNCHES, **gate.LAUNCHES}
-    want = {**RUN_AXIS_IDLE, "os_conv_fwd": convs, "os_conv_fused_fwd": 0, "wn_fwd": 0,
-            "wn_bwd": 0, "gate_fwd": layers * 2 * flows,
+    want = {**RUN_AXIS_IDLE, **BF16_IDLE, "os_conv_fwd": convs, "os_conv_fused_fwd": 0,
+            "wn_fwd": 0, "wn_bwd": 0, "gate_fwd": layers * 2 * flows,
             "tap_conv_fwd": layers * (2 * flows + 5 * flows)}
     check(launched == want, f"op-by-op phase-5 step launches {launched} != {want}")
     plain = once(environ(**OP_BY_OP), plain_convs(osconv, wn_fused, gate))
@@ -1840,15 +1922,17 @@ def expected_multirun_launches(pipe, n_series: int, epochs: dict) -> dict:
 
 
 @contextlib.contextmanager
-def recorded_calls(module, names):
+def recorded_calls(module, names, every: bool = False):
     """``module.<name>`` for each of ``names`` wrapped to keep a copy of the
-    arguments of its first call of each distinct set of shapes."""
+    arguments of its first call of each distinct set of shapes (``every``:
+    of every call)."""
     seen = {n: {} for n in names}
     saved = {n: getattr(module, n) for n in names}
 
     def wrap(name, fn):
         def inner(*args):
-            key = tuple(tuple(a.shape) if isinstance(a, torch.Tensor) else a for a in args)
+            key = len(seen[name]) if every else tuple(
+                tuple(a.shape) if isinstance(a, torch.Tensor) else a for a in args)
             if key not in seen[name]:
                 seen[name][key] = [a.detach().clone() if isinstance(a, torch.Tensor) else a
                                    for a in args]
@@ -1864,30 +1948,69 @@ def recorded_calls(module, names):
             setattr(module, n, saved[n])
 
 
+def rel_l2(got: torch.Tensor, want: torch.Tensor):
+    """(max|got - want|, relative L2 distance), in float64."""
+    got, want = got.double(), want.double()
+    return (got - want).abs().max().item(), ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+
+
+@contextlib.contextmanager
+def f64_sums(wn_fused=None, osconv=None):
+    """The control of the bf16 checks: inside, the plain WN versions'
+    products (``wn_fused._mm``, with ``wn_fused``) and the OS conv
+    (``osconv.os_conv``, with ``osconv``; entered inside ``plain_convs``)
+    take the same bf16 operands and sum them in float64, rounded once:
+    another, more exact order of the same sums."""
+    saved = (wn_fused and wn_fused._mm), (osconv and osconv.os_conv)
+
+    def mm(a, b, bf16):
+        if bf16:
+            a, b = a.bfloat16(), b.bfloat16()
+        return (a.double() @ b.double()).float()
+
+    if wn_fused:
+        wn_fused._mm = mm
+    if osconv:
+        osconv.os_conv = lambda x_pad, w: osconv.os_conv_plain(x_pad.double(), w.double()).to(
+            x_pad.dtype)
+    try:
+        yield
+    finally:
+        if wn_fused:
+            wn_fused._mm = saved[0]
+        if osconv:
+            osconv.os_conv = saved[1]
+
+
+def per_run(fn, args):
+    """``fn`` run by run over the leading axis of ``args``' tensors, each
+    output stacked: a list of outputs."""
+    runs = args[0].shape[0]
+    outs = [fn(*[a[r] if isinstance(a, torch.Tensor) else a for a in args]) for r in range(runs)]
+    return [torch.stack(o) for o in zip(*outs)] if isinstance(outs[0], tuple) else [
+        torch.stack(outs)]
+
+
 def run_axis_row(name, args, runs_fn, one_fn, plain_fn, plain_tol, work, library=None,
-                 library_outputs=0) -> dict:
+                 library_outputs=0, err=rel_err, peak=TC_PEAK / TF32_PRODUCTS) -> dict:
     """A run-axis kernel on one recorded call's arguments: each run against
     the one-run kernel (the same bits, else the largest relative error,
     gated at RUN_AXIS_REL_TOL; the last ``library_outputs`` outputs are taken
     outside the kernel by one batched library product and are held to
-    ``plain_tol``) and against the plain version (``plain_tol``), timed with
-    the K one-run calls, the plain version run by run and ``library``."""
+    ``plain_tol``) and against the plain version (``err``, gated at
+    ``plain_tol``, one for all outputs or a list, one an output), timed with
+    the K one-run calls, the plain version run by run and ``library``; the
+    operations bound at ``peak`` FLOP/s."""
     runs = args[0].shape[0]
-
-    def per_run(fn):
-        outs = [fn(*[a[r] if isinstance(a, torch.Tensor) else a for a in args])
-                for r in range(runs)]
-        return [torch.stack(o) for o in zip(*outs)] if isinstance(outs[0], tuple) else [
-            torch.stack(outs)]
-
     got = runs_fn(*args)
     got = list(got) if isinstance(got, tuple) else [got]
-    one, plain = per_run(one_fn), per_run(plain_fn)
+    one, plain = per_run(one_fn, args), per_run(plain_fn, args)
     torch.cuda.synchronize()
     n_kernel = len(got) - library_outputs
     same = all(torch.equal(a, b) for a, b in zip(got[:n_kernel], one[:n_kernel]))
     one_rel = max(rel_err(a, b)[1] for a, b in zip(got, one))
-    errs = [rel_err(a, b) for a, b in zip(got, plain)]
+    errs = [err(a, b) for a, b in zip(got, plain)]
+    tols = list(plain_tol) if isinstance(plain_tol, (list, tuple)) else [plain_tol] * len(errs)
     row = {
         "kernel": name, "runs": runs, "shapes": [list(a.shape) for a in args
                                                  if isinstance(a, torch.Tensor)][:2],
@@ -1896,39 +2019,43 @@ def run_axis_row(name, args, runs_fn, one_fn, plain_fn, plain_tol, work, library
                                           zip(got[:n_kernel], one[:n_kernel])),
         "max_abs": max(e[0] for e in errs), "rel": max(e[1] for e in errs),
         "ms": cuda_ms(lambda: runs_fn(*args), reps=3),
-        "one_run_calls_ms": cuda_ms(lambda: per_run(one_fn), warmup=1, reps=2),
-        "plain_ms": cuda_ms(lambda: per_run(plain_fn), warmup=0, reps=1),
+        "one_run_calls_ms": cuda_ms(lambda: per_run(one_fn, args), warmup=1, reps=2),
+        "plain_ms": cuda_ms(lambda: per_run(plain_fn, args), warmup=0, reps=1),
         "library_ms": cuda_ms(library, reps=3) if library else None,
         **work,
     }
-    row["tc_flop_ms"] = TF32_PRODUCTS * work["flops"] / TC_PEAK * 1e3
+    row["tc_flop_ms"] = work["flops"] / peak * 1e3
     row["bytes_ms"] = work["bytes"] / HBM_RATE * 1e3
     row["bound_ms"] = max(row["tc_flop_ms"], row["bytes_ms"])
     log(f"run-axis {json.dumps(row)}")
     check(same or row["kernel_outputs_one_run_rel"] <= RUN_AXIS_REL_TOL,
           f"{name} {row['shapes']}: runs against the one-run kernel, rel {one_rel:.3e}")
-    check(one_rel <= plain_tol, f"{name} {row['shapes']}: library outputs rel {one_rel:.3e}")
-    check(row["rel"] <= plain_tol, f"{name} {row['shapes']}: rel err {row['rel']:.3e} vs plain")
+    check(one_rel <= min(tols), f"{name} {row['shapes']}: library outputs rel {one_rel:.3e}")
+    check(all(e[1] <= t for e, t in zip(errs, tols)),
+          f"{name} {row['shapes']}: errors {[e[1] for e in errs]} vs plain, bars {tols}")
     return row
 
 
 def conv_runs_work(x_pad, w, out_numel, vectors: int = 0) -> dict:
     """Live-tap FLOPs (each run's own windows of nonzero weights) and bytes
-    of one run-axis conv call."""
+    of one run-axis conv call (the operands' and output's element size)."""
     runs, b, t_pad, c_in = x_pad.shape
     k = w.shape[1]
     live = int((w != 0).any(dim=2).sum().item())  # (run, tap, column) with a nonzero weight
     flops = 2 * b * (t_pad - k + 1) * c_in * live
-    return {"flops": flops, "bytes": 4 * (x_pad.numel() + w.numel() + out_numel
-                                          + vectors * runs * w.shape[-1])}
+    return {"flops": flops, "bytes": x_pad.element_size() * (x_pad.numel() + w.numel() + out_numel)
+            + 4 * vectors * runs * w.shape[-1]}
 
 
-def run_axis_rows(osconv, wn_fused, conv_calls, fused_calls, wn_calls) -> dict:
-    """Every recorded run-axis call of phase 18's checks, held and timed."""
+def run_axis_rows(osconv, wn_fused, conv_calls, fused_calls, wn_calls, bf16: bool = False) -> dict:
+    """Every recorded run-axis call of phase 18's checks (or, ``bf16``, of
+    phase 19's), held and timed."""
     import torch.nn.functional as F
 
     rows = {"os_conv_fwd_runs": [], "os_conv_fused_fwd_runs": [], "wn_fwd_runs": [],
             "wn_bwd_runs": []}
+    # the bf16 instances: relative L2 against the plain bf16 versions, bound at the BF16 peak
+    gate = {"err": rel_l2, "peak": BF16_PEAK} if bf16 else {}
     for args in conv_calls.values():
         x_pad, w = args
         runs, b, t_pad, c_in = x_pad.shape
@@ -1937,8 +2064,9 @@ def run_axis_rows(osconv, wn_fused, conv_calls, fused_calls, wn_calls) -> dict:
         w_oik = w.permute(0, 3, 2, 1).reshape(runs * c_out, c_in, k).contiguous()
         rows["os_conv_fwd_runs"].append(run_axis_row(
             "os_conv_fwd_runs", args, osconv.os_conv_runs, osconv.os_conv, osconv.os_conv_plain,
-            REL_TOL, conv_runs_work(x_pad, w, runs * b * (t_pad - k + 1) * c_out),
-            library=lambda: F.conv1d(x_ncw, w_oik, groups=runs)))
+            BF16_REL_L2 if bf16 else REL_TOL,
+            conv_runs_work(x_pad, w, runs * b * (t_pad - k + 1) * c_out),
+            library=lambda: F.conv1d(x_ncw, w_oik, groups=runs), **gate))
     for args in fused_calls.values():
         x_pad, w = args[:2]
         runs, b, t_pad, _ = x_pad.shape
@@ -1951,16 +2079,34 @@ def run_axis_rows(osconv, wn_fused, conv_calls, fused_calls, wn_calls) -> dict:
         "wn_bwd_runs": (wn_fused.wn_bwd_runs, wn_fused.wn_bwd, wn_fused.wn_bwd_plain, "bwd", 2),
     }.items():
         for args in wn_calls[name].values():
-            x2, t = args[0], args[-1]
+            x2, t = args[0], args[-2]  # the last argument is the bf16 flag
             runs, rows_n, h = x2.shape
             w_in = args[5] if name == "wn_fwd_runs" else args[7]
             work = wn_work(rows_n // t, t, h, w_in.shape[3], w_in.shape[1])
             tol = WN_FWD_REL_TOL if d == "fwd" else WN_BWD_REL_TOL
+            if bf16:  # free-running: BF16_CASCADE of the switch's own effect on each output
+                effect = [rel_l2(a, b)[1] for a, b in zip(
+                    per_run(plain_fn, args), per_run(plain_fn, list(args[:-1]) + [False]))]
+                tol = [max(BF16_REL_L2, BF16_CASCADE * e) for e in effect]
             rows[name].append(run_axis_row(
                 name, args, runs_fn, one_fn, plain_fn, tol,
                 {"flops": runs * work[f"{d}_flops"], "bytes": runs * work[f"{d}_bytes"]},
-                library_outputs=outs))
+                library_outputs=outs, **gate))
+            rows[name][-1]["bars"] = tol
     return rows
+
+
+def multirun_pair(make_dataset) -> dict:
+    """Phase 8's pair as arrays (SCP2 <- EthanolLevel shapes, TRAIN_SERIES a
+    split): every run of phases 18 and 19 trains on it."""
+    c, t, n_cls = SCP2["channels"], SCP2["length"], SCP2["classes"]
+    e_c, e_t, e_n = ETHANOL["channels"], ETHANOL["length"], ETHANOL["classes"]
+    t_labels, s_labels = {}, {}
+    return {split: (ds.x, ds.y) for split, ds in (
+        ("t_train", make_dataset(TRAIN_SERIES, c, t, n_cls, seed=11, label_dict=t_labels)),
+        ("t_test", make_dataset(TRAIN_SERIES, c, t, n_cls, seed=12, label_dict=t_labels)),
+        ("s_train", make_dataset(TRAIN_SERIES, e_c, e_t, e_n, seed=13, label_dict=s_labels)),
+        ("s_test", make_dataset(TRAIN_SERIES, e_c, e_t, e_n, seed=14, label_dict=s_labels)))}
 
 
 def multirun_phase(run, pipe, modules, make_dataset, smi) -> dict:
@@ -1974,14 +2120,7 @@ def multirun_phase(run, pipe, modules, make_dataset, smi) -> dict:
 
     osconv, wn_fused, gate = modules
     k_runs = MULTIRUN_K
-    c, t, n_cls = SCP2["channels"], SCP2["length"], SCP2["classes"]
-    e_c, e_t, e_n = ETHANOL["channels"], ETHANOL["length"], ETHANOL["classes"]
-    t_labels, s_labels = {}, {}
-    pair = {split: (ds.x, ds.y) for split, ds in (
-        ("t_train", make_dataset(TRAIN_SERIES, c, t, n_cls, seed=11, label_dict=t_labels)),
-        ("t_test", make_dataset(TRAIN_SERIES, c, t, n_cls, seed=12, label_dict=t_labels)),
-        ("s_train", make_dataset(TRAIN_SERIES, e_c, e_t, e_n, seed=13, label_dict=s_labels)),
-        ("s_test", make_dataset(TRAIN_SERIES, e_c, e_t, e_n, seed=14, label_dict=s_labels)))}
+    pair = multirun_pair(make_dataset)
     data = MultiRunData.broadcast(pair, k_runs)
     mp = MultiRunStylePipeline(pipe)
     seeds = list(range(k_runs))
@@ -2078,12 +2217,14 @@ def multirun_phase(run, pipe, modules, make_dataset, smi) -> dict:
         log(f"[multirun sweep K={k}] step ms={r['median_ms']:.1f} ({[round(x, 1) for x in r['step_ms']]}) "
             f"series/s={r['series_per_s']:.1f} device ms={r['device_ms']:.1f} idle share="
             f"{r['device_idle_share']:.3f} peak MiB={r['peak_mib']:.0f} on {sweep['card']}")
+        for name, ms, calls in r["top"]:
+            log(f"  {ms:9.3f} ms {calls:6d} x {name}")
     log(f"[multirun] max_memory_allocated at K=1: {sweep['by_k']['1']['peak_mib']:.0f} MiB, at "
         f"K={k_runs}: {sweep['by_k'][str(k_runs)]['peak_mib']:.0f} MiB on {smi}")
     lap("the K sweep (experiments/multirun_time.py)")
 
     # one phase-5 step of K fresh runs against K one-run steps from the same states
-    fresh = mp.init_states(seeds)
+    fresh = with_wn_ends(mp.init_states(seeds), torch.Generator().manual_seed(18))
     with recorded_calls(osconv, ["os_conv_runs"]) as convs, \
             recorded_calls(wn_fused, ["wn_fwd_runs", "wn_bwd_runs"]) as wns:
         for m in modules:
@@ -2156,6 +2297,408 @@ def multirun_phase(run, pipe, modules, make_dataset, smi) -> dict:
     del fresh
     torch.cuda.empty_cache()
 
+    return out
+
+# ----------------------------------------------------------------- phase 19 --
+
+def as_bf16(counts: dict) -> dict:
+    """Launch counts of f32 kernels as those of their bf16 instances."""
+    return {f"{name}[bf16]": n for name, n in counts.items() if f"{name}[bf16]" in BF16}
+
+
+def bf16_conv_rows(osconv, layers) -> list:
+    """``os_conv_fwd[bf16]`` at the six serving convs (the masked weights and
+    x of phase 2's shapes, rounded to bf16): against ``os_conv_plain`` in
+    bf16 (relative L2), against the f32 kernel on the f32 operands, and
+    timed beside the plain version and ``F.conv1d`` in bf16 (cuDNN, the
+    library yardstick).  Bounds from the mask's live taps: the BF16 peak
+    (``bound_ms``, with the bytes), one TF32 product a term beside it."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for name, c_in, c_out, k, mask, _ in layers:
+        x32 = torch.randn(BATCH, SCP2["length"] + k - 1, c_in, device="cuda", generator=gen)
+        w32 = torch.randn(k, c_in, c_out, device="cuda", generator=gen) / math.sqrt(c_in * k) * mask
+        x_pad, w = x32.bfloat16(), w32.bfloat16()
+        y = osconv.os_conv(x_pad, w)
+        y32 = osconv.os_conv(x32, w32)
+        max_abs, rel = rel_l2(y, osconv.os_conv_plain(x_pad, w))
+        x_ncw, w_oik = x_pad.transpose(1, 2).contiguous(), w.permute(2, 1, 0).contiguous()
+        flops = 2 * BATCH * SCP2["length"] * c_in * int(mask.sum().item())  # live taps only
+        row = {
+            "layer": name, "c_in": c_in, "c_out": c_out, "k": k, "gflop": flops / 1e9,
+            "max_abs": max_abs, "rel_l2": rel, "finite": bool(torch.isfinite(y).all()),
+            "vs_f32_rel_l2": rel_l2(y, y32)[1], "same_as_f32": torch.equal(y.float(), y32),
+            "library_rel_l2_vs_kernel": rel_l2(F.conv1d(x_ncw, w_oik).transpose(1, 2), y)[1],
+            "ms": cuda_ms(lambda: osconv.os_conv(x_pad, w)),
+            "f32_ms": cuda_ms(lambda: osconv.os_conv(x32, w32)),
+            "plain_ms": cuda_ms(lambda: osconv.os_conv_plain(x_pad, w), reps=5),
+            "library_ms": cuda_ms(lambda: F.conv1d(x_ncw, w_oik)),
+            "flop_ms": flops / BF16_PEAK * 1e3,
+            "tf32_flop_ms": flops / TC_PEAK * 1e3,
+            "bytes_ms": 2 * (x_pad.numel() + w.numel() + y.numel()) / HBM_RATE * 1e3,
+        }
+        row["bound_ms"] = max(row["flop_ms"], row["bytes_ms"])
+        log("bf16 conv " + json.dumps(row))
+        check(row["finite"], f"{name}: os_conv_fwd[bf16] gave a non-finite value")
+        check(rel <= BF16_REL_L2, f"{name}: os_conv_fwd[bf16] rel L2 {rel:.3e} vs plain")
+        check(not row["same_as_f32"] and row["vs_f32_rel_l2"] <= BF16_VS_F32_REL_L2,
+              f"{name}: os_conv_fwd[bf16] vs the f32 kernel {row['vs_f32_rel_l2']:.3e}")
+        rows.append(row)
+    return rows
+
+
+WN_OUTPUTS = {"fwd": ("y", "aud", "skip"),
+              "bwd": ("gx", "gws", "gbs", "gwc", "gbc", "gwi", "gbi", "gwr", "gbr", "gwe", "gbe")}
+
+
+def wn_bf16_gaps(wn_fused, d: str, args) -> dict:
+    """One bf16 WN call, ``d`` "fwd" or "bwd" on ``args`` (its operands, no
+    flag), on the kernel against the plain versions with ``bf16=True``, each
+    output by relative L2: ``tight`` where no earlier rounding carries in
+    (each forward layer from the kernel's own input to it,
+    ``wn_fwd_plain_layers``; the backward's top layer and end projection),
+    ``rel_l2`` free-running, ``effect`` the switch's own (plain bf16 against
+    plain f32); the controls, the plain versions with float64 sums
+    (``f64_sums``) against themselves with f32 sums, on the same outputs
+    (``tight_control``, ``control``); ``outs`` the kernel's."""
+    kern = wn_fused.wn_fwd if d == "fwd" else wn_fused.wn_bwd
+    plain_fn = wn_fused.wn_fwd_plain if d == "fwd" else wn_fused.wn_bwd_plain
+    got, want, f32 = kern(*args, True), plain_fn(*args, True), plain_fn(*args)
+
+    def layers():
+        return wn_fused.wn_fwd_plain_layers(args[0], got[1], got[2], *args[1:], True)
+
+    with f64_sums(wn_fused):
+        exact = plain_fn(*args, True)
+        forced_exact = layers() if d == "fwd" else None
+    if d == "fwd":
+        forced = layers()
+        tight = {n: (g, f, e) for n, g, f, e in zip(("layer inputs", "skip", "y"),
+                                                      (got[1], got[2], got[0]), forced, forced_exact)}
+    else:
+        n_layers, c = args[7].shape[0], args[7].shape[2]
+        top = slice(2 * c * (n_layers - 1), 2 * c * n_layers)
+        tight = {"top " + n: (got[i][sl], want[i][sl], exact[i][sl]) for i, n, sl in (
+            (3, "gwc", (slice(None), top)), (4, "gbc", top), (5, "gwi", -1), (6, "gbi", -1),
+            (7, "gwr", -1), (8, "gbr", -1), (9, "gwe", ...), (10, "gbe", ...))}
+    errs = [rel_l2(a, w) for a, w in zip(got, want)]
+    names = WN_OUTPUTS[d]
+    return {
+        "tight_rel_l2": {n: rel_l2(a, w)[1] for n, (a, w, _) in tight.items()},
+        "tight_control_rel_l2": {n: rel_l2(w, e)[1] for n, (_, w, e) in tight.items()},
+        "rel_l2": dict(zip(names, (e[1] for e in errs))),
+        "effect_rel_l2": dict(zip(names, (rel_l2(w, f)[1] for w, f in zip(want, f32)))),
+        "control_rel_l2": dict(zip(names, (rel_l2(w, e)[1] for w, e in zip(want, exact)))),
+        "max_abs": max(e[0] for e in errs),
+        "finite": all(bool(torch.isfinite(a).all()) for a in got),
+        "outs": got,
+    }
+
+
+def check_wn_bf16(what: str, gaps: dict) -> None:
+    """``wn_bf16_gaps`` gated: non-finite values; the tight outputs within
+    BF16_REL_L2 or BF16_FLIPS times their control (a sum that cancels
+    magnifies a flip: the phase-5 step's gradients do); the free-running
+    ones within BF16_CASCADE of the effect."""
+    check(gaps["finite"], f"{what}: a non-finite value")
+    for n, v in gaps["tight_rel_l2"].items():
+        bar = max(BF16_REL_L2, BF16_FLIPS * gaps["tight_control_rel_l2"][n])
+        check(v <= bar, f"{what}: {n} rel L2 {v:.3e} vs plain > {bar:.3e}")
+    for n, v in gaps["rel_l2"].items():
+        bar = max(BF16_REL_L2, BF16_CASCADE * gaps["effect_rel_l2"][n])
+        check(v <= bar, f"{what}: free-running {n} rel L2 {v:.3e} vs plain > {bar:.3e}")
+
+
+def one_live_layer(eff, j: int) -> list:
+    """Stacked effective WN weights with every layer's in-projection zero but
+    layer ``j``'s: then no layer's input gradient carries another's rounding
+    down (the residual passes it through exactly), and the whole backward is
+    within a few roundings of its operands."""
+    w_in = torch.zeros_like(eff[4])
+    w_in[j] = eff[4][j]
+    return eff[:4] + [w_in] + eff[5:]
+
+
+def bf16_wn_rows(wn_fused, wn_init, weight_norm_weight, cases, c: int, n_layers: int) -> dict:
+    """``wn_fwd[bf16]`` and ``wn_bwd[bf16]`` at each of ``cases`` (what, B, T,
+    n_half), phase 6's inputs, against the plain versions with ``bf16=True``
+    (``wn_bf16_gaps``, ``check_wn_bf16``).  The same bits twice; y against
+    the f32 kernel's.  Timed beside the plain versions and the f32 kernels,
+    with the device time by ``__global__`` kernel.  At the last case, each
+    layer's own arithmetic (``one_live_layer``, the layer's dilation): every
+    output of both within BF16_FLIPS times its control, or BF16_REL_L2."""
+    rows = {"wn_fwd[bf16]": [], "wn_bwd[bf16]": []}
+    for what, b, t, h in cases:
+        eff = random_wn(wn_init, wn_fused, weight_norm_weight, h, c, n_layers, seed=b + h)
+        gen = torch.Generator(device="cuda").manual_seed(b)
+        x2 = torch.randn(b * t, h, device="cuda", generator=gen)
+        g2 = torch.randn(b * t, 2 * h, device="cuda", generator=gen)
+        _, aud, skip = wn_fused.wn_fwd_plain(x2, *eff, t, True)
+        args = {"fwd": (x2, *eff, t),
+                "bwd": (x2, g2, aud, skip, eff[0], eff[2], eff[3], eff[4], eff[5], eff[6], eff[8], t)}
+        work = wn_work(b, t, h, c, n_layers)
+        for d in ("fwd", "bwd"):
+            kern = wn_fused.wn_fwd if d == "fwd" else wn_fused.wn_bwd
+            plain_fn = wn_fused.wn_fwd_plain if d == "fwd" else wn_fused.wn_bwd_plain
+            gaps = wn_bf16_gaps(wn_fused, d, args[d])
+            outs = gaps.pop("outs")
+            again = kern(*args[d], True)
+            f32_kernel = kern(*args[d])[:1] if d == "fwd" else kern(*args[d])
+            torch.cuda.synchronize()
+            fn = lambda: kern(*args[d], True)  # noqa: E731
+            row = {
+                "shape": what, "rows": b * t, "t": t, "n_half": h, "c": c, "layers": n_layers,
+                **gaps,
+                "deterministic": all(torch.equal(a, r) for a, r in zip(outs, again)),
+                "vs_f32_rel_l2": max(rel_l2(a, f)[1] for a, f in zip(outs, f32_kernel)),
+                "same_as_f32": all(torch.equal(a, f) for a, f in zip(outs, f32_kernel)),
+                "ms": cuda_ms(fn, reps=5),
+                "f32_ms": cuda_ms(lambda: kern(*args[d]), reps=5),
+                "plain_ms": cuda_ms(lambda: plain_fn(*args[d], True), reps=3),
+                "library_ms": None,
+                "gflop": work[f"{d}_flops"] / 1e9,
+                "flop_ms": work[f"{d}_flops"] / BF16_PEAK * 1e3,
+                "tf32_flop_ms": work[f"{d}_flops"] / TC_PEAK * 1e3,
+                "bytes_ms": work[f"{d}_bytes"] / HBM_RATE * 1e3,
+                "by_kernel": kernel_breakdown(fn),
+            }
+            row["bound_ms"] = max(row["flop_ms"], row["bytes_ms"])
+            log(f"bf16 wn_{d} " + json.dumps(row))
+            check_wn_bf16(f"wn_{d}[bf16] {what}", row)
+            check(row["deterministic"], f"wn_{d}[bf16] {what}: two runs gave different bits")
+            check(not row["same_as_f32"] and row["vs_f32_rel_l2"] <= BF16_VS_F32_REL_L2,
+                  f"wn_{d}[bf16] {what}: against the f32 kernel {row['vs_f32_rel_l2']:.3e}")
+            rows[f"wn_{d}[bf16]"].append(row)
+    # each layer alone (the last case's shape and inputs)
+    live = []
+    for j in range(n_layers):
+        eff_j = one_live_layer(eff, j)
+        _, aud, skip = wn_fused.wn_fwd_plain(x2, *eff_j, t, True)
+        lj = {"layer": j, "dilation": 2 ** j}
+        for d, a in (("fwd", (x2, *eff_j, t)), ("bwd", (x2, g2, aud, skip, eff_j[0], eff_j[2],
+                                                         eff_j[3], eff_j[4], eff_j[5], eff_j[6],
+                                                         eff_j[8], t))):
+            gaps = wn_bf16_gaps(wn_fused, d, a)
+            lj[d] = {k: gaps[k] for k in ("rel_l2", "control_rel_l2")}
+            for n, v in gaps["rel_l2"].items():
+                bar = max(BF16_REL_L2, BF16_FLIPS * gaps["control_rel_l2"][n])
+                check(v <= bar, f"wn_{d}[bf16] {what}, layer {j} alone: {n} rel L2 {v:.3e} vs "
+                                f"plain > {bar:.3e}")
+        live.append(lj)
+    log(f"[bf16 wn, one live layer at a time, {what}] " + json.dumps(live))
+    rows["wn_bwd[bf16]"][-1]["one_live_layer"] = live
+    return rows
+
+
+def bf16_step_calls(osconv, wn_fused, conv_calls, wn_calls) -> dict:
+    """Every bf16 kernel call of one phase-5 step (``recorded_calls`` with
+    ``every``) again on its own operands against the plain versions: each
+    ``os_conv_fwd[bf16]`` call within BF16_REL_L2 or BF16_FLIPS times its
+    control (the plain conv with float64 sums), each WN call as
+    ``check_wn_bf16`` holds it.  The worst of each kernel."""
+    worst = {"os_conv_fwd[bf16]": {"calls": 0, "rel_l2": 0.0, "control_rel_l2": 0.0}}
+    for i, (x_pad, w) in enumerate(conv_calls.values()):
+        want = osconv.os_conv_plain(x_pad, w)
+        rel = rel_l2(osconv.os_conv(x_pad, w), want)[1]
+        ctl = rel_l2(osconv.os_conv_plain(x_pad.double(), w.double()).to(want.dtype), want)[1]
+        check(rel <= max(BF16_REL_L2, BF16_FLIPS * ctl),
+              f"os_conv_fwd[bf16], call {i} of the bf16 step {list(x_pad.shape)}: rel L2 "
+              f"{rel:.3e} vs plain, control {ctl:.3e}")
+        r = worst["os_conv_fwd[bf16]"]
+        r["calls"] += 1
+        r["rel_l2"], r["control_rel_l2"] = max(r["rel_l2"], rel), max(r["control_rel_l2"], ctl)
+    for name in ("wn_fwd", "wn_bwd"):
+        r = worst[f"{name}[bf16]"] = {"calls": 0, "tight_rel_l2": 0.0, "rel_l2_over_effect": 0.0}
+        for i, args in enumerate(wn_calls[name].values()):
+            check(args[-1] is True, f"{name} call {i} of the bf16 step without the bf16 flag")
+            gaps = wn_bf16_gaps(wn_fused, name[3:], args[:-1])
+            check_wn_bf16(f"{name}[bf16], call {i} of the bf16 step", gaps)
+            r["calls"] += 1
+            r["tight_rel_l2"] = max([r["tight_rel_l2"], *gaps["tight_rel_l2"].values()])
+            r["rel_l2_over_effect"] = max([r["rel_l2_over_effect"], *(
+                v / max(gaps["effect_rel_l2"][n], 1e-30) for n, v in gaps["rel_l2"].items()
+                if v > BF16_REL_L2)])
+    log(f"[bf16 phase-5 step, every kernel call on its own operands vs plain] {json.dumps(worst)}")
+    return worst
+
+
+def bf16_phase(run, pipe, state, datasets, batch, modules, layers, wn_fns, make_dataset,
+               gradnorm_step, smi) -> dict:
+    """Phase 19: both bf16 switches, FLSTTSC_WN_MXU=bf16 and
+    PipelineConfig.compute_dtype="bfloat16", on phase 8's pair."""
+    import dataclasses
+
+    from feature_level_style_transfer_for_tsc_tpu_torch.train.multirun import (
+        MultiRunData,
+        MultiRunStylePipeline,
+    )
+
+    osconv, wn_fused, gate = modules
+    wn_init, weight_norm_weight = wn_fns
+    out = {}
+    t_block = time.perf_counter()
+
+    def lap(what: str) -> None:
+        nonlocal t_block
+        now = time.perf_counter()
+        out.setdefault("block_s", {})[what] = now - t_block
+        log(f"[bf16] {what}: {now - t_block:.1f} s")
+        t_block = now
+
+    cfg16 = dataclasses.replace(pipe.config, compute_dtype="bfloat16")
+    pipe16 = type(pipe)(*pipe.t_shape, *pipe.s_shape, cfg16, device="cuda")
+    flows = cfg16.flow.n_flows
+    convs = len(pipe16.t_ext_specs) + len(pipe16.s_ext_specs) + 3 * len(pipe16.cls_specs)
+
+    # the drives: one phase-5 epoch through StyleTransferPipeline.run from
+    # phase 8's state, and K runs of one through MultiRunStylePipeline.run
+    expect = {**run.idle(), **as_bf16(expected_training_launches(pipe16, TRAIN_SERIES,
+                                                                 RESUME_EPOCHS))}
+    with environ(**BF16_ENV), watched_phase5(type(pipe)) as (step_s, first):
+        _, history = run.drive("training, both bf16 switches", lambda: pipe16.run(
+            *datasets, epochs=RESUME_EPOCHS, state=copy.deepcopy(state), seed=0, verbose=False),
+            expect, path="bf16")
+    out["drive"] = {"step_s": step_s, "phase5": check_history("training bf16", history, first[0])}
+    data = MultiRunData.broadcast(multirun_pair(make_dataset), MULTIRUN_K)
+    mp16 = MultiRunStylePipeline(pipe16)
+    expect = {**run.idle(), **as_bf16(expected_multirun_launches(pipe16, TRAIN_SERIES,
+                                                                 RESUME_EPOCHS))}
+    with environ(**BF16_ENV):
+        _, k_history = run.drive(f"multirun K={MULTIRUN_K}, both bf16 switches", lambda: mp16.run(
+            data, list(range(MULTIRUN_K)), epochs=RESUME_EPOCHS), expect, path="bf16")
+    out["multirun_drive_last"] = {k: (v.tolist() if hasattr(v, "tolist") else v)
+                                  for k, v in k_history[-1].items()}
+    lap("the drives")
+
+    # one full-width phase-5 step of a fresh state (phase 9's) with both
+    # switches: launches, every kernel call of it held against the plain
+    # version on its own operands, the step against the free-running plain
+    # bf16 path on the card and against the f32 step, then traced
+    g = torch.Generator().manual_seed(21)
+    fresh = with_wn_ends(pipe16.init_state(g), g)
+    _, card_masks = pinned_masks()
+
+    def once(p, *ctxs, st=fresh):
+        return phase5_once(p, st, batch, card_masks, gradnorm_step, stacked(*ctxs), st["gradnorm"])
+
+    for m in modules:
+        m.reset_launch_counts()
+    with recorded_calls(osconv, ["os_conv"], every=True) as step_convs, \
+            recorded_calls(wn_fused, ["wn_fwd", "wn_bwd"], every=True) as step_wns:
+        kern = once(pipe16, environ(**BF16_ENV))
+    launched = run.counts()
+    for m in modules:
+        m.reset_launch_counts()
+    f32 = once(pipe)
+    f32_launched = run.counts()
+    want = {**run.idle(), "os_conv_fwd[bf16]": convs, "wn_fwd[bf16]": 2 * flows,
+            "wn_bwd[bf16]": 5 * flows}
+    check(launched == want, f"bf16 phase-5 step launches {launched} != {want}")
+    check({k: v for k, v in as_bf16(f32_launched).items() if v}
+          == {k: v for k, v in launched.items() if v},
+          f"bf16 phase-5 step launches {launched}, the f32 step's {f32_launched}")
+    out["step_calls"] = bf16_step_calls(osconv, wn_fused, step_convs["os_conv"], step_wns)
+    del step_convs, step_wns
+    torch.cuda.empty_cache()
+    plain = once(pipe16, environ(**BF16_ENV), plain_convs(osconv, wn_fused, gate))
+    row = phase5_gap(kern, plain)
+    row["vs_f32"] = phase5_gap(kern, f32)
+    # the controls: the plain bf16 step against itself with some of its sums in float64
+    for what, ctx in {"control, f64 sums in conv and WN": f64_sums(wn_fused, osconv),
+                      "control, f64 sums in WN": f64_sums(wn_fused),
+                      "control, f64 sums in conv": f64_sums(osconv=osconv)}.items():
+        gap = phase5_gap(once(pipe16, environ(**BF16_ENV), plain_convs(osconv, wn_fused, gate),
+                              ctx), plain)
+        row[what] = {key: gap[key] for key in ("loss_rel", "grad_l2_rel")}
+    controls = [row[k] for k in row if k.startswith("control")]
+    # the same control on the same state with a ten times smaller WN end
+    # (log_s about N(0, 0.01)): a flow that magnifies less
+    g = torch.Generator().manual_seed(21)
+    calm = with_wn_ends(pipe16.init_state(g), g, WN_END_SCALE / 10)
+    calm_plain = once(pipe16, environ(**BF16_ENV), plain_convs(osconv, wn_fused, gate), st=calm)
+    gap = phase5_gap(once(pipe16, environ(**BF16_ENV), plain_convs(osconv, wn_fused, gate),
+                          f64_sums(wn_fused, osconv), st=calm), calm_plain)
+    row["calm flow, control f64 sums in conv and WN"] = {
+        key: gap[key] for key in ("loss_rel", "grad_l2_rel")}
+    del calm, calm_plain
+    row["launches"] = {k: v for k, v in launched.items() if v}
+    row["grads_and_norms_s"] = {"kernel": kern["secs"], "plain": plain["secs"], "f32": f32["secs"]}
+    row["losses_f32"] = {n: float(v) for n, v in f32["losses"].items()}
+    row["control_loss_spread"] = {n: max(c["loss_rel"][n] for c in controls)
+                                  for n in row["loss_rel"]}
+    row["control_grad_spread"] = {n: max(c["grad_l2_rel"][n] for c in controls)
+                                  for n in row["grad_l2_rel"]}
+    row["losses_not_held"] = sorted(n for n, v in row["control_loss_spread"].items()
+                                    if v > BF16_LOSS_NOISE)
+    log(f"[phase-5 step, both bf16 switches, kernels vs plain bf16 on the card, checked] "
+        f"{json.dumps(row)} on {smi}")
+    check(set(row["losses_not_held"]) <= set(BF16_NOISY_LOSSES),
+          f"bf16 phase-5 losses {row['losses_not_held']} at the noise floor, named "
+          f"{sorted(BF16_NOISY_LOSSES)}")
+    for n, v in kern["losses"].items():
+        check(bool(torch.isfinite(v).all()), f"bf16 phase-5 loss {n} is not finite")
+        allowed = max(STEP_LOSS_REL_TOL, 2 * row["control_loss_spread"][n])
+        check(row["loss_rel"][n] <= allowed, f"bf16 phase-5 loss {n}: kernels vs plain bf16 rel "
+                                             f"{row['loss_rel'][n]:.3e} > {allowed:.3e}")
+        l32 = row["losses_f32"][n]
+        check(n in row["losses_not_held"] or abs(float(v) - l32) <= BF16_LOSS_TOL * (1 + abs(l32)),
+              f"bf16 phase-5 loss {n} {float(v):.6g} against the f32 step's {l32:.6g}")
+    check(any(float(v) != float(f32["losses"][n]) for n, v in kern["losses"].items()),
+          "the bf16 phase-5 losses equal the f32 step's: the switches did not engage")
+    for n, v in row["grad_l2_rel"].items():
+        allowed = max(STEP_GRAD_L2_TOL, 2 * row["control_grad_spread"][n])
+        check(v <= allowed, f"bf16 phase-5 grads, {n}: relative L2 {v:.3e} vs plain bf16 > "
+                            f"{allowed:.3e}")
+    with environ(**BF16_ENV):
+        out["profile"] = profile_step(pipe16, copy.deepcopy(fresh), batch)
+    out["step"] = row
+    lap("the one-run step")
+
+    # the kernels alone: the six serving convs, the WN at pair + infer
+    out["conv_rows"] = bf16_conv_rows(osconv, layers)
+    out["wn_rows"] = bf16_wn_rows(
+        wn_fused, wn_init, weight_norm_weight,
+        [("pair", 2 * BATCH, SCP2["length"], pipe.feat_channels // 2),
+         ("infer", BATCH, SCP2["length"], pipe.feat_channels // 2)],
+        cfg16.flow.wn_channels, cfg16.flow.wn_layers)
+    lap("the one-run kernels")
+
+    # the run-axis forms at the shapes of one K-run phase-5 step
+    fresh_k = with_wn_ends(mp16.init_states(range(MULTIRUN_K)), torch.Generator().manual_seed(19))
+    k_batch = [b.expand(MULTIRUN_K, *b.shape).contiguous() for b in batch]
+    with environ(**BF16_ENV), recorded_calls(osconv, ["os_conv_runs"]) as k_convs, \
+            recorded_calls(wn_fused, ["wn_fwd_runs", "wn_bwd_runs"]) as k_wns:
+        k_losses = mp16.phase5_grads(fresh_k, *k_batch, 0, ANCHORS, card_masks)[0]
+    for n, v in k_losses.items():
+        check(bool(torch.isfinite(v).all()), f"bf16 K-run phase-5 loss {n} is not finite")
+    rows_k = run_axis_rows(osconv, wn_fused, k_convs["os_conv_runs"], {}, k_wns, bf16=True)
+    del fresh_k, k_convs, k_wns
+    torch.cuda.empty_cache()
+    lap("the run-axis kernels")
+
+    # K runs at once with both switches, in a process of its own without
+    # CUBLAS_WORKSPACE_CONFIG (phase 18's method)
+    env = {k: v for k, v in os.environ.items() if k != "CUBLAS_WORKSPACE_CONFIG"}
+    proc = subprocess.run([sys.executable, str(REPO / "experiments" / "multirun_time.py"),
+                           "--ks", str(MULTIRUN_K), "--bf16"],
+                          capture_output=True, text=True, timeout=600, env=env, cwd=REPO)
+    check(proc.returncode == 0, f"multirun_time.py --bf16 exited {proc.returncode}: "
+                                f"{proc.stderr[-2000:]}")
+    sweep = json.loads(proc.stdout.strip().splitlines()[-1])
+    out["sweep"] = sweep
+    for k, r in sweep["by_k"].items():
+        log(f"[bf16 multirun K={k}] step ms={r['median_ms']:.1f} "
+            f"({[round(x, 1) for x in r['step_ms']]}) series/s={r['series_per_s']:.1f} "
+            f"device ms={r['device_ms']:.1f} idle share={r['device_idle_share']:.3f} "
+            f"peak MiB={r['peak_mib']:.0f} on {sweep['card']}")
+        for name, ms, calls in r["top"]:
+            log(f"  {ms:9.3f} ms {calls:6d} x {name}")
+    lap("K runs with both switches (experiments/multirun_time.py --bf16)")
+
+    out["rows"] = {"os_conv_fwd[bf16]": out["conv_rows"], **out["wn_rows"],
+                   **{f"{name}[bf16]": r for name, r in rows_k.items() if r}}
     return out
 
 
@@ -2450,11 +2993,7 @@ def main() -> int:
             torch.as_tensor(ss_train.x[:BATCH]).cuda(), torch.as_tensor(ss_train.y[:BATCH]).long().cuda(),
         )
         g = torch.Generator().manual_seed(21)
-        fresh = pipe.init_state(g)
-        with torch.no_grad():
-            for wn in fresh["params"]["nf"]["wn"]:
-                end = wn["end"]["weight"]
-                end.copy_(WN_END_SCALE * torch.randn(end.shape, generator=g))
+        fresh = with_wn_ends(pipe.init_state(g), g)
         cpu_pipe = StyleTransferPipeline(c, t, n_cls, e_c, e_t, e_n, cfg, device="cpu")
         results["phase5_vs_plain_trained"] = phase5_against_plain(
             pipe, state, batch, osconv, wn_fused, gate, gradnorm_step, smi, checked=False,
@@ -2523,6 +3062,13 @@ def main() -> int:
 
         # ---- phase 18: K runs of the curriculum in one launch set
         results["multirun"] = multirun_phase(run, pipe, (osconv, wn_fused, gate), make_dataset, smi)
+
+        # ---- phase 19: both bf16 switches (FLSTTSC_WN_MXU=bf16,
+        # PipelineConfig.compute_dtype="bfloat16")
+        results["bf16"] = bf16_phase(
+            run, pipe, state, (tt_train, tt_test, ss_train, ss_test), batch,
+            (osconv, wn_fused, gate), layers, (wn_init, weight_norm_weight), make_dataset,
+            gradnorm_step, smi)
 
     for name, n in run.launches.items():
         check(n > 0, f"{name} was never launched on the main path")
@@ -2598,6 +3144,21 @@ def main() -> int:
             >= sum(r["bytes_ms"] for r in rows_k) else "bytes",
             "library_ms": (sum(r["library_ms"] for r in rows_k)
                            if all(r["library_ms"] is not None for r in rows_k) else None),
+        })
+    for name, (source, replaces) in BF16.items():
+        # phase 19: the six serving convs; pair plus infer WN calls; the run-axis forms at
+        # the shapes of one K-run phase-5 step, each summed; bounds at the BF16 peak
+        rows_b = results["bf16"]["rows"][name]
+        flop_ms = sum(r.get("flop_ms", r.get("tc_flop_ms")) for r in rows_b)
+        line["kernels"].append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": run.launches[name],
+            "max_abs_err": max(r["max_abs"] for r in rows_b),
+            "ms": sum(r["ms"] for r in rows_b), "plain_ms": sum(r["plain_ms"] for r in rows_b),
+            "bound_ms": sum(r["bound_ms"] for r in rows_b),
+            "bound_by": "operations" if flop_ms >= sum(r["bytes_ms"] for r in rows_b) else "bytes",
+            "library_ms": (sum(r["library_ms"] for r in rows_b)
+                           if all(r["library_ms"] is not None for r in rows_b) else None),
         })
     results["summary"] = line
     out_dir = REPO / "chiprun_out"

@@ -13,19 +13,21 @@ drawn from each run's generator, as in training) at each K of ``--ks``:
   K in turn (ascending, then descending, and so on), each step timed by
   the host clock between ``torch.cuda.synchronize()`` calls;
 * one more step a K under ``torch.profiler``: its device time (the sum of
-  the CUDA kernels' self time) and the device's idle share of the traced
-  step's wall time;
+  the CUDA kernels' self time), the device's idle share of the traced
+  step's wall time, and its 12 largest kernels (device ms, launches);
 * the peak device memory of the K's warm-up step (``max_memory_allocated``
   after ``reset_peak_memory_stats``), less what the other Ks' states, which
   stay resident for the turns, hold;
 * aggregate series/s: 40 K series (20 target, 20 source a run) a step.
 
-TF32 is off, as in chip_smoke.py.  Run it without ``CUBLAS_WORKSPACE_CONFIG``
-(which adds 0.4-0.5 s a step on an H100): chip_smoke.py phase 18 starts it
-with that variable removed.  It imports only torch, numpy and the port of
-the tree it sits in.
+TF32 is off, as in chip_smoke.py.  ``--bf16`` turns both bf16 switches on:
+``FLSTTSC_WN_MXU=bf16`` (the WN kernels' bf16 instances) and
+``PipelineConfig(compute_dtype="bfloat16")`` (the OS convs in bf16).  Run it
+without ``CUBLAS_WORKSPACE_CONFIG`` (which adds 0.4-0.5 s a step on an
+H100): chip_smoke.py phases 18 and 19 start it with that variable removed.
+It imports only torch, numpy and the port of the tree it sits in.
 
-Usage: python experiments/multirun_time.py [--ks 1,2,4,8] [--rounds 2]
+Usage: python experiments/multirun_time.py [--ks 1,2,4,8] [--rounds 2] [--bf16]
 Prints the card's name and power limit, then one JSON line (the last).
 """
 
@@ -33,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -95,15 +98,18 @@ def sweep(mp, ks, rounds: int, make_dataset) -> dict:
     for k in ks:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             traced_ms = step(k)
-        device_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                        if str(e.device_type).endswith("CUDA")) / 1e3
+        kernels = sorted(((e.key[:90], e.self_device_time_total / 1e3, e.count)
+                          for e in prof.key_averages()
+                          if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0),
+                         key=lambda k: -k[1])
+        device_ms = sum(ms for _, ms, _ in kernels)
         med = statistics.median(runs[k]["step_ms"])
         out[str(k)] = {
             "step_ms": runs[k]["step_ms"], "median_ms": med,
             "series_per_s": 2 * BATCH * k / (med / 1e3),
             "traced_ms": traced_ms, "device_ms": device_ms,
             "device_idle_share": 1.0 - device_ms / traced_ms,
-            "peak_mib": runs[k]["peak_mib"],
+            "peak_mib": runs[k]["peak_mib"], "top": kernels[:12],
         }
     return out
 
@@ -112,6 +118,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ks", default="1,2,4,8")
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--bf16", action="store_true", help="both bf16 switches on")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("multirun_time: needs a CUDA card", file=sys.stderr)
@@ -127,11 +134,14 @@ def main() -> int:
     print(f"card: {smi}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    pipe = StyleTransferPipeline(*TARGET, *SOURCE, PipelineConfig(), device="cuda")
+    if args.bf16:
+        os.environ["FLSTTSC_WN_MXU"] = "bf16"
+    cfg = PipelineConfig(compute_dtype="bfloat16" if args.bf16 else "float32")
+    pipe = StyleTransferPipeline(*TARGET, *SOURCE, cfg, device="cuda")
     ks = [int(k) for k in args.ks.split(",")]
     by_k = sweep(MultiRunStylePipeline(pipe), ks, args.rounds, make_dataset)
-    print(json.dumps({"card": smi, "kind": torch.cuda.get_device_name(0), "by_k": by_k}),
-          flush=True)
+    print(json.dumps({"card": smi, "kind": torch.cuda.get_device_name(0), "bf16": args.bf16,
+                      "by_k": by_k}), flush=True)
     return 0
 
 

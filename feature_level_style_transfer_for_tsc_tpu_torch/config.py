@@ -76,7 +76,8 @@ class PipelineConfig:
     #: scales the OS-CNN parameter budgets (1.0 = reference budgets
     #: train_and_test.py:38-39); tests shrink it to keep models tiny.
     budget_multiplier: float = 1.0
-    #: ported: "float32" only
+    #: "bfloat16" runs the OS-CNN convs in bf16 (the weights and BatchNorm
+    #: statistics stay f32); any other value keeps them f32, as in the JAX package
     compute_dtype: str = "float32"
     #: >0 soft-clamps the coupling's log-scale to ``c*tanh(log_s/c)``;
     #: 0.0 = exact reference semantics
@@ -106,7 +107,6 @@ class PipelineConfig:
 
     def __post_init__(self):
         unported = {
-            "compute_dtype": (self.compute_dtype, "float32"),
             "fused_optimizers": (self.fused_optimizers, False),
             "merged_pullbacks": (self.merged_pullbacks, True),
             "stacked_pullbacks": (self.stacked_pullbacks, False),

@@ -17,7 +17,10 @@ running statistics, and every apply takes ``training`` and returns the new
 state as the JAX functions do (eval mode returns it unchanged).
 ``fused_infer=True`` (eval mode, no gradient) folds each BatchNorm into a
 scale/shift epilogue of the conv; ``FLSTTSC_FUSE_EPILOGUE=1`` then runs that
-epilogue inside the conv kernel.
+epilogue inside the conv kernel.  ``compute_dtype=torch.bfloat16`` runs each
+conv in bf16 (x, weight, bias and mask cast down, the output cast back to
+f32 before BatchNorm, whose statistics stay f32) and turns the fused
+epilogue off, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -51,9 +54,22 @@ def os_layer_apply(
     x: torch.Tensor,
     training: bool,
     relu: bool,
+    compute_dtype=None,
     fused_infer: bool = False,
 ) -> Tuple[torch.Tensor, Dict]:
+    """``compute_dtype`` (a torch dtype, or None for f32 end to end) runs the
+    conv, the FLOP carrier, in that dtype: x, weight, bias and mask cast
+    down, the conv output cast back to f32 before BatchNorm, whose
+    statistics stay f32.  ``fused_infer=True`` (eval mode, f32 only) folds
+    the running-stat BatchNorm into the conv's epilogue: a no-grad path."""
     conv, st = params["conv"], state["bn"]
+    if compute_dtype is not None:
+        y = masked_os_conv(
+            x.to(compute_dtype), conv["weight"].to(compute_dtype),
+            conv["bias"].to(compute_dtype), mask.to(compute_dtype),
+        ).float()
+        y, new_bn = batch_norm(y, params["bn_scale"], params["bn_bias"], st, training)
+        return (torch.relu(y) if relu else y), {"bn": new_bn}
     if fused_infer and not training:
         inv_scale = params["bn_scale"] * torch.rsqrt(st.var + 1e-5)
         y = masked_os_conv(
@@ -85,13 +101,14 @@ def os_block_apply(
     x: torch.Tensor,
     training: bool,
     relu_at_last: bool = True,
+    compute_dtype=None,
     fused_infer: bool = False,
 ) -> Tuple[torch.Tensor, Dict]:
     n = len(masks)
     new_states = []
     for i, (p, s, m) in enumerate(zip(params["layers"], state["layers"], masks)):
         relu = True if i < n - 1 else relu_at_last
-        x, ns = os_layer_apply(p, s, m, x, training, relu, fused_infer)
+        x, ns = os_layer_apply(p, s, m, x, training, relu, compute_dtype, fused_infer)
         new_states.append(ns)
     return x, {"layers": new_states}
 
@@ -114,6 +131,7 @@ def os_cnn_apply(
     x: torch.Tensor,
     training: bool,
     few_shot: bool = False,
+    compute_dtype=None,
     fused_infer: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
     """Returns (logits, pooled_feature, new_state) — reference OS_CNN.forward.
@@ -122,7 +140,7 @@ def os_cnn_apply(
     in both slots (reference OS_CNN.py:82,106-108).
     """
     y, new_block = os_block_apply(
-        params["block"], state["block"], masks, x, training, True, fused_infer
+        params["block"], state["block"], masks, x, training, True, compute_dtype, fused_infer
     )
     pooled = torch.mean(y, dim=1)  # AdaptiveAvgPool1d(1) over time
     logits = pooled if few_shot else linear(params["hidden"], pooled)
@@ -156,12 +174,13 @@ def os_cnn_res_apply(
     masks: List[torch.Tensor],
     x: torch.Tensor,
     training: bool,
+    compute_dtype=None,
     fused_infer: bool = False,
 ) -> Tuple[torch.Tensor, Dict]:
     """ReLU(OS_block(x, no final relu) + BN(Conv1x1(x))) — Res_OS_layer."""
     main, new_block = os_block_apply(
         params["block"], state["block"], masks, x, training,
-        relu_at_last=False, fused_infer=fused_infer,
+        relu_at_last=False, compute_dtype=compute_dtype, fused_infer=fused_infer,
     )
     shortcut, new_res_bn = batch_norm(
         conv1x1(params["res"], x), params["res_bn_scale"], params["res_bn_bias"],

@@ -1,16 +1,23 @@
 // The 3xTF32 building blocks shared by the tensor-core kernels of
 // tap_gemm.cuh (the conv tap GEMM) and wn_fused.cu (the WN backward's
 // weight gradients), for Hopper (sm_90a): the TF32 split of an f32 value,
-// the m16n8k8 TF32 mma, ldmatrix of four 8 x 4-word matrices, and cp.async.
+// the bf16 rounding of the bf16-operand instances, the m16n8k8 TF32 mma,
+// ldmatrix of two or four 8 x 4-word matrices, and cp.async.
 //
 // An f32 product a*b is taken as lo_a*hi_b + hi_a*lo_b + hi_a*hi_b with
 // hi = cvt.rna.tf32(v) and lo = cvt.rna.tf32(v - hi) (the dropped lo*lo is
 // below f32 rounding).  The tensor core's accumulate truncates, so a long
 // sum is taken in stages, each into zeroed registers, added to the running
 // total with one rounded f32 add (tap_gemm.cuh says what it measured).
+//
+// The bf16-operand instances (the JAX package's FLSTTSC_WN_MXU=bf16 and its
+// bf16 conv) round each operand to bf16 (round_bf16) and take ONE TF32
+// product a term: a bf16 value is exact in TF32 (8 significand bits of 11),
+// and the product of two is exact in f32, so only the f32 sum rounds.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -24,6 +31,11 @@ static __device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(v));
   const float rest = v - __uint_as_float(hi);
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(rest));
+}
+
+// v rounded to bf16 (to nearest, ties to even), widened back to f32 bits.
+static __device__ __forceinline__ uint32_t round_bf16(float v) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(v))) << 16;
 }
 
 static __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -40,6 +52,14 @@ static __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const uint3
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+// Two of them: lanes 0-15 give the addresses (matrix l / 8), as ldmatrix_x4's.
+static __device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const uint32_t* row) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];"
+               : "=r"(r[0]), "=r"(r[1])
                : "r"(s));
 }
 

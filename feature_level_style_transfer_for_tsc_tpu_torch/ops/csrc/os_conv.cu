@@ -1,5 +1,5 @@
 // Masked omni-scale conv1d forward for Hopper (sm_90a), f32 accuracy on the
-// tensor cores (3xTF32).
+// tensor cores (3xTF32), and a bf16 instance (one product a term).
 //
 // Replaces the TPU kernels of feature_level_style_transfer_for_tsc_tpu/ops/osconv.py:
 //   _os_conv_kernel        (osconv.py:258)  ->  os_conv_fwd_runs (one run: os_conv_fwd)
@@ -37,20 +37,26 @@
 // run's arithmetic is the one-run call's.  For R > 1 they are the JAX
 // package's vmapped kernels of its multi-run training (train/multirun.py),
 // where jax.vmap adds a grid axis.
-extern "C" int os_conv_fwd_runs(const float* x_pad, const float* w, void* work, float* y,
-                                int runs, int batch, int t_pad, int c_in, int k, int c_out,
+//
+// bf16 != 0 (os_conv_fwd_runs only): x_pad, w and y are bf16, the
+// counterpart of the JAX package's bf16 conv under PipelineConfig.compute_dtype
+// = "bfloat16" (XLA's conv with a bf16 output, osconv.py:356-366; its Pallas
+// kernels take f32 only): each product exact, the sum f32, rounded to bf16
+// at the store (tap_gemm.cuh).  The same launches.
+extern "C" int os_conv_fwd_runs(const void* x_pad, const void* w, void* work, void* y, int runs,
+                                int batch, int t_pad, int c_in, int k, int c_out, int bf16,
                                 void* stream) {
-  return static_cast<int>(tap_gemm::run(x_pad, w, work, true, nullptr, nullptr, tap_gemm::kNone,
-                                        y, runs, batch, t_pad, c_in, k, c_out, 1,
-                                        static_cast<cudaStream_t>(stream)));
+  auto run = bf16 ? tap_gemm::run<true> : tap_gemm::run<false>;
+  return static_cast<int>(run(x_pad, w, work, true, nullptr, nullptr, tap_gemm::kNone, y, runs,
+                              batch, t_pad, c_in, k, c_out, 1, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int os_conv_fused_fwd_runs(const float* x_pad, const float* w, void* work,
                                       const float* scale, const float* shift, int relu, float* y,
                                       int runs, int batch, int t_pad, int c_in, int k, int c_out,
                                       void* stream) {
-  return static_cast<int>(tap_gemm::run(x_pad, w, work, true, scale, shift,
-                                        relu ? tap_gemm::kAffineRelu : tap_gemm::kAffine, y, runs,
-                                        batch, t_pad, c_in, k, c_out, 1,
-                                        static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(tap_gemm::run<false>(x_pad, w, work, true, scale, shift,
+                                               relu ? tap_gemm::kAffineRelu : tap_gemm::kAffine,
+                                               y, runs, batch, t_pad, c_in, k, c_out, 1,
+                                               static_cast<cudaStream_t>(stream)));
 }

@@ -1,5 +1,5 @@
 // The WaveNet coupling net (WN) of one flow step, forward and backward, for
-// Hopper (sm_90a), exact float32.
+// Hopper (sm_90a), exact float32, and the same on bf16 operands.
 //
 // Replaces the TPU kernels of feature_level_style_transfer_for_tsc_tpu/ops/wn_fused.py:
 //   _wn_fwd_kernel  (wn_fused.py:164)  ->  wn_fwd_runs (one run: the wrapper wn_fwd)
@@ -85,6 +85,17 @@
 //   call's, and the launches are those of one run.  A one-run call is
 //   runs = 1, which takes the kernels' RUNS = false instances (no run
 //   offsets, as before the run axis).
+// * bf16 operands (wn_fwd_runs / wn_bwd_runs with bf16 != 0: the JAX
+//   kernels' bf16=True, set by FLSTTSC_WN_MXU=bf16): the BF16 template
+//   instances round every layer product's operands to bf16 (to nearest, ties
+//   to even) as they are staged or split, and take ONE TF32 product a term
+//   (a bf16 value is exact in TF32 and the product of two is exact in f32),
+//   summed in f32 as above: a third of the tensor work of 3xTF32.  The bias
+//   gradients stay f32 sums: the weight gradient's column of ones also takes
+//   the TF32 rest of B.  Gates, masks, biases and the residual and skip sums
+//   stay f32.  The staging, the launches and the f32 planes in shared memory
+//   are the f32 instances'; native bf16 mma.m16n8k16 on bf16 planes is later
+//   work.
 // Unlike the TPU kernel there is no pad of T to a multiple of 8 (a TPU
 // sublane rule) and no roll: each block reads the rows it needs.
 
@@ -114,9 +125,16 @@ constexpr size_t GEMM_SMEM = (TR * AS_STRIDE + KC * WMAX) * sizeof(float);
 
 __device__ __forceinline__ float sigmoidf_(float v) { return 1.f / (1.f + expf(-v)); }
 
+// A product's operand: v itself, or v rounded to bf16 (the BF16 instances).
+template <bool BF16>
+__device__ __forceinline__ float rounded(float v) {
+  return BF16 ? __uint_as_float(round_bf16(v)) : v;
+}
+
 // acc[m][q] += sum_k A(m, k) * W(k, col[q]) over the block's TR rows (m is
 // the row within the tile), k < kdim; W's columns >= wcols read as zero.
-template <int NQ, class AF, class WF>
+// BF16: both operands rounded to bf16 as they are staged.
+template <bool BF16, int NQ, class AF, class WF>
 __device__ __forceinline__ void tile_gemm(float (&acc)[RM][NQ], const int (&col)[NQ],
                                           int kdim, int wcols, const AF& a_at,
                                           const WF& w_at, float* smem) {
@@ -129,12 +147,12 @@ __device__ __forceinline__ void tile_gemm(float (&acc)[RM][NQ], const int (&col)
     for (int i = tid; i < TR * KC; i += NTHREADS) {
       const int m = i / KC;
       const int kk = i - m * KC;
-      as[m * AS_STRIDE + kk] = (k0 + kk < kdim) ? a_at(m, k0 + kk) : 0.f;
+      as[m * AS_STRIDE + kk] = (k0 + kk < kdim) ? rounded<BF16>(a_at(m, k0 + kk)) : 0.f;
     }
     for (int i = tid; i < KC * WMAX; i += NTHREADS) {
       const int kk = i / WMAX;
       const int n = i - kk * WMAX;
-      ws[i] = (k0 + kk < kdim && n < wcols) ? w_at(k0 + kk, n) : 0.f;
+      ws[i] = (k0 + kk < kdim && n < wcols) ? rounded<BF16>(w_at(k0 + kk, n)) : 0.f;
     }
     __syncthreads();
 #pragma unroll 4
@@ -182,7 +200,9 @@ struct RowW {
 // out[r, n] = (accumulate ? out[r, n] : 0) + a[r] @ w[:, n] + bias[n]; each
 // block takes CMAX columns from n0 = blockIdx.y * CMAX, of run blockIdx.z
 // (each operand offset by its run stride).  The start projection, g_skip
-// and the start's input gradient: under 1% of the FLOPs.
+// and the start's input gradient: under 1% of the FLOPs.  BF16: bf16
+// operands, f32 sums (the bias and the accumulated out stay f32).
+template <bool BF16>
 __global__ void __launch_bounds__(NTHREADS)
 rowgemm_kernel(const float* __restrict__ a, const float* __restrict__ w,
                const float* __restrict__ bias, float* __restrict__ out, int rows, int k,
@@ -205,7 +225,7 @@ rowgemm_kernel(const float* __restrict__ a, const float* __restrict__ w,
   for (int q = 0; q < CP; ++q) col[q] = tx + NTX * q;
   float acc[RM][CP];
   zero(acc);
-  tile_gemm(acc, col, k, nc, RowA{a, r0, rows, k}, RowW{w + n0, n}, smem);
+  tile_gemm<BF16>(acc, col, k, nc, RowA{a, r0, rows, k}, RowW{w + n0, n}, smem);
 #pragma unroll
   for (int m = 0; m < RM; ++m) {
     const int r = r0 + ty * RM + m;
@@ -310,8 +330,12 @@ __device__ __forceinline__ void stage4(const Operand& op, const float* any, int 
 // once into TF32 hi/lo planes stored transposed (a plane row is a column of
 // the stage, so both mma operands come by ldmatrix), and sums its
 // lo*hi + hi*lo + hi*hi products into zeroed registers that are added to the
-// running sum with one rounded f32 add.
-template <bool RUNS>
+// running sum with one rounded f32 add.  The BF16 instance (the JAX
+// package's FLSTTSC_WN_MXU=bf16) takes hi = the element rounded to bf16 and
+// one product a term, except in the row of A's column of ones (the bias
+// gradient), which also takes B's rest, so that the bias gradients stay f32
+// sums as in the JAX package.
+template <bool RUNS, bool BF16>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 wgrad_kernel(WGrad p, float* __restrict__ partial) {
   extern __shared__ float4 smem4[];
@@ -338,6 +362,23 @@ wgrad_kernel(WGrad p, float* __restrict__ partial) {
   // mma tiles past the operands' columns are not issued (warp-uniform)
   const int m_live = min(2, max(0, (p.a.cols - k0 - wm0 + 15) / 16));
   const int n_live = min(4, max(0, (p.b.cols - n0 - wn0 + 7) / 8));
+  // BF16: the m16 tile of this warp that holds A's column of ones (-1: none),
+  // and an A fragment that is 1 in its row and 0 elsewhere
+  int ones_mt = -1;
+  uint32_t one[4] = {0u, 0u, 0u, 0u};
+  if (BF16) {
+    bool has_ones = false;
+#pragma unroll
+    for (int s = 0; s < MAX_SEGS; ++s)
+      if (s == p.a.nseg - 1) has_ones = p.a.seg[s].kind == kOnes;
+    const int m = p.a.cols - 1 - k0 - wm0;
+    if (has_ones && m >= 0 && m < 32) {
+      ones_mt = m / 16;
+      const uint32_t unit = __float_as_uint(1.f);
+      one[0] = one[2] = (lane >> 2) == m % 16 ? unit : 0u;
+      one[1] = one[3] = (lane >> 2) + 8 == m % 16 ? unit : 0u;
+    }
+  }
 
   auto load = [&](int s, int buf) {
     const int rb = rs + s * WG_RB;
@@ -362,16 +403,26 @@ wgrad_kernel(WGrad p, float* __restrict__ partial) {
     }
   };
   // staged (row, column) -> planes (column, row); lanes take neighbouring
-  // rows: float4 reads at a stride of 4 mod 32 words, 32-word stores
-  auto split = [&](const float* src, int stride, int cols, uint32_t* hi, uint32_t* lo) {
+  // rows: float4 reads at a stride of 4 mod 32 words, 32-word stores.  BF16:
+  // hi the bf16 rounding, and for B (``rest``) lo what it left off, in TF32
+  auto split = [&](const float* src, int stride, int cols, uint32_t* hi, uint32_t* lo,
+                   bool rest) {
+    auto one_ = [&](float v, uint32_t& h, uint32_t& l) {
+      if constexpr (BF16) {
+        h = round_bf16(v);
+        if (rest) asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(l) : "f"(v - __uint_as_float(h)));
+      } else {
+        split_tf32(v, h, l);
+      }
+    };
     for (int e = tid; e < WG_RB * cols / 4; e += WG_THREADS) {
       const int r = e % WG_RB;
       const int c = (e / WG_RB) * 4;
       const float4 v = *reinterpret_cast<const float4*>(src + r * stride + c);
-      split_tf32(v.x, hi[c * WG_PS + r], lo[c * WG_PS + r]);
-      split_tf32(v.y, hi[(c + 1) * WG_PS + r], lo[(c + 1) * WG_PS + r]);
-      split_tf32(v.z, hi[(c + 2) * WG_PS + r], lo[(c + 2) * WG_PS + r]);
-      split_tf32(v.w, hi[(c + 3) * WG_PS + r], lo[(c + 3) * WG_PS + r]);
+      one_(v.x, hi[c * WG_PS + r], lo[c * WG_PS + r]);
+      one_(v.y, hi[(c + 1) * WG_PS + r], lo[(c + 1) * WG_PS + r]);
+      one_(v.z, hi[(c + 2) * WG_PS + r], lo[(c + 2) * WG_PS + r]);
+      one_(v.w, hi[(c + 3) * WG_PS + r], lo[(c + 3) * WG_PS + r]);
     }
   };
 
@@ -399,8 +450,8 @@ wgrad_kernel(WGrad p, float* __restrict__ partial) {
       load(s + 1, (s + 1) & 1);
       cp_async_commit();
     }
-    split(raw_a(s & 1), WG_AS, WG_KT, ah, al);
-    split(raw_b(s & 1), WG_BS, WG_NT, bh, bl);
+    split(raw_a(s & 1), WG_AS, WG_KT, ah, al, false);
+    split(raw_b(s & 1), WG_BS, WG_NT, bh, bl, true);
     __syncthreads();  // the planes of stage s are written
 
     float part[2][4][4];
@@ -418,7 +469,7 @@ wgrad_kernel(WGrad p, float* __restrict__ partial) {
         if (mt < m_live) {
           const int i = (a_row + mt * 16) * WG_PS + kb * 8 + a_col;
           ldmatrix_x4(fah[mt], ah + i);
-          ldmatrix_x4(fal[mt], al + i);
+          if (!BF16) ldmatrix_x4(fal[mt], al + i);
         }
       }
 #pragma unroll
@@ -427,10 +478,17 @@ wgrad_kernel(WGrad p, float* __restrict__ partial) {
           const int i = (b_row + np * 16) * WG_PS + kb * 8 + b_col;
           uint32_t fbh[4], fbl[4];
           ldmatrix_x4(fbh, bh + i);
-          ldmatrix_x4(fbl, bl + i);
+          if (!BF16 || ones_mt >= 0) ldmatrix_x4(fbl, bl + i);
 #pragma unroll
           for (int mt = 0; mt < 2; ++mt) {
-            if (mt < m_live) {
+            if (BF16 && mt < m_live) {
+              if (mt == ones_mt) mma_tf32(part[mt][2 * np], one, fbl[0], fbl[1]);
+              mma_tf32(part[mt][2 * np], fah[mt], fbh[0], fbh[1]);
+              if (2 * np + 1 < n_live) {
+                if (mt == ones_mt) mma_tf32(part[mt][2 * np + 1], one, fbl[2], fbl[3]);
+                mma_tf32(part[mt][2 * np + 1], fah[mt], fbh[2], fbh[3]);
+              }
+            } else if (mt < m_live) {
               mma_tf32(part[mt][2 * np], fal[mt], fbh[0], fbh[1]);
               mma_tf32(part[mt][2 * np], fah[mt], fbl[0], fbl[1]);
               mma_tf32(part[mt][2 * np], fah[mt], fbh[0], fbh[1]);
@@ -574,6 +632,7 @@ __device__ __forceinline__ float z_weight(const float* w_in, const float* w_cond
 //   g_acts: W(k, n) = w_rs[i][n][k]
 //   taps:   W(k, n) = w_in[i][k / 2C][n][k % 2C]  (w_in[i]^T as (3*2C, C))
 //   g_x:    W(k, n) = w_cond[n][2Ci + k]
+template <bool BF16>
 __global__ void __launch_bounds__(NTHREADS)
 wsplit_kernel(const float* __restrict__ w_in, const float* __restrict__ w_cond,
               const float* __restrict__ w_rs, uint32_t* __restrict__ out, int c, int h,
@@ -607,7 +666,11 @@ wsplit_kernel(const float* __restrict__ w_in, const float* __restrict__ w_cond,
     } else if (n < h && k < 2 * c) {
       v = w_cond[n * ldc + 2 * c * i + k];
     }
-    split_tf32(v, hi[k], lo[k]);
+    if constexpr (BF16) {
+      hi[k] = round_bf16(v);  // the lo plane is not read
+    } else {
+      split_tf32(v, hi[k], lo[k]);
+    }
   }
 }
 
@@ -645,6 +708,7 @@ __host__ __device__ inline size_t fwd_words(const FPlanes& p, int n_layers) {
 //   z:        as wsplit_kernel
 //   res/skip: W(k, col) = w_rs[i][k][col], plane row n holds col = pair_col(n)
 //   end:      W(k, n) = w_end[k][n]
+template <bool BF16>
 __global__ void __launch_bounds__(NTHREADS)
 wsplit_fwd_kernel(const float* __restrict__ w_in, const float* __restrict__ w_cond,
                   const float* __restrict__ w_rs, const float* __restrict__ w_end,
@@ -676,7 +740,11 @@ wsplit_fwd_kernel(const float* __restrict__ w_in, const float* __restrict__ w_co
     } else if (n < 2 * h && k < c) {
       v = w_end[static_cast<size_t>(k) * 2 * h + n];
     }
-    split_tf32(v, hi[k], lo[k]);
+    if constexpr (BF16) {
+      hi[k] = round_bf16(v);  // the lo plane is not read
+    } else {
+      split_tf32(v, hi[k], lo[k]);
+    }
   }
 }
 
@@ -684,7 +752,9 @@ wsplit_fwd_kernel(const float* __restrict__ w_in, const float* __restrict__ w_co
 // units j < nu of this warp, over a tile of 16 * MT rows (MT m16 tiles, each
 // taken by 16 / MT warps).  W is its split planes: w_hi (row n at w_hi + n *
 // k_pad, the lo plane w_lo), of which the stage copies rows [0, w_rows).
-template <int NTU, int MT = RT_MT>
+// BF16: A rounded to bf16 as it is staged, W's hi plane its bf16 rounding
+// (the lo plane is neither copied nor read), one product a term.
+template <bool BF16, int NTU, int MT = RT_MT>
 __device__ __forceinline__ void rt_phase(float (&acc)[RT_NQ][NTU][4], const Operand& a,
                                          const uint32_t* w_hi, const uint32_t* w_lo, int k_pad,
                                          int w_rows, int k_dim, int r0, int rows, int t_len, int d,
@@ -710,7 +780,7 @@ __device__ __forceinline__ void rt_phase(float (&acc)[RT_NQ][NTU][4], const Oper
              raw_a + buf * RT_M * RT_AS + rr * RT_AS + 4 * g, run);
     }
     uint32_t* wb = wbuf + buf * 2 * RT_NMAX * RT_AS;
-    for (int e = tid; e < 2 * w_rows * (RT_KS / 4); e += RT_THREADS) {  // W: 16-byte chunks
+    for (int e = tid; e < (BF16 ? 1 : 2) * w_rows * (RT_KS / 4); e += RT_THREADS) {  // W: 16-byte chunks
       const int q = e % (RT_KS / 4);
       const int n = (e / (RT_KS / 4)) % w_rows;
       const int p = e / (RT_KS / 4) / w_rows;
@@ -742,7 +812,11 @@ __device__ __forceinline__ void rt_phase(float (&acc)[RT_NQ][NTU][4], const Oper
     const float* xa = raw_a + (s & 1) * RT_M * RT_AS;
     for (int e = tid; e < 16 * MT * RT_KS; e += RT_THREADS) {
       const int i = (e / RT_KS) * RT_AS + e % RT_KS;
-      split_tf32(xa[i], ah[i], al[i]);
+      if constexpr (BF16) {
+        ah[i] = round_bf16(xa[i]);
+      } else {
+        split_tf32(xa[i], ah[i], al[i]);
+      }
     }
     __syncthreads();  // the A planes of stage s are written
     const uint32_t* wb = wbuf + (s & 1) * 2 * RT_NMAX * RT_AS + b_off;
@@ -758,17 +832,23 @@ __device__ __forceinline__ void rt_phase(float (&acc)[RT_NQ][NTU][4], const Oper
     for (int kb = 0; kb < RT_KS / 8; ++kb) {
       uint32_t fah[4], fal[4];
       ldmatrix_x4(fah, ah + a_row * RT_AS + kb * 8 + a_col);
-      ldmatrix_x4(fal, al + a_row * RT_AS + kb * 8 + a_col);
+      if (!BF16) ldmatrix_x4(fal, al + a_row * RT_AS + kb * 8 + a_col);
 #pragma unroll
       for (int j = 0; j < RT_NQ; ++j) {
         if (j < nu) {
 #pragma unroll
           for (int t = 0; t < NTU; ++t) {
-            uint32_t fb[4];  // hi k 0-3, hi k 4-7, lo k 0-3, lo k 4-7
-            ldmatrix_x4(fb, wb + tiles[j][t] * 8 * RT_AS + kb * 8);
-            mma_tf32(part[j][t], fal, fb[0], fb[1]);
-            mma_tf32(part[j][t], fah, fb[2], fb[3]);
-            mma_tf32(part[j][t], fah, fb[0], fb[1]);
+            if constexpr (BF16) {
+              uint32_t fb[2];  // hi k 0-3, hi k 4-7
+              ldmatrix_x2(fb, wb + tiles[j][t] * 8 * RT_AS + kb * 8);
+              mma_tf32(part[j][t], fah, fb[0], fb[1]);
+            } else {
+              uint32_t fb[4];  // hi k 0-3, hi k 4-7, lo k 0-3, lo k 4-7
+              ldmatrix_x4(fb, wb + tiles[j][t] * 8 * RT_AS + kb * 8);
+              mma_tf32(part[j][t], fal, fb[0], fb[1]);
+              mma_tf32(part[j][t], fah, fb[2], fb[3]);
+              mma_tf32(part[j][t], fah, fb[0], fb[1]);
+            }
           }
         }
       }
@@ -817,7 +897,7 @@ struct GzArgs {
   int rows, t_len, h, c, d, n_layers;
 };
 
-template <bool RUNS>
+template <bool RUNS, bool BF16>
 __global__ void __launch_bounds__(RT_THREADS, 1) wn_layer_gz_kernel(GzArgs p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -845,7 +925,7 @@ __global__ void __launch_bounds__(RT_THREADS, 1) wn_layer_gz_kernel(GzArgs p) {
 #pragma unroll
       for (int i = 0; i < 8; ++i) z[j][i >> 2][i & 3] = 0.f;
     const uint32_t* wz = planes + P.z;
-    rt_phase(z, p.a_z, wz, wz + static_cast<size_t>(2 * P.cp) * P.kz, P.kz, 2 * P.cp, p.a_z.cols,
+    rt_phase<BF16>(z, p.a_z, wz, wz + static_cast<size_t>(2 * P.cp) * P.kz, P.kz, 2 * P.cp, p.a_z.cols,
              r0, p.rows, p.t_len, p.d, gz, pair, nu, smem, run);
 #pragma unroll
     for (int j = 0; j < RT_NQ; ++j) {
@@ -863,7 +943,7 @@ __global__ void __launch_bounds__(RT_THREADS, 1) wn_layer_gz_kernel(GzArgs p) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) g[j][0][i] = 0.f;
   const uint32_t* wg = planes + P.g;
-  rt_phase(g, p.a_grs, wg, wg + static_cast<size_t>(P.cp) * P.kg, P.kg, P.cp, 2 * c, r0, p.rows,
+  rt_phase<BF16>(g, p.a_grs, wg, wg + static_cast<size_t>(P.cp) * P.kg, P.kg, P.cp, 2 * c, r0, p.rows,
            p.t_len, p.d, gz, one, nu, smem, run);
 #pragma unroll
   for (int j = 0; j < RT_NQ; ++j) {
@@ -898,7 +978,7 @@ struct GaArgs {
   int rows, t_len, h, c, d, first, ny, n_layers;
 };
 
-template <bool RUNS>
+template <bool RUNS, bool BF16>
 __global__ void __launch_bounds__(RT_THREADS, 1) wn_layer_ga_kernel(GaArgs p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -925,11 +1005,11 @@ __global__ void __launch_bounds__(RT_THREADS, 1) wn_layer_ga_kernel(GaArgs p) {
   const float* any = p.a_gz.seg[0].src;
   if (part == 0) {
     const uint32_t* wt = planes + P.t;
-    rt_phase(acc, p.a_taps, wt, wt + static_cast<size_t>(P.cp) * P.kt, P.kt, P.cp, 6 * p.c, r0,
+    rt_phase<BF16>(acc, p.a_taps, wt, wt + static_cast<size_t>(P.cp) * P.kt, P.kt, P.cp, 6 * p.c, r0,
              p.rows, p.t_len, p.d, any, tile, nu, smem, run);
   } else {
     const uint32_t* wx = planes + P.x;
-    rt_phase(acc, p.a_gz, wx + static_cast<size_t>(n0) * P.kc,
+    rt_phase<BF16>(acc, p.a_gz, wx + static_cast<size_t>(n0) * P.kc,
              wx + static_cast<size_t>(P.hp + n0) * P.kc, P.kc, round8(nc), 2 * p.c, r0, p.rows,
              p.t_len, p.d, any, tile, nu, smem, run);
   }
@@ -984,7 +1064,7 @@ struct FwdArgs {
   int rows, t_len, h, c, d, first, last, n_layers;
 };
 
-template <int MT, bool RUNS>
+template <int MT, bool RUNS, bool BF16>
 __global__ void __launch_bounds__(RT_THREADS, 1) wn_layer_fwd_kernel(FwdArgs p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -1009,7 +1089,7 @@ __global__ void __launch_bounds__(RT_THREADS, 1) wn_layer_fwd_kernel(FwdArgs p) 
 #pragma unroll
       for (int i = 0; i < 8; ++i) z[j][i >> 2][i & 3] = 0.f;
     const uint32_t* wz = p.planes + run * fwd_words(P, p.n_layers) + P.z;
-    rt_phase<2, MT>(z, p.a_z, wz, wz + static_cast<size_t>(2 * P.cp) * P.kz, P.kz, 2 * P.cp,
+    rt_phase<BF16, 2, MT>(z, p.a_z, wz, wz + static_cast<size_t>(2 * P.cp) * P.kz, P.kz, 2 * P.cp,
                     p.a_z.cols, r0, p.rows, p.t_len, p.d, aud_i, pair, nu, smem, run);
     const float* b_z = p.b_z + static_cast<size_t>(run) * p.n_layers * 2 * c;
     float* acts = p.acts + run * rc;
@@ -1033,7 +1113,7 @@ __global__ void __launch_bounds__(RT_THREADS, 1) wn_layer_fwd_kernel(FwdArgs p) 
 #pragma unroll
       for (int i = 0; i < 8; ++i) rs[j][i >> 2][i & 3] = 0.f;
     const uint32_t* wr = p.planes + run * fwd_words(P, p.n_layers) + P.rs;
-    rt_phase<2, MT>(rs, p.a_acts, wr, wr + static_cast<size_t>(2 * P.cp) * P.kr, P.kr, 2 * P.cp,
+    rt_phase<BF16, 2, MT>(rs, p.a_acts, wr, wr + static_cast<size_t>(2 * P.cp) * P.kr, P.kr, 2 * P.cp,
                     c, r0, p.rows, p.t_len, p.d, aud_i, pair, nu, smem, run);
     const float* b_rs = p.b_rs + static_cast<size_t>(run) * p.n_layers * 2 * c;
     float* aud_next = p.aud_next ? p.aud_next + run * p.n_layers * rc : nullptr;
@@ -1067,7 +1147,7 @@ __global__ void __launch_bounds__(RT_THREADS, 1) wn_layer_fwd_kernel(FwdArgs p) 
 #pragma unroll
       for (int i = 0; i < 4; ++i) e[j][0][i] = 0.f;
     }
-    rt_phase<1, MT>(e, p.a_skip, end_planes + static_cast<size_t>(n0) * P.kr,
+    rt_phase<BF16, 1, MT>(e, p.a_skip, end_planes + static_cast<size_t>(n0) * P.kr,
                     end_planes + static_cast<size_t>(P.ep + n0) * P.kr, P.kr, round8(nc), c, r0,
                     p.rows, p.t_len, p.d, aud_i, tile, ne, smem, run);
 #pragma unroll
@@ -1113,25 +1193,27 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 
 // ``runs`` runs of the row product (blockIdx.z), each operand's runs its
 // run stride (in floats) apart.
+template <bool BF16>
 cudaError_t rowgemm(const float* a, long long a_rs, const float* w, long long w_rs,
                     const float* bias, long long bias_rs, float* out, long long out_rs, int rows,
                     int k, int n, int accumulate, int runs, cudaStream_t stream) {
-  cudaError_t e = allow_smem(rowgemm_kernel, GEMM_SMEM);
+  cudaError_t e = allow_smem(rowgemm_kernel<BF16>, GEMM_SMEM);
   if (e != cudaSuccess) return e;
-  rowgemm_kernel<<<dim3(tiles(rows), col_chunks(n), runs), NTHREADS, GEMM_SMEM, stream>>>(
+  rowgemm_kernel<BF16><<<dim3(tiles(rows), col_chunks(n), runs), NTHREADS, GEMM_SMEM, stream>>>(
       a, w, bias, out, rows, k, n, accumulate, a_rs, w_rs, bias_rs, out_rs);
   return cudaGetLastError();
 }
 
 // The weight gradient of every run: the partials of run r's slices at
 // partial + r * n_splits * count, its sum at out + r * out_rs.
+template <bool BF16>
 cudaError_t wgrad(const WGrad& p, float* partial, float* out, long long out_rs, int runs,
                   cudaStream_t stream) {
   const int nsplit = n_splits(p);
   const dim3 grid((p.a.cols + WG_KT - 1) / WG_KT, (p.b.cols + WG_NT - 1) / WG_NT, runs * nsplit);
   // the one-run call takes the RUNS = false instance (no run offsets); the
   // caller has set both instances' shared memory
-  auto kernel = runs > 1 ? wgrad_kernel<true> : wgrad_kernel<false>;
+  auto kernel = runs > 1 ? wgrad_kernel<true, BF16> : wgrad_kernel<false, BF16>;
   kernel<<<grid, WG_THREADS, WG_SMEM, stream>>>(p, partial);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
@@ -1164,8 +1246,6 @@ bool bad_geometry(int rows, int t_len, int h, int c, int n_layers) {
          n_layers < 1 || n_layers > 30;
 }
 
-}  // namespace
-
 // Forward of ``runs`` independent WNs of one geometry: every tensor below
 // holds the runs one after the other (x (runs, R, H), w_in (runs, L, 3, C,
 // 2C), ...), each run's arithmetic the one-run call's; the run rides on a
@@ -1174,25 +1254,24 @@ bool bad_geometry(int rows, int t_len, int h, int c, int n_layers) {
 // 2C).  Scratch: acts (runs, R, C), wsplit (runs * wn_fwd_wsplit_words).  2
 // + L kernel launches.  They replace the vmapped Pallas kernel of the JAX
 // package's multi-run training (train/multirun.py), where jax.vmap adds a
-// grid axis.
-extern "C" int wn_fwd_runs(const float* x, const float* w_start, const float* b_start,
-                           const float* w_cond, const float* b_z, const float* w_in,
-                           const float* w_rs, const float* b_rs, const float* w_end,
-                           const float* b_end, float* y, float* aud, float* skip, float* acts,
-                           void* wsplit, int runs, int rows, int t_len, int h, int c,
-                           int n_layers, void* stream_ptr) {
-  if (bad_geometry(rows, t_len, h, c, n_layers) || runs < 1 || runs > 65535)
-    return cudaErrorInvalidValue;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+// grid axis.  bf16 != 0 takes the BF16 instances: every layer product on
+// bf16-rounded operands, one TF32 product a term, f32 sums (the JAX
+// kernel's bf16=True, FLSTTSC_WN_MXU=bf16); the same launches.
+template <bool BF16>
+cudaError_t fwd_runs(const float* x, const float* w_start, const float* b_start,
+                     const float* w_cond, const float* b_z, const float* w_in, const float* w_rs,
+                     const float* b_rs, const float* w_end, const float* b_end, float* y,
+                     float* aud, float* skip, float* acts, void* wsplit, int runs, int rows,
+                     int t_len, int h, int c, int n_layers, cudaStream_t stream) {
   const FPlanes P = fplanes(c, h);
   uint32_t* planes = static_cast<uint32_t*>(wsplit);
-  wsplit_fwd_kernel<<<dim3(max(2 * P.cp, P.ep), 3, runs * n_layers), NTHREADS, 0, stream>>>(
+  wsplit_fwd_kernel<BF16><<<dim3(max(2 * P.cp, P.ep), 3, runs * n_layers), NTHREADS, 0, stream>>>(
       w_in, w_cond, w_rs, w_end, planes, c, h, n_layers);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const long long rc = static_cast<long long>(rows) * c;
-  e = rowgemm(x, static_cast<long long>(rows) * h, w_start, static_cast<long long>(h) * c,
-              b_start, c, aud, n_layers * rc, rows, h, c, 0, runs, stream);
+  e = rowgemm<BF16>(x, static_cast<long long>(rows) * h, w_start, static_cast<long long>(h) * c,
+                    b_start, c, aud, n_layers * rc, rows, h, c, 0, runs, stream);
   if (e != cudaSuccess) return e;
   int sms = 0;
   e = current_sms(sms);
@@ -1206,9 +1285,10 @@ extern "C" int wn_fwd_runs(const float* x, const float* w_start, const float* b_
   int mt = RT_MT;
   while (mt > 1 && (rows + 8 * mt - 1) / (8 * mt) <= sms) mt /= 2;
   const bool many = runs > 1;
-  auto kernel = mt == 4 ? (many ? wn_layer_fwd_kernel<4, true> : wn_layer_fwd_kernel<4, false>)
-              : mt == 2 ? (many ? wn_layer_fwd_kernel<2, true> : wn_layer_fwd_kernel<2, false>)
-                        : (many ? wn_layer_fwd_kernel<1, true> : wn_layer_fwd_kernel<1, false>);
+  auto kernel =
+      mt == 4 ? (many ? wn_layer_fwd_kernel<4, true, BF16> : wn_layer_fwd_kernel<4, false, BF16>)
+      : mt == 2 ? (many ? wn_layer_fwd_kernel<2, true, BF16> : wn_layer_fwd_kernel<2, false, BF16>)
+                : (many ? wn_layer_fwd_kernel<1, true, BF16> : wn_layer_fwd_kernel<1, false, BF16>);
   e = allow_smem(kernel, RT_SMEM);
   if (e != cudaSuccess) return e;
   const int tiles_fwd = (rows + 16 * mt - 1) / (16 * mt);
@@ -1229,6 +1309,21 @@ extern "C" int wn_fwd_runs(const float* x, const float* w_start, const float* b_
     if (e != cudaSuccess) return e;
   }
   return cudaSuccess;
+}
+
+}  // namespace
+
+extern "C" int wn_fwd_runs(const float* x, const float* w_start, const float* b_start,
+                           const float* w_cond, const float* b_z, const float* w_in,
+                           const float* w_rs, const float* b_rs, const float* w_end,
+                           const float* b_end, float* y, float* aud, float* skip, float* acts,
+                           void* wsplit, int runs, int rows, int t_len, int h, int c,
+                           int n_layers, int bf16, void* stream_ptr) {
+  if (bad_geometry(rows, t_len, h, c, n_layers) || runs < 1 || runs > 65535)
+    return cudaErrorInvalidValue;
+  auto fwd = bf16 ? fwd_runs<true> : fwd_runs<false>;
+  return fwd(x, w_start, b_start, w_cond, b_z, w_in, w_rs, b_rs, w_end, b_end, y, aud, skip, acts,
+             wsplit, runs, rows, t_len, h, c, n_layers, static_cast<cudaStream_t>(stream_ptr));
 }
 
 // 32-bit words of wn_fwd's wsplit scratch for one run: the split weights of
@@ -1252,36 +1347,36 @@ extern "C" size_t wn_bwd_wsplit_words(int c, int h, int n_layers) {
 // weights: w_start_t (C, H), w_end_t (2H, C).  Scratch per run: ga (2, R,
 // C), gskip (R, C), gz (R, 2C), acts (R, C), partial (ceil(R/split_rows) *
 // (3C+H+1) * 2C), wsplit (wn_bwd_wsplit_words).  5 + 6L kernel launches.
-extern "C" int wn_bwd_runs(const float* x, const float* g, const float* aud,
-                           const float* w_cond, const float* w_in, const float* b_z,
-                           const float* w_rs, const float* w_start_t, const float* w_end_t,
-                           float* gx, float* g_in, float* g_rs, float* g_start, float* ga,
-                           float* gskip, float* gz, float* acts, float* partial, void* wsplit,
-                           int runs, int rows, int t_len, int h, int c, int n_layers,
-                           int split_rows, void* stream_ptr) {
-  if (bad_geometry(rows, t_len, h, c, n_layers) || split_rows < WG_RB || split_rows % WG_RB ||
-      runs < 1 || runs > 65535)
-    return cudaErrorInvalidValue;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+// bf16 != 0: the BF16 instances, as wn_fwd_runs (the bias gradients stay f32
+// sums); the same launches.
+namespace {
+
+template <bool BF16>
+cudaError_t bwd_runs(const float* x, const float* g, const float* aud, const float* w_cond,
+                     const float* w_in, const float* b_z, const float* w_rs,
+                     const float* w_start_t, const float* w_end_t, float* gx, float* g_in,
+                     float* g_rs, float* g_start, float* ga, float* gskip, float* gz, float* acts,
+                     float* partial, void* wsplit, int runs, int rows, int t_len, int h, int c,
+                     int n_layers, int split_rows, cudaStream_t stream) {
   const WPlanes P = wplanes(c, h);
   uint32_t* planes = static_cast<uint32_t*>(wsplit);
-  wsplit_kernel<<<dim3(max(2 * P.cp, P.hp), 4, runs * n_layers), NTHREADS, 0, stream>>>(
+  wsplit_kernel<BF16><<<dim3(max(2 * P.cp, P.hp), 4, runs * n_layers), NTHREADS, 0, stream>>>(
       w_in, w_cond, w_rs, planes, c, h, n_layers);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const long long rc = static_cast<long long>(rows) * c;
   const long long rh = static_cast<long long>(rows) * h;
-  e = rowgemm(g, 2 * rh, w_end_t, 2LL * h * c, nullptr, 0, gskip, rc, rows, 2 * h, c, 0, runs,
-              stream);
+  e = rowgemm<BF16>(g, 2 * rh, w_end_t, 2LL * h * c, nullptr, 0, gskip, rc, rows, 2 * h, c, 0,
+                    runs, stream);
   if (e != cudaSuccess) return e;
   // the one-run call takes the RUNS = false instances (no run offsets)
-  auto gz_kernel = runs > 1 ? wn_layer_gz_kernel<true> : wn_layer_gz_kernel<false>;
-  auto ga_kernel = runs > 1 ? wn_layer_ga_kernel<true> : wn_layer_ga_kernel<false>;
+  auto gz_kernel = runs > 1 ? wn_layer_gz_kernel<true, BF16> : wn_layer_gz_kernel<false, BF16>;
+  auto ga_kernel = runs > 1 ? wn_layer_ga_kernel<true, BF16> : wn_layer_ga_kernel<false, BF16>;
   e = allow_smem(gz_kernel, RT_SMEM);
   if (e != cudaSuccess) return e;
   e = allow_smem(ga_kernel, RT_SMEM);
   if (e != cudaSuccess) return e;
-  auto wg_kernel = runs > 1 ? wgrad_kernel<true> : wgrad_kernel<false>;
+  auto wg_kernel = runs > 1 ? wgrad_kernel<true, BF16> : wgrad_kernel<false, BF16>;
   e = allow_smem(wg_kernel, WG_SMEM);
   if (e != cudaSuccess) return e;
   int sms = 0;
@@ -1314,12 +1409,12 @@ extern "C" int wn_bwd_runs(const float* x, const float* g, const float* aud,
     const WGrad rs{operand({rows_of(acts, c, rc), ones()}),
                    operand({rows_of(ga_next, c, 2 * rc), rows_of(gskip, c, rc)}), x, rows, t_len,
                    d, split_rows};
-    e = wgrad(rs, partial, g_rs + static_cast<size_t>(i) * (c + 1) * 2 * c, grs_rs, runs, stream);
+    e = wgrad<BF16>(rs, partial, g_rs + static_cast<size_t>(i) * (c + 1) * 2 * c, grs_rs, runs, stream);
     if (e != cudaSuccess) return e;
     const WGrad in{operand({rows_of(aud_i, c, aud_rs, -d, kLo), rows_of(aud_i, c, aud_rs),
                             rows_of(aud_i, c, aud_rs, d, kHi), rows_of(x, h, rh), ones()}),
                    operand({rows_of(gz, 2 * c, 2 * rc)}), x, rows, t_len, d, split_rows};
-    e = wgrad(in, partial, g_in + static_cast<size_t>(i) * k_in * 2 * c, gin_rs, runs, stream);
+    e = wgrad<BF16>(in, partial, g_in + static_cast<size_t>(i) * k_in * 2 * c, gin_rs, runs, stream);
     if (e != cudaSuccess) return e;
     const GaArgs gap{
         operand({rows_of(gz, 2 * c, 2 * rc, d, kHi), rows_of(gz, 2 * c, 2 * rc),
@@ -1333,9 +1428,27 @@ extern "C" int wn_bwd_runs(const float* x, const float* g, const float* aud,
   }
   const WGrad st{operand({rows_of(x, h, rh), ones()}), operand({rows_of(ga_next, c, 2 * rc)}), x,
                  rows, t_len, 1, split_rows};
-  e = wgrad(st, partial, g_start, static_cast<long long>(h + 1) * c, runs, stream);
+  e = wgrad<BF16>(st, partial, g_start, static_cast<long long>(h + 1) * c, runs, stream);
   if (e != cudaSuccess) return e;
-  return rowgemm(ga_next, 2 * rc, w_start_t, static_cast<long long>(c) * h, nullptr, 0, gx, rh,
-                 rows, c, h, 1, runs, stream);
+  return rowgemm<BF16>(ga_next, 2 * rc, w_start_t, static_cast<long long>(c) * h, nullptr, 0, gx,
+                       rh, rows, c, h, 1, runs, stream);
+}
+
+}  // namespace
+
+extern "C" int wn_bwd_runs(const float* x, const float* g, const float* aud,
+                           const float* w_cond, const float* w_in, const float* b_z,
+                           const float* w_rs, const float* w_start_t, const float* w_end_t,
+                           float* gx, float* g_in, float* g_rs, float* g_start, float* ga,
+                           float* gskip, float* gz, float* acts, float* partial, void* wsplit,
+                           int runs, int rows, int t_len, int h, int c, int n_layers,
+                           int split_rows, int bf16, void* stream_ptr) {
+  if (bad_geometry(rows, t_len, h, c, n_layers) || split_rows < WG_RB || split_rows % WG_RB ||
+      runs < 1 || runs > 65535)
+    return cudaErrorInvalidValue;
+  auto bwd = bf16 ? bwd_runs<true> : bwd_runs<false>;
+  return bwd(x, g, aud, w_cond, w_in, b_z, w_rs, w_start_t, w_end_t, gx, g_in, g_rs, g_start, ga,
+             gskip, gz, acts, partial, wsplit, runs, rows, t_len, h, c, n_layers, split_rows,
+             static_cast<cudaStream_t>(stream_ptr));
 }
 

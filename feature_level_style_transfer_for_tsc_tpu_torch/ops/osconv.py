@@ -24,6 +24,15 @@ and finds, per group of 8 output columns, the span of taps whose weights
 are nonzero; the GEMM skips the mask's dead taps outside it.
 ``tap_windows_plain`` is that window search in PyTorch.
 
+bf16 (``PipelineConfig.compute_dtype="bfloat16"``, ``models/os_cnn.py``):
+``os_conv`` and ``os_conv_runs`` take bf16 operands as the JAX package's
+bf16 XLA conv does (its Pallas kernels take f32 only, ``osconv.py:356-366``):
+on CUDA the kernel's bf16 instance (``os_conv_fwd[bf16]``: bf16 in device
+memory, each product exact, the sum f32, the output rounded to bf16), on
+the CPU ``os_conv_plain``, which widens to f32, convolves and rounds.  The
+backward is the same transposed convs on bf16 tensors (bf16 gradients, as
+JAX's XLA VJP).  ``os_conv_fused`` and ``tap_conv_fwd`` take float32 only.
+
 Gradients: ``masked_os_conv`` runs the conv through ``OSConvCore``, an
 ``autograd.Function`` whose forward is ``os_conv`` and whose backward is the
 plain transposed conv (``torch.nn.grad.conv1d_input`` / ``conv1d_weight``),
@@ -73,9 +82,11 @@ from ..structure import LayerSpec, mask_bounds
 from . import _build, use_kernel
 
 #: Launches of each kernel, counted by its wrapper where it launches; the
-#: ``_runs`` entries count the run-axis calls (one a call, whatever K).
+#: ``_runs`` entries count the run-axis calls (one a call, whatever K); the
+#: bf16 instance counts under its own names.
 LAUNCHES = {"os_conv_fwd": 0, "os_conv_fused_fwd": 0, "tap_conv_fwd": 0,
-            "os_conv_fwd_runs": 0, "os_conv_fused_fwd_runs": 0}
+            "os_conv_fwd_runs": 0, "os_conv_fused_fwd_runs": 0,
+            "os_conv_fwd[bf16]": 0, "os_conv_fwd_runs[bf16]": 0}
 
 #: Why the op-by-op WN route refuses ``torch.func.vmap`` (multi-run training).
 NO_RUN_AXIS = ("{} has no run axis yet, so the op-by-op WN route (FLSTTSC_WN_FUSED=0) cannot "
@@ -151,7 +162,12 @@ def conv_impl() -> str:
 # ------------------------------------------------------ plain versions ----
 
 def os_conv_plain(x_pad: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``y[:, t] = sum_j x_pad[:, t+j] @ w[j]``: (B, T+K-1, C_in) -> (B, T, C_out)."""
+    """``y[:, t] = sum_j x_pad[:, t+j] @ w[j]``: (B, T+K-1, C_in) -> (B, T, C_out).
+    bf16 operands are widened to f32 (each product exact), summed in f32 and
+    the sum rounded to bf16 (TF32 off on a card, as PyTorch's default for
+    matmul), not left to a bf16 conv whose accumulation is unspecified."""
+    if x_pad.dtype == torch.bfloat16:
+        return os_conv_plain(x_pad.float(), w.float()).bfloat16()
     k = w.shape[0]
     t = x_pad.shape[1] - k + 1
     y = x_pad[:, :t] @ w[0]
@@ -227,22 +243,26 @@ def _lib() -> ctypes.CDLL:
     """Build (at first use) and bind ``csrc/os_conv.cu``."""
     lib = _build.load("os_conv")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.os_conv_fwd_runs.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+    lib.os_conv_fwd_runs.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
     lib.os_conv_fwd_runs.restype = i
     lib.os_conv_fused_fwd_runs.argtypes = [p, p, p, p, p, i, p, i, i, i, i, i, i, p]
     lib.os_conv_fused_fwd_runs.restype = i
     return lib
 
 
-def _check_operands(x_pad: torch.Tensor, w: torch.Tensor, *vectors: torch.Tensor):
+def _check_operands(x_pad: torch.Tensor, w: torch.Tensor, *vectors: torch.Tensor,
+                    bf16: bool = False):
     """Shapes (B, t_pad, C_in), (K, C_in, C_out) and (C_out,) vectors, all
-    contiguous float32 on x_pad's device; returns the output shape."""
+    contiguous float32 (or, where ``bf16`` allows it, all bfloat16) on
+    x_pad's device; returns the output shape."""
     tensors = (x_pad, w) + vectors
+    dtypes = (torch.float32, torch.bfloat16) if bf16 else (torch.float32,)
     for t in tensors:
         if t.device != x_pad.device:
             raise ValueError(f"operands on {t.device} and {x_pad.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"the conv kernels take float32, got {t.dtype}")
+        if t.dtype not in dtypes or t.dtype != x_pad.dtype:
+            what = "float32 or bfloat16, one for all" if bf16 else "float32"
+            raise TypeError(f"the conv kernels take {what}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("the conv kernels take contiguous tensors")
     if x_pad.dim() != 3 or w.dim() != 3 or x_pad.shape[2] != w.shape[1]:
@@ -286,21 +306,24 @@ def _launch(name: str, x_pad: torch.Tensor, w: torch.Tensor, out_shape, runs: in
     """One ``os_conv_fwd_runs`` call, or ``os_conv_fused_fwd_runs`` with
     ``epilogue`` = (scale, shift, relu), on checked operands with ``runs``
     leading runs (none for a one-run call, which is the kernel's runs = 1),
-    counted as ``name``."""
+    counted as ``name`` (``name[bf16]`` on bf16 operands, the bf16
+    instance)."""
     lib = _lib()
-    y = torch.empty(out_shape, device=x_pad.device, dtype=torch.float32)
+    bf16 = x_pad.dtype == torch.bfloat16
+    y = torch.empty(out_shape, device=x_pad.device, dtype=x_pad.dtype)
     work = _work(w, runs)
     dims = (runs, *x_pad.shape[-3:], w.shape[-3], w.shape[-1])
     with _on(x_pad.device):
         stream = torch.cuda.current_stream().cuda_stream
         if epilogue is None:
             err = lib.os_conv_fwd_runs(x_pad.data_ptr(), w.data_ptr(), work.data_ptr(),
-                                       y.data_ptr(), *dims, stream)
+                                       y.data_ptr(), *dims, int(bf16), stream)
         else:
             scale, shift, relu = epilogue
             err = lib.os_conv_fused_fwd_runs(x_pad.data_ptr(), w.data_ptr(), work.data_ptr(),
                                              scale.data_ptr(), shift.data_ptr(), int(relu),
                                              y.data_ptr(), *dims, stream)
+    name += "[bf16]" if bf16 else ""
     LAUNCHES[name] += 1
     _raise_on(err, name)
     return y
@@ -312,10 +335,11 @@ def _no_grad(name: str, *tensors: torch.Tensor) -> None:
 
 
 def os_conv(x_pad: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """VALID conv ``sum_j x_pad[:, t+j] @ w[j]``; kernel on CUDA, plain on CPU."""
+    """VALID conv ``sum_j x_pad[:, t+j] @ w[j]``, float32 or bfloat16;
+    kernel on CUDA, plain on CPU."""
     if not use_kernel(x_pad):
         return os_conv_plain(x_pad, w)
-    return _launch("os_conv_fwd", x_pad, w, _check_operands(x_pad, w), 1)
+    return _launch("os_conv_fwd", x_pad, w, _check_operands(x_pad, w, bf16=True), 1)
 
 
 def os_conv_fused(
@@ -334,15 +358,17 @@ def os_conv_fused(
                    (scale, shift, relu))
 
 
-def _check_runs(x_pad: torch.Tensor, w: torch.Tensor, *vectors: torch.Tensor):
+def _check_runs(x_pad: torch.Tensor, w: torch.Tensor, *vectors: torch.Tensor,
+                bf16: bool = False):
     """x_pad (K, B, t_pad, C_in), w (K, Kt, C_in, C_out) and (K, C_out)
-    vectors with one K: returns K and the output shape."""
+    vectors with one K (dtypes as ``_check_operands``): returns K and the
+    output shape."""
     if x_pad.dim() != 4 or w.dim() != 4 or x_pad.shape[0] != w.shape[0]:
         raise ValueError(f"run shapes {tuple(x_pad.shape)} and {tuple(w.shape)} do not chain")
     runs = x_pad.shape[0]
     if any(v.dim() != 2 or v.shape[0] != runs for v in vectors):
         raise ValueError(f"epilogue vectors {[tuple(v.shape) for v in vectors]} for {runs} runs")
-    out_shape = _check_operands(x_pad[0], w[0], *(v[0] for v in vectors))
+    out_shape = _check_operands(x_pad[0], w[0], *(v[0] for v in vectors), bf16=bf16)
     for t in (x_pad, w) + vectors:
         if not t.is_contiguous():
             raise ValueError("the conv kernels take contiguous tensors")
@@ -353,12 +379,12 @@ def _check_runs(x_pad: torch.Tensor, w: torch.Tensor, *vectors: torch.Tensor):
 
 def os_conv_runs(x_pad: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """K independent ``os_conv`` calls of one shape, x_pad (K, B, t_pad,
-    C_in) and w (K, Kt, C_in, C_out) -> (K, B, T, C_out): on CUDA one
-    ``os_conv_fwd_runs`` call (the kernel with the run on its grid), on the
-    CPU the plain version run by run."""
+    C_in) and w (K, Kt, C_in, C_out) -> (K, B, T, C_out), float32 or
+    bfloat16: on CUDA one ``os_conv_fwd_runs`` call (the kernel with the run
+    on its grid), on the CPU the plain version run by run."""
     if not use_kernel(x_pad):
         return torch.stack([os_conv_plain(xk, wk) for xk, wk in zip(x_pad, w)])
-    runs, out_shape = _check_runs(x_pad, w)
+    runs, out_shape = _check_runs(x_pad, w, bf16=True)
     return _launch("os_conv_fwd_runs", x_pad, w, out_shape, runs)
 
 

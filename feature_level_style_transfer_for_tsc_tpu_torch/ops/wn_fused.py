@@ -27,12 +27,23 @@ and the K-stacked effective weights: on CUDA ``wn_fwd_runs`` and
 ``wn_bwd_runs`` (``csrc/wn_fused.cu`` with the run on a grid axis of every
 kernel: the launches of one run, each run's bits a one-run call's), on the
 CPU the plain versions run by run.
+
+bf16 operands (``FLSTTSC_WN_MXU=bf16``, read per call by ``mxu_bf16`` as
+the JAX package's ``_mxu_bf16``): every product the JAX kernels take through
+``_dot`` (each layer product of both directions, and ``gwe`` outside them)
+rounds both operands to bf16 and sums the exact products in f32; biases, the
+gate, masks, the residual and skip sums and the bias gradients stay f32.
+``WNCore`` and ``WNRunCore`` take the flag as their last argument: on CUDA
+the kernels' bf16 instances (counted as ``wn_fwd[bf16]``, ...), on the CPU
+the plain versions with ``bf16=True``.  The op-by-op route ignores it, as
+in the JAX package.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import os
 from typing import Dict, Tuple
 
 import torch
@@ -41,8 +52,10 @@ import torch.nn.functional as F
 from . import _build, use_kernel
 
 #: Launches of each host entry, counted by its wrapper where it launches; the
-#: ``_runs`` entries count the run-axis calls (one a call, whatever K).
-LAUNCHES = {"wn_fwd": 0, "wn_bwd": 0, "wn_fwd_runs": 0, "wn_bwd_runs": 0}
+#: ``_runs`` entries count the run-axis calls (one a call, whatever K); the
+#: bf16 instances count under their own names (``wn_fwd[bf16]``, ...).
+ENTRIES = ("wn_fwd", "wn_bwd", "wn_fwd_runs", "wn_bwd_runs")
+LAUNCHES = {name + tag: 0 for tag in ("", "[bf16]") for name in ENTRIES}
 
 #: Input rows a stage of ``wn_bwd``'s weight-gradient kernel (``WG_RB`` in
 #: ``csrc/wn_fused.cu``); a row slice is a whole number of stages, which the
@@ -63,6 +76,12 @@ MAX_LAYERS = 30
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def mxu_bf16() -> bool:
+    """``FLSTTSC_WN_MXU=bf16``: the fused WN's products on bf16 operands (f32
+    sums); any other value (default "f32") keeps them f32.  Read per call."""
+    return os.environ.get("FLSTTSC_WN_MXU", "f32") == "bf16"
 
 
 def wgrad_split_rows(rows: int) -> int:
@@ -116,6 +135,15 @@ def _shift(a: torch.Tensor, s: int) -> torch.Tensor:
     return F.pad(a[: rows + s], (0, 0, -s, 0))
 
 
+def _mm(a: torch.Tensor, b: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """``a @ b``, with bf16: both operands rounded to bf16 (nearest, ties to
+    even) and widened back, so that each product is exact and the sum f32
+    (the JAX package's ``_dot`` with ``preferred_element_type=f32``)."""
+    if bf16:
+        a, b = a.bfloat16().float(), b.bfloat16().float()
+    return a @ b
+
+
 def _masks(rows: int, t_len: int, d: int, device):
     pos = torch.arange(rows, device=device) % t_len
     lo = (pos >= d).to(torch.float32)[:, None]
@@ -124,14 +152,15 @@ def _masks(rows: int, t_len: int, d: int, device):
 
 
 def wn_fwd_plain(x2, w_start, b_start, w_cond, b_cond, w_in, b_in, w_rs, b_rs, w_end, b_end,
-                 t_len: int):
-    """The forward on rows: x2 (R, H) -> (y (R, 2H), aud (L, R, C), skip (R, C))."""
+                 t_len: int, bf16: bool = False):
+    """The forward on rows: x2 (R, H) -> (y (R, 2H), aud (L, R, C), skip (R,
+    C)); ``bf16``: every product on bf16 operands (``_mm``)."""
     n_layers, taps, c, _ = w_in.shape
     if taps != 3:
         raise ValueError(f"w_in of shape {tuple(w_in.shape)} is not (L, 3, C, 2C)")
     rows = x2.shape[0]
-    audio = x2 @ w_start + b_start
-    spect = x2 @ w_cond + b_cond
+    audio = _mm(x2, w_start, bf16) + b_start
+    spect = _mm(x2, w_cond, bf16) + b_cond
     skip = torch.zeros_like(audio)
     aud = []
     for i in range(n_layers):
@@ -139,26 +168,53 @@ def wn_fwd_plain(x2, w_start, b_start, w_cond, b_cond, w_in, b_in, w_rs, b_rs, w
         lo, hi = _masks(rows, t_len, d, x2.device)
         aud.append(audio)
         z = (
-            (lo * _shift(audio, -d)) @ w_in[i, 0] + audio @ w_in[i, 1]
-            + (hi * _shift(audio, d)) @ w_in[i, 2]
+            _mm(lo * _shift(audio, -d), w_in[i, 0], bf16) + _mm(audio, w_in[i, 1], bf16)
+            + _mm(hi * _shift(audio, d), w_in[i, 2], bf16)
             + b_in[i] + spect[:, 2 * c * i : 2 * c * (i + 1)]
         )
         acts = torch.tanh(z[:, :c]) * torch.sigmoid(z[:, c:])
-        rs = acts @ w_rs[i] + b_rs[i]
+        rs = _mm(acts, w_rs[i], bf16) + b_rs[i]
         audio = audio + rs[:, :c]
         skip = skip + rs[:, c:]
-    return skip @ w_end + b_end, torch.stack(aud), skip
+    return _mm(skip, w_end, bf16) + b_end, torch.stack(aud), skip
+
+
+def wn_fwd_plain_layers(x2, aud, skip, w_start, b_start, w_cond, b_cond, w_in, b_in, w_rs, b_rs,
+                        w_end, b_end, t_len: int, bf16: bool = False):
+    """``wn_fwd_plain`` taken layer by layer from given inputs: each layer's
+    input ``aud[i]`` and the skip sum ``skip`` (another forward's, e.g. a
+    kernel's) -> (each layer's input from the one before it, (L, R, C); the
+    skip sum; y from ``skip``).  Held against that forward's own aud, skip
+    and y, it checks every product without carrying an earlier layer's
+    rounding into a later one."""
+    n_layers, _, c, _ = w_in.shape
+    rows = x2.shape[0]
+    inputs = [_mm(x2, w_start, bf16) + b_start]
+    spect = _mm(x2, w_cond, bf16) + b_cond
+    skip_sum = torch.zeros_like(inputs[0])
+    for i in range(n_layers):
+        d = 2 ** i
+        lo, hi = _masks(rows, t_len, d, x2.device)
+        a = aud[i]
+        z = (_mm(lo * _shift(a, -d), w_in[i, 0], bf16) + _mm(a, w_in[i, 1], bf16)
+             + _mm(hi * _shift(a, d), w_in[i, 2], bf16)
+             + b_in[i] + spect[:, 2 * c * i : 2 * c * (i + 1)])
+        rs = _mm(torch.tanh(z[:, :c]) * torch.sigmoid(z[:, c:]), w_rs[i], bf16) + b_rs[i]
+        inputs.append(a + rs[:, :c])
+        skip_sum = skip_sum + rs[:, c:]
+    return torch.stack(inputs[:n_layers]), skip_sum, _mm(skip, w_end, bf16) + b_end
 
 
 def wn_bwd_plain(x2, g2, aud, skip, w_start, w_cond, b_cond, w_in, b_in, w_rs, w_end,
-                 t_len: int):
+                 t_len: int, bf16: bool = False):
     """The backward of ``wn_fwd_plain`` written out, as ``_wn_bwd_kernel``
     computes it.  Returns the gradients of (x2, w_start, b_start, w_cond,
-    b_cond, w_in, b_in, w_rs, b_rs, w_end, b_end)."""
+    b_cond, w_in, b_in, w_rs, b_rs, w_end, b_end); ``bf16``: every product on
+    bf16 operands, the bias gradients f32 sums."""
     n_layers, _, c, _ = w_in.shape
     rows = x2.shape[0]
     b_z = b_in + b_cond.reshape(n_layers, 2 * c)
-    g_skip = g2 @ w_end.T
+    g_skip = _mm(g2, w_end.T, bf16)
     g_audio = torch.zeros_like(g_skip)
     g_x = torch.zeros_like(x2)
     gwi, gbi, gwr, gbr, gwc = [], [], [], [], []
@@ -168,39 +224,42 @@ def wn_bwd_plain(x2, g2, aud, skip, w_start, w_cond, b_cond, w_in, b_in, w_rs, w
         audio = aud[i]
         a_lo, a_hi = lo * _shift(audio, -d), hi * _shift(audio, d)
         w_c = w_cond[:, 2 * c * i : 2 * c * (i + 1)]
-        z = a_lo @ w_in[i, 0] + audio @ w_in[i, 1] + a_hi @ w_in[i, 2] + b_z[i] + x2 @ w_c
+        z = (_mm(a_lo, w_in[i, 0], bf16) + _mm(audio, w_in[i, 1], bf16)
+             + _mm(a_hi, w_in[i, 2], bf16) + b_z[i] + _mm(x2, w_c, bf16))
         tt, ss = torch.tanh(z[:, :c]), torch.sigmoid(z[:, c:])
         acts = tt * ss
         g_rs = torch.cat([g_audio, g_skip], dim=1)
-        gwr.append(acts.T @ g_rs)
+        gwr.append(_mm(acts.T, g_rs, bf16))
         gbr.append(g_rs.sum(0))
-        g_acts = g_rs @ w_rs[i].T
+        g_acts = _mm(g_rs, w_rs[i].T, bf16)
         g_z = torch.cat([g_acts * ss * (1 - tt * tt), g_acts * tt * ss * (1 - ss)], dim=1)
-        gwi.append(torch.stack([a_lo.T @ g_z, audio.T @ g_z, a_hi.T @ g_z]))
+        gwi.append(torch.stack([_mm(a.T, g_z, bf16) for a in (a_lo, audio, a_hi)]))
         gbi.append(g_z.sum(0))
-        gwc.append(x2.T @ g_z)
-        g_x = g_x + g_z @ w_c.T
+        gwc.append(_mm(x2.T, g_z, bf16))
+        g_x = g_x + _mm(g_z, w_c.T, bf16)
         g_audio = (
-            g_audio + _shift(lo * g_z, d) @ w_in[i, 0].T + g_z @ w_in[i, 1].T
-            + _shift(hi * g_z, -d) @ w_in[i, 2].T
+            g_audio + _mm(_shift(lo * g_z, d), w_in[i, 0].T, bf16) + _mm(g_z, w_in[i, 1].T, bf16)
+            + _mm(_shift(hi * g_z, -d), w_in[i, 2].T, bf16)
         )
     gbi = torch.stack(gbi[::-1])
     return (
-        g_x + g_audio @ w_start.T,
-        x2.T @ g_audio, g_audio.sum(0),
+        g_x + _mm(g_audio, w_start.T, bf16),
+        _mm(x2.T, g_audio, bf16), g_audio.sum(0),
         torch.cat(gwc[::-1], dim=1), gbi.reshape(-1),
         torch.stack(gwi[::-1]), gbi,
         torch.stack(gwr[::-1]), torch.stack(gbr[::-1]),
-        skip.T @ g2, g2.sum(0),
+        _mm(skip.T, g2, bf16), g2.sum(0),
     )
 
 
-def _unpack(gx, g_in, g_rs, g_start, skip, g2):
+def _unpack(gx, g_in, g_rs, g_start, skip, g2, bf16: bool = False):
     """``wn_bwd``'s outputs in ``wn_bwd_plain``'s order from the kernel's
     layouts: g_in (L, 3C+H+1, 2C) = per layer [gwi | gwc slice | gbi], g_rs
     (L, C+1, 2C) = [gwr | gbr], g_start (H+1, C) = [gws | gbs]; the end
-    projection's gradients are taken here, as the JAX package does.  Every
-    tensor may carry leading run axes (``wn_bwd_runs``)."""
+    projection's gradients are taken here, as the JAX package does (with
+    ``bf16``, one f32 product of bf16-rounded operands, never a bf16 matmul,
+    whose output would round).  Every tensor may carry leading run axes
+    (``wn_bwd_runs``)."""
     n_layers, k_in, c2 = g_in.shape[-3:]
     lead = g_in.shape[:-3]
     c, h = c2 // 2, g_start.shape[-2] - 1
@@ -211,7 +270,7 @@ def _unpack(gx, g_in, g_rs, g_start, skip, g2):
         gbi.reshape(*lead, -1),
         g_in[..., : 3 * c, :].reshape(*lead, n_layers, 3, c, 2 * c), gbi,
         g_rs[..., :c, :], g_rs[..., c, :],
-        skip.transpose(-1, -2) @ g2, g2.sum(-2),
+        _mm(skip.transpose(-1, -2), g2, bf16), g2.sum(-2),
     )
 
 
@@ -226,9 +285,9 @@ def _lib() -> ctypes.CDLL:
     lib.wn_fwd_wsplit_words.restype = ctypes.c_size_t
     lib.wn_bwd_wsplit_words.argtypes = [i] * 3
     lib.wn_bwd_wsplit_words.restype = ctypes.c_size_t
-    lib.wn_fwd_runs.argtypes = [p] * 15 + [i] * 6 + [p]
+    lib.wn_fwd_runs.argtypes = [p] * 15 + [i] * 7 + [p]
     lib.wn_fwd_runs.restype = i
-    lib.wn_bwd_runs.argtypes = [p] * 19 + [i] * 7 + [p]
+    lib.wn_bwd_runs.argtypes = [p] * 19 + [i] * 8 + [p]
     lib.wn_bwd_runs.restype = i
     return lib
 
@@ -282,10 +341,10 @@ def _check_runs(x2: torch.Tensor, *weights: torch.Tensor) -> int:
 
 
 def _launch_fwd(name, x2, w_start, b_start, w_cond, b_cond, w_in, b_in, w_rs, b_rs, w_end,
-                b_end, t_len: int):
+                b_end, t_len: int, bf16: bool):
     """One ``wn_fwd_runs`` kernel call on K-leading operands (K = 1 for a
-    one-run call), counted as ``name``: (y (K, R, 2H), aud (K, L, R, C),
-    skip (K, R, C))."""
+    one-run call), counted as ``name`` (``name[bf16]`` for the bf16
+    instance): (y (K, R, 2H), aud (K, L, R, C), skip (K, R, C))."""
     runs = _check_runs(x2, w_start, b_start, w_cond, b_cond, w_in, b_in, w_rs, b_rs, w_end,
                        b_end)
     n_layers, c = w_in.shape[1], w_in.shape[3]
@@ -305,16 +364,18 @@ def _launch_fwd(name, x2, w_start, b_start, w_cond, b_cond, w_in, b_in, w_rs, b_
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.wn_fwd_runs(*_ptrs(*ins, y, aud, skip, *scratch), runs, rows, t_len, h, c,
-                              n_layers, stream)
+                              n_layers, int(bf16), stream)
+    name += "[bf16]" if bf16 else ""
     LAUNCHES[name] += 1
     _raise_on(err, name)
     return y, aud, skip
 
 
 def _launch_bwd(name, x2, g2, aud, w_start, w_cond, b_cond, w_in, b_in, w_rs, w_end,
-                t_len: int):
+                t_len: int, bf16: bool):
     """One ``wn_bwd_runs`` kernel call on K-leading operands (K = 1 for a
-    one-run call), counted as ``name``: the kernel's layouts (gx, g_in,
+    one-run call), counted as ``name`` (``name[bf16]`` for the bf16
+    instance): the kernel's layouts (gx, g_in,
     g_rs, g_start) with a leading K (``_unpack`` reads them).  The weight
     gradients are per run, never summed across runs."""
     runs = _check_runs(x2, g2, aud, w_start, w_cond, b_cond, w_in, b_in, w_rs, w_end)
@@ -345,134 +406,144 @@ def _launch_bwd(name, x2, g2, aud, w_start, w_cond, b_cond, w_in, b_in, w_rs, w_
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.wn_bwd_runs(*_ptrs(*ins, gx, g_in, g_rs, g_start, *scratch),
-                              runs, rows, t_len, h, c, n_layers, split, stream)
+                              runs, rows, t_len, h, c, n_layers, split, int(bf16), stream)
+    name += "[bf16]" if bf16 else ""
     LAUNCHES[name] += 1
     _raise_on(err, name)
     return gx, g_in, g_rs, g_start
 
 
 def wn_fwd(x2, w_start, b_start, w_cond, b_cond, w_in, b_in, w_rs, b_rs, w_end, b_end,
-           t_len: int):
-    """The forward kernel; same contract as ``wn_fwd_plain``."""
+           t_len: int, bf16: bool = False):
+    """The forward kernel (``bf16``: its bf16 instance); same contract as
+    ``wn_fwd_plain``."""
     ins = (x2, w_start, b_start, w_cond, b_cond, w_in, b_in, w_rs, b_rs, w_end, b_end)
-    return tuple(o[0] for o in _launch_fwd("wn_fwd", *(t[None] for t in ins), t_len))
+    return tuple(o[0] for o in _launch_fwd("wn_fwd", *(t[None] for t in ins), t_len, bf16))
 
 
-def wn_bwd(x2, g2, aud, skip, w_start, w_cond, b_cond, w_in, b_in, w_rs, w_end, t_len: int):
-    """The backward kernel; same contract as ``wn_bwd_plain``."""
+def wn_bwd(x2, g2, aud, skip, w_start, w_cond, b_cond, w_in, b_in, w_rs, w_end, t_len: int,
+           bf16: bool = False):
+    """The backward kernel (``bf16``: its bf16 instance); same contract as
+    ``wn_bwd_plain``."""
     ins = (x2, g2, aud, w_start, w_cond, b_cond, w_in, b_in, w_rs, w_end)
-    out = _launch_bwd("wn_bwd", *(t[None] for t in ins), t_len)
-    return _unpack(*(o[0] for o in out), skip, g2)
+    out = _launch_bwd("wn_bwd", *(t[None] for t in ins), t_len, bf16)
+    return _unpack(*(o[0] for o in out), skip, g2, bf16)
 
 
 def wn_fwd_runs(x2, w_start, b_start, w_cond, b_cond, w_in, b_in, w_rs, b_rs, w_end, b_end,
-                t_len: int):
+                t_len: int, bf16: bool = False):
     """K independent ``wn_fwd`` calls of one geometry in one kernel call: x2
     (K, R, H) and every weight with a leading K -> (y (K, R, 2H), aud (K, L,
     R, C), skip (K, R, C))."""
     return _launch_fwd("wn_fwd_runs", x2, w_start, b_start, w_cond, b_cond, w_in, b_in, w_rs,
-                       b_rs, w_end, b_end, t_len)
+                       b_rs, w_end, b_end, t_len, bf16)
 
 
 def wn_bwd_runs(x2, g2, aud, skip, w_start, w_cond, b_cond, w_in, b_in, w_rs, w_end,
-                t_len: int):
+                t_len: int, bf16: bool = False):
     """K independent ``wn_bwd`` calls of one geometry in one kernel call;
     every operand and gradient with a leading K."""
     out = _launch_bwd("wn_bwd_runs", x2, g2, aud, w_start, w_cond, b_cond, w_in, b_in, w_rs,
-                      w_end, t_len)
-    return _unpack(*out, skip, g2)
+                      w_end, t_len, bf16)
+    return _unpack(*out, skip, g2, bf16)
 
 
-def _per_run(fn, *args):
+def _per_run(fn, *args, bf16: bool):
     """``fn`` run by run over the leading axis of every tensor argument (the
     last argument, T, is shared), each output stacked."""
-    outs = [fn(*(a[k] for a in args[:-1]), args[-1]) for k in range(args[0].shape[0])]
+    outs = [fn(*(a[k] for a in args[:-1]), args[-1], bf16) for k in range(args[0].shape[0])]
     return tuple(torch.stack(o) for o in zip(*outs))
 
 
 # ------------------------------------------------------------ the op ------
 
+def _save(ctx, inputs, output) -> None:
+    """``WNCore`` / ``WNRunCore``'s context: the saved operands and
+    activations, and the bf16 flag."""
+    x, w_start, _, w_cond, b_cond, w_in, b_in, w_rs, _, w_end, _, bf16 = inputs
+    _, aud, skip = output
+    ctx.mark_non_differentiable(aud, skip)
+    ctx.set_materialize_grads(False)
+    ctx.save_for_backward(x, w_start, w_cond, b_cond, w_in, b_in, w_rs, w_end, aud, skip)
+    ctx.bf16 = bf16
+
+
 class WNCore(torch.autograd.Function):
-    """The WN on stacked effective weights: kernels on CUDA, plain on CPU.
-    Returns (y, aud, skip); aud and skip, the saved activations, carry no
-    gradient.  Under ``torch.func.vmap`` one ``WNRunCore`` call for all
-    runs."""
+    """The WN on stacked effective weights and the bf16 flag (``mxu_bf16``):
+    kernels on CUDA, plain on CPU.  Returns (y, aud, skip); aud and skip, the
+    saved activations, carry no gradient.  Under ``torch.func.vmap`` one
+    ``WNRunCore`` call for all runs."""
 
     @staticmethod
-    def forward(x, w_start, b_start, w_cond, b_cond, w_in, b_in, w_rs, b_rs, w_end, b_end):
+    def forward(x, w_start, b_start, w_cond, b_cond, w_in, b_in, w_rs, b_rs, w_end, b_end,
+                bf16: bool):
         b, t, h = x.shape
         x2 = x.reshape(b * t, h).contiguous()
         fwd = wn_fwd if use_kernel(x2) else wn_fwd_plain
         y, aud, skip = fwd(x2, w_start, b_start, w_cond, b_cond, w_in, b_in, w_rs, b_rs,
-                           w_end, b_end, t)
+                           w_end, b_end, t, bf16)
         return y.reshape(b, t, 2 * h), aud, skip
 
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        x, w_start, _, w_cond, b_cond, w_in, b_in, w_rs, _, w_end, _ = inputs
-        _, aud, skip = output
-        ctx.mark_non_differentiable(aud, skip)
-        ctx.set_materialize_grads(False)
-        ctx.save_for_backward(x, w_start, w_cond, b_cond, w_in, b_in, w_rs, w_end, aud, skip)
+    setup_context = staticmethod(_save)
 
     @staticmethod
     def backward(ctx, g, _g_aud, _g_skip):
         x, w_start, w_cond, b_cond, w_in, b_in, w_rs, w_end, aud, skip = ctx.saved_tensors
         if g is None:
-            return (None,) * 11
+            return (None,) * 12
         b, t, h = x.shape
         x2 = x.reshape(b * t, h).contiguous()
         g2 = g.reshape(b * t, 2 * h).contiguous()
         bwd = wn_bwd if use_kernel(g2) else wn_bwd_plain
         gx, *grads = bwd(x2, g2, aud, skip, w_start, w_cond, b_cond, w_in, b_in, w_rs,
-                         w_end, t)
-        return (gx.reshape(b, t, h), *grads)
+                         w_end, t, ctx.bf16)
+        return (gx.reshape(b, t, h), *grads, None)
 
     @staticmethod
     def vmap(info, in_dims, *args):
         from .osconv import _runs_first
 
-        return WNRunCore.apply(*_runs_first(info, in_dims, *args)), (0, 0, 0)
+        runs = _runs_first(info, in_dims[:-1], *args[:-1])
+        return WNRunCore.apply(*runs, args[-1]), (0, 0, 0)
 
 
 class WNRunCore(torch.autograd.Function):
-    """K runs of the WN, x (K, B, T, H) and K-stacked effective weights:
-    ``wn_fwd_runs`` / ``wn_bwd_runs`` on CUDA, the plain versions run by run
-    on the CPU.  Returns (y, aud, skip) with a leading K."""
+    """K runs of the WN, x (K, B, T, H) and K-stacked effective weights, and
+    the bf16 flag: ``wn_fwd_runs`` / ``wn_bwd_runs`` on CUDA, the plain
+    versions run by run on the CPU.  Returns (y, aud, skip) with a leading K."""
 
     @staticmethod
-    def forward(x, *weights):
+    def forward(x, *weights_and_flag):
+        *weights, bf16 = weights_and_flag
         runs, b, t, h = x.shape
         x2 = x.reshape(runs, b * t, h).contiguous()
         if use_kernel(x2):
-            y, aud, skip = wn_fwd_runs(x2, *weights, t)
+            y, aud, skip = wn_fwd_runs(x2, *weights, t, bf16)
         else:
-            y, aud, skip = _per_run(wn_fwd_plain, x2, *weights, t)
+            y, aud, skip = _per_run(wn_fwd_plain, x2, *weights, t, bf16=bf16)
         return y.reshape(runs, b, t, 2 * h), aud, skip
 
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        x, w_start, _, w_cond, b_cond, w_in, b_in, w_rs, _, w_end, _ = inputs
-        _, aud, skip = output
-        ctx.mark_non_differentiable(aud, skip)
-        ctx.set_materialize_grads(False)
-        ctx.save_for_backward(x, w_start, w_cond, b_cond, w_in, b_in, w_rs, w_end, aud, skip)
+    setup_context = staticmethod(_save)
 
     @staticmethod
     def backward(ctx, g, _g_aud, _g_skip):
         x, w_start, w_cond, b_cond, w_in, b_in, w_rs, w_end, aud, skip = ctx.saved_tensors
         if g is None:
-            return (None,) * 11
+            return (None,) * 12
         runs, b, t, h = x.shape
         x2 = x.reshape(runs, b * t, h).contiguous()
         g2 = g.reshape(runs, b * t, 2 * h).contiguous()
         args = (x2, g2, aud, skip, w_start, w_cond, b_cond, w_in, b_in, w_rs, w_end, t)
-        gx, *grads = wn_bwd_runs(*args) if use_kernel(g2) else _per_run(wn_bwd_plain, *args)
-        return (gx.reshape(runs, b, t, h), *grads)
+        if use_kernel(g2):
+            gx, *grads = wn_bwd_runs(*args, ctx.bf16)
+        else:
+            gx, *grads = _per_run(wn_bwd_plain, *args, bf16=ctx.bf16)
+        return (gx.reshape(runs, b, t, h), *grads, None)
 
 
 def wn_apply_fused(params: Dict, x: torch.Tensor, weight_norm_weight) -> torch.Tensor:
     """The coupling net x (B, T, n_half) -> (B, T, 2*n_half) through ``WNCore``
-    (reference geometry: kernel 3, dilation 2**i)."""
+    (reference geometry: kernel 3, dilation 2**i), its products on bf16
+    operands under ``FLSTTSC_WN_MXU=bf16``."""
     eff = [t.contiguous() for t in stack_effective(params, weight_norm_weight)]
-    return WNCore.apply(x.float(), *eff)[0]
+    return WNCore.apply(x.float(), *eff, mxu_bf16())[0]

@@ -37,7 +37,10 @@ The flow's coupling nets are reached only through ``waveglow_forward_pair``
 the JAX package does: ``FLSTTSC_WN_FUSED=0`` runs the WN op by op (the gate
 kernel in every layer, and under ``FLSTTSC_CONV_IMPL=pallas`` the tap-conv
 kernel for each dilated conv), so both variables take effect in
-``cli.main`` without a flag of its own.
+``cli.main`` without a flag of its own; so does ``FLSTTSC_WN_MXU=bf16``
+(the fused WN's products on bf16 operands).  ``PipelineConfig.compute_dtype
+= "bfloat16"``, which no CLI sets, runs the OS-CNN convs in bf16
+(``models/os_cnn.py``).
 """
 
 from __future__ import annotations
@@ -129,6 +132,8 @@ class TargetPredictor:
         )
         self.t_ext_masks = os_block_masks(self.t_ext_specs, self.device)
         self.cls_masks = os_block_masks(self.cls_specs, self.device)
+        # the OS-CNN convs' dtype (None: f32), as JAX train/pipeline.py:120-122
+        self.compute_dtype = torch.bfloat16 if self.config.compute_dtype == "bfloat16" else None
 
     def init_state(self, generator: torch.Generator) -> Dict:
         t_ext_p, t_ext_s = os_cnn_res_init(generator, self.t_ext_specs, self.device)
@@ -142,14 +147,14 @@ class TargetPredictor:
         """(feature, new state)."""
         return os_cnn_res_apply(
             params["t_ext"], mstate["t_ext"], self.t_ext_masks, x, training,
-            fused_infer=fused_infer,
+            compute_dtype=self.compute_dtype, fused_infer=fused_infer,
         )
 
     def classify_target(self, params, mstate, feat, training: bool, fused_infer: bool = False):
         """(logits, pooled, new state)."""
         return os_cnn_apply(
             params["t_cls"], mstate["t_cls"], self.cls_masks, feat, training,
-            fused_infer=fused_infer,
+            compute_dtype=self.compute_dtype, fused_infer=fused_infer,
         )
 
     @torch.inference_mode()
@@ -283,14 +288,14 @@ class StyleTransferPipeline(TargetPredictor, ModuleSteps):
         """s_ext + DimensionUnification -> target-shaped features."""
         feat, new_s = os_cnn_res_apply(
             params["s_ext"], mstate["s_ext"], self.s_ext_masks, x, training,
-            fused_infer=fused_infer,
+            compute_dtype=self.compute_dtype, fused_infer=fused_infer,
         )
         return dimension_unification_apply(params["dim_uni"], feat), new_s
 
     def classify_source(self, params, mstate, feat, training: bool, fused_infer: bool = False):
         return os_cnn_apply(
             params["s_cls"], mstate["s_cls"], self.cls_masks, feat, training,
-            fused_infer=fused_infer,
+            compute_dtype=self.compute_dtype, fused_infer=fused_infer,
         )
 
     # ---------------------------------------------------- optimizer steps --

@@ -232,7 +232,7 @@ def test_wn_core_on_card_matches_cpu(card):
     out = {}
     for dev in ("cpu", card):
         ins = [a.to(dev).requires_grad_(True) for a in [x] + eff]
-        y = wn_fused.WNCore.apply(*ins)[0]
+        y = wn_fused.WNCore.apply(*ins, False)[0]
         grads = torch.autograd.grad(torch.sin(y).sum(), ins)
         out[str(dev)] = [y.detach().cpu()] + [gr.cpu() for gr in grads]
     for got, want in zip(out[str(card)], out["cpu"]):
@@ -768,18 +768,254 @@ def test_vmapped_cores_launch_the_run_kernels_once(card):
     osconv.reset_launch_counts()
     wn_fused.reset_launch_counts()
     y = torch.func.vmap(osconv.OSConvCore.apply)(x_pad, w)
-    z = torch.func.vmap(lambda x, *e: wn_fused.WNCore.apply(x, *e)[0])(xw, *eff)
+    z = torch.func.vmap(lambda x, *e: wn_fused.WNCore.apply(x, *e, False)[0])(xw, *eff)
     grads = torch.autograd.grad(torch.sin(y).sum() + torch.sin(z).sum(), [w, xw] + eff)
     torch.cuda.synchronize()
     assert osconv.LAUNCHES == {**osconv.LAUNCHES, "os_conv_fwd": 0, "os_conv_fwd_runs": 1}
-    assert wn_fused.LAUNCHES == {"wn_fwd": 0, "wn_bwd": 0, "wn_fwd_runs": 1, "wn_bwd_runs": 1}
+    assert wn_fused.LAUNCHES == {**dict.fromkeys(wn_fused.LAUNCHES, 0), "wn_fwd_runs": 1,
+                                 "wn_bwd_runs": 1}
     for r in range(runs):
         wr = w[r].detach().requires_grad_(True)
         er = [e[r].detach().requires_grad_(True) for e in eff]
         xr = xw[r].detach().requires_grad_(True)
         yr = osconv.OSConvCore.apply(x_pad[r], wr)
-        zr = wn_fused.WNCore.apply(xr, *er)[0]
+        zr = wn_fused.WNCore.apply(xr, *er, False)[0]
         want = torch.autograd.grad(torch.sin(yr).sum() + torch.sin(zr).sum(), [wr, xr] + er)
         assert torch.equal(y[r], yr) and torch.equal(z[r], zr)
         for got, ref in zip(grads, want):
             _close(got[r], ref, GRAD_REL_TOL)
+
+
+# ------------------------------------------------- the bf16 instances -----
+#
+# ``os_conv_fwd[bf16]`` (PipelineConfig.compute_dtype="bfloat16") and the WN
+# kernels' bf16 instances (FLSTTSC_WN_MXU=bf16) against their plain bf16
+# versions: the products are exact on both sides and only the f32 sums run in
+# another order, but a sum within rounding of a bf16 boundary (the conv's
+# output; the WN's intermediates, rounded again as the next product's
+# operand) rounds to the neighbouring bf16 value, 2^-8 apart relatively.  So
+# they are held by relative L2 distance, BF16_REL_L2, as chip_smoke.py holds
+# them, where no such flip feeds a later rounding: the conv, each WN layer
+# from the kernel's own input to it (``wn_fwd_plain_layers``), the WN
+# backward's top layer.  Through the WN's layers one flip moves the next
+# layer's sums and flips more, up to the bf16 noise floor (the plain bf16 WN
+# with float64 sums sits up to 0.32 of the switch's own effect from itself
+# with f32 sums: chip_smoke.py phase 19's ``control_rel_l2``), so a
+# free-running WN output passes within BF16_CASCADE of that effect (plain
+# bf16 against plain f32).  With one live layer a flip carries through a few
+# roundings only: there every output passes within BF16_FLIPS times that
+# control on the same inputs (the kernels' tensor-core sums flip more than
+# torch's f32 sums: up to 3.7 times the control at 600 rows on an H100).
+# Each run of a run-axis call gives the one-run call's bits.
+
+BF16_REL_L2 = 1e-4
+BF16_CASCADE = 0.5
+BF16_FLIPS = 6.0
+
+
+def _rel_l2(got, want):
+    got, want = got.double(), want.double()
+    return ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "b, t, k, c_in, c_out",
+    [
+        (3, 150, 89, 25, 225),
+        (2, 1152, 89, 7, 25),  # the serving model's first layer: C_in 7, element-wise staging
+        (2, 33, 2, 225, 50),
+        (1, 5, 1, 5, 7),
+        (2, 61, 3, 16, 33),  # C_in a multiple of 8: 16-byte staging
+        (4, 100, 5, 3, 130),
+    ],
+)
+def test_os_conv_bf16_matches_plain(card, b, t, k, c_in, c_out):
+    """``os_conv`` on bf16 operands launches the bf16 instance (counted as
+    ``os_conv_fwd[bf16]``, not ``os_conv_fwd``), gives bf16, the same bits
+    twice, within BF16_REL_L2 of ``os_conv_plain`` in bf16, and differs from
+    the f32 kernel on the f32 operands while tracking it within 2e-2."""
+    g = torch.Generator(device=card).manual_seed(k * 1000 + c_out)
+    x32 = torch.randn(b, t + k - 1, c_in, device=card, generator=g)
+    w32 = torch.randn(k, c_in, c_out, device=card, generator=g) / (c_in * k) ** 0.5
+    x_pad, w = x32.bfloat16(), w32.bfloat16()
+    before = dict(osconv.LAUNCHES)
+    got = osconv.os_conv(x_pad, w)
+    twice = osconv.os_conv(x_pad, w)
+    torch.cuda.synchronize()
+    assert osconv.LAUNCHES["os_conv_fwd[bf16]"] == before["os_conv_fwd[bf16]"] + 2
+    assert osconv.LAUNCHES["os_conv_fwd"] == before["os_conv_fwd"]
+    assert got.dtype == torch.bfloat16 and got.shape == (b, t, c_out)
+    assert torch.equal(got, twice)
+    assert _rel_l2(got, osconv.os_conv_plain(x_pad, w)) <= BF16_REL_L2
+    f32 = osconv.os_conv(x32, w32)
+    assert not torch.equal(got.float(), f32)
+    assert _rel_l2(got, f32) <= 2e-2
+
+
+@pytest.mark.gpu
+def test_os_conv_core_bf16_gradients_on_card(card):
+    """``OSConvCore`` on bf16: the bf16 kernel forward and the transposed
+    convs on bf16 tensors (cuDNN), against autograd of the plain version in
+    bf16; ``os_conv_fused`` refuses bf16."""
+    g = torch.Generator(device=card).manual_seed(3)
+    x_pad = torch.randn(2, 120 + 8, 7, device=card, generator=g).bfloat16()
+    w = (torch.randn(9, 7, 40, device=card, generator=g) / 8).bfloat16()
+    gy = torch.randn(2, 120, 40, device=card, generator=g).bfloat16()
+    grads = []
+    for fn in (osconv.OSConvCore.apply, osconv.os_conv_plain):
+        xg, wg = x_pad.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        grads.append(torch.autograd.grad(fn(xg, wg), (xg, wg), gy))
+    for got, want in zip(*grads):
+        assert got.dtype == torch.bfloat16
+        assert _rel_l2(got, want) <= GRAD_REL_TOL
+    with pytest.raises(TypeError, match="float32"):
+        osconv.os_conv_fused(x_pad, w, torch.ones(40, device=card), torch.zeros(40, device=card),
+                             False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "b, t, h, c, n_layers",
+    [
+        (3, 150, 25, 120, 8),  # 450 rows: a ragged last tile
+        (2, 37, 5, 16, 8),  # T < 2^7
+        (4, 20, 3, 33, 3),  # C and H off the thread tiling
+        (3, 60, 168, 120, 8),  # VendCoffee's H: H and 2H past one chunk
+        (1, 65, 25, 120, 8),  # 32-row slices: a last slice of one row
+        (8, 1152, 25, 120, 8),  # 144 tiles of 64 rows: wn_fwd's widest tile
+    ],
+)
+def test_wn_bf16_kernels_match_plain(card, b, t, h, c, n_layers):
+    """``wn_fwd`` / ``wn_bwd`` with ``bf16=True`` (counted as
+    ``wn_fwd[bf16]`` / ``wn_bwd[bf16]``) against the plain versions with
+    ``bf16=True``: layer by layer, the backward's top layer and the end
+    projection within BF16_REL_L2; every output within BF16_CASCADE of the
+    switch's own effect; the same bits twice; y differs from the f32
+    kernel's and tracks it within 2e-2."""
+    _, eff, x = _wn_operands(card, b, t, h, c, n_layers, seed=b * 100 + t)
+    x2 = x.reshape(b * t, h).contiguous()
+    before = dict(wn_fused.LAUNCHES)
+    got = wn_fused.wn_fwd(x2, *eff, t, True)
+    twice = wn_fused.wn_fwd(x2, *eff, t, True)
+    want = wn_fused.wn_fwd_plain(x2, *eff, t, True)
+    y32 = wn_fused.wn_fwd(x2, *eff, t)[0]
+    assert not torch.equal(got[0], y32) and _rel_l2(got[0], y32) <= 2e-2
+    forced = wn_fused.wn_fwd_plain_layers(x2, got[1], got[2], *eff, t, True)
+    for gv, fv in zip((got[1], got[2], got[0]), forced):
+        assert _rel_l2(gv, fv) <= BF16_REL_L2
+    g2 = torch.randn(b * t, 2 * h, device=card, generator=torch.Generator(card).manual_seed(7))
+    _, aud, skip = want
+    bwd_args = (x2, g2, aud, skip, eff[0], eff[2], eff[3], eff[4], eff[5], eff[6], eff[8], t)
+    grads = wn_fused.wn_bwd(*bwd_args, True)
+    again = wn_fused.wn_bwd(*bwd_args, True)
+    plain = wn_fused.wn_bwd_plain(*bwd_args, True)
+    torch.cuda.synchronize()
+    assert wn_fused.LAUNCHES["wn_fwd[bf16]"] == before["wn_fwd[bf16]"] + 2
+    assert wn_fused.LAUNCHES["wn_bwd[bf16]"] == before["wn_bwd[bf16]"] + 2
+    assert wn_fused.LAUNCHES["wn_fwd"] == before["wn_fwd"] + 1
+    assert wn_fused.LAUNCHES["wn_bwd"] == before["wn_bwd"]
+    top = slice(2 * c * (n_layers - 1), None)
+    for i, sl in ((3, (slice(None), top)), (4, top), (5, -1), (6, -1), (7, -1), (8, -1), (9, ...),
+                  (10, ...)):  # gwc, gbc, gwi, gbi, gwr, gbr of the top layer; gwe, gbe
+        assert _rel_l2(grads[i][sl], plain[i][sl]) <= BF16_REL_L2, i
+    for outs, ref, rep, f32 in ((got, want, twice, wn_fused.wn_fwd_plain(x2, *eff, t)),
+                                (grads, plain, again, wn_fused.wn_bwd_plain(*bwd_args))):
+        for i, (gv, wv, av, fv) in enumerate(zip(outs, ref, rep, f32)):
+            assert gv.shape == wv.shape and torch.equal(gv, av)
+            bar = max(BF16_REL_L2, BF16_CASCADE * _rel_l2(wv, fv))
+            assert _rel_l2(gv, wv) <= bar, (i, _rel_l2(gv, wv), bar)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("live", range(8))
+def test_wn_bf16_each_layer_alone(card, monkeypatch, live):
+    """Every layer's in-projection zero but layer ``live``'s (dilation
+    2^live): no layer's input gradient then carries another's rounding down,
+    so every output of ``wn_fwd`` / ``wn_bwd`` with ``bf16=True``, the lower
+    layers' included, is held within BF16_REL_L2 or BF16_FLIPS times the
+    control (the plain version with float64 sums) of the plain version, at
+    the serving widths (H 25, C 120, 8 layers, the training length)."""
+    b, t = 2, 1152
+    _, eff, x = _wn_operands(card, b, t, 25, 120, 8, seed=live)
+    w_in = torch.zeros_like(eff[4])
+    w_in[live] = eff[4][live]
+    eff[4] = w_in
+    x2 = x.reshape(b * t, 25).contiguous()
+    g2 = torch.randn(b * t, 50, device=card, generator=torch.Generator(card).manual_seed(live))
+    _, aud, skip = wn_fused.wn_fwd_plain(x2, *eff, t, True)
+    bwd_args = (x2, g2, aud, skip, eff[0], eff[2], eff[3], eff[4], eff[5], eff[6], eff[8], t)
+    got = wn_fused.wn_fwd(x2, *eff, t, True) + wn_fused.wn_bwd(*bwd_args, True)
+    want = wn_fused.wn_fwd_plain(x2, *eff, t, True) + wn_fused.wn_bwd_plain(*bwd_args, True)
+    monkeypatch.setattr(wn_fused, "_mm", lambda a, w, bf16: (
+        a.bfloat16().double() @ w.bfloat16().double()).float())
+    exact = wn_fused.wn_fwd_plain(x2, *eff, t, True) + wn_fused.wn_bwd_plain(*bwd_args, True)
+    for i, (gv, wv, ev) in enumerate(zip(got, want, exact)):
+        bar = max(BF16_REL_L2, BF16_FLIPS * _rel_l2(ev, wv))
+        assert _rel_l2(gv, wv) <= bar, (i, _rel_l2(gv, wv), bar)
+
+
+@pytest.mark.gpu
+def test_bf16_runs_match_one_run_calls(card):
+    """The run-axis bf16 forms: each run of ``os_conv_runs`` on bf16 and of
+    ``wn_fwd_runs`` / ``wn_bwd_runs`` with ``bf16=True`` gives the one-run
+    bf16 call's bits (the end projection's gradients, one batched product
+    outside the kernel, within BF16_REL_L2), one launch each for all runs."""
+    runs, b, t, k, c_in, c_out = 3, 2, 150, 89, 7, 25
+    g = torch.Generator(device=card).manual_seed(11)
+    x_pad = torch.randn(runs, b, t + k - 1, c_in, device=card, generator=g).bfloat16()
+    w = (torch.randn(runs, k, c_in, c_out, device=card, generator=g) / 25).bfloat16()
+    w[1, :, :, 8:16] = 0  # each run its own tap windows
+    before = dict(osconv.LAUNCHES)
+    got = osconv.os_conv_runs(x_pad, w)
+    torch.cuda.synchronize()
+    assert osconv.LAUNCHES["os_conv_fwd_runs[bf16]"] == before["os_conv_fwd_runs[bf16]"] + 1
+    assert osconv.LAUNCHES["os_conv_fwd_runs"] == before["os_conv_fwd_runs"]
+    for r in range(runs):
+        assert torch.equal(got[r], osconv.os_conv(x_pad[r], w[r]))
+    ops = [_wn_operands(card, 3, 150, 25, 120, 8, seed=r) for r in range(runs)]
+    eff = [torch.stack(e).contiguous() for e in zip(*(o[1] for o in ops))]
+    x2 = torch.stack([o[2].reshape(3 * 150, 25) for o in ops]).contiguous()
+    g2 = torch.randn(runs, 3 * 150, 50, device=card, generator=torch.Generator(card).manual_seed(7))
+    before = dict(wn_fused.LAUNCHES)
+    y, aud, skip = wn_fused.wn_fwd_runs(x2, *eff, 150, True)
+    bwd_args = (x2, g2, aud, skip, eff[0], eff[2], eff[3], eff[4], eff[5], eff[6], eff[8], 150)
+    grads = wn_fused.wn_bwd_runs(*bwd_args, True)
+    torch.cuda.synchronize()
+    assert wn_fused.LAUNCHES["wn_fwd_runs[bf16]"] == before["wn_fwd_runs[bf16]"] + 1
+    assert wn_fused.LAUNCHES["wn_bwd_runs[bf16]"] == before["wn_bwd_runs[bf16]"] + 1
+    for r in range(runs):
+        one = [e[r] for e in eff]
+        for a, want in zip((y[r], aud[r], skip[r]), wn_fused.wn_fwd(x2[r], *one, 150, True)):
+            assert torch.equal(a, want)
+        args = tuple(a[r] for a in bwd_args[:-1]) + (150, True)
+        for i, (a, want) in enumerate(zip(grads, wn_fused.wn_bwd(*args))):
+            if i < len(grads) - 2:  # the kernel's outputs
+                assert torch.equal(a[r], want)
+            else:
+                assert _rel_l2(a[r], want) <= BF16_REL_L2
+
+
+@pytest.mark.gpu
+def test_vmapped_cores_launch_the_bf16_run_kernels_once(card):
+    """Under ``torch.func.vmap`` over 3 runs, bf16 ``OSConvCore`` operands
+    and ``WNCore`` with the flag on launch the bf16 run-axis kernels once
+    (forward and backward) and nothing else of theirs."""
+    runs, b, t, k, c_in, c_out = 3, 2, 40, 5, 8, 24
+    g = torch.Generator(device=card).manual_seed(5)
+    x_pad = torch.randn(runs, b, t + k - 1, c_in, device=card, generator=g).bfloat16()
+    w = (torch.randn(runs, k, c_in, c_out, device=card, generator=g) / 6).bfloat16()
+    w.requires_grad_(True)
+    ops = [_wn_operands(card, b, t, 4, 16, 3, seed=r) for r in range(runs)]
+    eff = [torch.stack(e).contiguous().requires_grad_(True) for e in zip(*(o[1] for o in ops))]
+    xw = torch.stack([o[2] for o in ops]).requires_grad_(True)
+    osconv.reset_launch_counts()
+    wn_fused.reset_launch_counts()
+    y = torch.func.vmap(osconv.OSConvCore.apply)(x_pad, w)
+    z = torch.func.vmap(lambda x, *e: wn_fused.WNCore.apply(x, *e, True)[0])(xw, *eff)
+    grads = torch.autograd.grad(torch.sin(y.float()).sum() + torch.sin(z).sum(), [w, xw] + eff)
+    torch.cuda.synchronize()
+    assert osconv.LAUNCHES == {**dict.fromkeys(osconv.LAUNCHES, 0), "os_conv_fwd_runs[bf16]": 1}
+    assert wn_fused.LAUNCHES == {**dict.fromkeys(wn_fused.LAUNCHES, 0), "wn_fwd_runs[bf16]": 1,
+                                 "wn_bwd_runs[bf16]": 1}
+    assert all(bool(torch.isfinite(gr.float()).all()) for gr in grads)

@@ -298,7 +298,7 @@ def test_vmap_rules_match_per_run_calls():
 
     def runs_fn(x_pad, w, xw, *eff):
         y = osconv.OSConvCore.apply(x_pad, w)
-        z = wn_fused.WNCore.apply(xw, *eff)[0]
+        z = wn_fused.WNCore.apply(xw, *eff, False)[0]
         return torch.sin(gradient_reversal(y, coeff)), torch.sin(z)
 
     y, z = torch.func.vmap(runs_fn)(x_pad, w, xw, *eff)

@@ -538,7 +538,7 @@ def test_training_state_round_trips_through_the_jax_key_layout(tmp_path):
 
 
 @pytest.mark.parametrize("knob", [{"fused_optimizers": True}, {"stacked_pullbacks": True},
-                                  {"merged_pullbacks": False}, {"compute_dtype": "bfloat16"}])
+                                  {"merged_pullbacks": False}])
 def test_pipeline_config_refuses_unported_knobs(knob):
     from feature_level_style_transfer_for_tsc_tpu_torch.config import PipelineConfig
 

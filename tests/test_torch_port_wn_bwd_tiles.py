@@ -49,7 +49,7 @@ def _stage_rows(a: torch.Tensor, r0: int, r1: int, shift: int = 0, keep=None) ->
 
 
 def wn_bwd_tiles_plain(x2, g2, aud, skip, w_start, w_cond, b_cond, w_in, b_in, w_rs, w_end,
-                       t_len: int, split_rows: int | None = None):
+                       t_len: int, bf16: bool = False, split_rows: int | None = None):
     """``wn_bwd_plain``'s contract, computed as ``wn_bwd``'s kernels stage it.
     The tap operands are row ranges ``aud[r -+ d]`` with a mask a row (``pos
     >= d``, ``pos < T - d``), and the transposed taps of g_z likewise
@@ -58,7 +58,9 @@ def wn_bwd_tiles_plain(x2, g2, aud, skip, w_start, w_cond, b_cond, w_in, b_in, w
     is a sum of row-slice partials ``A_s^T B_s`` in slice order, with A = [lo
     aud[r-d] | aud[r] | hi aud[r+d] | x | 1] against g_z, [acts | 1] against
     [g_audio | g_skip] and [x | 1] against g_audio_0, and its rows laid out
-    as the kernel writes them (``_unpack``)."""
+    as the kernel writes them (``_unpack``).  ``bf16`` (``FLSTTSC_WN_MXU``,
+    passed by ``WNCore``) must be off: this mirrors the f32 kernels."""
+    assert not bf16, "the staging mirror is the f32 kernels'"
     n_layers, _, c, _ = w_in.shape
     rows, h = x2.shape
     split = split_rows or wn_fused.wgrad_split_rows(rows)

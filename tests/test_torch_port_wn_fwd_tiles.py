@@ -44,11 +44,13 @@ GATE_TOL = 1e-5  # chip_smoke.py's WN_FWD_REL_TOL
 
 
 def wn_fwd_tiles_plain(x2, w_start, b_start, w_cond, b_cond, w_in, b_in, w_rs, b_rs, w_end,
-                       b_end, t_len: int, mm=torch.matmul):
+                       b_end, t_len: int, bf16: bool = False, mm=torch.matmul):
     """``wn_fwd_plain``'s contract, computed as ``wn_fwd``'s kernels stage it,
     with every layer product (z, res/skip, the end projection) taken by
     ``mm``; the start projection stays a float32 product, as the kernel's
-    FMA row GEMM takes it."""
+    FMA row GEMM takes it.  ``bf16`` (``FLSTTSC_WN_MXU``, passed by
+    ``WNCore``) must be off: this mirrors the f32 kernels."""
+    assert not bf16, "the staging mirror is the f32 kernels'"
     n_layers, _, c, _ = w_in.shape
     rows = x2.shape[0]
     pos = torch.arange(rows) % t_len
