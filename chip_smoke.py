@@ -2311,8 +2311,9 @@ def bf16_conv_rows(osconv, layers) -> list:
     x of phase 2's shapes, rounded to bf16): against ``os_conv_plain`` in
     bf16 (relative L2), against the f32 kernel on the f32 operands, and
     timed beside the plain version and ``F.conv1d`` in bf16 (cuDNN, the
-    library yardstick).  Bounds from the mask's live taps: the BF16 peak
-    (``bound_ms``, with the bytes), one TF32 product a term beside it."""
+    library yardstick).  The bound from the mask's live taps at the BF16
+    peak and the bytes (``bound_ms``); the effective TFLOP/s on the live
+    taps and the share of the bound."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -2336,10 +2337,11 @@ def bf16_conv_rows(osconv, layers) -> list:
             "plain_ms": cuda_ms(lambda: osconv.os_conv_plain(x_pad, w), reps=5),
             "library_ms": cuda_ms(lambda: F.conv1d(x_ncw, w_oik)),
             "flop_ms": flops / BF16_PEAK * 1e3,
-            "tf32_flop_ms": flops / TC_PEAK * 1e3,
             "bytes_ms": 2 * (x_pad.numel() + w.numel() + y.numel()) / HBM_RATE * 1e3,
         }
         row["bound_ms"] = max(row["flop_ms"], row["bytes_ms"])
+        row["live_tflops"] = flops / row["ms"] / 1e9
+        row["bound_share"] = row["bound_ms"] / row["ms"]  # of the BF16-peak bound
         log("bf16 conv " + json.dumps(row))
         check(row["finite"], f"{name}: os_conv_fwd[bf16] gave a non-finite value")
         check(rel <= BF16_REL_L2, f"{name}: os_conv_fwd[bf16] rel L2 {rel:.3e} vs plain")

@@ -34,7 +34,7 @@
 extern "C" int tap_conv_fwd(const float* x_pad, const float* w, void* work, float* y, int b,
                             int t_pad, int c_in, int k, int c_out, int dilation,
                             void* stream_ptr) {
-  return static_cast<int>(tap_gemm::run<false>(x_pad, w, work, false, nullptr, nullptr,
+  return static_cast<int>(tap_gemm::run(x_pad, w, work, false, nullptr, nullptr,
                                         tap_gemm::kNone, y, 1, b, t_pad, c_in, k, c_out, dilation,
                                         static_cast<cudaStream_t>(stream_ptr)));
 }

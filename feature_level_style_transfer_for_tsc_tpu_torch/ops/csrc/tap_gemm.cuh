@@ -61,17 +61,9 @@
 //   are not formed (the plain version and the JAX kernel form them).
 // * the epilogue (folded BatchNorm affine and optional ReLU) runs on the
 //   accumulators before the one store.
-// * bf16 (run<true>, the OS conv of PipelineConfig.compute_dtype="bfloat16",
-//   where the JAX package sends bf16 operands to XLA's conv with a bf16
-//   output): x_pad, w and y are bf16 in device memory, so the conv moves
-//   half the bytes.  prep_kernel widens w to f32 bits (exact in TF32) into
-//   the hi plane only; the x stage is copied as bf16 (16-byte cp.async, 8
-//   elements, where C_in % 8 == 0 and the base allows; else element by
-//   element with plain loads, as cp.async copies no fewer than 4 bytes: the
-//   first layer's C_in is the dataset's channel count, 7 for SCP2) and
-//   widened once into the hi plane; each term is ONE TF32 product, exact,
-//   summed in f32 as above, and the sum is rounded to bf16 (nearest, ties to
-//   even) at the store.
+// * bf16 (the OS conv of PipelineConfig.compute_dtype="bfloat16") is a kernel
+//   of its own, tap_gemm_bf16.cuh: native bf16 m16n8k16 products on bf16
+//   staging.  This header's kernels take float32 only.
 //
 // Why mma.sync and not wgmma: tap j's A operand is the staged x tile
 // shifted by j*d rows, and wgmma's shared-memory descriptors need a base
@@ -86,7 +78,6 @@
 
 #include <cstddef>
 #include <cstdint>
-#include <type_traits>
 
 #include "mma_tf32.cuh"
 
@@ -132,16 +123,6 @@ inline size_t work_words(int k, int c_in, int c_out) {
   return split_words(k, c_in, c_out) + 2 * static_cast<size_t>((c_out + GROUP - 1) / GROUP);
 }
 
-// Element i of a float32 or (BF16) bf16 array, as f32.
-template <bool BF16>
-__device__ __forceinline__ float load_elem(const void* a, size_t i) {
-  if constexpr (BF16) {
-    return __uint_as_float(static_cast<uint32_t>(static_cast<const uint16_t*>(a)[i]) << 16);
-  } else {
-    return static_cast<const float*>(a)[i];
-  }
-}
-
 // Word of half h (k 0-3 or 4-7) of row n in a block of 8-word rows: the halves
 // of rows n and n + 4 trade places, so ldmatrix's 8 rows hit 32 banks.
 __device__ __forceinline__ int swizzled(int n, int h) { return n * 8 + ((h ^ (n >> 2)) & 1) * 4; }
@@ -154,11 +135,9 @@ __device__ __forceinline__ int swizzled(int n, int h) { return n * 8 + ((h ^ (n 
 // launch) it also folds j into the window of n's column group when any of
 // its 8 weights is nonzero, as win[g] = max(K - j) and win[n_groups + g] =
 // max(j + 1): the window is [K - win[g], win[n_groups + g]), empty (K, 0)
-// for a group without a nonzero weight.  BF16: w is bf16, widened into the
-// hi plane (exact in TF32); the lo plane is not written.
-template <bool BF16>
+// for a group without a nonzero weight.
 __global__ void __launch_bounds__(THREADS)
-prep_kernel(const void* __restrict__ w, int k, int c_in, int c_out,
+prep_kernel(const float* __restrict__ w, int k, int c_in, int c_out,
             uint32_t* __restrict__ split, int* __restrict__ win) {
   const int c_in_pad = round_up(c_in, KC);
   const int c_out_pad = round_up(c_out, PAD_N);
@@ -179,24 +158,16 @@ prep_kernel(const void* __restrict__ w, int k, int c_in, int c_out,
       for (int q = 0; q < KC; ++q) {
         const int i = i0 + q;
         const float v =
-            i < c_in && n < c_out
-                ? load_elem<BF16>(w, w0 + (static_cast<size_t>(j) * c_in + i) * c_out + n)
-                : 0.f;
+            i < c_in && n < c_out ? w[w0 + (static_cast<size_t>(j) * c_in + i) * c_out + n] : 0.f;
         live |= v != 0.f;
-        if constexpr (BF16) {
-          h[q] = __float_as_uint(v);
-        } else {
-          split_tf32(v, h[q], l[q]);
-        }
+        split_tf32(v, h[q], l[q]);
       }
       uint4* hi = reinterpret_cast<uint4*>(split + (static_cast<size_t>(chunk) * c_out_pad + n) * KC);
       uint4* lo = reinterpret_cast<uint4*>(split + plane + (static_cast<size_t>(chunk) * c_out_pad + n) * KC);
       hi[0] = make_uint4(h[0], h[1], h[2], h[3]);
       hi[1] = make_uint4(h[4], h[5], h[6], h[7]);
-      if (!BF16) {
-        lo[0] = make_uint4(l[0], l[1], l[2], l[3]);
-        lo[1] = make_uint4(l[4], l[5], l[6], l[7]);
-      }
+      lo[0] = make_uint4(l[0], l[1], l[2], l[3]);
+      lo[1] = make_uint4(l[4], l[5], l[6], l[7]);
     }
     if (win == nullptr) continue;
     // one lane of each 8 columns folds the group's liveness into its window
@@ -240,15 +211,13 @@ __host__ __device__ inline size_t smem_words(int xrows, int jgs) {
 // KS input channels a stage (a multiple of the mma's k, 8), JG taps.
 // blockIdx.z = run * batch + b: x_pad and y hold the runs' batches one after
 // the other, and the run picks its split weights, windows, scale and shift;
-// a run's arithmetic is the one-run kernel's.  BF16: x_pad and y are bf16
-// (the split weights are prep_kernel<true>'s), one product a term.
-template <int WM, int WN, int WK, int JG, int KS, bool BF16>
+// a run's arithmetic is the one-run kernel's.
+template <int WM, int WN, int WK, int JG, int KS>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-tap_gemm_kernel(const void* __restrict__ x_pad, const uint32_t* __restrict__ split,
+tap_gemm_kernel(const float* __restrict__ x_pad, const uint32_t* __restrict__ split,
                 const int* __restrict__ win, const float* __restrict__ scale,
-                const float* __restrict__ shift, int epilogue, void* __restrict__ y,
+                const float* __restrict__ shift, int epilogue, float* __restrict__ y,
                 int batch, int t_pad, int c_in, int k, int c_out, int d, int xrows, int jgs) {
-  using XT = std::conditional_t<BF16, uint16_t, float>;  // an element of x_pad and y
   static_assert(WM * WN * WK * 32 == THREADS, "one warp a (WM, WN, WK) slot");
   static_assert(KS % KC == 0 && (KS == 8 || KS == 16 || KS == 32), "8, 16 or 32 channels");
   constexpr int TM = WM * MT * 16;
@@ -285,7 +254,7 @@ tap_gemm_kernel(const void* __restrict__ x_pad, const uint32_t* __restrict__ spl
   const int wk = warp / (WM * WN);
   const int wm0 = wm * MT * 16;
   const int wn0 = wn * NT * 8;
-  const XT* xb = static_cast<const XT*>(x_pad) + static_cast<size_t>(b) * t_pad * c_in;
+  const float* xb = x_pad + static_cast<size_t>(b) * t_pad * c_in;
   const int c_in_pad = round_up(c_in, KC);
   const int c_out_pad = round_up(c_out, PAD_N);
   const size_t plane = static_cast<size_t>(k) * c_in_pad * c_out_pad;
@@ -315,8 +284,7 @@ tap_gemm_kernel(const void* __restrict__ x_pad, const uint32_t* __restrict__ spl
 
   const int n_chunks = (c_in_pad + KS - 1) / KS;
   const int n_stages = bhi > blo ? (bhi - blo + JG - 1) / JG * n_chunks : 0;
-  // 16-byte copies: 4 f32 or 8 bf16 channels
-  const bool x_vec = c_in % (16 / sizeof(XT)) == 0 && reinterpret_cast<uintptr_t>(x_pad) % 16 == 0;
+  const bool x_vec = c_in % 4 == 0 && reinterpret_cast<uintptr_t>(x_pad) % 16 == 0;
 
   // stage s: taps [j0, j0 + jn), channels [c0, c0 + KS) of which kn k-steps exist
   auto stage = [&](int s, int& j0, int& jn, int& c0, int& kn) {
@@ -331,26 +299,7 @@ tap_gemm_kernel(const void* __restrict__ x_pad, const uint32_t* __restrict__ spl
     stage(s, j0, jn, c0, kn);
     const int rows = TM + (jn - 1) * d;
     const int tb = t0 + j0 * d;  // time of staged row 0
-    if constexpr (BF16) {  // rows of KS bf16 elements, widened by the split
-      uint16_t* xs = reinterpret_cast<uint16_t*>(x_raw(buf));
-      if (x_vec) {
-        for (int e = tid; e < rows * (KS / 8); e += THREADS) {
-          const int r = e / (KS / 8);
-          const int q = (e % (KS / 8)) * 8;
-          const int t = tb + r;
-          const bool ok = t < t_pad && c0 + q < c_in;
-          cp_async16(xs + r * KS + q, ok ? xb + static_cast<size_t>(t) * c_in + c0 + q : xb, ok);
-        }
-      } else {  // ragged channels: 2-byte elements, below cp.async's 4 bytes
-        for (int e = tid; e < rows * KS; e += THREADS) {
-          const int r = e / KS;
-          const int q = e % KS;
-          const int t = tb + r;
-          xs[r * KS + q] =
-              t < t_pad && c0 + q < c_in ? xb[static_cast<size_t>(t) * c_in + c0 + q] : uint16_t{0};
-        }
-      }
-    } else if (x_vec) {
+    if (x_vec) {
       float* xs = x_raw(buf);
       for (int e = tid; e < rows * (KS / 4); e += THREADS) {
         const int r = e / (KS / 4);
@@ -369,13 +318,13 @@ tap_gemm_kernel(const void* __restrict__ x_pad, const uint32_t* __restrict__ spl
         cp_async4(xs + r * XS + q, ok ? xb + static_cast<size_t>(t) * c_in + c0 + q : xb, ok);
       }
     }
-    // w: per plane (BF16: the hi plane only), tap and k-step, TN rows of 8
+    // w: per plane, tap and k-step, TN rows of 8
     // words: 2 * TN copies of 16 bytes
     const uint32_t* src =
         split + ((static_cast<size_t>(j0) * (c_in_pad / KC) + c0 / KC) * c_out_pad + n0) * KC;
     const size_t tap_stride = static_cast<size_t>(c_in_pad / KC) * c_out_pad * KC;
     uint32_t* ws = w_hi(buf);
-    for (int e = tid; e < (BF16 ? 1 : 2) * 2 * jn * kn * TN; e += THREADS) {
+    for (int e = tid; e < 2 * 2 * jn * kn * TN; e += THREADS) {
       const int h = e & 1;
       const int n = (e >> 1) % TN;
       const int blk = (e >> 1) / TN;  // (p * jn + jj) * kn + kb
@@ -421,11 +370,7 @@ tap_gemm_kernel(const void* __restrict__ x_pad, const uint32_t* __restrict__ spl
     stage(s, j0, jn, c0, kn);
     for (int e = tid; e < (TM + (jn - 1) * d) * KS; e += THREADS) {
       const int i = (e / KS) * XS + e % KS;
-      if constexpr (BF16) {
-        xh[i] = static_cast<uint32_t>(reinterpret_cast<const uint16_t*>(x_raw(s & 1))[e]) << 16;
-      } else {
-        split_tf32(x_raw(s & 1)[i], xh[i], xl[i]);
-      }
+      split_tf32(x_raw(s & 1)[i], xh[i], xl[i]);
     }
     __syncthreads();  // the split x of stage s is in shared memory
 
@@ -453,7 +398,7 @@ tap_gemm_kernel(const void* __restrict__ x_pad, const uint32_t* __restrict__ spl
             for (int mt = 0; mt < MT; ++mt) {
               const int i = (a_row + mt * 16 + jj * d) * XS + kb * KC + a_col;
               ldmatrix_x4(ah[mt], xh + i);
-              if (!BF16) ldmatrix_x4(al[mt], xl + i);
+              ldmatrix_x4(al[mt], xl + i);
             }
 #pragma unroll
             for (int np = 0; np < NT / 2; ++np) {  // n8 tiles 2np and 2np + 1
@@ -463,21 +408,17 @@ tap_gemm_kernel(const void* __restrict__ x_pad, const uint32_t* __restrict__ spl
                 const int i = (jj * KB + kb) * TN * KC + swizzled(b_row + np * 16, b_half);
                 uint32_t bh[4], bl[4];
                 ldmatrix_x4(bh, wh + i);
-                if (!BF16) ldmatrix_x4(bl, wl + i);
+                ldmatrix_x4(bl, wl + i);
 #pragma unroll
                 for (int mt = 0; mt < MT; ++mt) {
                   if (live0) {
-                    if (!BF16) {
-                      mma_tf32(part[mt][2 * np], al[mt], bh[0], bh[1]);
-                      mma_tf32(part[mt][2 * np], ah[mt], bl[0], bl[1]);
-                    }
+                    mma_tf32(part[mt][2 * np], al[mt], bh[0], bh[1]);
+                    mma_tf32(part[mt][2 * np], ah[mt], bl[0], bl[1]);
                     mma_tf32(part[mt][2 * np], ah[mt], bh[0], bh[1]);
                   }
                   if (live1) {
-                    if (!BF16) {
-                      mma_tf32(part[mt][2 * np + 1], al[mt], bh[2], bh[3]);
-                      mma_tf32(part[mt][2 * np + 1], ah[mt], bl[2], bl[3]);
-                    }
+                    mma_tf32(part[mt][2 * np + 1], al[mt], bh[2], bh[3]);
+                    mma_tf32(part[mt][2 * np + 1], ah[mt], bl[2], bl[3]);
                     mma_tf32(part[mt][2 * np + 1], ah[mt], bh[2], bh[3]);
                   }
                 }
@@ -549,12 +490,7 @@ tap_gemm_kernel(const void* __restrict__ x_pad, const uint32_t* __restrict__ spl
             v = v * sc + sh;
             if (epilogue == kAffineRelu) v = fmaxf(v, 0.f);
           }
-          const size_t o = (static_cast<size_t>(b) * t_out + t) * c_out + col;
-          if constexpr (BF16) {
-            static_cast<uint16_t*>(y)[o] = __bfloat16_as_ushort(__float2bfloat16_rn(v));
-          } else {
-            static_cast<float*>(y)[o] = v;
-          }
+          y[(static_cast<size_t>(b) * t_out + t) * c_out + col] = v;
         }
       }
     }
@@ -580,25 +516,25 @@ inline cudaError_t current_sms(int& dev, int& sms) {
 }
 
 struct Call {
-  const void* x_pad;  // float32, or bf16 for the BF16 instances (as y)
+  const float* x_pad;
   const uint32_t* split;
   const int* win;
   const float* scale;
   const float* shift;
   int epilogue;
-  void* y;
+  float* y;
   int runs, batch, t_pad, c_in, k, c_out, d, dev;
   cudaStream_t stream;
 };
 
-template <int WM, int WN, int WK, int JG, int KS, bool BF16>
+template <int WM, int WN, int WK, int JG, int KS>
 cudaError_t launch(const Call& c) {
   constexpr int TM = WM * MT * 16;
   constexpr int TN = WN * NT * 8;
   const int jgs = c.k < JG ? c.k : JG;
   const int xrows = TM + (jgs - 1) * c.d;
   const size_t smem = smem_words<WM, WN, WK, KS>(xrows, jgs) * 4;
-  auto kernel = tap_gemm_kernel<WM, WN, WK, JG, KS, BF16>;
+  auto kernel = tap_gemm_kernel<WM, WN, WK, JG, KS>;
   static size_t opted_in[kMaxDevices] = {};
   if (smem > 48 * 1024 && (c.dev >= kMaxDevices || smem > opted_in[c.dev])) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -620,17 +556,17 @@ cudaError_t launch(const Call& c) {
 // short ones (the tap conv's K = 3, the OS conv's last K = 2) all their
 // taps and SHORT_KS channels; one tap where a wide dilation's window would
 // not fit in kSmemCap.
-template <int WM, int WN, int WK, bool BF16>
+template <int WM, int WN, int WK>
 cudaError_t launch_taps(const Call& c) {
   constexpr int TM = WM * MT * 16;
   const int jgs = c.k > 4 ? (c.k < LONG_JG ? c.k : LONG_JG) : c.k;
   const size_t smem = c.k > 4 ? smem_words<WM, WN, WK, KC>(TM + (jgs - 1) * c.d, jgs)
                               : smem_words<WM, WN, WK, SHORT_KS>(TM + (jgs - 1) * c.d, jgs);
-  if (c.k == 1 || smem * 4 > kSmemCap) return launch<WM, WN, WK, 1, SHORT_KS, BF16>(c);
-  if (c.k > 4) return launch<WM, WN, WK, LONG_JG, KC, BF16>(c);
+  if (c.k == 1 || smem * 4 > kSmemCap) return launch<WM, WN, WK, 1, SHORT_KS>(c);
+  if (c.k > 4) return launch<WM, WN, WK, LONG_JG, KC>(c);
   const int jg = c.k == 2 ? 2 : 4;
-  if (jg == 2) return launch<WM, WN, WK, 2, SHORT_KS, BF16>(c);
-  return launch<WM, WN, WK, 4, SHORT_KS, BF16>(c);
+  if (jg == 2) return launch<WM, WN, WK, 2, SHORT_KS>(c);
+  return launch<WM, WN, WK, 4, SHORT_KS>(c);
 }
 
 // y = the tap conv, windowed when ``with_windows``, of ``runs`` independent
@@ -642,12 +578,11 @@ cudaError_t launch_taps(const Call& c) {
 // 8 warps: 128 x 64 where one run's grid fills two blocks an SM; else 64 x
 // 64 with two split-K groups; narrow outputs (C_out <= 32) 64 x 32 with
 // four.  The tiles are chosen from one run's batch, so each run of a
-// many-run call takes the one-run call's tiles and gives its bits.  BF16:
-// x_pad, w and y are bf16 (the header says what the instance does).
-template <bool BF16>
-cudaError_t run(const void* x_pad, const void* w, void* work, bool with_windows,
-                const float* scale, const float* shift, int epilogue, void* y, int runs, int batch,
-                int t_pad, int c_in, int k, int c_out, int d, cudaStream_t stream) {
+// many-run call takes the one-run call's tiles and gives its bits.
+inline cudaError_t run(const float* x_pad, const float* w, void* work, bool with_windows,
+                       const float* scale, const float* shift, int epilogue, float* y, int runs,
+                       int batch, int t_pad, int c_in, int k, int c_out, int d,
+                       cudaStream_t stream) {
   if (runs < 1 || batch < 1 || static_cast<long>(runs) * batch > 65535 || k < 1 || d < 1 ||
       c_in < 1 || c_out < 1 || t_pad - (k - 1) * d < 1)
     return cudaErrorInvalidValue;
@@ -662,17 +597,17 @@ cudaError_t run(const void* x_pad, const void* w, void* work, bool with_windows,
     e = cudaMemsetAsync(win, 0, static_cast<size_t>(runs) * 2 * n_groups * sizeof(int), stream);
     if (e != cudaSuccess) return e;
   }
-  prep_kernel<BF16><<<dim3(k * (round_up(c_in, KC) / KC), runs), THREADS, 0, stream>>>(
+  prep_kernel<<<dim3(k * (round_up(c_in, KC) / KC), runs), THREADS, 0, stream>>>(
       w, k, c_in, c_out, split, win);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const Call c{x_pad, split, win, scale, shift, epilogue, y, runs, batch, t_pad, c_in, k, c_out,
                d, dev, stream};
   const int t_out = t_pad - (k - 1) * d;
-  if (c_out <= 32) return launch_taps<2, 1, 4, BF16>(c);
+  if (c_out <= 32) return launch_taps<2, 1, 4>(c);
   const long wide_blocks = static_cast<long>((t_out + 127) / 128) * ((c_out + 63) / 64) * batch;
-  if (wide_blocks >= static_cast<long>(MIN_BLOCKS) * sms) return launch_taps<4, 2, 1, BF16>(c);
-  return launch_taps<2, 2, 2, BF16>(c);
+  if (wide_blocks >= static_cast<long>(MIN_BLOCKS) * sms) return launch_taps<4, 2, 1>(c);
+  return launch_taps<2, 2, 2>(c);
 }
 
 }  // namespace

@@ -22,16 +22,19 @@ Both run the tap GEMM of ``csrc/tap_gemm.cuh`` (3xTF32 on the tensor cores,
 f32 accuracy) after a prep kernel that splits w into TF32 hi and lo parts
 and finds, per group of 8 output columns, the span of taps whose weights
 are nonzero; the GEMM skips the mask's dead taps outside it.
-``tap_windows_plain`` is that window search in PyTorch.
+``tap_windows_plain`` is that window search in PyTorch.  The bf16 instance
+is a kernel of its own, ``csrc/tap_gemm_bf16.cuh`` (bf16 staging, native
+bf16 tensor-core products), with the same windows.
 
 bf16 (``PipelineConfig.compute_dtype="bfloat16"``, ``models/os_cnn.py``):
 ``os_conv`` and ``os_conv_runs`` take bf16 operands as the JAX package's
 bf16 XLA conv does (its Pallas kernels take f32 only, ``osconv.py:356-366``):
-on CUDA the kernel's bf16 instance (``os_conv_fwd[bf16]``: bf16 in device
-memory, each product exact, the sum f32, the output rounded to bf16), on
-the CPU ``os_conv_plain``, which widens to f32, convolves and rounds.  The
-backward is the same transposed convs on bf16 tensors (bf16 gradients, as
-JAX's XLA VJP).  ``os_conv_fused`` and ``tap_conv_fwd`` take float32 only.
+on CUDA the bf16 kernel (``os_conv_fwd[bf16]``: bf16 in device memory and
+shared memory, each product exact on the bf16 tensor cores, the sum f32,
+the output rounded to bf16), on the CPU ``os_conv_plain``, which widens to
+f32, convolves and rounds.  The backward is the same transposed convs on
+bf16 tensors (bf16 gradients, as JAX's XLA VJP).  ``os_conv_fused`` and
+``tap_conv_fwd`` take float32 only.
 
 Gradients: ``masked_os_conv`` runs the conv through ``OSConvCore``, an
 ``autograd.Function`` whose forward is ``os_conv`` and whose backward is the
@@ -278,13 +281,16 @@ def _check_operands(x_pad: torch.Tensor, w: torch.Tensor, *vectors: torch.Tensor
 
 
 def _work(w: torch.Tensor, runs: int = 1) -> torch.Tensor:
-    """The scratch of the tap GEMM's prep kernel (``csrc/tap_gemm.cuh``
-    ``work_words``) for ``runs`` runs of w (K, C_in, C_out): each run's TF32
-    hi and lo planes, K x (C_in padded to 8) x (C_out padded to 64) words
-    each, then each run's 2 ints a group of 8 columns for the windows (K -
-    lo, then hi)."""
+    """The scratch of the tap GEMM's prep kernel for ``runs`` runs of w (K,
+    C_in, C_out): each run's weights as the GEMM reads them, then each run's
+    2 ints a group of 8 columns for the windows (K - lo, then hi).  float32
+    (``csrc/tap_gemm.cuh`` ``work_words``): TF32 hi and lo planes, K x (C_in
+    padded to 8) x (C_out padded to 64) words each; bfloat16
+    (``csrc/tap_gemm_bf16.cuh`` ``bf16_work_words``): one bf16 copy of the
+    same padded shape, half a word an element."""
     k, c_in, c_out = w.shape[-3:]
-    words = 2 * k * (-(-c_in // 8) * 8) * (-(-c_out // 64) * 64) + 2 * -(-c_out // 8)
+    elems = k * (-(-c_in // 8) * 8) * (-(-c_out // 64) * 64)
+    words = (elems // 2 if w.dtype == torch.bfloat16 else 2 * elems) + 2 * -(-c_out // 8)
     return torch.empty(runs * words, device=w.device, dtype=torch.int32)
 
 

@@ -38,7 +38,12 @@ multi-run training (``os_conv_fwd_runs``, ``os_conv_fused_fwd_runs``,
 ``wn_fwd_runs``, ``wn_bwd_runs``) at small K and B: each run the same bits
 as a one-run call, and within the gates above of the plain versions; the
 run-axis conv's grouped backward and the vmap rules of ``OSConvCore`` and
-``WNCore`` (one run-axis launch for all runs) against per-run calls.
+``WNCore`` (one run-axis launch for all runs) against per-run calls.  The
+bf16 conv kernel (``tap_gemm_bf16.cuh``) at the serving layers' masked
+weights (C_in 7, 25, 225 and 50: one, four, 29 and seven 8-channel chunks
+a tap) at T off every time tile, with a dead column group, with windows
+narrowed to fewer channels or taps than the layer has, and its run-axis
+form at R = 3 (each run the one-run call's bits).
 """
 
 import pytest
@@ -818,26 +823,49 @@ def _rel_l2(got, want):
     return ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
 
 
+def _bf16_weights(card, g, k, c_in, c_out, weights):
+    """bf16 test weights (K, C_in, C_out): dense, or the serving layer of
+    that shape's masked weights, as they are or with column group 1 dead."""
+    w32 = torch.randn(k, c_in, c_out, device=card, generator=g) / (c_in * k) ** 0.5
+    if weights != "dense":
+        spec = next(s for s in map(_serving_layer, range(4))
+                    if (s[-1][-1], s[0][0], total_out_channels(s)) == (k, c_in, c_out))
+        w32 = w32 * torch.from_numpy(osconv.build_os_mask(spec)).to(card)
+    if weights == "dead group":
+        w32[:, :, 8:16] = 0.0
+    return w32
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize(
-    "b, t, k, c_in, c_out",
+    "b, t, k, c_in, c_out, weights",
     [
-        (3, 150, 89, 25, 225),
-        (2, 1152, 89, 7, 25),  # the serving model's first layer: C_in 7, element-wise staging
-        (2, 33, 2, 225, 50),
-        (1, 5, 1, 5, 7),
-        (2, 61, 3, 16, 33),  # C_in a multiple of 8: 16-byte staging
-        (4, 100, 5, 3, 130),
+        (3, 150, 89, 25, 225, "dense"),
+        (2, 1152, 89, 7, 25, "dense"),  # the serving model's first layer: C_in 7, one chunk a tap
+        (2, 33, 2, 225, 50, "dense"),
+        (1, 5, 1, 5, 7, "dense"),
+        (2, 61, 3, 16, 33, "dense"),  # C_in a multiple of 8: rows on 16-byte granules
+        (4, 100, 5, 3, 130, "dense"),
+        # the serving layers' masked weights at T off every time tile: C_in 7, 25, 225
+        # and 50 (one, four, 29 and seven chunks a tap; 225 in four channel windows)
+        (2, 300, 89, 7, 25, "mask"),
+        (2, 300, 89, 25, 225, "mask"),
+        (2, 300, 2, 225, 50, "mask"),
+        (2, 300, 89, 50, 25, "mask"),
+        (2, 300, 89, 25, 225, "dead group"),  # an empty window: those columns 0
+        (2, 150, 89, 7, 25, "dead group"),
+        (2, 100, 89, 200, 130, "dense"),  # windows narrowed to 32 channels: seven a block
+        (1, 50, 600, 64, 40, "dense"),  # a kernel longer than one window of taps
     ],
 )
-def test_os_conv_bf16_matches_plain(card, b, t, k, c_in, c_out):
-    """``os_conv`` on bf16 operands launches the bf16 instance (counted as
+def test_os_conv_bf16_matches_plain(card, b, t, k, c_in, c_out, weights):
+    """``os_conv`` on bf16 operands launches the bf16 kernel (counted as
     ``os_conv_fwd[bf16]``, not ``os_conv_fwd``), gives bf16, the same bits
     twice, within BF16_REL_L2 of ``os_conv_plain`` in bf16, and differs from
     the f32 kernel on the f32 operands while tracking it within 2e-2."""
     g = torch.Generator(device=card).manual_seed(k * 1000 + c_out)
     x32 = torch.randn(b, t + k - 1, c_in, device=card, generator=g)
-    w32 = torch.randn(k, c_in, c_out, device=card, generator=g) / (c_in * k) ** 0.5
+    w32 = _bf16_weights(card, g, k, c_in, c_out, weights)
     x_pad, w = x32.bfloat16(), w32.bfloat16()
     before = dict(osconv.LAUNCHES)
     got = osconv.os_conv(x_pad, w)
@@ -848,6 +876,8 @@ def test_os_conv_bf16_matches_plain(card, b, t, k, c_in, c_out):
     assert got.dtype == torch.bfloat16 and got.shape == (b, t, c_out)
     assert torch.equal(got, twice)
     assert _rel_l2(got, osconv.os_conv_plain(x_pad, w)) <= BF16_REL_L2
+    if weights == "dead group":
+        assert not got[:, :, 8:16].any()
     f32 = osconv.os_conv(x32, w32)
     assert not torch.equal(got.float(), f32)
     assert _rel_l2(got, f32) <= 2e-2
@@ -956,15 +986,24 @@ def test_wn_bf16_each_layer_alone(card, monkeypatch, live):
 
 
 @pytest.mark.gpu
-def test_bf16_runs_match_one_run_calls(card):
-    """The run-axis bf16 forms: each run of ``os_conv_runs`` on bf16 and of
+@pytest.mark.parametrize("t, k, c_in, c_out, weights", [
+    (150, 89, 7, 25, "dense"),
+    (77, 89, 7, 25, "mask"),  # the serving layers' masked weights, T off the time tiles
+    (77, 89, 25, 225, "mask"),
+    (77, 2, 225, 50, "mask"),
+    (77, 89, 50, 25, "mask"),
+])
+def test_bf16_runs_match_one_run_calls(card, t, k, c_in, c_out, weights):
+    """The run-axis bf16 forms: each run of ``os_conv_runs`` on bf16 (R = 3,
+    each run its own weights, run 1 with a dead column group) and of
     ``wn_fwd_runs`` / ``wn_bwd_runs`` with ``bf16=True`` gives the one-run
     bf16 call's bits (the end projection's gradients, one batched product
     outside the kernel, within BF16_REL_L2), one launch each for all runs."""
-    runs, b, t, k, c_in, c_out = 3, 2, 150, 89, 7, 25
+    runs, b = 3, 2
     g = torch.Generator(device=card).manual_seed(11)
     x_pad = torch.randn(runs, b, t + k - 1, c_in, device=card, generator=g).bfloat16()
-    w = (torch.randn(runs, k, c_in, c_out, device=card, generator=g) / 25).bfloat16()
+    w = torch.stack([_bf16_weights(card, g, k, c_in, c_out, weights)
+                     for _ in range(runs)]).bfloat16()
     w[1, :, :, 8:16] = 0  # each run its own tap windows
     before = dict(osconv.LAUNCHES)
     got = osconv.os_conv_runs(x_pad, w)
@@ -973,6 +1012,7 @@ def test_bf16_runs_match_one_run_calls(card):
     assert osconv.LAUNCHES["os_conv_fwd_runs"] == before["os_conv_fwd_runs"]
     for r in range(runs):
         assert torch.equal(got[r], osconv.os_conv(x_pad[r], w[r]))
+        assert _rel_l2(got[r], osconv.os_conv_plain(x_pad[r], w[r])) <= BF16_REL_L2
     ops = [_wn_operands(card, 3, 150, 25, 120, 8, seed=r) for r in range(runs)]
     eff = [torch.stack(e).contiguous() for e in zip(*(o[1] for o in ops))]
     x2 = torch.stack([o[2].reshape(3 * 150, 25) for o in ops]).contiguous()
@@ -997,14 +1037,15 @@ def test_bf16_runs_match_one_run_calls(card):
 
 
 @pytest.mark.gpu
-def test_vmapped_cores_launch_the_bf16_run_kernels_once(card):
+@pytest.mark.parametrize("k, c_in, c_out", [(5, 8, 24), (89, 7, 25), (2, 225, 50)])
+def test_vmapped_cores_launch_the_bf16_run_kernels_once(card, k, c_in, c_out):
     """Under ``torch.func.vmap`` over 3 runs, bf16 ``OSConvCore`` operands
     and ``WNCore`` with the flag on launch the bf16 run-axis kernels once
     (forward and backward) and nothing else of theirs."""
-    runs, b, t, k, c_in, c_out = 3, 2, 40, 5, 8, 24
+    runs, b, t = 3, 2, 40
     g = torch.Generator(device=card).manual_seed(5)
     x_pad = torch.randn(runs, b, t + k - 1, c_in, device=card, generator=g).bfloat16()
-    w = (torch.randn(runs, k, c_in, c_out, device=card, generator=g) / 6).bfloat16()
+    w = (torch.randn(runs, k, c_in, c_out, device=card, generator=g) / (c_in * k) ** 0.5).bfloat16()
     w.requires_grad_(True)
     ops = [_wn_operands(card, b, t, 4, 16, 3, seed=r) for r in range(runs)]
     eff = [torch.stack(e).contiguous().requires_grad_(True) for e in zip(*(o[1] for o in ops))]
