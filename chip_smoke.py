@@ -165,7 +165,8 @@ non-zero when any check fails.  Phases:
     within STEP_GRAD_L2_TOL or twice the controls' spread; each loss within
     STEP_LOSS_REL_TOL or twice the controls' spread); its losses against the
     f32 step's (all but BF16_NOISY_LOSSES, which the controls move by more
-    than BF16_LOSS_NOISE), the step traced; ``os_conv_fwd[bf16]`` at the six
+    than BF16_LOSS_NOISE), the step traced in a process of its own
+    (``experiments/phase5_step_time.py --bf16``); ``os_conv_fwd[bf16]`` at the six
     serving convs against its plain bf16 version, the f32 kernel and
     ``F.conv1d`` in bf16; ``wn_fwd[bf16]`` and ``wn_bwd[bf16]`` at pair +
     infer, layer by layer and free-running (BF16_REL_L2, BF16_CASCADE), and
@@ -230,6 +231,7 @@ STEP_GRAD_L2_TOL = 1e-2  # a whole phase-5 step's gradients per module, every ke
 BASELINE_GRAD_L2_TOL = 1e-3
 SOURCE = "feature_level_style_transfer_for_tsc_tpu_torch/ops/csrc/os_conv.cu"
 WN_SOURCE = "feature_level_style_transfer_for_tsc_tpu_torch/ops/csrc/wn_fused.cu"
+WN_BWD16_SOURCE = "feature_level_style_transfer_for_tsc_tpu_torch/ops/csrc/wn_bwd_bf16.cuh"
 GATE_SOURCE = "feature_level_style_transfer_for_tsc_tpu_torch/ops/csrc/gate.cu"
 TAP_SOURCE = "feature_level_style_transfer_for_tsc_tpu_torch/ops/csrc/tap_conv.cu"
 REPLACES = {
@@ -303,16 +305,23 @@ BF16 = {
                           "XLA conv (bf16 operands and output, compute_dtype)"),
     "wn_fwd[bf16]": (WN_SOURCE, "feature_level_style_transfer_for_tsc_tpu/ops/wn_fused.py:164 "
                      "_wn_fwd_kernel (bf16=True)"),
-    "wn_bwd[bf16]": (WN_SOURCE, "feature_level_style_transfer_for_tsc_tpu/ops/wn_fused.py:195 "
+    "wn_bwd[bf16]": (WN_BWD16_SOURCE, "feature_level_style_transfer_for_tsc_tpu/ops/wn_fused.py:195 "
                      "_wn_bwd_kernel (bf16=True)"),
     "os_conv_fwd_runs[bf16]": (SOURCE, "feature_level_style_transfer_for_tsc_tpu/ops/osconv.py:356 "
                                "XLA conv (bf16, vmapped)"),
     "wn_fwd_runs[bf16]": (WN_SOURCE, "feature_level_style_transfer_for_tsc_tpu/ops/wn_fused.py:164 "
                           "_wn_fwd_kernel (bf16=True, vmapped)"),
-    "wn_bwd_runs[bf16]": (WN_SOURCE, "feature_level_style_transfer_for_tsc_tpu/ops/wn_fused.py:195 "
+    "wn_bwd_runs[bf16]": (WN_BWD16_SOURCE, "feature_level_style_transfer_for_tsc_tpu/ops/wn_fused.py:195 "
                           "_wn_bwd_kernel (bf16=True, vmapped)"),
 }
 BF16_IDLE = {name: 0 for name in BF16}  # no bf16 launch outside phase 19
+# In phase 19 (some 700 s into this process) torch.profiler returned no device event of whole
+# calls (none of wn_fwd[bf16]'s at pair, one of three of wn_bwd[bf16]'s), with or without 0.1 s
+# of idle host time at both ends of its window, while phase 6 and every process of its own (the
+# gpu tests, experiments/wn_time.py) kept every one.  So phase 19 profiles in processes of its
+# own: the WN rows' breakdown (experiments/wn_time.py --bf16 --breakdown) and the one-run step
+# (experiments/phase5_step_time.py --bf16), and every WN profile is checked complete against the
+# wrappers' counts (check_breakdown, profile_step).
 BF16_ENV = {"FLSTTSC_WN_MXU": "bf16"}
 # A bf16 instance against its plain bf16 version, relative L2: the products are exact on both
 # sides and only the f32 sums run in another order, so a sum within rounding of a bf16 boundary
@@ -349,6 +358,22 @@ BF16_NOISY_LOSSES = {
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+class PhaseClock:
+    """The wall time of each phase of ``main``, logged as the next one starts."""
+
+    def __init__(self):
+        self.t0 = self.last = time.perf_counter()
+        self.name = None
+        self.secs = {}
+
+    def start(self, name) -> None:
+        now = time.perf_counter()
+        if self.name is not None:
+            self.secs[self.name] = now - self.last
+            log(f"[clock] {self.name}: {now - self.last:.1f} s (since the start {now - self.t0:.1f} s)")
+        self.name, self.last = name, now
 
 
 def conv_totals(what: str, rows, ms: str, library_ms: str) -> dict:
@@ -745,14 +770,42 @@ def kernel_breakdown(fn, calls: int = 3) -> dict:
             fn()
         torch.cuda.synchronize()
     out = {}
-    for e in prof.key_averages():
-        if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0:
-            key = e.key.replace("(anonymous namespace)::", "").removeprefix("void ")
-            name = key.split("(", 1)[0].split("::")[-1]
-            row = out.setdefault(name, {"ms": 0.0, "launches": 0})
-            row["ms"] += e.self_device_time_total / 1e3 / calls
-            row["launches"] += e.count // calls
+    for e in device_events(prof):
+        row = out.setdefault(kernel_name(e.key), {"ms": 0.0, "launches": 0})
+        row["ms"] += e.self_device_time_total / 1e3 / calls
+        row["launches"] += e.count / calls
     return dict(sorted(out.items(), key=lambda kv: -kv[1]["ms"]))
+
+
+def device_events(prof) -> list:
+    """The profile's device work by key: CUDA events with device time, less
+    the ranges of host annotations (``record_function``, the optimizer's
+    step), which show on the device timeline too and span kernels counted
+    on their own."""
+    return [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def kernel_name(key: str) -> str:
+    """A profiler key's kernel name, without ``void``, namespaces and
+    arguments (template arguments kept)."""
+    key = key.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return key.split("(", 1)[0].split("::")[-1]
+
+
+def check_breakdown(what: str, by_kernel: dict, expected: dict) -> dict:
+    """The launches a call of each ``__global__`` kernel of ``expected``
+    (name without template arguments: count, ``wn_fused.global_kernels``)
+    in ``by_kernel`` (``kernel_breakdown``): checked equal, so they add up
+    to the entry's ``global_launches``."""
+    got = {name: 0.0 for name in expected}
+    for key, row in by_kernel.items():
+        base = key.split("<", 1)[0]
+        if base in got:
+            got[base] += row["launches"]
+    check(got == expected, f"{what}: launches a call by kernel {got} != {expected}")
+    return got
 
 
 def wn_phase(wn_fused, wn_init, weight_norm_weight, cases, c: int, n_layers: int):
@@ -802,6 +855,10 @@ def wn_phase(wn_fused, wn_init, weight_norm_weight, cases, c: int, n_layers: int
             row[f"{d}_tflops"] = work[f"{d}_flops"] / row[f"{d}_ms"] / 1e9
         row["fwd_by_kernel"] = kernel_breakdown(lambda: wn_fused.wn_fwd(x2, *eff, t))
         row["bwd_by_kernel"] = kernel_breakdown(lambda: wn_fused.wn_bwd(*bwd_args))
+        kernels = wn_fused.global_kernels(n_layers)
+        for d in ("fwd", "bwd"):
+            row[f"{d}_launches_by_kernel"] = check_breakdown(
+                f"wn_{d} {what}", row[f"{d}_by_kernel"], kernels[f"wn_{d}"])
         log("wn " + json.dumps(row))
         check(max(row["fwd_rel"].values()) <= WN_FWD_REL_TOL, f"wn_fwd {what}: rel err {row['fwd_rel']}")
         check(fwd_same, f"wn_fwd {what}: two runs gave different bits")
@@ -843,8 +900,13 @@ def profile_step(pipe, state, batch) -> dict:
     """One phase-5 step traced by ``torch.profiler`` (a warm-up step first):
     the device time by kernel, and the share of the traced step's wall time
     (host clock around the step, inside the same profiler window) in which
-    no kernel ran; then the same step untraced, for the profiler's cost."""
+    no kernel ran; then the same step untraced, for the profiler's cost.
+    Checked complete: the profile keeps each WN ``__global__`` kernel's
+    launches as often as the wrappers' counts (``wn_fused.LAUNCHES``) and
+    ``wn_fused.global_kernels`` say the step launched it."""
     from torch.profiler import ProfilerActivity, profile
+
+    from feature_level_style_transfer_for_tsc_tpu_torch.ops import wn_fused
 
     def step():
         torch.cuda.synchronize()
@@ -854,29 +916,44 @@ def profile_step(pipe, state, batch) -> dict:
         return (time.perf_counter() - t0) * 1e3
 
     step()
+    before = dict(wn_fused.LAUNCHES)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         traced_ms = step()
+    calls = {k: n - before[k] for k, n in wn_fused.LAUNCHES.items() if n > before[k]}
     untraced_ms = step()
+    layers = pipe.config.flow.wn_layers
+    wn_names = {k for bf16 in (False, True) for e in wn_fused.global_kernels(layers, bf16).values()
+                for k in e}
+    want = {}
+    for entry, n in calls.items():
+        per_entry = wn_fused.global_kernels(layers, entry.endswith("[bf16]"))
+        for k, per_call in per_entry[entry.split("[")[0].removesuffix("_runs")].items():
+            want[k] = want.get(k, 0) + n * per_call
     kernels = sorted(
-        ((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-         if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0),
+        ((e.key, e.self_device_time_total / 1e3, e.count) for e in device_events(prof)),
         key=lambda k: -k[1],
     )
+    kept = {k: 0 for k in want}
     groups = {"wn kernels": 0.0, "os_conv kernel": 0.0, "other": 0.0}
-    for name, ms, _ in kernels:
-        wn = any(tag in name for tag in ("wn_layer", "wgrad", "wsplit", "reduce_partials", "rowgemm"))
+    for name, ms, count in kernels:
+        base = kernel_name(name).split("<", 1)[0]
+        if base in want:
+            kept[base] += count
         # the fused route runs the tap GEMM (prep and main kernel) only for the OS conv
-        groups["wn kernels" if wn else "os_conv kernel" if "tap_gemm" in name else "other"] += ms
+        groups["wn kernels" if base in wn_names else
+               "os_conv kernel" if "tap_gemm" in name else "other"] += ms
     device_ms = sum(groups.values())
     out = {"device_ms": device_ms, "traced_wall_ms": traced_ms,
            "device_idle_share": 1.0 - device_ms / traced_ms, "untraced_wall_ms": untraced_ms,
-           "by_group_ms": groups,
+           "by_group_ms": groups, "wn_calls": calls, "wn_launches_kept": kept,
            "top": [{"kernel": n[:90], "ms": ms, "calls": c} for n, ms, c in kernels[:12]]}
     log(f"[profiled phase-5 step] device ms={device_ms:.1f} traced wall ms={traced_ms:.1f} "
         f"idle share={out['device_idle_share']:.3f} untraced wall ms={untraced_ms:.1f} by group="
-        f"{ {k: round(v, 1) for k, v in groups.items()} }")
+        f"{ {k: round(v, 1) for k, v in groups.items()} }; WN launches kept {kept}")
     for row in out["top"]:
         log(f"  {row['ms']:9.3f} ms {row['calls']:6d} x {row['kernel']}")
+    check(bool(want) and kept == want,
+          f"profiled phase-5 step: WN launches kept {kept}, launched {want} ({calls} calls)")
     return out
 
 
@@ -2428,7 +2505,10 @@ def bf16_wn_rows(wn_fused, wn_init, weight_norm_weight, cases, c: int, n_layers:
     n_half), phase 6's inputs, against the plain versions with ``bf16=True``
     (``wn_bf16_gaps``, ``check_wn_bf16``).  The same bits twice; y against
     the f32 kernel's.  Timed beside the plain versions and the f32 kernels,
-    with the device time by ``__global__`` kernel.  At the last case, each
+    with the device time by ``__global__`` kernel, taken in a process of its
+    own (``experiments/wn_time.py --bf16 --breakdown``; the note at BF16_ENV
+    says why), the launches of each checked against
+    ``wn_fused.global_kernels``.  At the last case, each
     layer's own arithmetic (``one_live_layer``, the layer's dilation): every
     output of both within BF16_FLIPS times its control, or BF16_REL_L2."""
     rows = {"wn_fwd[bf16]": [], "wn_bwd[bf16]": []}
@@ -2464,7 +2544,7 @@ def bf16_wn_rows(wn_fused, wn_init, weight_norm_weight, cases, c: int, n_layers:
                 "flop_ms": work[f"{d}_flops"] / BF16_PEAK * 1e3,
                 "tf32_flop_ms": work[f"{d}_flops"] / TC_PEAK * 1e3,
                 "bytes_ms": work[f"{d}_bytes"] / HBM_RATE * 1e3,
-                "by_kernel": kernel_breakdown(fn),
+                "global_launches_per_call": wn_fused.global_launches(n_layers, True)[f"wn_{d}"],
             }
             row["bound_ms"] = max(row["flop_ms"], row["bytes_ms"])
             log(f"bf16 wn_{d} " + json.dumps(row))
@@ -2473,6 +2553,23 @@ def bf16_wn_rows(wn_fused, wn_init, weight_norm_weight, cases, c: int, n_layers:
             check(not row["same_as_f32"] and row["vs_f32_rel_l2"] <= BF16_VS_F32_REL_L2,
                   f"wn_{d}[bf16] {what}: against the f32 kernel {row['vs_f32_rel_l2']:.3e}")
             rows[f"wn_{d}[bf16]"].append(row)
+    # the device time and launches by __global__ kernel of each call, in a process of its own
+    # (the note at BF16_ENV says why), checked against wn_fused.global_kernels
+    proc = subprocess.run([sys.executable, str(REPO / "experiments" / "wn_time.py"), "--bf16",
+                           "--breakdown"], capture_output=True, text=True, timeout=600, cwd=REPO)
+    check(proc.returncode == 0, f"wn_time.py --bf16 --breakdown exited {proc.returncode}: "
+                                f"{proc.stderr[-2000:]}")
+    fresh = {(r["shape"], r["direction"]): r["by_kernel"] for r in (
+        json.loads(line.split(" ", 1)[1]) for line in proc.stdout.splitlines()
+        if line.startswith("breakdown "))}
+    for d in ("fwd", "bwd"):
+        for row in rows[f"wn_{d}[bf16]"]:
+            row["by_kernel"] = fresh[(row["shape"], d)]
+            row["launches_by_kernel"] = check_breakdown(
+                f"wn_{d}[bf16] {row['shape']}", row["by_kernel"],
+                wn_fused.global_kernels(n_layers, bf16=True)[f"wn_{d}"])
+            log(f"[bf16 wn_{d} {row['shape']}] by kernel, in a process of its own: "
+                f"{json.dumps(row['by_kernel'])}")
     # each layer alone (the last case's shape and inputs)
     live = []
     for j in range(n_layers):
@@ -2577,7 +2674,7 @@ def bf16_phase(run, pipe, state, datasets, batch, modules, layers, wn_fns, make_
     # one full-width phase-5 step of a fresh state (phase 9's) with both
     # switches: launches, every kernel call of it held against the plain
     # version on its own operands, the step against the free-running plain
-    # bf16 path on the card and against the f32 step, then traced
+    # bf16 path on the card and against the f32 step, then traced in a process of its own
     g = torch.Generator().manual_seed(21)
     fresh = with_wn_ends(pipe16.init_state(g), g)
     _, card_masks = pinned_masks()
@@ -2653,8 +2750,16 @@ def bf16_phase(run, pipe, state, datasets, batch, modules, layers, wn_fns, make_
         allowed = max(STEP_GRAD_L2_TOL, 2 * row["control_grad_spread"][n])
         check(v <= allowed, f"bf16 phase-5 grads, {n}: relative L2 {v:.3e} vs plain bf16 > "
                             f"{allowed:.3e}")
-    with environ(**BF16_ENV):
-        out["profile"] = profile_step(pipe16, copy.deepcopy(fresh), batch)
+    # the step traced in a process of its own (the note at BF16_ENV says why), its inputs the
+    # same shapes, its WN launches checked complete (profile_step)
+    proc = subprocess.run([sys.executable, str(REPO / "experiments" / "phase5_step_time.py"),
+                           "--bf16", "--steps", "2"], capture_output=True, text=True, timeout=600,
+                          cwd=REPO)
+    check(proc.returncode == 0, f"phase5_step_time.py --bf16 exited {proc.returncode}: "
+                                f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    for line in proc.stdout.strip().splitlines()[:-1]:
+        log(line)
+    out["profile"] = json.loads(proc.stdout.strip().splitlines()[-1])["profile"]
     out["step"] = row
     lap("the one-run step")
 
@@ -2740,6 +2845,8 @@ def main() -> int:
     )
 
     # ---- phase 1: setup
+    clock = PhaseClock()
+    clock.start("phase 1: setup and build")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2762,6 +2869,7 @@ def main() -> int:
         SCP2["channels"], SCP2["length"], SCP2["classes"], config=cfg, device="cuda"
     )
 
+    clock.start("phase 2 (and the data and checkpoints of phases 3-4)")
     # ---- phase 2: kernels against plain at the six full-width shapes
     layers = []
     for module, specs, masks, relu_last in (
@@ -2812,6 +2920,7 @@ def main() -> int:
         n_batches = math.ceil(SCP2["n_test"] / BATCH)
         x_test = torch.as_tensor(t_test.x).cuda()
         results["serving"] = {}
+        clock.start("phases 3-4")
         for fused in (False, True):
             kern = "os_conv_fused_fwd" if fused else "os_conv_fwd"
             idle = run.idle()
@@ -2893,6 +3002,7 @@ def main() -> int:
                     "ensemble_rel": ens_rel,
                 }
 
+        clock.start("phase 5")
         # ---- phase 5: the vendored VendGunPoint, small case
         uni = REPO / "datasets" / "Univariate_ts"
         g_train, g_test, _, _ = predict.build_datasets(uni, "VendGunPoint", uni, "VendCoffee")
@@ -2926,6 +3036,7 @@ def main() -> int:
         pipe = StyleTransferPipeline(c, t, n_cls, e_c, e_t, e_n, cfg, device="cuda")
         fc = cfg.flow
 
+        clock.start("phase 6")
         # ---- phase 6: the WN kernels at the phase-5 shapes, and at the
         # widest half widths of the vendored datasets
         h = pipe.feat_channels // 2
@@ -2938,9 +3049,11 @@ def main() -> int:
         results["wn"] = wn_rows
         results["wn_wide"] = wide_rows
 
+        clock.start("phase 7")
         # ---- phase 7: the OS conv's gradient on the card
         results["osconv_grad"] = osconv_grad_phase(osconv, layers)
 
+        clock.start("phase 8")
         # ---- phase 8: training through cli.main
         def train_args(out, epochs):
             return ["--target-root", str(train_data), "--target", "SynSCP2",
@@ -2973,6 +3086,7 @@ def main() -> int:
             "epoch0_served_accuracy": acc_served, "phase5": p5_record,
         }
 
+        clock.start("phase 8b")
         # ---- phase 8b: --resume of phase 8's run against pipe.run from its
         # returned state
         tt_train, tt_test, ss_train, ss_test = predict.build_datasets(
@@ -2981,6 +3095,7 @@ def main() -> int:
             run, train_cli, StyleTransferPipeline, pipe, state,
             (tt_train, tt_test, ss_train, ss_test), train_out, train_args)
 
+        clock.start("phase 9")
         # ---- phase 9: one full-width phase-5 step against the plain path.
         # Checked on a fresh state whose WN end projections are 0.1*N(0,1):
         # the WN output (log_s about N(0,1)) and every WN gradient are near
@@ -3006,21 +3121,25 @@ def main() -> int:
             cpu_pipe=cpu_pipe,
         )
 
+        clock.start("phase 10")
         # ---- phase 10: the same fresh state's phase-5 step, op-by-op route
         # against fused route
         results["phase5_op_by_op_vs_fused"] = phase5_routes(
             pipe, fresh, batch, osconv, wn_fused, gate, gradnorm_step, smi)
 
+        clock.start("phase 11")
         # ---- phase 11: where a phase-5 step's device time goes (the steps
         # update the fresh state: the last use of it)
         results["phase5_profile"] = profile_step(pipe, fresh, batch)
 
+        clock.start("phase 12")
         # ---- phase 12: the op-by-op WN's kernels at full width
         gate_rows = gate_phase(gate, fc.wn_channels, fc.wn_layers)
         tap_rows, tap_grads = tap_conv_phase(osconv, fc.wn_channels, fc.wn_layers)
         results["gate"], results["tap_conv"], results["tap_conv_grad"] = gate_rows, tap_rows, tap_grads
         results["tap_conv_total"] = conv_totals("tap_conv_fwd, 16 tap convs", tap_rows, "ms", "library_ms")
 
+        clock.start("phase 13")
         # ---- phase 13: training through cli.main on the op-by-op route
         op_out = tmp / "train_run_op_by_op"
         with environ(**OP_BY_OP):
@@ -3038,9 +3157,11 @@ def main() -> int:
                                         "history": op_history, "phase5": op_p5}
 
 
+        clock.start("phase 14")
         # ---- phase 14: the widened WN kernels on real data
         results["vendored_training"] = vendored_drive(train_cli, StyleTransferPipeline, (osconv, wn_fused, gate), tmp)
 
+        clock.start("phase 15")
         # ---- phase 15: multi-source member training and the vote on the card
         write_dataset(train_data, "SynWorms", {
             "TRAIN": make_arrays(TRAIN_SERIES, WORMS["channels"], WORMS["length"],
@@ -3052,19 +3173,23 @@ def main() -> int:
             run, ms_cli, predict, StyleTransferPipeline, cfg, train_data, "SynSCP2",
             {"SynEthanol": ETHANOL, "SynWorms": WORMS}, tmp / "multi_source_run", smi)
 
+        clock.start("phase 16")
         # ---- phase 16: the CoDATS and SLARDA baselines on the card
         results["baselines"] = baselines_phase(
             run, bl_cli, baselines, PipelineConfig, make_arrays, write_ts_file, osconv, wn_fused,
             gate, tmp, smi)
 
+        clock.start("phase 17")
         # ---- phase 17: the archive sweep on the card
         results["archive_sweep"] = sweep_phase(
             run, sweep_cli, (classifier, bucketed), (native, ts_parser), osconv, wn_fused, gate,
             cfg, BNStats, make_arrays, write_ts_file, tmp, smi)
 
+        clock.start("phase 18")
         # ---- phase 18: K runs of the curriculum in one launch set
         results["multirun"] = multirun_phase(run, pipe, (osconv, wn_fused, gate), make_dataset, smi)
 
+        clock.start("phase 19")
         # ---- phase 19: both bf16 switches (FLSTTSC_WN_MXU=bf16,
         # PipelineConfig.compute_dtype="bfloat16")
         results["bf16"] = bf16_phase(
@@ -3072,6 +3197,8 @@ def main() -> int:
             (osconv, wn_fused, gate), layers, (wn_init, weight_norm_weight), make_dataset,
             gradnorm_step, smi)
 
+    clock.start(None)
+    results["phase_s"] = clock.secs
     for name, n in run.launches.items():
         check(n > 0, f"{name} was never launched on the main path")
     results["launches_by_drive"] = run.by_drive

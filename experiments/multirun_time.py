@@ -13,7 +13,8 @@ drawn from each run's generator, as in training) at each K of ``--ks``:
   K in turn (ascending, then descending, and so on), each step timed by
   the host clock between ``torch.cuda.synchronize()`` calls;
 * one more step a K under ``torch.profiler``: its device time (the sum of
-  the CUDA kernels' self time), the device's idle share of the traced
+  the CUDA kernels' self time, without the ranges of host annotations
+  such as the optimizers' steps), the device's idle share of the traced
   step's wall time, and its 12 largest kernels (device ms, launches);
 * the peak device memory of the K's warm-up step (``max_memory_allocated``
   after ``reset_peak_memory_stats``), less what the other Ks' states, which
@@ -100,7 +101,9 @@ def sweep(mp, ks, rounds: int, make_dataset) -> dict:
             traced_ms = step(k)
         kernels = sorted(((e.key[:90], e.self_device_time_total / 1e3, e.count)
                           for e in prof.key_averages()
-                          if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0),
+                          if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0
+                          # a host annotation's range (the optimizers' steps) spans kernels
+                          and not getattr(e, "is_user_annotation", False)),
                          key=lambda k: -k[1])
         device_ms = sum(ms for _, ms, _ in kernels)
         med = statistics.median(runs[k]["step_ms"])

@@ -5,23 +5,32 @@ Builds ``StyleTransferPipeline`` at the reference main.py pair's shapes
 classes; ``PipelineConfig(budget_multiplier=1.0)``) with random weights from
 a seed, takes one batch of 20 target and 20 source synthetic series, and
 runs ``phase5_step`` on one state: 2 warm-up steps, then ``--steps`` steps
-timed by the host clock between ``torch.cuda.synchronize()`` calls, then one
-step under ``torch.profiler`` for its device time.  TF32 is off, as in
-chip_smoke.py.  The route is the environment's (``FLSTTSC_WN_FUSED``).
+timed by the host clock between ``torch.cuda.synchronize()`` calls, then
+``chip_smoke.profile_step`` (of the tree this script sits in): one step
+under ``torch.profiler`` for its device time by kernel and group and its
+idle share, the WN kernels' launches checked complete, and one step
+untraced.  TF32 is off, as in chip_smoke.py.  The route is the
+environment's (``FLSTTSC_WN_FUSED``).  ``--bf16`` turns both bf16 switches
+on: ``FLSTTSC_WN_MXU=bf16`` and ``PipelineConfig(compute_dtype="bfloat16")``
+(chip_smoke.py phase 19 profiles its one-run step so, in a process of its
+own).
 
-It imports only torch, numpy and the port of the tree it sits in, so a copy
-placed in another checkout's ``experiments/`` times that checkout: run the
-parent's and the change's copies in one call, alternating, to compare them.
+It imports only torch, numpy, and the port and ``chip_smoke.py`` of the tree
+it sits in, so a copy placed in another checkout's ``experiments/`` times
+that checkout: run the parent's and the change's copies in one call,
+alternating, to compare them.
 
 Usage: python experiments/phase5_step_time.py [--steps 10] [--label name]
-       [--deterministic]
-Prints one JSON line.
+       [--deterministic] [--bf16]
+Prints the profile's log lines, then one JSON line (the last).
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
+import os
 import statistics
 import sys
 import tempfile
@@ -45,12 +54,16 @@ def main() -> int:
     ap.add_argument("--label", default=str(REPO.name))
     ap.add_argument("--deterministic", action="store_true",
                     help="time under torch.use_deterministic_algorithms, as chip_smoke.py's drives")
+    ap.add_argument("--bf16", action="store_true", help="both bf16 switches on")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("phase5_step_time: needs a CUDA card", file=sys.stderr)
         return 2
-    from torch.profiler import ProfilerActivity, profile
-
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    if args.bf16:
+        os.environ["FLSTTSC_WN_MXU"] = "bf16"
     from feature_level_style_transfer_for_tsc_tpu_torch.cli import predict
     from feature_level_style_transfer_for_tsc_tpu_torch.config import PipelineConfig
     from feature_level_style_transfer_for_tsc_tpu_torch.data.synthetic import make_arrays, write_ts_file
@@ -68,7 +81,8 @@ def main() -> int:
         tt, _, ss, _ = predict.build_datasets(tmp, "SynSCP2", tmp, "SynEthanol")
     batch = (torch.as_tensor(tt.x[:BATCH]).cuda(), torch.as_tensor(tt.y[:BATCH]).long().cuda(),
              torch.as_tensor(ss.x[:BATCH]).cuda(), torch.as_tensor(ss.y[:BATCH]).long().cuda())
-    pipe = StyleTransferPipeline(*TARGET, *SOURCE, PipelineConfig(budget_multiplier=1.0), device="cuda")
+    cfg = PipelineConfig(budget_multiplier=1.0, compute_dtype="bfloat16" if args.bf16 else "float32")
+    pipe = StyleTransferPipeline(*TARGET, *SOURCE, cfg, device="cuda")
     state = pipe.init_state(torch.Generator().manual_seed(21))
 
     def step() -> float:
@@ -81,16 +95,13 @@ def main() -> int:
     for _ in range(2):
         step()
     step_ms = [step() for _ in range(args.steps)]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        traced_ms = step()
-    device_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                    if str(e.device_type).endswith("CUDA")) / 1e3
+    profiled = smoke.profile_step(pipe, state, batch)
     print(json.dumps({
-        "label": args.label, "deterministic": args.deterministic,
+        "label": args.label, "deterministic": args.deterministic, "bf16": args.bf16,
         "card": torch.cuda.get_device_name(0), "step_ms": step_ms,
         "median_ms": statistics.median(step_ms), "min_ms": min(step_ms),
-        "traced_ms": traced_ms, "device_ms": device_ms,
-        "device_idle_share": 1.0 - device_ms / traced_ms,
+        "traced_ms": profiled["traced_wall_ms"], "device_ms": profiled["device_ms"],
+        "device_idle_share": profiled["device_idle_share"], "profile": profiled,
     }), flush=True)
     return 0
 

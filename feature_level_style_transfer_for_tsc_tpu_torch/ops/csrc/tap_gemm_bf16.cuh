@@ -78,6 +78,7 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "mma_bf16.cuh"
 #include "tap_gemm.cuh"
 
 namespace tap_gemm {
@@ -100,20 +101,8 @@ inline size_t bf16_work_words(int k, int c_in, int c_out) {
   return bf16_split_words(k, c_in, c_out) + 2 * static_cast<size_t>((c_out + GROUP - 1) / GROUP);
 }
 
-static __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                                uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// cp.async of the first ``bytes`` (1-16) of a 16-byte granule, the rest zero-filled.
-static __device__ __forceinline__ void cp_async16_n(void* dst, const void* src, int bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(src), "r"(bytes)
-               : "memory");
-}
+using bf16mma::cp_async16_n;  // shared with wn_bwd_bf16.cuh (mma_bf16.cuh)
+using bf16mma::mma_bf16;
 
 // One block per (tap j, chunk of 8 input channels) and run (blockIdx.y), one
 // thread per column n of the padded width: the thread reads w[j, chunk, n]

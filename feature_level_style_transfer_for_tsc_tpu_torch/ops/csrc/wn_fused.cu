@@ -86,16 +86,15 @@
 //   runs = 1, which takes the kernels' RUNS = false instances (no run
 //   offsets, as before the run axis).
 // * bf16 operands (wn_fwd_runs / wn_bwd_runs with bf16 != 0: the JAX
-//   kernels' bf16=True, set by FLSTTSC_WN_MXU=bf16): the BF16 template
-//   instances round every layer product's operands to bf16 (to nearest, ties
-//   to even) as they are staged or split, and take ONE TF32 product a term
-//   (a bf16 value is exact in TF32 and the product of two is exact in f32),
-//   summed in f32 as above: a third of the tensor work of 3xTF32.  The bias
-//   gradients stay f32 sums: the weight gradient's column of ones also takes
-//   the TF32 rest of B.  Gates, masks, biases and the residual and skip sums
-//   stay f32.  The staging, the launches and the f32 planes in shared memory
-//   are the f32 instances'; native bf16 mma.m16n8k16 on bf16 planes is later
-//   work.
+//   kernels' bf16=True, set by FLSTTSC_WN_MXU=bf16).  The forward's BF16
+//   template instances round every layer product's operands to bf16 (to
+//   nearest, ties to even) as they are staged or split, and take ONE TF32
+//   product a term (a bf16 value is exact in TF32 and the product of two is
+//   exact in f32), summed in f32 as above; gates, masks, biases and the
+//   residual and skip sums stay f32; the staging, the launches and the f32
+//   planes in shared memory are the f32 instance's.  The backward on bf16
+//   operands is a kernel set of its own, wn_bwd_bf16.cuh: bf16 copies of its
+//   operands, native bf16 mma.m16n8k16, the bias gradients as f32 tile sums.
 // Unlike the TPU kernel there is no pad of T to a multiple of 8 (a TPU
 // sublane rule) and no roll: each block reads the rows it needs.
 
@@ -105,6 +104,7 @@
 #include <cstdint>
 #include <initializer_list>
 
+#include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
 
 namespace {
@@ -330,12 +330,8 @@ __device__ __forceinline__ void stage4(const Operand& op, const float* any, int 
 // once into TF32 hi/lo planes stored transposed (a plane row is a column of
 // the stage, so both mma operands come by ldmatrix), and sums its
 // lo*hi + hi*lo + hi*hi products into zeroed registers that are added to the
-// running sum with one rounded f32 add.  The BF16 instance (the JAX
-// package's FLSTTSC_WN_MXU=bf16) takes hi = the element rounded to bf16 and
-// one product a term, except in the row of A's column of ones (the bias
-// gradient), which also takes B's rest, so that the bias gradients stay f32
-// sums as in the JAX package.
-template <bool RUNS, bool BF16>
+// running sum with one rounded f32 add.
+template <bool RUNS>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 wgrad_kernel(WGrad p, float* __restrict__ partial) {
   extern __shared__ float4 smem4[];
@@ -362,23 +358,6 @@ wgrad_kernel(WGrad p, float* __restrict__ partial) {
   // mma tiles past the operands' columns are not issued (warp-uniform)
   const int m_live = min(2, max(0, (p.a.cols - k0 - wm0 + 15) / 16));
   const int n_live = min(4, max(0, (p.b.cols - n0 - wn0 + 7) / 8));
-  // BF16: the m16 tile of this warp that holds A's column of ones (-1: none),
-  // and an A fragment that is 1 in its row and 0 elsewhere
-  int ones_mt = -1;
-  uint32_t one[4] = {0u, 0u, 0u, 0u};
-  if (BF16) {
-    bool has_ones = false;
-#pragma unroll
-    for (int s = 0; s < MAX_SEGS; ++s)
-      if (s == p.a.nseg - 1) has_ones = p.a.seg[s].kind == kOnes;
-    const int m = p.a.cols - 1 - k0 - wm0;
-    if (has_ones && m >= 0 && m < 32) {
-      ones_mt = m / 16;
-      const uint32_t unit = __float_as_uint(1.f);
-      one[0] = one[2] = (lane >> 2) == m % 16 ? unit : 0u;
-      one[1] = one[3] = (lane >> 2) + 8 == m % 16 ? unit : 0u;
-    }
-  }
 
   auto load = [&](int s, int buf) {
     const int rb = rs + s * WG_RB;
@@ -403,26 +382,16 @@ wgrad_kernel(WGrad p, float* __restrict__ partial) {
     }
   };
   // staged (row, column) -> planes (column, row); lanes take neighbouring
-  // rows: float4 reads at a stride of 4 mod 32 words, 32-word stores.  BF16:
-  // hi the bf16 rounding, and for B (``rest``) lo what it left off, in TF32
-  auto split = [&](const float* src, int stride, int cols, uint32_t* hi, uint32_t* lo,
-                   bool rest) {
-    auto one_ = [&](float v, uint32_t& h, uint32_t& l) {
-      if constexpr (BF16) {
-        h = round_bf16(v);
-        if (rest) asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(l) : "f"(v - __uint_as_float(h)));
-      } else {
-        split_tf32(v, h, l);
-      }
-    };
+  // rows: float4 reads at a stride of 4 mod 32 words, 32-word stores
+  auto split = [&](const float* src, int stride, int cols, uint32_t* hi, uint32_t* lo) {
     for (int e = tid; e < WG_RB * cols / 4; e += WG_THREADS) {
       const int r = e % WG_RB;
       const int c = (e / WG_RB) * 4;
       const float4 v = *reinterpret_cast<const float4*>(src + r * stride + c);
-      one_(v.x, hi[c * WG_PS + r], lo[c * WG_PS + r]);
-      one_(v.y, hi[(c + 1) * WG_PS + r], lo[(c + 1) * WG_PS + r]);
-      one_(v.z, hi[(c + 2) * WG_PS + r], lo[(c + 2) * WG_PS + r]);
-      one_(v.w, hi[(c + 3) * WG_PS + r], lo[(c + 3) * WG_PS + r]);
+      split_tf32(v.x, hi[c * WG_PS + r], lo[c * WG_PS + r]);
+      split_tf32(v.y, hi[(c + 1) * WG_PS + r], lo[(c + 1) * WG_PS + r]);
+      split_tf32(v.z, hi[(c + 2) * WG_PS + r], lo[(c + 2) * WG_PS + r]);
+      split_tf32(v.w, hi[(c + 3) * WG_PS + r], lo[(c + 3) * WG_PS + r]);
     }
   };
 
@@ -450,8 +419,8 @@ wgrad_kernel(WGrad p, float* __restrict__ partial) {
       load(s + 1, (s + 1) & 1);
       cp_async_commit();
     }
-    split(raw_a(s & 1), WG_AS, WG_KT, ah, al, false);
-    split(raw_b(s & 1), WG_BS, WG_NT, bh, bl, true);
+    split(raw_a(s & 1), WG_AS, WG_KT, ah, al);
+    split(raw_b(s & 1), WG_BS, WG_NT, bh, bl);
     __syncthreads();  // the planes of stage s are written
 
     float part[2][4][4];
@@ -469,7 +438,7 @@ wgrad_kernel(WGrad p, float* __restrict__ partial) {
         if (mt < m_live) {
           const int i = (a_row + mt * 16) * WG_PS + kb * 8 + a_col;
           ldmatrix_x4(fah[mt], ah + i);
-          if (!BF16) ldmatrix_x4(fal[mt], al + i);
+          ldmatrix_x4(fal[mt], al + i);
         }
       }
 #pragma unroll
@@ -478,17 +447,10 @@ wgrad_kernel(WGrad p, float* __restrict__ partial) {
           const int i = (b_row + np * 16) * WG_PS + kb * 8 + b_col;
           uint32_t fbh[4], fbl[4];
           ldmatrix_x4(fbh, bh + i);
-          if (!BF16 || ones_mt >= 0) ldmatrix_x4(fbl, bl + i);
+          ldmatrix_x4(fbl, bl + i);
 #pragma unroll
           for (int mt = 0; mt < 2; ++mt) {
-            if (BF16 && mt < m_live) {
-              if (mt == ones_mt) mma_tf32(part[mt][2 * np], one, fbl[0], fbl[1]);
-              mma_tf32(part[mt][2 * np], fah[mt], fbh[0], fbh[1]);
-              if (2 * np + 1 < n_live) {
-                if (mt == ones_mt) mma_tf32(part[mt][2 * np + 1], one, fbl[2], fbl[3]);
-                mma_tf32(part[mt][2 * np + 1], fah[mt], fbh[2], fbh[3]);
-              }
-            } else if (mt < m_live) {
+            if (mt < m_live) {
               mma_tf32(part[mt][2 * np], fal[mt], fbh[0], fbh[1]);
               mma_tf32(part[mt][2 * np], fah[mt], fbl[0], fbl[1]);
               mma_tf32(part[mt][2 * np], fah[mt], fbh[0], fbh[1]);
@@ -632,7 +594,6 @@ __device__ __forceinline__ float z_weight(const float* w_in, const float* w_cond
 //   g_acts: W(k, n) = w_rs[i][n][k]
 //   taps:   W(k, n) = w_in[i][k / 2C][n][k % 2C]  (w_in[i]^T as (3*2C, C))
 //   g_x:    W(k, n) = w_cond[n][2Ci + k]
-template <bool BF16>
 __global__ void __launch_bounds__(NTHREADS)
 wsplit_kernel(const float* __restrict__ w_in, const float* __restrict__ w_cond,
               const float* __restrict__ w_rs, uint32_t* __restrict__ out, int c, int h,
@@ -666,11 +627,7 @@ wsplit_kernel(const float* __restrict__ w_in, const float* __restrict__ w_cond,
     } else if (n < h && k < 2 * c) {
       v = w_cond[n * ldc + 2 * c * i + k];
     }
-    if constexpr (BF16) {
-      hi[k] = round_bf16(v);  // the lo plane is not read
-    } else {
-      split_tf32(v, hi[k], lo[k]);
-    }
+    split_tf32(v, hi[k], lo[k]);
   }
 }
 
@@ -897,7 +854,7 @@ struct GzArgs {
   int rows, t_len, h, c, d, n_layers;
 };
 
-template <bool RUNS, bool BF16>
+template <bool RUNS>
 __global__ void __launch_bounds__(RT_THREADS, 1) wn_layer_gz_kernel(GzArgs p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -925,7 +882,7 @@ __global__ void __launch_bounds__(RT_THREADS, 1) wn_layer_gz_kernel(GzArgs p) {
 #pragma unroll
       for (int i = 0; i < 8; ++i) z[j][i >> 2][i & 3] = 0.f;
     const uint32_t* wz = planes + P.z;
-    rt_phase<BF16>(z, p.a_z, wz, wz + static_cast<size_t>(2 * P.cp) * P.kz, P.kz, 2 * P.cp, p.a_z.cols,
+    rt_phase<false>(z, p.a_z, wz, wz + static_cast<size_t>(2 * P.cp) * P.kz, P.kz, 2 * P.cp, p.a_z.cols,
              r0, p.rows, p.t_len, p.d, gz, pair, nu, smem, run);
 #pragma unroll
     for (int j = 0; j < RT_NQ; ++j) {
@@ -943,7 +900,7 @@ __global__ void __launch_bounds__(RT_THREADS, 1) wn_layer_gz_kernel(GzArgs p) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) g[j][0][i] = 0.f;
   const uint32_t* wg = planes + P.g;
-  rt_phase<BF16>(g, p.a_grs, wg, wg + static_cast<size_t>(P.cp) * P.kg, P.kg, P.cp, 2 * c, r0, p.rows,
+  rt_phase<false>(g, p.a_grs, wg, wg + static_cast<size_t>(P.cp) * P.kg, P.kg, P.cp, 2 * c, r0, p.rows,
            p.t_len, p.d, gz, one, nu, smem, run);
 #pragma unroll
   for (int j = 0; j < RT_NQ; ++j) {
@@ -978,7 +935,7 @@ struct GaArgs {
   int rows, t_len, h, c, d, first, ny, n_layers;
 };
 
-template <bool RUNS, bool BF16>
+template <bool RUNS>
 __global__ void __launch_bounds__(RT_THREADS, 1) wn_layer_ga_kernel(GaArgs p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -1005,11 +962,11 @@ __global__ void __launch_bounds__(RT_THREADS, 1) wn_layer_ga_kernel(GaArgs p) {
   const float* any = p.a_gz.seg[0].src;
   if (part == 0) {
     const uint32_t* wt = planes + P.t;
-    rt_phase<BF16>(acc, p.a_taps, wt, wt + static_cast<size_t>(P.cp) * P.kt, P.kt, P.cp, 6 * p.c, r0,
+    rt_phase<false>(acc, p.a_taps, wt, wt + static_cast<size_t>(P.cp) * P.kt, P.kt, P.cp, 6 * p.c, r0,
              p.rows, p.t_len, p.d, any, tile, nu, smem, run);
   } else {
     const uint32_t* wx = planes + P.x;
-    rt_phase<BF16>(acc, p.a_gz, wx + static_cast<size_t>(n0) * P.kc,
+    rt_phase<false>(acc, p.a_gz, wx + static_cast<size_t>(n0) * P.kc,
              wx + static_cast<size_t>(P.hp + n0) * P.kc, P.kc, round8(nc), 2 * p.c, r0, p.rows,
              p.t_len, p.d, any, tile, nu, smem, run);
   }
@@ -1206,14 +1163,13 @@ cudaError_t rowgemm(const float* a, long long a_rs, const float* w, long long w_
 
 // The weight gradient of every run: the partials of run r's slices at
 // partial + r * n_splits * count, its sum at out + r * out_rs.
-template <bool BF16>
 cudaError_t wgrad(const WGrad& p, float* partial, float* out, long long out_rs, int runs,
                   cudaStream_t stream) {
   const int nsplit = n_splits(p);
   const dim3 grid((p.a.cols + WG_KT - 1) / WG_KT, (p.b.cols + WG_NT - 1) / WG_NT, runs * nsplit);
   // the one-run call takes the RUNS = false instance (no run offsets); the
   // caller has set both instances' shared memory
-  auto kernel = runs > 1 ? wgrad_kernel<true, BF16> : wgrad_kernel<false, BF16>;
+  auto kernel = runs > 1 ? wgrad_kernel<true> : wgrad_kernel<false>;
   kernel<<<grid, WG_THREADS, WG_SMEM, stream>>>(p, partial);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
@@ -1332,12 +1288,6 @@ extern "C" size_t wn_fwd_wsplit_words(int c, int h, int n_layers) {
   return fwd_words(fplanes(c, h), n_layers);
 }
 
-// 32-bit words of wn_bwd's wsplit scratch for one run: the split weights of
-// every layer.
-extern "C" size_t wn_bwd_wsplit_words(int c, int h, int n_layers) {
-  return static_cast<size_t>(n_layers) * wplanes(c, h).layer;
-}
-
 // Backward of ``runs`` independent WNs of one geometry (every tensor holds
 // the runs one after the other, as wn_fwd_runs; weight gradients are per
 // run and never summed across runs), from g = dL/dy.  Per run: inputs x (R,
@@ -1347,11 +1297,11 @@ extern "C" size_t wn_bwd_wsplit_words(int c, int h, int n_layers) {
 // weights: w_start_t (C, H), w_end_t (2H, C).  Scratch per run: ga (2, R,
 // C), gskip (R, C), gz (R, 2C), acts (R, C), partial (ceil(R/split_rows) *
 // (3C+H+1) * 2C), wsplit (wn_bwd_wsplit_words).  5 + 6L kernel launches.
-// bf16 != 0: the BF16 instances, as wn_fwd_runs (the bias gradients stay f32
-// sums); the same launches.
+// bf16 != 0 takes wn_bwd_bf16.cuh's kernels (6 + 6L launches): ga and
+// partial as here, split_rows a multiple of 64, gskip, gz and acts unused,
+// and wsplit the bf16 work area of wn_bwd_wsplit_words(..., bf16 = 1).
 namespace {
 
-template <bool BF16>
 cudaError_t bwd_runs(const float* x, const float* g, const float* aud, const float* w_cond,
                      const float* w_in, const float* b_z, const float* w_rs,
                      const float* w_start_t, const float* w_end_t, float* gx, float* g_in,
@@ -1360,23 +1310,23 @@ cudaError_t bwd_runs(const float* x, const float* g, const float* aud, const flo
                      int n_layers, int split_rows, cudaStream_t stream) {
   const WPlanes P = wplanes(c, h);
   uint32_t* planes = static_cast<uint32_t*>(wsplit);
-  wsplit_kernel<BF16><<<dim3(max(2 * P.cp, P.hp), 4, runs * n_layers), NTHREADS, 0, stream>>>(
+  wsplit_kernel<<<dim3(max(2 * P.cp, P.hp), 4, runs * n_layers), NTHREADS, 0, stream>>>(
       w_in, w_cond, w_rs, planes, c, h, n_layers);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const long long rc = static_cast<long long>(rows) * c;
   const long long rh = static_cast<long long>(rows) * h;
-  e = rowgemm<BF16>(g, 2 * rh, w_end_t, 2LL * h * c, nullptr, 0, gskip, rc, rows, 2 * h, c, 0,
-                    runs, stream);
+  e = rowgemm<false>(g, 2 * rh, w_end_t, 2LL * h * c, nullptr, 0, gskip, rc, rows, 2 * h, c, 0,
+                     runs, stream);
   if (e != cudaSuccess) return e;
   // the one-run call takes the RUNS = false instances (no run offsets)
-  auto gz_kernel = runs > 1 ? wn_layer_gz_kernel<true, BF16> : wn_layer_gz_kernel<false, BF16>;
-  auto ga_kernel = runs > 1 ? wn_layer_ga_kernel<true, BF16> : wn_layer_ga_kernel<false, BF16>;
+  auto gz_kernel = runs > 1 ? wn_layer_gz_kernel<true> : wn_layer_gz_kernel<false>;
+  auto ga_kernel = runs > 1 ? wn_layer_ga_kernel<true> : wn_layer_ga_kernel<false>;
   e = allow_smem(gz_kernel, RT_SMEM);
   if (e != cudaSuccess) return e;
   e = allow_smem(ga_kernel, RT_SMEM);
   if (e != cudaSuccess) return e;
-  auto wg_kernel = runs > 1 ? wgrad_kernel<true, BF16> : wgrad_kernel<false, BF16>;
+  auto wg_kernel = runs > 1 ? wgrad_kernel<true> : wgrad_kernel<false>;
   e = allow_smem(wg_kernel, WG_SMEM);
   if (e != cudaSuccess) return e;
   int sms = 0;
@@ -1409,12 +1359,12 @@ cudaError_t bwd_runs(const float* x, const float* g, const float* aud, const flo
     const WGrad rs{operand({rows_of(acts, c, rc), ones()}),
                    operand({rows_of(ga_next, c, 2 * rc), rows_of(gskip, c, rc)}), x, rows, t_len,
                    d, split_rows};
-    e = wgrad<BF16>(rs, partial, g_rs + static_cast<size_t>(i) * (c + 1) * 2 * c, grs_rs, runs, stream);
+    e = wgrad(rs, partial, g_rs + static_cast<size_t>(i) * (c + 1) * 2 * c, grs_rs, runs, stream);
     if (e != cudaSuccess) return e;
     const WGrad in{operand({rows_of(aud_i, c, aud_rs, -d, kLo), rows_of(aud_i, c, aud_rs),
                             rows_of(aud_i, c, aud_rs, d, kHi), rows_of(x, h, rh), ones()}),
                    operand({rows_of(gz, 2 * c, 2 * rc)}), x, rows, t_len, d, split_rows};
-    e = wgrad<BF16>(in, partial, g_in + static_cast<size_t>(i) * k_in * 2 * c, gin_rs, runs, stream);
+    e = wgrad(in, partial, g_in + static_cast<size_t>(i) * k_in * 2 * c, gin_rs, runs, stream);
     if (e != cudaSuccess) return e;
     const GaArgs gap{
         operand({rows_of(gz, 2 * c, 2 * rc, d, kHi), rows_of(gz, 2 * c, 2 * rc),
@@ -1428,13 +1378,23 @@ cudaError_t bwd_runs(const float* x, const float* g, const float* aud, const flo
   }
   const WGrad st{operand({rows_of(x, h, rh), ones()}), operand({rows_of(ga_next, c, 2 * rc)}), x,
                  rows, t_len, 1, split_rows};
-  e = wgrad<BF16>(st, partial, g_start, static_cast<long long>(h + 1) * c, runs, stream);
+  e = wgrad(st, partial, g_start, static_cast<long long>(h + 1) * c, runs, stream);
   if (e != cudaSuccess) return e;
-  return rowgemm<BF16>(ga_next, 2 * rc, w_start_t, static_cast<long long>(c) * h, nullptr, 0, gx,
-                       rh, rows, c, h, 1, runs, stream);
+  return rowgemm<false>(ga_next, 2 * rc, w_start_t, static_cast<long long>(c) * h, nullptr, 0, gx,
+                        rh, rows, c, h, 1, runs, stream);
 }
 
 }  // namespace
+
+#include "wn_bwd_bf16.cuh"
+
+// 32-bit words of wn_bwd's wsplit scratch for one run of ``rows`` rows: the
+// split weights of every layer; bf16: the bf16 work area (Area16: the bf16
+// planes, the operand copies and the tile sums).
+extern "C" size_t wn_bwd_wsplit_words(int rows, int c, int h, int n_layers, int bf16) {
+  if (bf16) return area16(rows, c, h, n_layers).words;
+  return static_cast<size_t>(n_layers) * wplanes(c, h).layer;
+}
 
 extern "C" int wn_bwd_runs(const float* x, const float* g, const float* aud,
                            const float* w_cond, const float* w_in, const float* b_z,
@@ -1443,12 +1403,16 @@ extern "C" int wn_bwd_runs(const float* x, const float* g, const float* aud,
                            float* gskip, float* gz, float* acts, float* partial, void* wsplit,
                            int runs, int rows, int t_len, int h, int c, int n_layers,
                            int split_rows, int bf16, void* stream_ptr) {
-  if (bad_geometry(rows, t_len, h, c, n_layers) || split_rows < WG_RB || split_rows % WG_RB ||
+  const int stage = bf16 ? H_TILE : WG_RB;  // a slice is whole stages (bf16: whole tiles)
+  if (bad_geometry(rows, t_len, h, c, n_layers) || split_rows < stage || split_rows % stage ||
       runs < 1 || runs > 65535)
     return cudaErrorInvalidValue;
-  auto bwd = bf16 ? bwd_runs<true> : bwd_runs<false>;
-  return bwd(x, g, aud, w_cond, w_in, b_z, w_rs, w_start_t, w_end_t, gx, g_in, g_rs, g_start, ga,
-             gskip, gz, acts, partial, wsplit, runs, rows, t_len, h, c, n_layers, split_rows,
-             static_cast<cudaStream_t>(stream_ptr));
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (bf16)
+    return bwd16_runs(x, g, aud, w_cond, w_in, b_z, w_rs, w_start_t, w_end_t, gx, g_in, g_rs,
+                      g_start, ga, partial, wsplit, runs, rows, t_len, h, c, n_layers, split_rows,
+                      stream);
+  return bwd_runs(x, g, aud, w_cond, w_in, b_z, w_rs, w_start_t, w_end_t, gx, g_in, g_rs, g_start,
+                  ga, gskip, gz, acts, partial, wsplit, runs, rows, t_len, h, c, n_layers,
+                  split_rows, stream);
 }
-

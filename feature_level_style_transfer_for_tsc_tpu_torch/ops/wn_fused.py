@@ -12,7 +12,9 @@ zero-embedded, the end 1x1) runs on the batch collapsed into rows,
 * ``wn_bwd`` replaces ``_wn_bwd_kernel``: the reverse layer walk recomputing
   z from ``aud``, the input gradient and every weight gradient; the end
   projection's gradients (and ``gbc``, equal to ``gbi``) are taken outside,
-  as the JAX package does (``wn_fused.py:444-450``).
+  as the JAX package does (``wn_fused.py:444-450``).  Its bf16 instance is a
+  kernel set of its own (``csrc/wn_bwd_bf16.cuh``): bf16 copies of the
+  operands, native bf16 tensor-core products, f32 bias sums.
 
 Beside each kernel is its plain PyTorch version, ``wn_fwd_plain`` and
 ``wn_bwd_plain`` (the backward written out, not by autograd).  ``WNCore`` is
@@ -58,9 +60,19 @@ ENTRIES = ("wn_fwd", "wn_bwd", "wn_fwd_runs", "wn_bwd_runs")
 LAUNCHES = {name + tag: 0 for tag in ("", "[bf16]") for name in ENTRIES}
 
 #: Input rows a stage of ``wn_bwd``'s weight-gradient kernel (``WG_RB`` in
-#: ``csrc/wn_fused.cu``); a row slice is a whole number of stages, which the
-#: C entry checks.
+#: ``csrc/wn_fused.cu``), and reduction columns a stage of its row-tile
+#: products (``RT_KS``); a row slice is a whole number of stages, which the C
+#: entry checks.
 STAGE_ROWS = 32
+#: The same two of the bf16 backward (``H_RB``, ``H_KS`` in
+#: ``csrc/wn_bwd_bf16.cuh``).
+BF16_STAGE = 128
+#: Rows of a tile whose f32 column sums make the bf16 backward's bias
+#: gradients (``H_TILE``): its slices are whole tiles.
+BF16_TILE = 64
+#: bf16 values a 16-byte chunk: the bf16 backward pads every row it stages
+#: (and g_z's two halves) to a multiple of it.
+BF16_CHUNK = 8
 #: Most rows a weight-gradient slice of ``wn_bwd`` (partials summed in slice order).
 SPLIT_ROWS = 1024
 #: Fewest slices a weight-gradient reduction is cut into, where the rows allow:
@@ -84,17 +96,68 @@ def mxu_bf16() -> bool:
     return os.environ.get("FLSTTSC_WN_MXU", "f32") == "bf16"
 
 
-def wgrad_split_rows(rows: int) -> int:
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def wgrad_split_rows(rows: int, bf16: bool = False) -> int:
     """Rows of each slice of ``wn_bwd``'s weight-gradient reductions: a
-    multiple of STAGE_ROWS, at most SPLIT_ROWS, and small enough for
-    MIN_SLICES slices where ``rows`` allows."""
-    per = -(-rows // MIN_SLICES)
-    return min(SPLIT_ROWS, -(-per // STAGE_ROWS) * STAGE_ROWS)
+    multiple of STAGE_ROWS (bf16: of BF16_TILE, whole tiles), at most
+    SPLIT_ROWS, and small enough for MIN_SLICES slices where ``rows``
+    allows."""
+    stage = BF16_TILE if bf16 else STAGE_ROWS
+    return min(SPLIT_ROWS, _round_up(-(-rows // MIN_SLICES), stage))
 
 
-def global_launches(n_layers: int) -> Dict[str, int]:
-    """``__global__`` launches per call of each host entry."""
-    return {"wn_fwd": 2 + n_layers, "wn_bwd": 5 + 6 * n_layers}
+def global_kernels(n_layers: int, bf16: bool = False) -> Dict[str, Dict[str, int]]:
+    """``__global__`` launches per call of each host entry, by kernel (the
+    name without its template arguments): ``wn_fwd`` (bf16: the same
+    kernels' instances) and ``wn_bwd`` (bf16: ``csrc/wn_bwd_bf16.cuh``'s)."""
+    fwd = {"wsplit_fwd_kernel": 1, "rowgemm_kernel": 1, "wn_layer_fwd_kernel": n_layers}
+    wgrads = 2 * n_layers + 1  # per layer res/skip and in, then the start's
+    if bf16:
+        bwd = {"bf16_copies_kernel": 1, "wsplit16_kernel": 1, "gskip16_kernel": 1,
+               "wn_layer_gz16_kernel": n_layers, "wn_layer_ga16_kernel": n_layers,
+               "wgrad16_kernel": wgrads, "reduce_partials_kernel": wgrads, "rowgemm_kernel": 1}
+    else:
+        bwd = {"wsplit_kernel": 1, "rowgemm_kernel": 2, "wn_layer_gz_kernel": n_layers,
+               "wn_layer_ga_kernel": n_layers, "wgrad_kernel": wgrads,
+               "reduce_partials_kernel": wgrads}
+    return {"wn_fwd": fwd, "wn_bwd": bwd}
+
+
+def global_launches(n_layers: int, bf16: bool = False) -> Dict[str, int]:
+    """``__global__`` launches per call of each host entry: ``wn_fwd`` 2 + L,
+    ``wn_bwd`` 5 + 6L (bf16: 6 + 6L)."""
+    return {name: sum(k.values()) for name, k in global_kernels(n_layers, bf16).items()}
+
+
+def bwd_wsplit_words(rows: int, c: int, h: int, n_layers: int, bf16: bool = False) -> int:
+    """32-bit words of one run's ``wsplit`` scratch of ``wn_bwd`` (the
+    library's ``wn_bwd_wsplit_words`` mirrored).  f32: every layer's TF32
+    hi/lo weight planes, (output column, reduction) with the reduction
+    padded to whole 32-column stages: z (2Cp, 3C+H), g_acts (Cp, 2C), the
+    transposed taps (Cp, 6C), the cond input gradient (Hp, 2C), Cp and Hp C
+    and H rounded up to 8.  bf16: the bf16 work area, in bf16 values every
+    layer's bf16 planes (the reduction in the padded layout of its operand,
+    whole stages of BF16_STAGE columns: z (2Cp, 3Cp+Hp), g_acts (Cp, 2Cp),
+    taps (Cp, 6Cp), cond (Hp, 2Cp)), the bf16 copies of aud (L, R, Cp), x
+    (R, Hp), g_skip, g_audio (R, Cp), g_z (R, 2Cp) and acts (R, Cp); then in
+    floats the column sums of each tile of BF16_TILE rows of g_z (2C),
+    g_audio and g_skip (C each); rounded up to 4 words."""
+    cp, hp = _round_up(c, BF16_CHUNK), _round_up(h, BF16_CHUNK)
+    if not bf16:
+        def ks(v):
+            return _round_up(v, STAGE_ROWS)
+        return n_layers * 2 * (2 * cp * ks(3 * c + h) + cp * ks(2 * c) + cp * ks(6 * c)
+                               + hp * ks(2 * c))
+
+    def ks(v):
+        return _round_up(v, BF16_STAGE)
+    layer = 2 * cp * ks(3 * cp + hp) + cp * ks(2 * cp) + cp * ks(6 * cp) + hp * ks(2 * cp)
+    values = n_layers * layer + rows * (n_layers * cp + hp + 5 * cp)
+    tiles = -(-rows // BF16_TILE)
+    return _round_up(values // 2 + tiles * 4 * c, 4)
 
 
 def stack_effective(params: Dict, weight_norm_weight) -> Tuple[torch.Tensor, ...]:
@@ -283,7 +346,7 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.wn_fwd_wsplit_words.argtypes = [i] * 3
     lib.wn_fwd_wsplit_words.restype = ctypes.c_size_t
-    lib.wn_bwd_wsplit_words.argtypes = [i] * 3
+    lib.wn_bwd_wsplit_words.argtypes = [i] * 5
     lib.wn_bwd_wsplit_words.restype = ctypes.c_size_t
     lib.wn_fwd_runs.argtypes = [p] * 15 + [i] * 7 + [p]
     lib.wn_fwd_runs.restype = i
@@ -371,6 +434,26 @@ def _launch_fwd(name, x2, w_start, b_start, w_cond, b_cond, w_in, b_in, w_rs, b_
     return y, aud, skip
 
 
+def bwd_scratch(runs: int, rows: int, h: int, c: int, n_layers: int, bf16: bool,
+                wsplit_words: int, device) -> list:
+    """The scratch of one ``wn_bwd_runs`` call in its argument order (ga,
+    gskip, gz, acts, partial, wsplit), ``wsplit_words`` 32-bit words of
+    wsplit a run: the f32 g_audio ping-pong (runs, 2, R, C); f32: g_skip (R,
+    C), g_z (R, 2C), acts (R, C) a run, bf16: none (their bf16 copies live
+    in wsplit's work area); the slice partials of the weight gradients
+    (``wgrad_split_rows`` slices of (3C+H+1, 2C) a run); wsplit."""
+    split = wgrad_split_rows(rows, bf16)
+
+    def f32(*shape):
+        return torch.empty(*shape, device=device)
+
+    per_run = [f32(0), f32(0), f32(0)] if bf16 else [
+        f32(runs, rows, c), f32(runs, rows, 2 * c), f32(runs, rows, c)]
+    return [f32(runs, 2, rows, c), *per_run,
+            f32(runs * -(-rows // split) * (3 * c + h + 1) * 2 * c),
+            torch.empty(runs * wsplit_words, dtype=torch.int32, device=device)]
+
+
 def _launch_bwd(name, x2, g2, aud, w_start, w_cond, b_cond, w_in, b_in, w_rs, w_end,
                 t_len: int, bf16: bool):
     """One ``wn_bwd_runs`` kernel call on K-leading operands (K = 1 for a
@@ -388,21 +471,13 @@ def _launch_bwd(name, x2, g2, aud, w_start, w_cond, b_cond, w_in, b_in, w_rs, w_
         raise ValueError(f"g {tuple(g2.shape)} / aud {tuple(aud.shape)} do not match x")
     lib = _lib()
     dev = x2.device
-    k_in = 3 * c + h + 1
-    split = wgrad_split_rows(rows)
+    split = wgrad_split_rows(rows, bf16)
     gx = torch.empty(runs, rows, h, device=dev)
-    g_in = torch.empty(runs, n_layers, k_in, 2 * c, device=dev)
+    g_in = torch.empty(runs, n_layers, 3 * c + h + 1, 2 * c, device=dev)
     g_rs = torch.empty(runs, n_layers, c + 1, 2 * c, device=dev)
     g_start = torch.empty(runs, h + 1, c, device=dev)
-    scratch = [
-        torch.empty(runs, 2, rows, c, device=dev),  # g_audio, ping-pong
-        torch.empty(runs, rows, c, device=dev),  # g_skip
-        torch.empty(runs, rows, 2 * c, device=dev),  # g_z
-        torch.empty(runs, rows, c, device=dev),  # acts
-        torch.empty(runs * -(-rows // split) * k_in * 2 * c, device=dev),  # partial sums
-        torch.empty(runs * lib.wn_bwd_wsplit_words(c, h, n_layers), dtype=torch.int32,
-                    device=dev),  # split weights
-    ]
+    scratch = bwd_scratch(runs, rows, h, c, n_layers, bf16,
+                          lib.wn_bwd_wsplit_words(rows, c, h, n_layers, int(bf16)), dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.wn_bwd_runs(*_ptrs(*ins, gx, g_in, g_rs, g_start, *scratch),
