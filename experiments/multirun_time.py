@@ -26,7 +26,8 @@ TF32 is off, as in chip_smoke.py.  ``--bf16`` turns both bf16 switches on:
 ``PipelineConfig(compute_dtype="bfloat16")`` (the OS convs in bf16).  Run it
 without ``CUBLAS_WORKSPACE_CONFIG`` (which adds 0.4-0.5 s a step on an
 H100): chip_smoke.py phases 18 and 19 start it with that variable removed.
-It imports only torch, numpy and the port of the tree it sits in.
+It imports only torch, numpy, the port of the tree it sits in and that
+tree's chip_smoke.py (its ``device_events``).
 
 Usage: python experiments/multirun_time.py [--ks 1,2,4,8] [--rounds 2] [--bf16]
 Prints the card's name and power limit, then one JSON line (the last).
@@ -35,6 +36,7 @@ Prints the card's name and power limit, then one JSON line (the last).
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import statistics
@@ -65,8 +67,9 @@ def batches(k: int, make_dataset):
     return out
 
 
-def sweep(mp, ks, rounds: int, make_dataset) -> dict:
-    """The K sweep on ``mp`` (a ``MultiRunStylePipeline``)."""
+def sweep(mp, ks, rounds: int, make_dataset, smoke) -> dict:
+    """The K sweep on ``mp`` (a ``MultiRunStylePipeline``); ``smoke`` is
+    this tree's chip_smoke.py."""
     from torch.profiler import ProfilerActivity, profile
 
     runs = {}
@@ -99,12 +102,9 @@ def sweep(mp, ks, rounds: int, make_dataset) -> dict:
     for k in ks:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             traced_ms = step(k)
+        # device work by kernel, host annotations' ranges (the optimizers' steps) left out
         kernels = sorted(((e.key[:90], e.self_device_time_total / 1e3, e.count)
-                          for e in prof.key_averages()
-                          if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0
-                          # a host annotation's range (the optimizers' steps) spans kernels
-                          and not getattr(e, "is_user_annotation", False)),
-                         key=lambda k: -k[1])
+                          for e in smoke.device_events(prof)), key=lambda k: -k[1])
         device_ms = sum(ms for _, ms, _ in kernels)
         med = statistics.median(runs[k]["step_ms"])
         out[str(k)] = {
@@ -142,7 +142,10 @@ def main() -> int:
     cfg = PipelineConfig(compute_dtype="bfloat16" if args.bf16 else "float32")
     pipe = StyleTransferPipeline(*TARGET, *SOURCE, cfg, device="cuda")
     ks = [int(k) for k in args.ks.split(",")]
-    by_k = sweep(MultiRunStylePipeline(pipe), ks, args.rounds, make_dataset)
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    by_k = sweep(MultiRunStylePipeline(pipe), ks, args.rounds, make_dataset, smoke)
     print(json.dumps({"card": smi, "kind": torch.cuda.get_device_name(0), "bf16": args.bf16,
                       "by_k": by_k}), flush=True)
     return 0

@@ -6,8 +6,8 @@ their device time by ``__global__`` kernel.
 Run from the repository root on a CUDA card:
 
     python3 experiments/wn_time.py [--tree DIR] [--reps N] [--label NAME] [--bf16]
-                                   [--save PATH] [--against PATH] [--breakdown]
-                                   [--bias-gaps]
+                                   [--save PATH] [--against PATH] [--changed NAME]
+                                   [--breakdown] [--bias-gaps]
 
 Builds ``wn_fused`` (``ops/csrc``) of the port in ``DIR`` (default: this
 tree) and prints ptxas's register and spill lines.  f32: at the pair pass
@@ -54,8 +54,9 @@ each run is a process of its own, so each imports one port.  ``--save
 PATH`` writes every one-run call's outputs (hundreds of MB: under
 ``build/``), ``--against PATH`` reports, output set by output
 set, whether this run's are the same bits (``same_bits``; the ok flag
-takes those of every f32 call and of ``wn_fwd[bf16]``, whose code is
-unchanged by a change to the backward).  Prints one JSON line a kernel and
+takes every output set but those that ``--changed NAME`` names, e.g.
+``--changed "wn_fwd[bf16]"`` for a change to the bf16 forward, whose
+output sets start with that name).  Prints one JSON line a kernel and
 shape and a last line {"ok": ..., "label": ..., "card": ...}.
 """
 
@@ -92,10 +93,11 @@ def load_chip_smoke():
 def breakdown(smoke, wn_fused, what: str, call, entry: str, bf16: bool) -> dict:
     """``kernel_breakdown`` of ``call``; the launches by kernel checked
     where the port states them (``global_kernels``)."""
-    by_kernel = smoke.kernel_breakdown(call)
     kernels = getattr(wn_fused, "global_kernels", None)
-    if kernels is not None:
-        smoke.check_breakdown(what, by_kernel, kernels(LAYERS, bf16)[entry])
+    expected = None if kernels is None else kernels(LAYERS, bf16)[entry]
+    by_kernel = smoke.kernel_breakdown(call, expected=expected)
+    if expected is not None:
+        smoke.check_breakdown(what, by_kernel, expected)
     return by_kernel
 
 
@@ -284,6 +286,8 @@ def main() -> int:
     parser.add_argument("--save", type=Path, default=None, help="write the kernels' outputs")
     parser.add_argument("--against", type=Path, default=None,
                         help="compare the kernels' outputs with a --save of another run")
+    parser.add_argument("--changed", action="append", default=[],
+                        help="output sets whose bits may differ from --against's (name prefix)")
     parser.add_argument("--breakdown", action="store_true",
                         help="only the device time and launches by kernel of each call")
     parser.add_argument("--bias-gaps", action="store_true",
@@ -331,7 +335,8 @@ def main() -> int:
         torch.save({k: [t.cpu() for t in v] for k, v in outputs.items()}, args.save)
     if args.against:
         summary["same_bits"] = same_bits(outputs, args.against)
-        ok &= all(v for k, v in summary["same_bits"].items() if not k.startswith("wn_bwd[bf16]"))
+        ok &= all(v for k, v in summary["same_bits"].items()
+                  if not any(k.startswith(name) for name in args.changed))
     print(json.dumps({"ok": ok, "label": label, "bf16": args.bf16, "card": smi, **summary}),
           flush=True)
     return 0 if ok else 1

@@ -1,7 +1,7 @@
 // The native bf16 building blocks shared by the tensor-core kernels on bf16
 // operands, for Hopper (sm_90a): tap_gemm_bf16.cuh (the OS conv under
-// compute_dtype="bfloat16") and wn_bwd_bf16.cuh (the WN backward under
-// FLSTTSC_WN_MXU=bf16).  The m16n8k16 bf16 mma with f32 accumulators, a
+// compute_dtype="bfloat16"), wn_fwd_bf16.cuh and wn_bwd_bf16.cuh (the WN
+// under FLSTTSC_WN_MXU=bf16).  The m16n8k16 bf16 mma with f32 accumulators, a
 // cp.async of part of a 16-byte granule, and ldmatrix of four transposed
 // 8 x 8 bf16 matrices.
 //

@@ -1,7 +1,7 @@
 // The 3xTF32 building blocks shared by the tensor-core kernels of
 // tap_gemm.cuh (the conv tap GEMM) and wn_fused.cu (the WN's f32 kernels),
 // for Hopper (sm_90a): the TF32 split of an f32 value, the bf16 rounding of
-// the WN forward's bf16-operand instances, the m16n8k8 TF32 mma,
+// the WN's FP32 FMA row products on bf16 operands, the m16n8k8 TF32 mma,
 // ldmatrix of two or four 8 x 4-word matrices, and cp.async.
 //
 // An f32 product a*b is taken as lo_a*hi_b + hi_a*lo_b + hi_a*hi_b with
@@ -10,12 +10,10 @@
 // sum is taken in stages, each into zeroed registers, added to the running
 // total with one rounded f32 add (tap_gemm.cuh says what it measured).
 //
-// The WN forward's bf16-operand instances (the JAX package's
-// FLSTTSC_WN_MXU=bf16) round each operand to bf16 (round_bf16) and take ONE
-// TF32 product a term: a bf16 value is exact in TF32 (8 significand bits of
-// 11), and the product of two is exact in f32, so only the f32 sum rounds.
-// The bf16 OS conv and the bf16 WN backward have native bf16 products
-// (tap_gemm_bf16.cuh, wn_bwd_bf16.cuh; mma_bf16.cuh).
+// The bf16 OS conv and both bf16 WN directions (the JAX package's
+// compute_dtype="bfloat16" and FLSTTSC_WN_MXU=bf16) have native bf16
+// products (tap_gemm_bf16.cuh, wn_fwd_bf16.cuh, wn_bwd_bf16.cuh;
+// mma_bf16.cuh).
 
 #pragma once
 

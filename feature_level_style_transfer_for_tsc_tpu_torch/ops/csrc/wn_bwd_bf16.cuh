@@ -236,12 +236,13 @@ __device__ __forceinline__ int real_col(const Op16& op, int k, int& seg, int& of
 // ------------------------------------------------- row-tile products ----
 
 // acc[j][t] += A(tile rows, :) @ W(:, n8 tile tiles[j][t]) for the units j <
-// nu of this warp over a tile of RT_M rows (warp % RT_MT its m16 tile).  W is
-// a bf16 plane, row n at w + n * k_pad (k_pad a whole number of stages, zero
-// past A's padded columns); a stage copies its rows [0, w_rows).  NTU = 2:
-// the two tiles of a unit load by one ldmatrix.x4 (lanes 16-31 address the
-// second).  k16 steps past A's padded columns are not issued.
-template <int NTU>
+// nu of this warp over a tile of 16 * MT rows (warp % MT its m16 tile; the
+// forward takes MT 2 or 1 on short series).  W is a bf16 plane, row n at w +
+// n * k_pad (k_pad a whole number of stages, zero past A's padded columns);
+// a stage copies its rows [0, w_rows).  NTU = 2: the two tiles of a unit
+// load by one ldmatrix.x4 (lanes 16-31 address the second).  k16 steps past
+// A's padded columns are not issued.
+template <int NTU, int MT = RT_MT>
 __device__ __forceinline__ void rt16_phase(float (&acc)[RT_NQ][NTU][4], const Op16& a,
                                            const uint16_t* w, int k_pad, int w_rows, int r0,
                                            int rows, int t_len, int d, const void* any,
@@ -259,7 +260,7 @@ __device__ __forceinline__ void rt16_phase(float (&acc)[RT_NQ][NTU][4], const Op
   auto load = [&](int s, int buf) {
     const int k0 = s * H_KS;
 #pragma unroll
-    for (int e = tid; e < RT_M * (H_KS / H_CH); e += RT_THREADS) {  // A
+    for (int e = tid; e < 16 * MT * (H_KS / H_CH); e += RT_THREADS) {  // A
       const int rr = e / (H_KS / H_CH);
       const int q = e % (H_KS / H_CH);
       const int r = r0 + rr;
@@ -279,7 +280,7 @@ __device__ __forceinline__ void rt16_phase(float (&acc)[RT_NQ][NTU][4], const Op
   // ldmatrix rows of this lane: A rows 0-7 / 8-15 of the warp's m16 tile at
   // k 0-7 / 8-15; W rows 0-7 of an n8 tile at k 0-7 (lanes 0-7, 16-23) or
   // 8-15 (lanes 8-15, 24-31)
-  const int a_off = ((warp % RT_MT) * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * H_AS +
+  const int a_off = ((warp % MT) * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * H_AS +
                     (lane >> 4) * H_CH;
   const int b_off = (lane & 7) * H_AS + ((lane >> 3) & 1) * H_CH;
 
@@ -790,6 +791,17 @@ bf16_copies_kernel(const float* __restrict__ aud, const float* __restrict__ x,
   }
 }
 
+// W(k, col) of layer i's z product in the padded layout of its operand
+// [aud[r-d] | aud[r] | aud[r+d] (Cp each) | x (Hp)]: k < 3Cp is tap k / Cp,
+// channel k % Cp of w_in[i]; then channel k - 3Cp of w_cond[:, 2Ci:2C(i+1)];
+// zero in the padding and for col = -1.  Both directions' planes take it.
+__device__ __forceinline__ float z_weight16(const float* w_in, const float* w_cond, int c, int h,
+                                            int cp, int n_layers, int i, int col, int k) {
+  const int kr = k < 3 * cp ? (k % cp < c ? k / cp * c + k % cp : -1)
+                            : (k - 3 * cp < h ? 3 * c + k - 3 * cp : -1);
+  return kr < 0 ? 0.f : z_weight(w_in, w_cond, c, h, n_layers, i, col, kr);
+}
+
 // W(k, n) of every run and layer (blockIdx.z = run * L + layer) and matrix
 // (blockIdx.y: z, g_acts, the transposed taps, the cond input gradient)
 // rounded to bf16 into its plane, one block a plane row n (blockIdx.x), k in
@@ -822,11 +834,7 @@ wsplit16_kernel(const float* __restrict__ w_in, const float* __restrict__ w_cond
   const int zcol = pair_col(n, c, cp);
   const size_t ldc = static_cast<size_t>(2 * c) * n_layers;
   auto weight = [&](int k) {
-    if (m == 0) {
-      const int kr = k < 3 * cp ? (k % cp < c ? k / cp * c + k % cp : -1)
-                                : (k - 3 * cp < h ? 3 * c + k - 3 * cp : -1);
-      return kr < 0 ? 0.f : z_weight(w_in, w_cond, c, h, n_layers, i, zcol, kr);
-    }
+    if (m == 0) return z_weight16(w_in, w_cond, c, h, cp, n_layers, i, zcol, k);
     if (m == 1) {
       const int col = pair_col(k, c, cp);
       return n < c && col >= 0 ? w_rs[(static_cast<size_t>(i) * c + n) * 2 * c + col] : 0.f;

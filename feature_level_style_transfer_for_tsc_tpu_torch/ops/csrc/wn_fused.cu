@@ -86,15 +86,13 @@
 //   runs = 1, which takes the kernels' RUNS = false instances (no run
 //   offsets, as before the run axis).
 // * bf16 operands (wn_fwd_runs / wn_bwd_runs with bf16 != 0: the JAX
-//   kernels' bf16=True, set by FLSTTSC_WN_MXU=bf16).  The forward's BF16
-//   template instances round every layer product's operands to bf16 (to
-//   nearest, ties to even) as they are staged or split, and take ONE TF32
-//   product a term (a bf16 value is exact in TF32 and the product of two is
-//   exact in f32), summed in f32 as above; gates, masks, biases and the
-//   residual and skip sums stay f32; the staging, the launches and the f32
-//   planes in shared memory are the f32 instance's.  The backward on bf16
-//   operands is a kernel set of its own, wn_bwd_bf16.cuh: bf16 copies of its
-//   operands, native bf16 mma.m16n8k16, the bias gradients as f32 tile sums.
+//   kernels' bf16=True, set by FLSTTSC_WN_MXU=bf16): each direction is a
+//   kernel set of its own, wn_fwd_bf16.cuh and wn_bwd_bf16.cuh: bf16 copies
+//   of the operands written once, bf16 weight planes, native bf16
+//   mma.m16n8k16 with f32 sums; the backward's bias gradients as f32 tile
+//   sums.  The kernels above are f32 only, but for rowgemm's BF16 instance
+//   (FP32 FMA on bf16-rounded operands), which both bf16 sets take for their
+//   smallest products.
 // Unlike the TPU kernel there is no pad of T to a multiple of 8 (a TPU
 // sublane rule) and no roll: each block reads the rows it needs.
 
@@ -124,6 +122,8 @@ constexpr int CP = CMAX / NTX;  // columns per thread
 constexpr size_t GEMM_SMEM = (TR * AS_STRIDE + KC * WMAX) * sizeof(float);
 
 __device__ __forceinline__ float sigmoidf_(float v) { return 1.f / (1.f + expf(-v)); }
+
+__host__ __device__ inline int round8(int v) { return (v + 7) / 8 * 8; }
 
 // A product's operand: v itself, or v rounded to bf16 (the BF16 instances).
 template <bool BF16>
@@ -201,13 +201,15 @@ struct RowW {
 // block takes CMAX columns from n0 = blockIdx.y * CMAX, of run blockIdx.z
 // (each operand offset by its run stride).  The start projection, g_skip
 // and the start's input gradient: under 1% of the FLOPs.  BF16: bf16
-// operands, f32 sums (the bias and the accumulated out stay f32).
+// operands, f32 sums (the bias and the accumulated out stay f32).  out16,
+// where not null (n <= CMAX): out's bf16 copy too, rows padded with zeros to
+// round8(n) values, run r's at out16 + r * out16_rs.
 template <bool BF16>
 __global__ void __launch_bounds__(NTHREADS)
 rowgemm_kernel(const float* __restrict__ a, const float* __restrict__ w,
                const float* __restrict__ bias, float* __restrict__ out, int rows, int k,
                int n, int accumulate, long long a_rs, long long w_rs, long long bias_rs,
-               long long out_rs) {
+               long long out_rs, uint16_t* __restrict__ out16, long long out16_rs) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const long long run = blockIdx.z;
@@ -215,6 +217,7 @@ rowgemm_kernel(const float* __restrict__ a, const float* __restrict__ w,
   w += run * w_rs;
   if (bias) bias += run * bias_rs;
   out += run * out_rs;
+  if (out16) out16 += run * out16_rs;
   const int tx = threadIdx.x % NTX;
   const int ty = threadIdx.x / NTX;
   const int r0 = blockIdx.x * TR;
@@ -233,11 +236,17 @@ rowgemm_kernel(const float* __restrict__ a, const float* __restrict__ w,
 #pragma unroll
     for (int q = 0; q < CP; ++q) {
       const int j = col[q];
-      if (j >= nc) break;
+      if (j >= nc) {
+        if (out16 && n0 + j < round8(n)) out16[static_cast<size_t>(r) * round8(n) + n0 + j] = 0;
+        continue;
+      }
       const size_t o = static_cast<size_t>(r) * n + n0 + j;
       float v = acc[m][q] + (bias ? bias[n0 + j] : 0.f);
       if (accumulate) v += out[o];
       out[o] = v;
+      if (out16)
+        out16[static_cast<size_t>(r) * round8(n) + n0 + j] =
+            __bfloat16_as_ushort(__float2bfloat16_rn(v));
     }
   }
 }
@@ -543,7 +552,6 @@ constexpr int RT_AS = RT_KS + 4;     // row stride of every staged tile: ldmatri
 constexpr size_t RT_SMEM =
     (2 * RT_M * RT_AS + 2 * RT_M * RT_AS + 2 * 2 * RT_NMAX * RT_AS) * sizeof(float);
 
-__host__ __device__ inline int round8(int v) { return (v + 7) / 8 * 8; }
 __host__ __device__ inline int round_ks(int v) { return (v + RT_KS - 1) / RT_KS * RT_KS; }
 
 // The split weights of one layer in the caller's scratch: per matrix a hi
@@ -665,7 +673,6 @@ __host__ __device__ inline size_t fwd_words(const FPlanes& p, int n_layers) {
 //   z:        as wsplit_kernel
 //   res/skip: W(k, col) = w_rs[i][k][col], plane row n holds col = pair_col(n)
 //   end:      W(k, n) = w_end[k][n]
-template <bool BF16>
 __global__ void __launch_bounds__(NTHREADS)
 wsplit_fwd_kernel(const float* __restrict__ w_in, const float* __restrict__ w_cond,
                   const float* __restrict__ w_rs, const float* __restrict__ w_end,
@@ -697,11 +704,7 @@ wsplit_fwd_kernel(const float* __restrict__ w_in, const float* __restrict__ w_co
     } else if (n < 2 * h && k < c) {
       v = w_end[static_cast<size_t>(k) * 2 * h + n];
     }
-    if constexpr (BF16) {
-      hi[k] = round_bf16(v);  // the lo plane is not read
-    } else {
-      split_tf32(v, hi[k], lo[k]);
-    }
+    split_tf32(v, hi[k], lo[k]);
   }
 }
 
@@ -709,9 +712,7 @@ wsplit_fwd_kernel(const float* __restrict__ w_in, const float* __restrict__ w_co
 // units j < nu of this warp, over a tile of 16 * MT rows (MT m16 tiles, each
 // taken by 16 / MT warps).  W is its split planes: w_hi (row n at w_hi + n *
 // k_pad, the lo plane w_lo), of which the stage copies rows [0, w_rows).
-// BF16: A rounded to bf16 as it is staged, W's hi plane its bf16 rounding
-// (the lo plane is neither copied nor read), one product a term.
-template <bool BF16, int NTU, int MT = RT_MT>
+template <int NTU, int MT = RT_MT>
 __device__ __forceinline__ void rt_phase(float (&acc)[RT_NQ][NTU][4], const Operand& a,
                                          const uint32_t* w_hi, const uint32_t* w_lo, int k_pad,
                                          int w_rows, int k_dim, int r0, int rows, int t_len, int d,
@@ -737,7 +738,7 @@ __device__ __forceinline__ void rt_phase(float (&acc)[RT_NQ][NTU][4], const Oper
              raw_a + buf * RT_M * RT_AS + rr * RT_AS + 4 * g, run);
     }
     uint32_t* wb = wbuf + buf * 2 * RT_NMAX * RT_AS;
-    for (int e = tid; e < (BF16 ? 1 : 2) * w_rows * (RT_KS / 4); e += RT_THREADS) {  // W: 16-byte chunks
+    for (int e = tid; e < 2 * w_rows * (RT_KS / 4); e += RT_THREADS) {  // W: 16-byte chunks
       const int q = e % (RT_KS / 4);
       const int n = (e / (RT_KS / 4)) % w_rows;
       const int p = e / (RT_KS / 4) / w_rows;
@@ -769,11 +770,7 @@ __device__ __forceinline__ void rt_phase(float (&acc)[RT_NQ][NTU][4], const Oper
     const float* xa = raw_a + (s & 1) * RT_M * RT_AS;
     for (int e = tid; e < 16 * MT * RT_KS; e += RT_THREADS) {
       const int i = (e / RT_KS) * RT_AS + e % RT_KS;
-      if constexpr (BF16) {
-        ah[i] = round_bf16(xa[i]);
-      } else {
-        split_tf32(xa[i], ah[i], al[i]);
-      }
+      split_tf32(xa[i], ah[i], al[i]);
     }
     __syncthreads();  // the A planes of stage s are written
     const uint32_t* wb = wbuf + (s & 1) * 2 * RT_NMAX * RT_AS + b_off;
@@ -789,23 +786,17 @@ __device__ __forceinline__ void rt_phase(float (&acc)[RT_NQ][NTU][4], const Oper
     for (int kb = 0; kb < RT_KS / 8; ++kb) {
       uint32_t fah[4], fal[4];
       ldmatrix_x4(fah, ah + a_row * RT_AS + kb * 8 + a_col);
-      if (!BF16) ldmatrix_x4(fal, al + a_row * RT_AS + kb * 8 + a_col);
+      ldmatrix_x4(fal, al + a_row * RT_AS + kb * 8 + a_col);
 #pragma unroll
       for (int j = 0; j < RT_NQ; ++j) {
         if (j < nu) {
 #pragma unroll
           for (int t = 0; t < NTU; ++t) {
-            if constexpr (BF16) {
-              uint32_t fb[2];  // hi k 0-3, hi k 4-7
-              ldmatrix_x2(fb, wb + tiles[j][t] * 8 * RT_AS + kb * 8);
-              mma_tf32(part[j][t], fah, fb[0], fb[1]);
-            } else {
-              uint32_t fb[4];  // hi k 0-3, hi k 4-7, lo k 0-3, lo k 4-7
-              ldmatrix_x4(fb, wb + tiles[j][t] * 8 * RT_AS + kb * 8);
-              mma_tf32(part[j][t], fal, fb[0], fb[1]);
-              mma_tf32(part[j][t], fah, fb[2], fb[3]);
-              mma_tf32(part[j][t], fah, fb[0], fb[1]);
-            }
+            uint32_t fb[4];  // hi k 0-3, hi k 4-7, lo k 0-3, lo k 4-7
+            ldmatrix_x4(fb, wb + tiles[j][t] * 8 * RT_AS + kb * 8);
+            mma_tf32(part[j][t], fal, fb[0], fb[1]);
+            mma_tf32(part[j][t], fah, fb[2], fb[3]);
+            mma_tf32(part[j][t], fah, fb[0], fb[1]);
           }
         }
       }
@@ -882,7 +873,7 @@ __global__ void __launch_bounds__(RT_THREADS, 1) wn_layer_gz_kernel(GzArgs p) {
 #pragma unroll
       for (int i = 0; i < 8; ++i) z[j][i >> 2][i & 3] = 0.f;
     const uint32_t* wz = planes + P.z;
-    rt_phase<false>(z, p.a_z, wz, wz + static_cast<size_t>(2 * P.cp) * P.kz, P.kz, 2 * P.cp, p.a_z.cols,
+    rt_phase(z, p.a_z, wz, wz + static_cast<size_t>(2 * P.cp) * P.kz, P.kz, 2 * P.cp, p.a_z.cols,
              r0, p.rows, p.t_len, p.d, gz, pair, nu, smem, run);
 #pragma unroll
     for (int j = 0; j < RT_NQ; ++j) {
@@ -900,7 +891,7 @@ __global__ void __launch_bounds__(RT_THREADS, 1) wn_layer_gz_kernel(GzArgs p) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) g[j][0][i] = 0.f;
   const uint32_t* wg = planes + P.g;
-  rt_phase<false>(g, p.a_grs, wg, wg + static_cast<size_t>(P.cp) * P.kg, P.kg, P.cp, 2 * c, r0, p.rows,
+  rt_phase(g, p.a_grs, wg, wg + static_cast<size_t>(P.cp) * P.kg, P.kg, P.cp, 2 * c, r0, p.rows,
            p.t_len, p.d, gz, one, nu, smem, run);
 #pragma unroll
   for (int j = 0; j < RT_NQ; ++j) {
@@ -962,11 +953,11 @@ __global__ void __launch_bounds__(RT_THREADS, 1) wn_layer_ga_kernel(GaArgs p) {
   const float* any = p.a_gz.seg[0].src;
   if (part == 0) {
     const uint32_t* wt = planes + P.t;
-    rt_phase<false>(acc, p.a_taps, wt, wt + static_cast<size_t>(P.cp) * P.kt, P.kt, P.cp, 6 * p.c, r0,
+    rt_phase(acc, p.a_taps, wt, wt + static_cast<size_t>(P.cp) * P.kt, P.kt, P.cp, 6 * p.c, r0,
              p.rows, p.t_len, p.d, any, tile, nu, smem, run);
   } else {
     const uint32_t* wx = planes + P.x;
-    rt_phase<false>(acc, p.a_gz, wx + static_cast<size_t>(n0) * P.kc,
+    rt_phase(acc, p.a_gz, wx + static_cast<size_t>(n0) * P.kc,
              wx + static_cast<size_t>(P.hp + n0) * P.kc, P.kc, round8(nc), 2 * p.c, r0, p.rows,
              p.t_len, p.d, any, tile, nu, smem, run);
   }
@@ -1021,7 +1012,7 @@ struct FwdArgs {
   int rows, t_len, h, c, d, first, last, n_layers;
 };
 
-template <int MT, bool RUNS, bool BF16>
+template <int MT, bool RUNS>
 __global__ void __launch_bounds__(RT_THREADS, 1) wn_layer_fwd_kernel(FwdArgs p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -1046,7 +1037,7 @@ __global__ void __launch_bounds__(RT_THREADS, 1) wn_layer_fwd_kernel(FwdArgs p) 
 #pragma unroll
       for (int i = 0; i < 8; ++i) z[j][i >> 2][i & 3] = 0.f;
     const uint32_t* wz = p.planes + run * fwd_words(P, p.n_layers) + P.z;
-    rt_phase<BF16, 2, MT>(z, p.a_z, wz, wz + static_cast<size_t>(2 * P.cp) * P.kz, P.kz, 2 * P.cp,
+    rt_phase<2, MT>(z, p.a_z, wz, wz + static_cast<size_t>(2 * P.cp) * P.kz, P.kz, 2 * P.cp,
                     p.a_z.cols, r0, p.rows, p.t_len, p.d, aud_i, pair, nu, smem, run);
     const float* b_z = p.b_z + static_cast<size_t>(run) * p.n_layers * 2 * c;
     float* acts = p.acts + run * rc;
@@ -1070,7 +1061,7 @@ __global__ void __launch_bounds__(RT_THREADS, 1) wn_layer_fwd_kernel(FwdArgs p) 
 #pragma unroll
       for (int i = 0; i < 8; ++i) rs[j][i >> 2][i & 3] = 0.f;
     const uint32_t* wr = p.planes + run * fwd_words(P, p.n_layers) + P.rs;
-    rt_phase<BF16, 2, MT>(rs, p.a_acts, wr, wr + static_cast<size_t>(2 * P.cp) * P.kr, P.kr, 2 * P.cp,
+    rt_phase<2, MT>(rs, p.a_acts, wr, wr + static_cast<size_t>(2 * P.cp) * P.kr, P.kr, 2 * P.cp,
                     c, r0, p.rows, p.t_len, p.d, aud_i, pair, nu, smem, run);
     const float* b_rs = p.b_rs + static_cast<size_t>(run) * p.n_layers * 2 * c;
     float* aud_next = p.aud_next ? p.aud_next + run * p.n_layers * rc : nullptr;
@@ -1104,7 +1095,7 @@ __global__ void __launch_bounds__(RT_THREADS, 1) wn_layer_fwd_kernel(FwdArgs p) 
 #pragma unroll
       for (int i = 0; i < 4; ++i) e[j][0][i] = 0.f;
     }
-    rt_phase<BF16, 1, MT>(e, p.a_skip, end_planes + static_cast<size_t>(n0) * P.kr,
+    rt_phase<1, MT>(e, p.a_skip, end_planes + static_cast<size_t>(n0) * P.kr,
                     end_planes + static_cast<size_t>(P.ep + n0) * P.kr, P.kr, round8(nc), c, r0,
                     p.rows, p.t_len, p.d, aud_i, tile, ne, smem, run);
 #pragma unroll
@@ -1149,15 +1140,18 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 }
 
 // ``runs`` runs of the row product (blockIdx.z), each operand's runs its
-// run stride (in floats) apart.
+// run stride (in floats) apart; out16 (n <= CMAX): also out's bf16 copy,
+// its runs out16_rs values apart.
 template <bool BF16>
 cudaError_t rowgemm(const float* a, long long a_rs, const float* w, long long w_rs,
                     const float* bias, long long bias_rs, float* out, long long out_rs, int rows,
-                    int k, int n, int accumulate, int runs, cudaStream_t stream) {
+                    int k, int n, int accumulate, int runs, cudaStream_t stream,
+                    uint16_t* out16 = nullptr, long long out16_rs = 0) {
+  if (out16 && n > CMAX) return cudaErrorInvalidValue;
   cudaError_t e = allow_smem(rowgemm_kernel<BF16>, GEMM_SMEM);
   if (e != cudaSuccess) return e;
   rowgemm_kernel<BF16><<<dim3(tiles(rows), col_chunks(n), runs), NTHREADS, GEMM_SMEM, stream>>>(
-      a, w, bias, out, rows, k, n, accumulate, a_rs, w_rs, bias_rs, out_rs);
+      a, w, bias, out, rows, k, n, accumulate, a_rs, w_rs, bias_rs, out_rs, out16, out16_rs);
   return cudaGetLastError();
 }
 
@@ -1196,6 +1190,20 @@ cudaError_t current_sms(int& sms) {
   return e;
 }
 
+// m16 tiles a row tile of the forward: RT_MT, halved while the smaller tiles
+// still fit one wave of a block an SM (on an H100, PERF.md: at VendCoffee's
+// 2,400 rows 32-row tiles took 0.67-0.71 ms, 64-row 0.92 and 16-row, two
+// waves, 1.06-1.08; at VendGunPoint's 6,000 rows 64-row tiles 0.82 ms,
+// 32-row 1.09-1.14); chosen from one run's rows, so each run takes the
+// one-run call's tiles.
+cudaError_t fwd_row_tile(int rows, int& mt) {
+  int sms = 0;
+  const cudaError_t e = current_sms(sms);
+  mt = RT_MT;
+  while (mt > 1 && (rows + 8 * mt - 1) / (8 * mt) <= sms) mt /= 2;
+  return e;
+}
+
 // The geometry the kernels take; wn_fused.py check_geometry states the same.
 bool bad_geometry(int rows, int t_len, int h, int c, int n_layers) {
   return rows < 1 || t_len < 1 || rows % t_len != 0 || h < 1 || c < 1 || c > CMAX ||
@@ -1210,10 +1218,9 @@ bool bad_geometry(int rows, int t_len, int h, int c, int n_layers) {
 // 2C).  Scratch: acts (runs, R, C), wsplit (runs * wn_fwd_wsplit_words).  2
 // + L kernel launches.  They replace the vmapped Pallas kernel of the JAX
 // package's multi-run training (train/multirun.py), where jax.vmap adds a
-// grid axis.  bf16 != 0 takes the BF16 instances: every layer product on
-// bf16-rounded operands, one TF32 product a term, f32 sums (the JAX
-// kernel's bf16=True, FLSTTSC_WN_MXU=bf16); the same launches.
-template <bool BF16>
+// grid axis.  bf16 != 0 takes wn_fwd_bf16.cuh's kernels (3 + L launches):
+// acts unused, and wsplit the bf16 work area of wn_fwd_wsplit_words(...,
+// bf16 = 1).
 cudaError_t fwd_runs(const float* x, const float* w_start, const float* b_start,
                      const float* w_cond, const float* b_z, const float* w_in, const float* w_rs,
                      const float* b_rs, const float* w_end, const float* b_end, float* y,
@@ -1221,30 +1228,22 @@ cudaError_t fwd_runs(const float* x, const float* w_start, const float* b_start,
                      int t_len, int h, int c, int n_layers, cudaStream_t stream) {
   const FPlanes P = fplanes(c, h);
   uint32_t* planes = static_cast<uint32_t*>(wsplit);
-  wsplit_fwd_kernel<BF16><<<dim3(max(2 * P.cp, P.ep), 3, runs * n_layers), NTHREADS, 0, stream>>>(
+  wsplit_fwd_kernel<<<dim3(max(2 * P.cp, P.ep), 3, runs * n_layers), NTHREADS, 0, stream>>>(
       w_in, w_cond, w_rs, w_end, planes, c, h, n_layers);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const long long rc = static_cast<long long>(rows) * c;
-  e = rowgemm<BF16>(x, static_cast<long long>(rows) * h, w_start, static_cast<long long>(h) * c,
-                    b_start, c, aud, n_layers * rc, rows, h, c, 0, runs, stream);
+  e = rowgemm<false>(x, static_cast<long long>(rows) * h, w_start, static_cast<long long>(h) * c,
+                     b_start, c, aud, n_layers * rc, rows, h, c, 0, runs, stream);
   if (e != cudaSuccess) return e;
-  int sms = 0;
-  e = current_sms(sms);
+  int mt = 0;
+  e = fwd_row_tile(rows, mt);
   if (e != cudaSuccess) return e;
-  // m16 tiles a row tile: RT_MT, halved while the smaller tiles still fit
-  // one wave of a block an SM (on an H100, PERF.md: at VendCoffee's 2,400
-  // rows 32-row tiles took 0.67-0.71 ms, 64-row 0.92 and 16-row, two waves,
-  // 1.06-1.08; at VendGunPoint's 6,000 rows 64-row tiles 0.82 ms, 32-row
-  // 1.09-1.14); chosen from one run's rows, so each run takes the one-run
-  // call's tiles
-  int mt = RT_MT;
-  while (mt > 1 && (rows + 8 * mt - 1) / (8 * mt) <= sms) mt /= 2;
   const bool many = runs > 1;
   auto kernel =
-      mt == 4 ? (many ? wn_layer_fwd_kernel<4, true, BF16> : wn_layer_fwd_kernel<4, false, BF16>)
-      : mt == 2 ? (many ? wn_layer_fwd_kernel<2, true, BF16> : wn_layer_fwd_kernel<2, false, BF16>)
-                : (many ? wn_layer_fwd_kernel<1, true, BF16> : wn_layer_fwd_kernel<1, false, BF16>);
+      mt == 4 ? (many ? wn_layer_fwd_kernel<4, true> : wn_layer_fwd_kernel<4, false>)
+      : mt == 2 ? (many ? wn_layer_fwd_kernel<2, true> : wn_layer_fwd_kernel<2, false>)
+                : (many ? wn_layer_fwd_kernel<1, true> : wn_layer_fwd_kernel<1, false>);
   e = allow_smem(kernel, RT_SMEM);
   if (e != cudaSuccess) return e;
   const int tiles_fwd = (rows + 16 * mt - 1) / (16 * mt);
@@ -1268,25 +1267,6 @@ cudaError_t fwd_runs(const float* x, const float* w_start, const float* b_start,
 }
 
 }  // namespace
-
-extern "C" int wn_fwd_runs(const float* x, const float* w_start, const float* b_start,
-                           const float* w_cond, const float* b_z, const float* w_in,
-                           const float* w_rs, const float* b_rs, const float* w_end,
-                           const float* b_end, float* y, float* aud, float* skip, float* acts,
-                           void* wsplit, int runs, int rows, int t_len, int h, int c,
-                           int n_layers, int bf16, void* stream_ptr) {
-  if (bad_geometry(rows, t_len, h, c, n_layers) || runs < 1 || runs > 65535)
-    return cudaErrorInvalidValue;
-  auto fwd = bf16 ? fwd_runs<true> : fwd_runs<false>;
-  return fwd(x, w_start, b_start, w_cond, b_z, w_in, w_rs, b_rs, w_end, b_end, y, aud, skip, acts,
-             wsplit, runs, rows, t_len, h, c, n_layers, static_cast<cudaStream_t>(stream_ptr));
-}
-
-// 32-bit words of wn_fwd's wsplit scratch for one run: the split weights of
-// every layer and the end projection.
-extern "C" size_t wn_fwd_wsplit_words(int c, int h, int n_layers) {
-  return fwd_words(fplanes(c, h), n_layers);
-}
 
 // Backward of ``runs`` independent WNs of one geometry (every tensor holds
 // the runs one after the other, as wn_fwd_runs; weight gradients are per
@@ -1387,6 +1367,31 @@ cudaError_t bwd_runs(const float* x, const float* g, const float* aud, const flo
 }  // namespace
 
 #include "wn_bwd_bf16.cuh"
+#include "wn_fwd_bf16.cuh"
+
+extern "C" int wn_fwd_runs(const float* x, const float* w_start, const float* b_start,
+                           const float* w_cond, const float* b_z, const float* w_in,
+                           const float* w_rs, const float* b_rs, const float* w_end,
+                           const float* b_end, float* y, float* aud, float* skip, float* acts,
+                           void* wsplit, int runs, int rows, int t_len, int h, int c,
+                           int n_layers, int bf16, void* stream_ptr) {
+  if (bad_geometry(rows, t_len, h, c, n_layers) || runs < 1 || runs > 65535)
+    return cudaErrorInvalidValue;
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (bf16)
+    return fwd16_runs(x, w_start, b_start, w_cond, b_z, w_in, w_rs, b_rs, w_end, b_end, y, aud,
+                      skip, wsplit, runs, rows, t_len, h, c, n_layers, stream);
+  return fwd_runs(x, w_start, b_start, w_cond, b_z, w_in, w_rs, b_rs, w_end, b_end, y, aud, skip,
+                  acts, wsplit, runs, rows, t_len, h, c, n_layers, stream);
+}
+
+// 32-bit words of wn_fwd's wsplit scratch for one run of ``rows`` rows: the
+// split weights of every layer and the end projection; bf16: the bf16 work
+// area (FArea16: the bf16 planes and the operand copies).
+extern "C" size_t wn_fwd_wsplit_words(int rows, int c, int h, int n_layers, int bf16) {
+  if (bf16) return farea16(rows, c, h, n_layers).words;
+  return fwd_words(fplanes(c, h), n_layers);
+}
 
 // 32-bit words of wn_bwd's wsplit scratch for one run of ``rows`` rows: the
 // split weights of every layer; bf16: the bf16 work area (Area16: the bf16

@@ -12,9 +12,11 @@ zero-embedded, the end 1x1) runs on the batch collapsed into rows,
 * ``wn_bwd`` replaces ``_wn_bwd_kernel``: the reverse layer walk recomputing
   z from ``aud``, the input gradient and every weight gradient; the end
   projection's gradients (and ``gbc``, equal to ``gbi``) are taken outside,
-  as the JAX package does (``wn_fused.py:444-450``).  Its bf16 instance is a
-  kernel set of its own (``csrc/wn_bwd_bf16.cuh``): bf16 copies of the
-  operands, native bf16 tensor-core products, f32 bias sums.
+  as the JAX package does (``wn_fused.py:444-450``).
+* Their bf16 instances are kernel sets of their own (``csrc/wn_fwd_bf16.cuh``,
+  ``csrc/wn_bwd_bf16.cuh``): bf16 copies of the operands written once, bf16
+  weight planes, native bf16 tensor-core products; the backward's bias
+  gradients as f32 tile sums.
 
 Beside each kernel is its plain PyTorch version, ``wn_fwd_plain`` and
 ``wn_bwd_plain`` (the backward written out, not by autograd).  ``WNCore`` is
@@ -60,17 +62,17 @@ ENTRIES = ("wn_fwd", "wn_bwd", "wn_fwd_runs", "wn_bwd_runs")
 LAUNCHES = {name + tag: 0 for tag in ("", "[bf16]") for name in ENTRIES}
 
 #: Input rows a stage of ``wn_bwd``'s weight-gradient kernel (``WG_RB`` in
-#: ``csrc/wn_fused.cu``), and reduction columns a stage of its row-tile
-#: products (``RT_KS``); a row slice is a whole number of stages, which the C
-#: entry checks.
+#: ``csrc/wn_fused.cu``), and reduction columns a stage of the f32 row-tile
+#: products of both directions (``RT_KS``); a row slice is a whole number of
+#: stages, which the C entry checks.
 STAGE_ROWS = 32
-#: The same two of the bf16 backward (``H_RB``, ``H_KS`` in
-#: ``csrc/wn_bwd_bf16.cuh``).
+#: The same two of the bf16 kernels (``H_RB``, ``H_KS`` in
+#: ``csrc/wn_bwd_bf16.cuh``; the bf16 forward's stages are ``H_KS`` deep).
 BF16_STAGE = 128
 #: Rows of a tile whose f32 column sums make the bf16 backward's bias
 #: gradients (``H_TILE``): its slices are whole tiles.
 BF16_TILE = 64
-#: bf16 values a 16-byte chunk: the bf16 backward pads every row it stages
+#: bf16 values a 16-byte chunk: the bf16 kernels pad every row they stage
 #: (and g_z's two halves) to a multiple of it.
 BF16_CHUNK = 8
 #: Most rows a weight-gradient slice of ``wn_bwd`` (partials summed in slice order).
@@ -111,9 +113,14 @@ def wgrad_split_rows(rows: int, bf16: bool = False) -> int:
 
 def global_kernels(n_layers: int, bf16: bool = False) -> Dict[str, Dict[str, int]]:
     """``__global__`` launches per call of each host entry, by kernel (the
-    name without its template arguments): ``wn_fwd`` (bf16: the same
-    kernels' instances) and ``wn_bwd`` (bf16: ``csrc/wn_bwd_bf16.cuh``'s)."""
-    fwd = {"wsplit_fwd_kernel": 1, "rowgemm_kernel": 1, "wn_layer_fwd_kernel": n_layers}
+    name without its template arguments): ``wn_fwd`` (bf16:
+    ``csrc/wn_fwd_bf16.cuh``'s) and ``wn_bwd`` (bf16:
+    ``csrc/wn_bwd_bf16.cuh``'s)."""
+    if bf16:
+        fwd = {"bf16_copies_kernel": 1, "wsplit16_fwd_kernel": 1, "rowgemm_kernel": 1,
+               "wn_layer_fwd16_kernel": n_layers}
+    else:
+        fwd = {"wsplit_fwd_kernel": 1, "rowgemm_kernel": 1, "wn_layer_fwd_kernel": n_layers}
     wgrads = 2 * n_layers + 1  # per layer res/skip and in, then the start's
     if bf16:
         bwd = {"bf16_copies_kernel": 1, "wsplit16_kernel": 1, "gskip16_kernel": 1,
@@ -127,9 +134,52 @@ def global_kernels(n_layers: int, bf16: bool = False) -> Dict[str, Dict[str, int
 
 
 def global_launches(n_layers: int, bf16: bool = False) -> Dict[str, int]:
-    """``__global__`` launches per call of each host entry: ``wn_fwd`` 2 + L,
-    ``wn_bwd`` 5 + 6L (bf16: 6 + 6L)."""
+    """``__global__`` launches per call of each host entry: ``wn_fwd`` 2 + L
+    (bf16: 3 + L), ``wn_bwd`` 5 + 6L (bf16: 6 + 6L)."""
     return {name: sum(k.values()) for name, k in global_kernels(n_layers, bf16).items()}
+
+
+def fwd_row_tile(rows: int, sms: int) -> int:
+    """Rows a tile of ``wn_fwd``'s layer kernels (both instances; the
+    library's ``fwd_row_tile`` mirrored) on a card of ``sms`` SMs: 64,
+    halved while the smaller tiles still fit one wave of a block an SM, down
+    to 16.  Chosen from one run's rows."""
+    mt = 4
+    while mt > 1 and -(-rows // (8 * mt)) <= sms:
+        mt //= 2
+    return 16 * mt
+
+
+def fwd_wsplit_words(rows: int, c: int, h: int, n_layers: int, bf16: bool = False) -> int:
+    """32-bit words of one run's ``wsplit`` scratch of ``wn_fwd`` (the
+    library's ``wn_fwd_wsplit_words`` mirrored).  f32: every layer's TF32
+    hi/lo weight planes, (output column, reduction) with the reduction
+    padded to whole STAGE_ROWS-column stages, z (2Cp, 3C+H) and res/skip
+    (2Cp, C), then the end projection's (Ep, C), Cp and Ep C and 2H rounded
+    up to 8.  bf16: the bf16 work area, in bf16 values every layer's bf16
+    planes (the reduction in the padded layout of its operand, whole stages
+    of BF16_STAGE columns: z (2Cp, 3Cp+Hp), res/skip (2Cp, Cp)), the end
+    projection's (Ep, Cp), the bf16 copies of x (R, Hp), the aud ping-pong
+    (2, R, Cp), acts and skip (R, Cp each); rounded up to 4 words."""
+    cp, hp, ep = (_round_up(v, BF16_CHUNK) for v in (c, h, 2 * h))
+    stage = BF16_STAGE if bf16 else STAGE_ROWS
+
+    def ks(v):
+        return _round_up(v, stage)
+    if not bf16:
+        return n_layers * 2 * 2 * cp * (ks(3 * c + h) + ks(c)) + 2 * ep * ks(c)
+    values = n_layers * 2 * cp * (ks(3 * cp + hp) + ks(cp)) + ep * ks(cp) + rows * (hp + 4 * cp)
+    return _round_up(-(-values // 2), 4)
+
+
+def fwd_scratch(runs: int, rows: int, c: int, n_layers: int, bf16: bool, wsplit_words: int,
+                device) -> list:
+    """The scratch of one ``wn_fwd_runs`` call in its argument order (acts,
+    wsplit), ``wsplit_words`` 32-bit words of wsplit a run: f32, the acts of
+    each layer (runs, R, C) between its two products; bf16, none (its bf16
+    copy lives in wsplit's work area)."""
+    acts = torch.empty(0 if bf16 else runs * rows * c, device=device)
+    return [acts, torch.empty(runs * wsplit_words, dtype=torch.int32, device=device)]
 
 
 def bwd_wsplit_words(rows: int, c: int, h: int, n_layers: int, bf16: bool = False) -> int:
@@ -344,7 +394,7 @@ def _lib() -> ctypes.CDLL:
     """Build (at first use) and bind ``csrc/wn_fused.cu``."""
     lib = _build.load("wn_fused")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.wn_fwd_wsplit_words.argtypes = [i] * 3
+    lib.wn_fwd_wsplit_words.argtypes = [i] * 5
     lib.wn_fwd_wsplit_words.restype = ctypes.c_size_t
     lib.wn_bwd_wsplit_words.argtypes = [i] * 5
     lib.wn_bwd_wsplit_words.restype = ctypes.c_size_t
@@ -419,11 +469,8 @@ def _launch_fwd(name, x2, w_start, b_start, w_cond, b_cond, w_in, b_in, w_rs, b_
     y = torch.empty(runs, rows, 2 * h, device=dev)
     aud = torch.empty(runs, n_layers, rows, c, device=dev)
     skip = torch.empty(runs, rows, c, device=dev)
-    scratch = [
-        torch.empty(runs, rows, c, device=dev),  # acts
-        torch.empty(runs * lib.wn_fwd_wsplit_words(c, h, n_layers), dtype=torch.int32,
-                    device=dev),  # split weights
-    ]
+    scratch = fwd_scratch(runs, rows, c, n_layers, bf16,
+                          lib.wn_fwd_wsplit_words(rows, c, h, n_layers, int(bf16)), dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.wn_fwd_runs(*_ptrs(*ins, y, aud, skip, *scratch), runs, rows, t_len, h, c,
