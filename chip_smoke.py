@@ -172,7 +172,38 @@ non-zero when any check fails.  Phases:
     infer, layer by layer and free-running (BF16_REL_L2, BF16_CASCADE), and
     each layer alone (BF16_FLIPS); the run-axis bf16 forms at one K-run
     step's shapes (WN end projections non-zero); and
-    ``experiments/multirun_time.py --ks 8 --bf16`` in a process of its own.
+    ``experiments/multirun_time.py --ks 8 --bf16`` in a process of its own;
+20. PipelineConfig's GradNorm / optimizer knobs on phase 8's pair at full
+    width, from phase 9's fresh state with its pinned anchors and masks:
+    one phase-5 step each of the default (merged pulls),
+    ``merged_pullbacks=False``, ``stacked_pullbacks=True`` and
+    ``fused_optimizers=True``, every kernel on, deterministic, with exact
+    launches (the WN backward 5F, 6F, and 2F ``wn_bwd_runs`` calls of 3
+    runs, F flows): unmerged against merged, the total's gradients the same
+    bits, n_t, n_s and the GradNorm weights within KNOB_NORM_REL_TOL;
+    stacked against unstacked, each module's gradients within
+    STEP_GRAD_L2_TOL and the losses and norms within STEP_LOSS_REL_TOL, and
+    every cotangent of every stacked ``wn_bwd_runs`` call the bits of the
+    one-cotangent ``wn_bwd`` on its operands (the end projection's two
+    gradients, one library product outside the kernel, within
+    GRAD_REL_TOL), the pair pass's call timed against three one-run calls;
+    the fused update against the per-module one within FUSED_OPT_ATOL, and
+    on a phase-1 step the modules outside it untouched, bit for bit; the
+    op-by-op route's stacked pulls against its merged ones (the tap conv's
+    input gradients folded, ``tap_conv_fwd`` L(2F + 2F) times against
+    L(2F + 5F)); K = MULTIRUN_K runs at once with the fused optimizer (the
+    (K, N) update against each run's one-run update on the same gradients)
+    and with stacked pulls (``wn_bwd_runs`` of 3K runs a call) against the
+    same K states' merged pulls (STEP_GRAD_L2_TOL) and against K one-run
+    stacked steps (phase 18's gates; where a module passes
+    MULTIRUN_GRAD_L2_TOL, within twice the larger of phase 18's control and
+    the merged K-run step's own gap from its one-run step); the
+    bf16 stacked step (``FLSTTSC_WN_MXU=bf16``: every cotangent of
+    ``wn_bwd_runs[bf16]`` the bits of ``wn_bwd[bf16]``); and the stacked
+    and fused knobs' K-run step at K = 1 and MULTIRUN_K
+    (``experiments/multirun_time.py --knob``, a process of its own without
+    ``CUBLAS_WORKSPACE_CONFIG``): step ms, device ms, idle share, peak
+    memory.
 
 The ``cli.main`` drives (phases 8, 8b, 13, 14) and the drives of phases
 15, 16 and 17 run with PyTorch's deterministic
@@ -183,7 +214,8 @@ with the launches of the main-path drives (serving: single and ensemble,
 not the VendGunPoint check; training: the two ``cli.main`` drives of phases
 8 and 13, not those of phases 8b, 14, 15, 16 and 17, whose counts are
 checked and kept apart; the run-axis kernels, phase 18's drive and its
-fused evaluation; the bf16 instances, phase 19's two drives) and a bound
+fused evaluation; the bf16 instances, phase 19's two drives; phase 20's
+steps are checked and kept apart) and a bound
 from the FLOPs or bytes these inputs need (the bf16 instances' at the
 BF16 peak); the last line is {"ok": true, "device": {...}}.  Everything measured is also written to
 chiprun_out/chip_smoke_results.json.
@@ -2854,6 +2886,383 @@ def bf16_phase(run, pipe, state, datasets, batch, modules, layers, wn_fns, make_
     return out
 
 
+# ----------------------------------------------------------------- phase 20 --
+
+# PipelineConfig's GradNorm / optimizer knobs, by the names of
+# experiments/phase5_step_time.py and multirun_time.py --knob
+KNOBS = {"merged": {}, "unmerged": {"merged_pullbacks": False},
+         "stacked": {"stacked_pullbacks": True}, "fused_opt": {"fused_optimizers": True}}
+# Unmerged against merged pulls: the total's gradients are the same pull (the same bits under
+# deterministic algorithms), and the trunk norms, which a merged pull sums with exact zeros
+# across the trunks, and the GradNorm weights made from them, within JAX's rtol
+# (tests/test_multirun.py:220).
+KNOB_NORM_REL_TOL = 1e-6
+# The fused RMSprop against the per-module torch RMSprop on the same gradients: the same
+# element operations (torch's foreach RMSprop on the card divides through addcdiv, the fused
+# update multiplies, then divides), within JAX's atol (tests/test_pipeline.py:140).
+FUSED_OPT_ATOL = 1e-5
+# The last two outputs of wn_bwd / wn_bwd_runs, the end projection's gradients, are taken
+# outside the kernel by one library product (batched for the run axis; wn_fused._unpack): sums
+# over every row in another order, held to GRAD_REL_TOL (on an H100 a stacked call's read
+# 1.3e-5 from the one-cotangent call's at the pair pass, 46,080 rows)
+WN_BWD_LIBRARY_OUTPUTS = 2
+
+
+def knob_state(kpipe, fresh):
+    """A copy of ``fresh``'s params, model state and constants in a training
+    state of ``kpipe``'s config (its optimizer layout)."""
+    models = copy.deepcopy({k: fresh[k] for k in ("params", "mstate", "consts")})
+    return kpipe.training_state(models, 21)
+
+
+def knob_step(kpipe, state, batch, masks, update: bool = True) -> dict:
+    """One pinned phase-5 step of ``state`` (its pulls, and with ``update``
+    GradNorm and the module updates): the losses, the gradients of the
+    total, n_t, n_s, and after the update the GradNorm weights."""
+    losses, new_m, _, grads, n_t, n_s = kpipe.phase5_grads(state, *batch, 0, ANCHORS, masks)
+    out = {"losses": {k: v.detach() for k, v in losses.items()},
+           "grads": {k: [None if g is None else g.detach() for g in gs] for k, gs in grads.items()},
+           "n_t": n_t, "n_s": n_s}
+    if update:
+        kpipe._phase5_update(state, losses, new_m, grads, n_t, n_s)
+        out["w_t"] = state["gradnorm"]["t"].weights.detach().clone()
+        out["w_s"] = state["gradnorm"]["s"].weights.detach().clone()
+    return out
+
+
+def grads_l2_gap(got: dict, want: dict, run: int | None = None) -> dict:
+    """Per module the relative L2 distance of ``got``'s gradients (run
+    ``run`` of K-leading ones) from ``want``'s; a missing gradient is 0."""
+    out = {}
+    for name, gs in want.items():
+        d2 = n2 = 0.0
+        for a, b in zip(got[name], gs):
+            a = None if a is None else (a if run is None else a[run])
+            if a is None and b is None:
+                continue
+            a = torch.zeros_like(b) if a is None else a
+            b = torch.zeros_like(a) if b is None else b
+            d2 += float(((a - b) ** 2).sum())
+            n2 += float((b ** 2).sum())
+        out[name] = math.sqrt(d2 / n2) if n2 > 0 else math.sqrt(d2)
+    return out
+
+
+def cotangents_vs_one_call(wn_fused, calls, runs_per_call: int) -> dict:
+    """Every recorded ``wn_bwd_runs`` call of a stacked pull, each of its
+    cotangents (every ``runs_per_call``-th run block, one-run calls here)
+    against the one-cotangent ``wn_bwd`` on the same operands: the kernel's
+    outputs the same bits; the end projection's two gradients, one batched
+    library product outside the kernel, within GRAD_REL_TOL."""
+    same, library_rel, n = True, 0.0, 0
+    for args in calls.values():
+        tensors, (t_len, bf16) = args[:-2], args[-2:]
+        check(args[0].shape[0] == runs_per_call,
+              f"a stacked wn_bwd_runs call of {args[0].shape[0]} runs, {runs_per_call} expected")
+        got = wn_fused.wn_bwd_runs(*tensors, t_len, bf16)
+        for c in range(runs_per_call):
+            one = wn_fused.wn_bwd(*(t[c] for t in tensors), t_len, bf16)
+            kernel = len(one) - WN_BWD_LIBRARY_OUTPUTS
+            same = same and all(torch.equal(a[c], b) for a, b in zip(got[:kernel], one[:kernel]))
+            library_rel = max([library_rel] + [rel_err(a[c], b)[1] for a, b in
+                                               zip(got[kernel:], one[kernel:])])
+            n += 1
+    return {"cotangents": n, "kernel_outputs_same_bits": same, "library_outputs_rel": library_rel}
+
+
+def stacked_call_ms(wn_fused, calls, work) -> dict:
+    """One recorded stacked ``wn_bwd_runs`` call (the pair pass's, 3
+    cotangents) timed against its three one-cotangent ``wn_bwd`` calls, with
+    three one-run calls' bound."""
+    args = max(calls.values(), key=lambda a: a[0].shape[1])
+    tensors, (t_len, bf16) = args[:-2], args[-2:]
+    n = tensors[0].shape[0]
+    row = {"runs": n, "rows": tensors[0].shape[1],
+           "ms": cuda_ms(lambda: wn_fused.wn_bwd_runs(*tensors, t_len, bf16), reps=3),
+           "one_call_ms": cuda_ms(lambda: [wn_fused.wn_bwd(*(t[c] for t in tensors), t_len, bf16)
+                                           for c in range(n)], reps=3) / n}
+    peak = (BF16_PEAK if bf16 else TC_PEAK / TF32_PRODUCTS)
+    row["bound_ms"] = n * max(work["bwd_flops"] / peak, work["bwd_bytes"] / HBM_RATE) * 1e3
+    return row
+
+
+def knobs_phase(run, pipe, modules, batch, smi) -> dict:
+    """Phase 20: PipelineConfig's GradNorm / optimizer knobs
+    (``merged_pullbacks=False``, ``stacked_pullbacks=True``,
+    ``fused_optimizers=True``) at full width on phase 8's pair."""
+    import dataclasses
+
+    from feature_level_style_transfer_for_tsc_tpu_torch.train.multirun import (
+        MultiRunStylePipeline,
+        stack_states,
+        unstack_state,
+    )
+    from feature_level_style_transfer_for_tsc_tpu_torch.train.steps import leaves
+
+    osconv, wn_fused, gate = modules
+    out = {}
+    t_block = time.perf_counter()
+
+    def lap(what: str) -> None:
+        nonlocal t_block
+        now = time.perf_counter()
+        out.setdefault("block_s", {})[what] = now - t_block
+        log(f"[knobs] {what}: {now - t_block:.1f} s")
+        t_block = now
+
+    cfg = pipe.config
+    pipes = {k: type(pipe)(*pipe.t_shape, *pipe.s_shape, dataclasses.replace(cfg, **v),
+                           device=pipe.device) if v else pipe for k, v in KNOBS.items()}
+    flows, layers = cfg.flow.n_flows, cfg.flow.wn_layers
+    convs = len(pipe.t_ext_specs) + len(pipe.s_ext_specs) + 3 * len(pipe.cls_specs)
+    one_step = {**run.idle(), "os_conv_fwd": convs, "wn_fwd": 2 * flows}
+    # WN backward calls of one step: a flow's pair pass is reached by the total, t_nf (+ s_nf)
+    # and s2t2s_c, its infer pass by the total and s2t2s_c; the classifier pulls reach neither
+    expect = {"merged": {**one_step, "wn_bwd": 5 * flows},
+              "unmerged": {**one_step, "wn_bwd": 6 * flows},
+              "stacked": {**one_step, "wn_bwd_runs": 2 * flows},
+              "fused_opt": {**one_step, "wn_bwd": 5 * flows}}
+    g = torch.Generator().manual_seed(21)
+    fresh = with_wn_ends(pipe.init_state(g), g)  # phase 9's fresh state, again
+    _, masks = pinned_masks()
+    lap("the pipelines and phase 9's fresh state")
+
+    # (a) the four configurations on one step, every kernel on, deterministic
+    steps = {}
+    with deterministic(), recorded_calls(wn_fused, ["wn_bwd_runs"], every=True) as rec:
+        for knob, kpipe in pipes.items():
+            state = knob_state(kpipe, fresh)
+            steps[knob] = run.drive(f"knobs: phase-5 step {knob}",
+                                    lambda: knob_step(kpipe, state, batch, masks), expect[knob])
+            steps[knob]["params"] = [p.detach().clone() for p in leaves(state["params"])]
+            del state
+    merged, unmerged, stacked, fused = (steps[k] for k in KNOBS)
+    lap("(a) the steps")
+    row = {"unmerged_total_grads_same_bits": all(
+        (a is None and b is None) or (a is not None and b is not None and torch.equal(a, b))
+        for m in merged["grads"] for a, b in zip(unmerged["grads"][m], merged["grads"][m]))}
+    row["unmerged_rel"] = {n: rel_err(unmerged[n], merged[n])[1]
+                           for n in ("n_t", "n_s", "w_t", "w_s")}
+    row["stacked_grad_l2_rel"] = grads_l2_gap(stacked["grads"], merged["grads"])
+    row["stacked_rel"] = {n: rel_err(stacked[n], merged[n])[1] for n in ("n_t", "n_s")}
+    row["stacked_loss_rel"] = {n: rel_err(v, merged["losses"][n])[1]
+                               for n, v in stacked["losses"].items()}
+    row["stacked_cotangents"] = cotangents_vs_one_call(wn_fused, rec["wn_bwd_runs"], 3)
+    row["stacked_wn_bwd_runs"] = stacked_call_ms(
+        wn_fused, rec["wn_bwd_runs"], wn_work(2 * BATCH, pipe.t_shape[1], pipe.feat_channels // 2,
+                                              cfg.flow.wn_channels, layers))
+    row["fused_params_max_abs"] = max(float((a - b).abs().max())
+                                      for a, b in zip(fused["params"], merged["params"]))
+    del rec
+    lap("(a) the stacked calls against one-cotangent calls, and timed")
+    log(f"[knobs, one step of each, deterministic] {json.dumps(row)} on {smi}")
+    check(row["unmerged_total_grads_same_bits"], "unmerged pulls: the total's gradients differ")
+    for n, v in row["unmerged_rel"].items():
+        check(v <= KNOB_NORM_REL_TOL, f"unmerged pulls: {n} rel {v:.3e} against merged")
+    for n, v in row["stacked_grad_l2_rel"].items():
+        check(v <= STEP_GRAD_L2_TOL, f"stacked pulls: {n} gradients relative L2 {v:.3e}")
+    for n, v in {**row["stacked_rel"], **row["stacked_loss_rel"]}.items():
+        check(v <= STEP_LOSS_REL_TOL, f"stacked pulls: {n} rel {v:.3e} against unstacked")
+    cot = row["stacked_cotangents"]
+    check(cot["cotangents"] == 3 * 2 * flows and cot["kernel_outputs_same_bits"],
+          f"stacked wn_bwd_runs against one-cotangent wn_bwd: {cot}")
+    check(cot["library_outputs_rel"] <= GRAD_REL_TOL, f"stacked wn_bwd_runs' end gradients: {cot}")
+    check(row["fused_params_max_abs"] <= FUSED_OPT_ATOL,
+          f"fused optimizers: params {row['fused_params_max_abs']:.3e} from the per-module step")
+    # the fused update with a module outside the step: one phase-1 step
+    xb, yb = batch[0][None], batch[1][None]
+    p1 = {}
+    for knob in ("merged", "fused_opt"):
+        state = knob_state(pipes[knob], fresh)
+        before = {m: [p.detach().clone() for p in leaves(ps)]
+                  for m, ps in state["params"].items()}
+        with deterministic():
+            pipes[knob].phase1_epoch(state, xb, yb, cpc_anchor=ANCHORS[0])
+        p1[knob] = ({m: [p.detach().clone() for p in leaves(ps)]
+                     for m, ps in state["params"].items()}, before)
+        del state
+    stepped = ("t_ext", "t_cls", "cpc")
+    untouched = all(torch.equal(a, b) for m, ps in p1["fused_opt"][0].items() if m not in stepped
+                    for a, b in zip(ps, p1["fused_opt"][1][m]))
+    p1_abs = max(float((a - b).abs().max()) for m in stepped
+                 for a, b in zip(p1["fused_opt"][0][m], p1["merged"][0][m]))
+    row["fused_phase1"] = {"others_untouched": untouched, "stepped_max_abs": p1_abs}
+    check(untouched, "fused optimizers: a module outside the phase-1 step moved")
+    check(p1_abs <= FUSED_OPT_ATOL, f"fused optimizers: phase-1 params {p1_abs:.3e} off")
+    del p1
+    lap("(a) the fused phase-1 step")
+
+    # (a) the op-by-op route: the stacked pull's folded tap-conv input gradients
+    op = {}
+    tap = layers * 2 * flows  # the forward's tap convs
+    op_expect = {"merged": {**run.idle(), "os_conv_fwd": convs, "gate_fwd": layers * 2 * flows,
+                            "tap_conv_fwd": tap + layers * 5 * flows},
+                 "stacked": {**run.idle(), "os_conv_fwd": convs, "gate_fwd": layers * 2 * flows,
+                             "tap_conv_fwd": tap + layers * 2 * flows}}
+    with environ(**OP_BY_OP), deterministic():
+        for knob in ("merged", "stacked"):
+            state = knob_state(pipes[knob], fresh)
+            op[knob] = run.drive(f"knobs: op-by-op phase-5 pulls {knob}",
+                                 lambda: knob_step(pipes[knob], state, batch, masks, update=False),
+                                 op_expect[knob])
+            del state
+    row["op_by_op"] = {"grad_l2_rel": grads_l2_gap(op["stacked"]["grads"], op["merged"]["grads"]),
+                       **{n: rel_err(op["stacked"][n], op["merged"][n])[1] for n in ("n_t", "n_s")},
+                       "tap_conv_fwd": {k: v["tap_conv_fwd"] for k, v in op_expect.items()}}
+    log(f"[knobs, op-by-op route, stacked vs merged pulls] {json.dumps(row['op_by_op'])}")
+    for n, v in row["op_by_op"]["grad_l2_rel"].items():
+        check(v <= STEP_GRAD_L2_TOL, f"op-by-op stacked pulls: {n} gradients relative L2 {v:.3e}")
+    for n in ("n_t", "n_s"):
+        check(row["op_by_op"][n] <= STEP_LOSS_REL_TOL, f"op-by-op stacked pulls: {n} off")
+    out["step"] = row
+    del steps, merged, unmerged, stacked, fused, op
+    torch.cuda.empty_cache()
+    lap("(a) the op-by-op route")
+
+    # (b) K runs at once, fused optimizers and stacked pulls, from the same K states
+    k_runs = MULTIRUN_K
+    k_batch = [b.expand(k_runs, *b.shape).contiguous() for b in batch]
+    k_expect = {"stacked": {**run.idle(), "os_conv_fwd_runs": convs, "wn_fwd_runs": 2 * flows,
+                            "wn_bwd_runs": 2 * flows},
+                "fused_opt": {**run.idle(), "os_conv_fwd_runs": convs, "wn_fwd_runs": 2 * flows,
+                              "wn_bwd_runs": 5 * flows}}
+    out["multirun"] = {}
+    # each run's models once (as MultiRunStylePipeline.init_states draws them), in the
+    # training state of each knob
+    k_models = [pipe.init_models(torch.Generator().manual_seed(s)) for s in range(k_runs)]
+    lap("(b) the runs' models")
+    ksteps = {}
+    for knob in ("fused_opt", "stacked"):
+        kpipe = pipes[knob]
+        mp = MultiRunStylePipeline(kpipe)
+        states = with_wn_ends(stack_states([kpipe.training_state(copy.deepcopy(m), s + 1)
+                                            for s, m in enumerate(k_models)]),
+                              torch.Generator().manual_seed(18))
+        ones = [unstack_state(states, i) for i in range(k_runs)]
+        with recorded_calls(wn_fused, ["wn_bwd_runs"]) as rec:
+            kstep = ksteps[knob] = run.drive(
+                f"knobs: K={k_runs} phase-5 step {knob}",
+                lambda: knob_step(mp, states, k_batch, masks, update=False), k_expect[knob])
+        runs_a_call = sorted({a[0].shape[0] for a in rec["wn_bwd_runs"].values()})
+        k_row = {"wn_bwd_runs_runs": runs_a_call, "per_run": []}
+        check(runs_a_call == [(3 if knob == "stacked" else 1) * k_runs],
+              f"K={k_runs} {knob}: wn_bwd_runs took {runs_a_call} runs a call")
+        if knob == "fused_opt":
+            # the (K, N) fused update against each run's one-run fused update, same gradients
+            # (its pulls are the default merged ones, which phase 18 holds against one run's)
+            kpipe._phase5_update(states, kstep["losses"], states["mstate"], kstep["grads"],
+                                 kstep["n_t"], kstep["n_s"])
+            worst = 0.0
+            for i, st in enumerate(ones):
+                kpipe._phase5_update(st, {n: v[i] for n, v in kstep["losses"].items()},
+                                     st["mstate"], {m: [None if g is None else g[i] for g in gs]
+                                                    for m, gs in kstep["grads"].items()},
+                                     kstep["n_t"][i], kstep["n_s"][i])
+                worst = max([worst] + [float((a[i] - b).detach().abs().max()) for a, b in
+                                       zip(leaves(states["params"]), leaves(st["params"]))])
+            k_row["update_max_abs"] = worst
+            log(f"[knobs, K={k_runs} fused update vs {k_runs} one-run updates] max abs "
+                f"{worst:.3e}; wn_bwd_runs runs a call {runs_a_call}")
+            check(worst <= FUSED_OPT_ATOL,
+                  f"K={k_runs} fused update {worst:.3e} from the one-run updates")
+        # the stacked pulls against the same K runs' merged pulls (the fused step's), and
+        # against K one-run stacked pulls; where a module's gap passes MULTIRUN_GRAD_L2_TOL, its
+        # controls: phase 18's (the one-run step with the plain OS conv) and the merged K-run
+        # step's own gap from the one-run merged step, which vmap's other summation order
+        # moves as far on some states (PERF.md, PR 16)
+        merged_k = ksteps["fused_opt"]
+        for i, st in enumerate(ones if knob == "stacked" else ()):
+            one = knob_step(kpipe, st, batch, masks, update=False)
+            gap = {"loss_rel": max(rel_err(kstep["losses"][n][i], v)[1]
+                                   for n, v in one["losses"].items()),
+                   "n_rel": max(rel_err(kstep[n][i], one[n])[1] for n in ("n_t", "n_s")),
+                   "grad_l2_rel": grads_l2_gap(kstep["grads"], one["grads"], i),
+                   "vs_merged_k_grad_l2_rel": grads_l2_gap(
+                       kstep["grads"], {m: [None if g is None else g[i] for g in gs]
+                                        for m, gs in merged_k["grads"].items()}, i)}
+            over = [n for n, v in gap["grad_l2_rel"].items() if v > MULTIRUN_GRAD_L2_TOL]
+            if over:
+                with plain_convs(osconv, wn_fused, gate, wn=False):
+                    ctl = knob_step(kpipe, st, batch, masks, update=False)
+                one_merged = knob_step(pipes["merged"], st, batch, masks, update=False)
+                gap["control_grad_l2_rel"] = grads_l2_gap(ctl["grads"], one["grads"])
+                gap["merged_k_grad_l2_rel"] = grads_l2_gap(merged_k["grads"],
+                                                           one_merged["grads"], i)
+            for n in over:
+                allowed = 2 * max(gap["control_grad_l2_rel"][n], gap["merged_k_grad_l2_rel"][n])
+                check(gap["grad_l2_rel"][n] <= allowed,
+                      f"K={k_runs} stacked, run {i} {n}: gradients relative L2 "
+                      f"{gap['grad_l2_rel'][n]:.3e} > {MULTIRUN_GRAD_L2_TOL} and twice the "
+                      f"controls {allowed / 2:.3e}")
+            for n, v in gap["vs_merged_k_grad_l2_rel"].items():
+                check(v <= STEP_GRAD_L2_TOL, f"K={k_runs} stacked, run {i} {n}: relative L2 "
+                                             f"{v:.3e} from the merged K-run step")
+            check(gap["loss_rel"] <= STEP_LOSS_REL_TOL and gap["n_rel"] <= STEP_LOSS_REL_TOL,
+                  f"K={k_runs} stacked, run {i}: {gap}")
+            k_row["per_run"].append(gap)
+        if knob == "stacked":
+            k_row["worst"] = {key: max(max(g[key].values()) if isinstance(g[key], dict)
+                                       else g[key] for g in k_row["per_run"])
+                              for key in ("loss_rel", "n_rel", "grad_l2_rel",
+                                          "vs_merged_k_grad_l2_rel")}
+            log(f"[knobs, K={k_runs} stacked step vs {k_runs} one-run steps and the merged K-run "
+                f"step] {json.dumps(k_row['worst'])}; wn_bwd_runs runs a call {runs_a_call}")
+        out["multirun"][knob] = k_row
+        del states, ones, mp
+        torch.cuda.empty_cache()
+        lap(f"(b) K runs at once, {knob}")
+    del k_models, ksteps
+
+    # (c) the bf16 stacked step: each cotangent of wn_bwd_runs[bf16] against wn_bwd[bf16]
+    state = knob_state(pipes["stacked"], fresh)
+    with environ(**BF16_ENV), deterministic():
+        with recorded_calls(wn_fused, ["wn_bwd_runs"], every=True) as rec:
+            bf = run.drive("knobs: bf16 stacked phase-5 pulls",
+                           lambda: knob_step(pipes["stacked"], state, batch, masks, update=False),
+                           {**run.idle(), "os_conv_fwd": convs, "wn_fwd[bf16]": 2 * flows,
+                            "wn_bwd_runs[bf16]": 2 * flows})
+        cot16 = cotangents_vs_one_call(wn_fused, rec["wn_bwd_runs"], 3)
+        cot16["wn_bwd_runs[bf16]"] = stacked_call_ms(
+            wn_fused, rec["wn_bwd_runs"], wn_work(2 * BATCH, pipe.t_shape[1],
+                                                  pipe.feat_channels // 2, cfg.flow.wn_channels,
+                                                  layers))
+    del state, rec
+    check(all(bool(torch.isfinite(v)) for v in bf["losses"].values()), "bf16 stacked: losses")
+    out["bf16_stacked"] = cot16
+    log(f"[knobs, bf16 stacked pulls] {json.dumps(cot16)}")
+    check(cot16["cotangents"] == 3 * 2 * flows and cot16["kernel_outputs_same_bits"],
+          f"stacked wn_bwd_runs[bf16] against one-cotangent wn_bwd[bf16]: {cot16}")
+    check(cot16["library_outputs_rel"] <= GRAD_REL_TOL, f"bf16 stacked end gradients: {cot16}")
+    del fresh, pipes, bf
+    torch.cuda.empty_cache()
+    lap("(c) the bf16 stacked step")
+
+    # (d) the stacked and fused knobs' K-run step at K = 1 and K = MULTIRUN_K, timed in a
+    # process of its own without CUBLAS_WORKSPACE_CONFIG (phase 18's method).  The default,
+    # merged, is phase 18's sweep of the same run; the unmerged knob (its sweep about 35 s)
+    # and the one-run pipeline's step of each knob (experiments/phase5_step_time.py --knob,
+    # about a minute) would take more than this phase's budget leaves: both scripts time them
+    # outside chip_smoke.py
+    env = {k: v for k, v in os.environ.items() if k != "CUBLAS_WORKSPACE_CONFIG"}
+    knobs = "stacked,fused_opt"
+    proc = subprocess.run([sys.executable, str(REPO / "experiments" / "multirun_time.py"),
+                           "--knob", knobs, "--ks", f"1,{k_runs}", "--rounds", "1"],
+                          capture_output=True, text=True, timeout=600, env=env, cwd=REPO)
+    check(proc.returncode == 0, f"multirun_time.py --knob {knobs} exited {proc.returncode}: "
+                                f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log(f"  multirun_time.py: {line}")
+    out["multirun_time"] = json.loads(lines[-1])
+    for knob, by_k in out["multirun_time"]["by_knob"].items():
+        for k, v in by_k.items():
+            log(f"[knobs timing {knob}, K={k}] step ms={v['median_ms']:.1f} device ms="
+                f"{v['device_ms']:.1f} idle share={v['device_idle_share']:.3f} peak MiB="
+                f"{v['peak_mib']:.0f} on {smi}")
+    lap("(d) the timings")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
@@ -3241,6 +3650,10 @@ def main() -> int:
             run, pipe, state, (tt_train, tt_test, ss_train, ss_test), batch,
             (osconv, wn_fused, gate), layers, (wn_init, weight_norm_weight), make_dataset,
             gradnorm_step, smi)
+
+        clock.start("phase 20")
+        # ---- phase 20: PipelineConfig's GradNorm / optimizer knobs
+        results["knobs"] = knobs_phase(run, pipe, (osconv, wn_fused, gate), batch, smi)
 
     clock.start(None)
     results["phase_s"] = clock.secs

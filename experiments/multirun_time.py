@@ -17,25 +17,38 @@ drawn from each run's generator, as in training) at each K of ``--ks``:
   such as the optimizers' steps), the device's idle share of the traced
   step's wall time, and its 12 largest kernels (device ms, launches);
 * the peak device memory of the K's warm-up step (``max_memory_allocated``
-  after ``reset_peak_memory_stats``), less what the other Ks' states, which
-  stay resident for the turns, hold;
+  after ``reset_peak_memory_stats``), less what was allocated before it but
+  the K's own states (the other Ks' states, which stay resident for the
+  turns, and the runs' models, made once a seed and shared by the knobs);
 * aggregate series/s: 40 K series (20 target, 20 source a run) a step.
 
 TF32 is off, as in chip_smoke.py.  ``--bf16`` turns both bf16 switches on:
 ``FLSTTSC_WN_MXU=bf16`` (the WN kernels' bf16 instances) and
 ``PipelineConfig(compute_dtype="bfloat16")`` (the OS convs in bf16).  Run it
 without ``CUBLAS_WORKSPACE_CONFIG`` (which adds 0.4-0.5 s a step on an
-H100): chip_smoke.py phases 18 and 19 start it with that variable removed.
+H100): chip_smoke.py phases 18, 19 and 20 start it with that variable
+removed.  Importing chip_smoke.py (for ``device_events``) sets it again, so
+the script unsets it after the import where its process started without
+it (from PR 15 to PR 16 the K sweeps ran with it).  ``--knob`` takes one or more of ``merged`` (the default config),
+``unmerged`` (``merged_pullbacks=False``), ``stacked``
+(``stacked_pullbacks=True``) and ``fused_opt`` (``fused_optimizers=True``),
+comma-separated: the sweep of each in turn, its states freed before the
+next (chip_smoke.py phase 20 runs all four so).
 It imports only torch, numpy, the port of the tree it sits in and that
 tree's chip_smoke.py (its ``device_events``).
 
 Usage: python experiments/multirun_time.py [--ks 1,2,4,8] [--rounds 2] [--bf16]
-Prints the card's name and power limit, then one JSON line (the last).
+       [--knob merged,unmerged,stacked,fused_opt]
+Prints the card's name and power limit, then one JSON line (the last): with
+one knob ``{"card", "kind", "bf16", "knob", "by_k"}``, with several
+``by_knob`` (knob -> its ``by_k``) in place of ``by_k``.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
+import dataclasses
 import importlib.util
 import json
 import os
@@ -67,16 +80,22 @@ def batches(k: int, make_dataset):
     return out
 
 
-def sweep(mp, ks, rounds: int, make_dataset, smoke) -> dict:
+def sweep(mp, ks, rounds: int, make_dataset, smoke, models: dict) -> dict:
     """The K sweep on ``mp`` (a ``MultiRunStylePipeline``); ``smoke`` is
-    this tree's chip_smoke.py."""
+    this tree's chip_smoke.py; ``models`` holds each seed's
+    ``init_models``, shared by the knobs (each run's state is the
+    ``init_state`` of its seed: those models in a training state of
+    ``mp``'s config)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from feature_level_style_transfer_for_tsc_tpu_torch.train.multirun import stack_states
 
     runs = {}
     for k in ks:  # every K's states stay resident, so that the steps can take turns
         before = torch.cuda.memory_allocated()
-        runs[k] = {"states": mp.init_states(range(k)), "batch": batches(k, make_dataset),
-                   "step_ms": []}
+        states = stack_states([mp.pipe.training_state(copy.deepcopy(models[s]), s + 1)
+                               for s in range(k)])
+        runs[k] = {"states": states, "batch": batches(k, make_dataset), "step_ms": []}
         runs[k]["resident"] = torch.cuda.memory_allocated() - before
 
     def step(k) -> float:
@@ -87,12 +106,12 @@ def sweep(mp, ks, rounds: int, make_dataset, smoke) -> dict:
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
 
-    for k in ks:  # warm-up, and the peak memory of one K's step, less the other Ks' states
-        others = sum(runs[o]["resident"] for o in ks if o != k)
+    for k in ks:  # warm-up, and the peak memory of one K's step and its own states
         torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated() - runs[k]["resident"]
         torch.cuda.reset_peak_memory_stats()
         step(k)
-        runs[k]["peak_mib"] = (torch.cuda.max_memory_allocated() - others) / 2**20
+        runs[k]["peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2**20
     order = list(ks)
     for _ in range(rounds):
         for k in order:
@@ -118,11 +137,23 @@ def sweep(mp, ks, rounds: int, make_dataset, smoke) -> dict:
 
 
 def main() -> int:
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    started_with = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    spec.loader.exec_module(smoke)
+    if started_with is None:  # chip_smoke.py sets it when imported: time as this process started
+        os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ks", default="1,2,4,8")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--bf16", action="store_true", help="both bf16 switches on")
+    ap.add_argument("--knob", default="merged",
+                    help=f"comma-separated, of {', '.join(smoke.KNOBS)}: each swept in turn")
     args = ap.parse_args()
+    knobs = args.knob.split(",")
+    unknown = [k for k in knobs if k not in smoke.KNOBS]
+    if unknown:
+        ap.error(f"unknown --knob {unknown}; choose from {list(smoke.KNOBS)}")
     if not torch.cuda.is_available():
         print("multirun_time: needs a CUDA card", file=sys.stderr)
         return 2
@@ -140,14 +171,23 @@ def main() -> int:
     if args.bf16:
         os.environ["FLSTTSC_WN_MXU"] = "bf16"
     cfg = PipelineConfig(compute_dtype="bfloat16" if args.bf16 else "float32")
-    pipe = StyleTransferPipeline(*TARGET, *SOURCE, cfg, device="cuda")
     ks = [int(k) for k in args.ks.split(",")]
-    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    by_k = sweep(MultiRunStylePipeline(pipe), ks, args.rounds, make_dataset, smoke)
-    print(json.dumps({"card": smi, "kind": torch.cuda.get_device_name(0), "bf16": args.bf16,
-                      "by_k": by_k}), flush=True)
+    pipe = StyleTransferPipeline(*TARGET, *SOURCE, cfg, device="cuda")
+    models = {s: pipe.init_models(torch.Generator().manual_seed(s)) for s in range(max(ks))}
+    by_knob = {}
+    for knob in knobs:
+        knob_cfg = dataclasses.replace(cfg, **smoke.KNOBS[knob])
+        pipe = StyleTransferPipeline(*TARGET, *SOURCE, knob_cfg, device="cuda")
+        t_knob = time.perf_counter()
+        by_knob[knob] = sweep(MultiRunStylePipeline(pipe), ks, args.rounds, make_dataset, smoke,
+                              models)
+        print(f"knob {knob}: the sweep in {time.perf_counter() - t_knob:.1f} s", flush=True)
+        del pipe
+        torch.cuda.empty_cache()
+    head = {"card": smi, "kind": torch.cuda.get_device_name(0), "bf16": args.bf16}
+    out = ({**head, "knob": knobs[0], "by_k": by_knob[knobs[0]]} if len(knobs) == 1
+           else {**head, "by_knob": by_knob})
+    print(json.dumps(out), flush=True)
     return 0
 
 

@@ -2,10 +2,10 @@
 
 The port's copy of the JAX package's ``config.py``: the phase lengths,
 learning rates, schedules, GradNorm and flow settings of the five-phase
-curriculum, and the voting constants.  Only the JAX package's defaults of its
-execution switches are ported (``merged_pullbacks=True``,
-``fused_optimizers=False``, ``stacked_pullbacks=False``, float32);
-``PipelineConfig`` raises on any other value.
+curriculum, and the voting constants, with the JAX package's execution
+switches: ``compute_dtype``, ``fused_optimizers``, ``merged_pullbacks`` and
+``stacked_pullbacks`` (JAX ``config.py:92-125``), which no CLI sets, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -82,12 +82,16 @@ class PipelineConfig:
     #: >0 soft-clamps the coupling's log-scale to ``c*tanh(log_s/c)``;
     #: 0.0 = exact reference semantics
     log_s_clamp: float = 0.0
-    #: ported: False only
+    #: step the 10 RMSprop modules as ONE flat update with a learning rate
+    #: per element (``train/optim.py`` ``FusedRMSprop``; the same element math)
     fused_optimizers: bool = False
-    #: ported: True only (GradNorm trunk pulls merged where the cross-trunk
-    #: gradients are structurally zero, JAX ``train/pipeline.py:700-744``)
+    #: merge the GradNorm trunk pulls whose cross-trunk gradients are
+    #: structurally zero (t_nf + s_nf, t_c + s_c): 4 pulls a step instead of 6
+    #: (JAX ``train/pipeline.py:700-752``)
     merged_pullbacks: bool = True
-    #: ported: False only
+    #: under merged pulls, the total, t_nf + s_nf and s2t2s_c as ONE backward
+    #: under a batch of three cotangents (the classifier pull stays alone);
+    #: no effect when ``merged_pullbacks`` is False, as in the JAX package
     stacked_pullbacks: bool = False
 
     target_pretrain_epochs: int = 3  # reference :143
@@ -104,19 +108,6 @@ class PipelineConfig:
     flow: FlowConfig = field(default_factory=FlowConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
     gradnorm: GradNormConfig = field(default_factory=GradNormConfig)
-
-    def __post_init__(self):
-        unported = {
-            "fused_optimizers": (self.fused_optimizers, False),
-            "merged_pullbacks": (self.merged_pullbacks, True),
-            "stacked_pullbacks": (self.stacked_pullbacks, False),
-        }
-        for name, (value, ported) in unported.items():
-            if value != ported:
-                raise NotImplementedError(
-                    f"PipelineConfig.{name}={value!r} is not ported; "
-                    f"only {ported!r} is (ROADMAP.md A2)"
-                )
 
 
 @dataclass(frozen=True)

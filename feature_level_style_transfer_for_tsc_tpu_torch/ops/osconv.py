@@ -65,8 +65,10 @@ The tap conv, the flow's dilated kernel-3 conv under
   for a CPU tensor ``tap_conv_plain`` (k shifted matmuls, the JAX package's
   ``_tap_conv_xla``);
 * its backward is the JAX package's ``_tap_conv_bwd``: dx is the same tap
-  conv (the kernel again) on g padded by (k-1)*d each side with the taps
-  flipped and transposed, dw[j] one matmul per tap.
+  conv (the kernel again, through ``TapConvDxCore``) on g padded by (k-1)*d
+  each side with the taps flipped and transposed, dw[j] one matmul per tap.
+  Under a batch of cotangents (``stacked_pullbacks``) dx is one tap conv
+  with the cotangents folded into the batch rows.
 """
 
 from __future__ import annotations
@@ -552,6 +554,38 @@ def _tap(x_pad: torch.Tensor, w: torch.Tensor, dilation: int) -> torch.Tensor:
     return tap_conv_plain(x_pad, w, dilation)
 
 
+class TapConvDxCore(torch.autograd.Function):
+    """``TapConvCore``'s input gradient, the tap conv of the padded g with
+    the flipped, transposed taps, as an op of its own: the kernel on CUDA,
+    the plain version on the CPU.  Its vmap rule takes a batch of
+    cotangents (``train/pipeline.py`` ``batched_pull``: g batched, the taps
+    shared) as ONE tap conv with the cotangent axis folded into the batch
+    rows; batched taps would need a run axis, which the tap conv has not
+    (ROADMAP A6), and raise.  No gradient of its own."""
+
+    @staticmethod
+    def forward(g_pad: torch.Tensor, w_t: torch.Tensor, dilation: int) -> torch.Tensor:
+        return _tap(g_pad, w_t, dilation)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        raise RuntimeError("the tap conv's input gradient has no gradient of its own")
+
+    @staticmethod
+    def vmap(info, in_dims, g_pad, w_t, dilation):
+        g_dim, w_dim = in_dims[:2]
+        if w_dim is not None:
+            raise NotImplementedError(NO_RUN_AXIS.format("tap_conv_fwd (TapConvDxCore)"))
+        g_pad = g_pad.movedim(g_dim, 0)
+        n, b = g_pad.shape[:2]
+        y = _tap(g_pad.reshape(n * b, *g_pad.shape[2:]).contiguous(), w_t, dilation)
+        return y.reshape(n, b, *y.shape[1:]), 0
+
+
 class TapConvCore(torch.autograd.Function):
     """The tap conv with the JAX package's hand-written backward; no run
     axis yet (its vmap rule raises)."""
@@ -582,7 +616,7 @@ class TapConvCore(torch.autograd.Function):
             # by (k-1)*d each side with flipped, transposed taps
             lp = (k - 1) * d
             g_pad = F.pad(g, (0, 0, lp, lp))
-            dx = _tap(g_pad, torch.flip(w, (0,)).transpose(1, 2).contiguous(), d)
+            dx = TapConvDxCore.apply(g_pad, torch.flip(w, (0,)).transpose(1, 2).contiguous(), d)
         if ctx.needs_input_grad[1]:
             g2 = g.reshape(b * t_out, c_out)
             dw = torch.stack([

@@ -32,6 +32,11 @@ and the K-stacked effective weights: on CUDA ``wn_fwd_runs`` and
 kernel: the launches of one run, each run's bits a one-run call's), on the
 CPU the plain versions run by run.
 
+Cotangent batches (``PipelineConfig.stacked_pullbacks``): both Functions'
+backwards go through ``WNBwdCore``, whose vmap rule takes a batch of
+cotangents as the runs of ONE ``wn_bwd_runs`` call, so each cotangent gets
+the one-cotangent call's bits and the launches are those of one call.
+
 bf16 operands (``FLSTTSC_WN_MXU=bf16``, read per call by ``mxu_bf16`` as
 the JAX package's ``_mxu_bf16``): every product the JAX kernels take through
 ``_dot`` (each layer product of both directions, and ``gwe`` outside them)
@@ -590,11 +595,76 @@ def _save(ctx, inputs, output) -> None:
     ctx.bf16 = bf16
 
 
+class WNBwdCore(torch.autograd.Function):
+    """The WN's backward as an op of its own, from ``WNCore`` (``runs``
+    False: one run, ``wn_bwd``) and ``WNRunCore`` (``runs`` True: every
+    operand with a leading K, ``wn_bwd_runs``): the kernel on CUDA, the
+    plain version on the CPU.  Returns ``wn_bwd_plain``'s gradients.
+
+    Its vmap rule takes a batch of cotangents (``train/pipeline.py``
+    ``batched_pull``: a batched g, the saved operands unbatched): ONE
+    ``wn_bwd_runs`` call in which each cotangent is a run (N cotangents of
+    K runs: N*K runs, cotangent c of run k at run c*K + k, reading run k's
+    operands), every shared operand copied out to the cotangents.  The
+    gradients come back per cotangent: they are linear in g, so no two
+    cotangents may share a run.  On the CPU the plain version runs
+    cotangent by cotangent.  No gradient of its own."""
+
+    @staticmethod
+    def forward(x2, g2, aud, skip, w_start, w_cond, b_cond, w_in, b_in, w_rs, w_end,
+                t_len: int, bf16: bool, runs: bool):
+        args = (x2, g2, aud, skip, w_start, w_cond, b_cond, w_in, b_in, w_rs, w_end, t_len)
+        if runs:
+            if use_kernel(g2):
+                return wn_bwd_runs(*args, bf16)
+            return _per_run(wn_bwd_plain, *args, bf16=bf16)
+        return (wn_bwd if use_kernel(g2) else wn_bwd_plain)(*args, bf16)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("the WN backward has no gradient of its own")
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        from .osconv import _runs_first
+
+        *tensors, t_len, bf16, runs = args
+        n = info.batch_size
+        ops = _runs_first(info, in_dims[:11], *tensors)  # (N, [K,] ...), contiguous
+        if runs:  # the cotangent axis in front of the run axis, folded into it
+            k = ops[0].shape[1]
+            ops = [t.reshape(n * k, *t.shape[2:]) for t in ops]
+        if use_kernel(ops[1]):
+            out = wn_bwd_runs(*ops, t_len, bf16)
+        else:
+            out = _per_run(wn_bwd_plain, *ops, t_len, bf16=bf16)
+        if runs:
+            out = tuple(o.reshape(n, k, *o.shape[1:]) for o in out)
+        return out, (0,) * len(out)
+
+
+def _backward(ctx, g, runs: bool):
+    """``WNCore`` / ``WNRunCore``'s backward: g on rows through ``WNBwdCore``."""
+    x, w_start, w_cond, b_cond, w_in, b_in, w_rs, w_end, aud, skip = ctx.saved_tensors
+    if g is None:
+        return (None,) * 12
+    lead, (b, t, h) = x.shape[:-3], x.shape[-3:]
+    x2 = x.reshape(*lead, b * t, h).contiguous()
+    g2 = g.reshape(*lead, b * t, 2 * h).contiguous()
+    gx, *grads = WNBwdCore.apply(x2, g2, aud, skip, w_start, w_cond, b_cond, w_in, b_in, w_rs,
+                                 w_end, t, ctx.bf16, runs)
+    return (gx.reshape(x.shape), *grads, None)
+
+
 class WNCore(torch.autograd.Function):
     """The WN on stacked effective weights and the bf16 flag (``mxu_bf16``):
     kernels on CUDA, plain on CPU.  Returns (y, aud, skip); aud and skip, the
     saved activations, carry no gradient.  Under ``torch.func.vmap`` one
-    ``WNRunCore`` call for all runs."""
+    ``WNRunCore`` call for all runs; its backward is ``WNBwdCore``."""
 
     @staticmethod
     def forward(x, w_start, b_start, w_cond, b_cond, w_in, b_in, w_rs, b_rs, w_end, b_end,
@@ -610,16 +680,7 @@ class WNCore(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g, _g_aud, _g_skip):
-        x, w_start, w_cond, b_cond, w_in, b_in, w_rs, w_end, aud, skip = ctx.saved_tensors
-        if g is None:
-            return (None,) * 12
-        b, t, h = x.shape
-        x2 = x.reshape(b * t, h).contiguous()
-        g2 = g.reshape(b * t, 2 * h).contiguous()
-        bwd = wn_bwd if use_kernel(g2) else wn_bwd_plain
-        gx, *grads = bwd(x2, g2, aud, skip, w_start, w_cond, b_cond, w_in, b_in, w_rs,
-                         w_end, t, ctx.bf16)
-        return (gx.reshape(b, t, h), *grads, None)
+        return _backward(ctx, g, runs=False)
 
     @staticmethod
     def vmap(info, in_dims, *args):
@@ -631,8 +692,9 @@ class WNCore(torch.autograd.Function):
 
 class WNRunCore(torch.autograd.Function):
     """K runs of the WN, x (K, B, T, H) and K-stacked effective weights, and
-    the bf16 flag: ``wn_fwd_runs`` / ``wn_bwd_runs`` on CUDA, the plain
-    versions run by run on the CPU.  Returns (y, aud, skip) with a leading K."""
+    the bf16 flag: ``wn_fwd_runs`` on CUDA, the plain version run by run on
+    the CPU; the backward ``WNBwdCore`` over the K runs.  Returns (y, aud,
+    skip) with a leading K."""
 
     @staticmethod
     def forward(x, *weights_and_flag):
@@ -649,18 +711,7 @@ class WNRunCore(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g, _g_aud, _g_skip):
-        x, w_start, w_cond, b_cond, w_in, b_in, w_rs, w_end, aud, skip = ctx.saved_tensors
-        if g is None:
-            return (None,) * 12
-        runs, b, t, h = x.shape
-        x2 = x.reshape(runs, b * t, h).contiguous()
-        g2 = g.reshape(runs, b * t, 2 * h).contiguous()
-        args = (x2, g2, aud, skip, w_start, w_cond, b_cond, w_in, b_in, w_rs, w_end, t)
-        if use_kernel(g2):
-            gx, *grads = wn_bwd_runs(*args, ctx.bf16)
-        else:
-            gx, *grads = _per_run(wn_bwd_plain, *args, bf16=ctx.bf16)
-        return (gx.reshape(runs, b, t, h), *grads, None)
+        return _backward(ctx, g, runs=True)
 
 
 def wn_apply_fused(params: Dict, x: torch.Tensor, weight_norm_weight) -> torch.Tensor:

@@ -6,7 +6,9 @@ params, mstate and consts:
 * ``['opt'][m]``: ``optax.inject_hyperparams`` over ``optax.flatten`` of
   RMSprop (``inner_state[0].nu``) or, for CPC, Adam
   (``inner_state[0].{count,mu,nu}``), the moments ONE flat vector per module
-  in ``jax.tree_util`` leaf order (``jax_order``);
+  in ``jax.tree_util`` leaf order (``jax_order``); with
+  ``fused_optimizers``, ``['opt']['fused']`` (``FusedRMSState``: the RMSprop
+  modules' flat ``v`` and per-element ``lr``) and ``['opt']['cpc']`` instead;
 * ``['sched'][m]``, the StepLR counters, and ``['plateau'][m]``;
 * ``['gradnorm'][k]``: weights, first sigmoid losses, a flag and the
   weights' Adam as ``opt_state[0]``;
@@ -36,7 +38,15 @@ import torch
 
 from ..io.checkpoint import flatten, from_jax_params, register_namedtuples, tree_items
 from ..losses.gradnorm import GradNormState
-from .optim import ADAM_HYPERPARAMS, RMSPROP_HYPERPARAMS, PlateauState, set_lr
+from .optim import (
+    ADAM_HYPERPARAMS,
+    RMSPROP_HYPERPARAMS,
+    FusedRMSprop,
+    FusedRMSState,
+    PlateauState,
+    jax_order,
+    set_lr,
+)
 
 MODEL_KEYS = ("params", "mstate", "consts")
 
@@ -67,17 +77,7 @@ class SavedGradNorm(NamedTuple):
 
 
 register_namedtuples(InjectHyperparamsState, ScaleByRmsState, ScaleByAdamState, SavedGradNorm,
-                     PlateauState)
-
-
-def jax_order(tree) -> List[torch.Tensor]:
-    """The tensors of a tree in ``jax.tree_util`` leaf order: dict keys
-    sorted at every level, lists and NamedTuples in their own order."""
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in jax_order(tree[k])]
-    return [leaf for v in tree for leaf in jax_order(v)]
+                     PlateauState, FusedRMSState)
 
 
 def exact_scalar(v: float) -> np.ndarray:
@@ -163,6 +163,33 @@ def load_optax_state(optimizer: torch.optim.Optimizer, params,
     set_lr(optimizer, float(saved.hyperparams["learning_rate"]))
 
 
+def opt_saved(opt: Dict, params: Dict) -> Dict:
+    """``state["opt"]`` as the JAX package's ``['opt']``: each module's
+    optax state (``optax_state``), and a fused RMSprop as its
+    ``FusedRMSState`` (``v``, ``lr``) under ``['fused']``."""
+    return {m: o.state if isinstance(o, FusedRMSprop) else optax_state(o, params[m])
+            for m, o in opt.items()}
+
+
+@torch.no_grad()
+def load_opt(opt: Dict, params: Dict, saved: Mapping) -> None:
+    """The inverse of ``opt_saved``, into the optimizers of a fresh state of
+    the same layout (per module, or fused: ``fused_optimizers``)."""
+    if set(saved) != set(opt):
+        raise ValueError(f"the saved optimizer state holds {sorted(saved)}, this state "
+                         f"{sorted(opt)}: another fused_optimizers setting")
+    for m, o in opt.items():
+        if not isinstance(o, FusedRMSprop):
+            load_optax_state(o, params[m], saved[m])
+            continue
+        for key in FusedRMSState._fields:
+            have, got = getattr(o, key), getattr(saved[m], key)
+            if tuple(got.shape) != tuple(have.shape):
+                raise ValueError(f"opt/fused/{key}: {tuple(got.shape)}, the port's "
+                                 f"{tuple(have.shape)}")
+            have.copy_(got)  # in place: the leaves' views read these buffers
+
+
 def _gradnorm_saved(g: GradNormState) -> SavedGradNorm:
     count, flat = _moments(g.optimizer, [g.weights])
     return SavedGradNorm(g.weights, g.initial_sigmoid_loss, np.bool_(g.initialized),
@@ -196,7 +223,7 @@ def state_to_flat(state: Dict) -> Dict[str, np.ndarray]:
     (``exact_scalar``)."""
     return flatten({
         **{k: state[k] for k in MODEL_KEYS},
-        "opt": {m: optax_state(o, state["params"][m]) for m, o in state["opt"].items()},
+        "opt": opt_saved(state["opt"], state["params"]),
         "sched": {m: np.int32(v) for m, v in state["sched"].items()},
         "plateau": {m: PlateauState(exact_scalar(p.lr), exact_scalar(p.best), np.int32(p.num_bad))
                     for m, p in state["plateau"].items()},
@@ -220,8 +247,7 @@ def _load_model(state: Dict, flat: Mapping[str, np.ndarray], keys) -> Dict:
             leaf.copy_(saved)
     skip = tuple(f"[{k!r}]" for k in keys)
     saved = from_jax_params({k: v for k, v in flat.items() if not k.startswith(skip)})
-    for m, o in state["opt"].items():
-        load_optax_state(o, state["params"][m], saved["opt"][m])
+    load_opt(state["opt"], state["params"], saved["opt"])
     return saved
 
 

@@ -19,8 +19,14 @@ so the host's launch work is spread over K runs:
   gradient in its own slice, because the runs share nothing; GradNorm's
   trunk norms are taken per run (``_phase5_pulls(per_run=True)``);
 * the updates are ``StackedRMSprop`` / ``StackedAdam`` (``train/optim.py``)
-  with a learning rate a run: the plateau schedules diverge per run, while
-  the StepLR counters are shared (every run counts the same epochs).
+  with a learning rate a run (with ``fused_optimizers``: one K-run
+  ``FusedRMSprop``, a learning rate a run and element): the plateau
+  schedules diverge per run, while the StepLR counters are shared (every
+  run counts the same epochs);
+* the pipeline config's GradNorm knobs hold here too (``merged_pullbacks``,
+  ``stacked_pullbacks``: ``_phase5_pulls(per_run=True)``), as the JAX
+  package's multirun vmaps the same step; under ``stacked_pullbacks`` the
+  batched backward reaches ``wn_bwd_runs`` with 3K runs.
 
 Randomness is drawn outside the transform, per run, in the order
 ``StyleTransferPipeline.run`` draws it: each run's batch orders from its own
@@ -50,7 +56,14 @@ from ..data.batching import epoch_batches
 from ..losses.gradnorm import GradNormState
 from ..models.cpc import draw_anchor
 from ..models.critics import draw_dropout_masks
-from .optim import plateau_step, set_lr, stack_optimizers, unstack_optimizer
+from .optim import (
+    FusedRMSprop,
+    plateau_step,
+    stack_fused,
+    stack_optimizers,
+    unstack_fused,
+    unstack_optimizer,
+)
 from .pipeline import (
     PHASE3_METRICS,
     PHASE4_METRICS,
@@ -110,12 +123,22 @@ def _unstack_gradnorm(g: GradNormState, i: int) -> GradNormState:
     return out
 
 
+def _stack_opt(optimizers, params: Dict, m: str):
+    """K runs' optimizers of entry ``m`` of ``opt`` over the stacked
+    ``params``: a stacked optimizer, or for ``"fused"`` a K-run
+    ``FusedRMSprop``."""
+    if isinstance(optimizers[0], FusedRMSprop):
+        return stack_fused(optimizers, {n: params[n] for n in optimizers[0].names})
+    return stack_optimizers(optimizers, leaves(params[m]))
+
+
 def stack_states(states: Sequence[Dict]) -> Dict:
     """K training states of one pipeline (``StyleTransferPipeline.training_state``
     or ``init_state``) as one stacked state: parameters as leaves with a
     leading run axis that require grad, model state and constants stacked
     (the integer step counters shared, and checked equal), one stacked
-    optimizer a module, the shared StepLR counters, a list of K plateau
+    optimizer a module (with ``fused_optimizers``: one K-run
+    ``FusedRMSprop`` and CPC's stacked Adam), the shared StepLR counters, a list of K plateau
     states a module, GradNorm weights (K, 2) and (K, 3), and the K
     generators."""
     first = states[0]
@@ -135,8 +158,7 @@ def stack_states(states: Sequence[Dict]) -> Dict:
         "params": params,
         "mstate": tree_map(stack_model, *[s["mstate"] for s in states]),
         "consts": tree_map(stack_model, *[s["consts"] for s in states]),
-        "opt": {m: stack_optimizers([s["opt"][m] for s in states], leaves(params[m]))
-                for m in first["opt"]},
+        "opt": {m: _stack_opt([s["opt"][m] for s in states], params, m) for m in first["opt"]},
         "sched": dict(first["sched"]),
         "plateau": {m: [s["plateau"][m] for s in states] for m in first["plateau"]},
         "gradnorm": {k: _stack_gradnorm([s["gradnorm"][k] for s in states])
@@ -160,7 +182,9 @@ def unstack_state(states: Dict, i: int) -> Dict:
         "params": params,
         "mstate": tree_map(one, states["mstate"]),
         "consts": tree_map(one, states["consts"]),
-        "opt": {m: unstack_optimizer(o, i, leaves(params[m])) for m, o in states["opt"].items()},
+        "opt": {m: unstack_fused(o, i, {n: params[n] for n in o.names})
+                if isinstance(o, FusedRMSprop) else unstack_optimizer(o, i, leaves(params[m]))
+                for m, o in states["opt"].items()},
         "sched": dict(states["sched"]),
         "plateau": {m: ps[i] for m, ps in states["plateau"].items()},
         "gradnorm": {k: _unstack_gradnorm(g, i) for k, g in states["gradnorm"].items()},
@@ -264,7 +288,7 @@ class MultiRunStylePipeline(ModuleSteps):
         ps = [plateau_step(p, v, factor=o.plateau_factor, min_lr=o.plateau_min_lr)
               for p, v in zip(states["plateau"][name], metrics.tolist())]
         states["plateau"][name] = ps
-        set_lr(states["opt"][name], [p.lr for p in ps])
+        self._set_module_lr(states, name, [p.lr for p in ps])
 
     def _train(self, states: Dict, losses: Dict, new_m: Dict, names) -> None:
         """The runs' summed total through the stacked leaves, each module's
@@ -345,8 +369,9 @@ class MultiRunStylePipeline(ModuleSteps):
     def phase5_grads(self, states: Dict, bt, lt, bs, ls, epoch: int,
                      cpc_anchors: Optional[Sequence[int]] = None, dropout_masks=None):
         """``StyleTransferPipeline.phase5_grads`` of every run, from (K, B,
-        ...) batches: one vmapped forward and the four merged pulls, each
-        through the stacked leaves.  Returns (losses (K,), new_m, feats,
+        ...) batches: one vmapped forward and the pulls of the config's
+        knobs (``_phase5_pulls(per_run=True)``), each through the stacked
+        leaves.  Returns (losses (K,), new_m, feats,
         grads (K, ...) per module, n_t (K, 2), n_s (K, 3)).  Draws the anchors
         and then the dropout masks of every run unless pinned."""
         pipe = self.pipe

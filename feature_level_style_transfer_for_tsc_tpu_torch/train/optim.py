@@ -13,17 +13,37 @@ stacked leaves (a leading run axis, ``train/multirun.py``), with one
 learning rate a run: torch's single-tensor update written out on the
 stacked tensors (the same operations in the same order, so on the CPU each
 run's step is torch's, bit for bit), the step count shared.
+
+``FusedRMSprop`` is the JAX package's fused RMSprop
+(``PipelineConfig.fused_optimizers``, its ``train/optim.py:106-164``): the
+RMSprop modules as one flat second moment ``v`` and one flat learning rate a
+element ``lr`` (a module's slice holds its learning rate), in the JAX
+package's flat order (modules sorted, each module's leaves in
+``jax.tree_util`` order, ``jax_order``), optionally with a leading run axis.
+Each step updates every leaf of the stepped modules through views of the
+two buffers, so nothing is raveled; a module outside the step keeps its
+values and its slice of ``v`` bit for bit.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, List, NamedTuple, Sequence, Union
+from typing import Dict, Iterable, List, Mapping, NamedTuple, Optional, Sequence, Union
 
 import torch
 
 #: the hyperparameters but the learning rate, under the JAX package's optax names
 RMSPROP_HYPERPARAMS = {"decay": 0.99, "eps": 1e-8, "initial_scale": 0.0}
 ADAM_HYPERPARAMS = {"b1": 0.9, "b2": 0.999, "eps": 1e-8, "eps_root": 0.0}
+
+
+def jax_order(tree) -> List[torch.Tensor]:
+    """The tensors of a tree in ``jax.tree_util`` leaf order: dict keys
+    sorted at every level, lists and NamedTuples in their own order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in jax_order(tree[k])]
+    return [leaf for v in tree for leaf in jax_order(v)]
 
 
 def make_rmsprop(params: Iterable[torch.Tensor], lr: float) -> torch.optim.Optimizer:
@@ -154,6 +174,124 @@ def unstack_optimizer(stacked: StackedOptimizer, run: int,
             opt.state[p] = {"step": torch.tensor(float(stacked.count)),
                             **{k: stacked.state[k][i][run].clone() for k in stacked.keys}}
     return opt
+
+
+class FusedRMSState(NamedTuple):
+    """The JAX package's ``FusedRMSState``: the flat second moment ``v`` and
+    the flat per-element learning rate ``lr`` (each (N,), or (K, N) for K
+    runs)."""
+
+    v: torch.Tensor
+    lr: torch.Tensor
+
+
+class FusedRMSprop:
+    """The RMSprop modules of ``modules`` (name -> parameter tree) as one
+    flat update with a learning rate per element (decay 0.99, eps 1e-8
+    outside the sqrt: ``RMSPROP_HYPERPARAMS``).  The flat order is the JAX
+    package's: modules sorted, each module's leaves in ``jax_order``.
+    ``runs``: every leaf carries a leading run axis of K runs, ``v`` and
+    ``lr`` are (K, N) and a learning rate is one float or K.  ``state``:
+    the buffers to hold (else ``v`` zeros and each module's ``lrs``).
+
+    ``step(names)`` updates the leaves of the named modules from each
+    leaf's ``.grad``, as a torch optimizer does."""
+
+    def __init__(self, modules: Mapping[str, object], lrs: Optional[Mapping[str, object]] = None,
+                 runs: Optional[int] = None, state: Optional[FusedRMSState] = None):
+        self.names = tuple(sorted(modules))
+        self.runs = runs
+        self.leaves = {n: jax_order(modules[n]) for n in self.names}
+        lead = () if runs is None else (runs,)
+        self.offsets: Dict[str, tuple] = {}
+        pos = 0
+        for n in self.names:
+            size = sum(p[0].numel() if runs else p.numel() for p in self.leaves[n])
+            self.offsets[n] = (pos, pos + size)
+            pos += size
+        if state is None:
+            device = self.leaves[self.names[0]][0].device
+            state = FusedRMSState(torch.zeros(*lead, pos, device=device),
+                                  torch.zeros(*lead, pos, device=device))
+        if tuple(state.v.shape) != (*lead, pos) or tuple(state.lr.shape) != (*lead, pos):
+            raise ValueError(f"fused RMSprop buffers {tuple(state.v.shape)} and "
+                             f"{tuple(state.lr.shape)}, the modules' {(*lead, pos)}")
+        self.v, self.lr = state.v, state.lr
+        # each leaf's (v, lr) views, in the leaf's shape (run axis first)
+        self.views = {}
+        for n in self.names:
+            lo, views = self.offsets[n][0], []
+            for p in self.leaves[n]:
+                size = p[0].numel() if runs else p.numel()
+                views.append((self.v[..., lo : lo + size].view(p.shape),
+                              self.lr[..., lo : lo + size].view(p.shape)))
+                lo += size
+            self.views[n] = views
+        for n, lr in (lrs or {}).items():
+            self.set_lr(n, lr)
+
+    @property
+    def state(self) -> FusedRMSState:
+        return FusedRMSState(self.v, self.lr)
+
+    def set_lr(self, name: str, lr: Union[float, Sequence[float]]) -> None:
+        """Module ``name``'s slice of ``lr``: one float, or one a run."""
+        lo, hi = self.offsets[name]
+        if self.runs is None:
+            self.lr[lo:hi] = float(lr)
+            return
+        lrs = [float(lr)] * self.runs if isinstance(lr, (int, float)) else [float(v) for v in lr]
+        if len(lrs) != self.runs:
+            raise ValueError(f"{len(lrs)} learning rates for {self.runs} runs")
+        self.lr[:, lo:hi] = torch.tensor(lrs, dtype=torch.float32, device=self.lr.device)[:, None]
+
+    @torch.no_grad()
+    def step(self, names: Iterable[str]) -> None:
+        """One update of the named modules' leaves from their ``.grad``
+        (JAX ``fused_rmsprop_update`` with those modules in the step mask):
+        ``v = 0.99 v + 0.01 g*g``, ``p += -lr * g / (sqrt(v) + eps)``, in
+        torch ``RMSprop``'s order of operations."""
+        stepped = set(names)
+        unknown = stepped - set(self.names)
+        if unknown:
+            raise KeyError(f"modules {sorted(unknown)} are not fused")
+        ps, gs, vs, lrs = [], [], [], []
+        for n in self.names:
+            if n in stepped:
+                for p, (v, lr) in zip(self.leaves[n], self.views[n]):
+                    ps.append(p)
+                    gs.append(torch.zeros_like(p) if p.grad is None else p.grad)
+                    vs.append(v)
+                    lrs.append(lr)
+        if not ps:
+            return
+        h = RMSPROP_HYPERPARAMS
+        torch._foreach_mul_(vs, h["decay"])
+        torch._foreach_addcmul_(vs, gs, gs, value=1 - h["decay"])
+        avg = torch._foreach_sqrt(vs)
+        torch._foreach_add_(avg, h["eps"])
+        upd = torch._foreach_mul(torch._foreach_neg(lrs), gs)
+        torch._foreach_div_(upd, avg)
+        torch._foreach_add_(ps, upd)  # torch's addcdiv_(g, avg, value=-lr), its order
+
+    def zero_grad(self, names: Iterable[str]) -> None:
+        for n in names:
+            for p in self.leaves[n]:
+                p.grad = None
+
+
+def stack_fused(fused: Sequence[FusedRMSprop], modules: Mapping[str, object]) -> FusedRMSprop:
+    """K one-run fused optimizers as one over ``modules``, the stacked
+    leaves of K runs."""
+    return FusedRMSprop(modules, runs=len(fused), state=FusedRMSState(
+        torch.stack([f.v for f in fused]).contiguous(), torch.stack([f.lr for f in fused]).contiguous()))
+
+
+def unstack_fused(stacked: FusedRMSprop, run: int, modules: Mapping[str, object]) -> FusedRMSprop:
+    """Run ``run`` of a stacked fused optimizer over ``modules``, that run's
+    leaves."""
+    return FusedRMSprop(modules, state=FusedRMSState(stacked.v[run].clone(),
+                                                     stacked.lr[run].clone()))
 
 
 def set_lr(optimizer, lr: Union[float, Sequence[float]]) -> None:

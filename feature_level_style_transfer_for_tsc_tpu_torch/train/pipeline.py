@@ -13,14 +13,18 @@ Counterpart of the JAX package's ``train/pipeline.py`` (reference
 
 PyTorch idiom inside: each phase-epoch is a Python loop over stacked
 batches; parameters are leaf tensors updated in place by one torch optimizer
-per module; BatchNorm statistics, NoiseTransfer averages and critic counters
-are explicit state under the JAX package's keys.  Phase 5 runs ONE forward and
-takes the GradNorm trunk gradients with ``torch.autograd.grad`` on the loss
-vector ``[total, t_nf, t_c, s_nf, s_c, s2t2s_c]`` seeded one-hot, merged as
-the JAX package merges them (``merged_pullbacks``): total; t_nf + s_nf; t_c +
-s_c; s2t2s_c.  Each pull names only the seeded losses as outputs, so autograd
+per module (``fused_optimizers``: one ``FusedRMSprop`` for the RMSprop
+modules, and CPC's Adam); BatchNorm statistics, NoiseTransfer averages and
+critic counters are explicit state under the JAX package's keys.  Phase 5
+runs ONE forward and takes the GradNorm trunk gradients with
+``torch.autograd.grad`` on the loss vector ``[total, t_nf, t_c, s_nf, s_c,
+s2t2s_c]`` seeded one-hot, merged as the JAX package merges them
+(``merged_pullbacks``, the default): total; t_nf + s_nf; t_c + s_c;
+s2t2s_c.  Each pull names only the seeded losses as outputs, so autograd
 walks only their ancestors (the JAX package gets that from dead-code
-elimination of the zero seeds).
+elimination of the zero seeds).  Unmerged, the total and each GradNorm loss
+are pulled alone; ``stacked_pullbacks`` pulls the total, t_nf + s_nf and
+s2t2s_c as one backward under a batch of cotangents (``batched_pull``).
 
 Randomness (batch order, CPC anchors, CDAN dropout) comes from
 ``torch.Generator``s; the anchors and dropout masks can be pinned per call.
@@ -84,7 +88,7 @@ from ..ops import resolve_device
 from ..structure import total_out_channels
 from . import jax_state
 from .classifier import build_specs
-from .optim import clip_params, make_adam, make_rmsprop, plateau_init, plateau_step, set_lr
+from .optim import FusedRMSprop, clip_params, make_adam, make_rmsprop, plateau_init, plateau_step
 from .steps import ModuleSteps, batched_argmax, detached, leaves
 
 #: checkpoint key prefixes of the target model within a full pipeline state
@@ -96,6 +100,8 @@ STEPLR_MODULES = ("t_ext", "t_cls", "s_ext", "dim_uni", "s_cls", "noise", "cpc")
 PLATEAU_MODULES = ("prob_trans", "nf", "ad", "fd")
 ALL_MODULES = ("t_ext", "t_cls", "s_ext", "dim_uni", "s_cls", "prob_trans",
                "nf", "noise", "ad", "fd", "cpc")
+#: the modules stepped by RMSprop, fused into one update under ``fused_optimizers``
+RMS_MODULES = tuple(n for n in ALL_MODULES if n != "cpc")
 #: the metrics of a phase-3 and a phase-4 epoch, in the JAX package's order
 PHASE3_METRICS = ("t_c_loss", "t_sl_loss", "s_c_loss", "s_sl_loss")
 PHASE4_METRICS = ("t_nf_loss", "s_nf_loss", "t_c_loss", "s_c_loss")
@@ -107,6 +113,25 @@ PHASE5_STEPLR = ("t_ext", "t_cls", "cpc", "s_ext", "dim_uni", "s_cls", "noise")
 PHASE5_PLATEAU = (("prob_trans", "s2t2s_c"), ("nf", "t_nf"), ("ad", "cdan"), ("fd", "fd"))
 #: the feature sets dumped for t-SNE (reference train_and_test.py:792-797)
 FEATURE_KEYS = ("t_feat", "s2t_feat", "s_feat", "s_pool", "t2s_pool", "s2t2s_pool")
+
+
+def batched_pull(outputs: Sequence[torch.Tensor], inputs: Sequence[torch.Tensor],
+                 cotangents: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """ONE backward of ``outputs`` under a batch of cotangents (each (N,
+    *output.shape)): the gradient of every input, (N, *input.shape), zero
+    where an input is unused; the graph is kept.  The counterpart of JAX's
+    ``jax.vmap(pullback)``: ``torch.func.vmap`` over ``torch.autograd.grad``,
+    so each node's backward runs once on the batch, and the kernels'
+    backward Functions take it through their vmap rules (one run-axis
+    launch for the N cotangents).  ``torch.autograd.grad(...,
+    is_grads_batched=True)`` would not do: it batches with the legacy vmap,
+    which runs a Function's forward on its batched tensors and never reaches
+    its vmap rule."""
+    def pull(*gs):
+        return torch.autograd.grad(outputs, inputs, gs, retain_graph=True, allow_unused=True,
+                                   materialize_grads=True)
+
+    return list(torch.func.vmap(pull)(*cotangents))
 
 
 def _batch(a, device, dtype=None) -> torch.Tensor:
@@ -240,17 +265,23 @@ class StyleTransferPipeline(TargetPredictor, ModuleSteps):
     def training_state(self, models: Dict, seed: int) -> Dict:
         """``models`` (params, mstate, consts) plus what training carries:
         one optimizer per module over its parameter tensors (made leaves that
-        require grad), StepLR counters, plateau states, GradNorm weights and
+        require grad; with ``fused_optimizers`` one ``FusedRMSprop`` for the
+        RMSprop modules, under ``"fused"``, and CPC's Adam), StepLR counters, plateau states, GradNorm weights and
         the generator of CPC anchors and CDAN dropout."""
         g = self.config.gradnorm
         params = models["params"]
         for p in leaves(params):
             p.requires_grad_(True)
-        opt = {
-            name: (make_adam if name == "cpc" else make_rmsprop)(leaves(params[name]),
-                                                                 self.base_lr[name])
-            for name in ALL_MODULES
-        }
+        if self.config.fused_optimizers:  # JAX train/pipeline.py:198-205
+            opt = {"fused": FusedRMSprop({n: params[n] for n in RMS_MODULES},
+                                         {n: self.base_lr[n] for n in RMS_MODULES}),
+                   "cpc": make_adam(leaves(params["cpc"]), self.base_lr["cpc"])}
+        else:
+            opt = {
+                name: (make_adam if name == "cpc" else make_rmsprop)(leaves(params[name]),
+                                                                     self.base_lr[name])
+                for name in ALL_MODULES
+            }
         return {
             "params": params,
             "mstate": models["mstate"],
@@ -305,7 +336,7 @@ class StyleTransferPipeline(TargetPredictor, ModuleSteps):
         ps = plateau_step(state["plateau"][name], metric, factor=o.plateau_factor,
                           min_lr=o.plateau_min_lr)
         state["plateau"][name] = ps
-        set_lr(state["opt"][name], ps.lr)
+        self._set_module_lr(state, name, ps.lr)
 
     # ------------------------------------------------------------ phases ---
 
@@ -528,7 +559,7 @@ class StyleTransferPipeline(TargetPredictor, ModuleSteps):
 
     def phase5_grads(self, state: Dict, bt, lt, bs, ls, epoch: int,
                      cpc_anchors: Optional[Sequence[int]] = None, dropout_masks=None):
-        """One forward and the four merged pulls of a phase-5 step.
+        """One forward and the pulls of a phase-5 step (``_phase5_pulls``).
 
         Returns (losses, new_m, feats, grads of the total per module, n_t
         (2,), n_s (3,)): ``n_t`` from the t_nf+t_c pulls on the t_ext trunk,
@@ -545,7 +576,18 @@ class StyleTransferPipeline(TargetPredictor, ModuleSteps):
         one a run of stacked parameters (``train/multirun.py``); the total is
         their sum, whose gradient in each run's slice is that run's (the runs
         share nothing), and each norm is taken per run, over every axis but
-        the first."""
+        the first.
+
+        The pulls follow the config's knobs, as JAX ``train/pipeline.py:
+        700-752`` takes them: ``merged_pullbacks`` (default) pulls the total,
+        t_nf + s_nf, t_c + s_c and s2t2s_c (the cross-trunk gradients of the
+        merged pairs are structurally zero); unmerged, the total and each of
+        the five GradNorm losses alone; ``stacked_pullbacks`` (merged only)
+        pulls the total, t_nf + s_nf and s2t2s_c as ONE backward under a
+        batch of three cotangents (``batched_pull``, the cotangent axis in
+        front of any run axis), and t_c + s_c alone, which reaches only the
+        classifiers' ancestors."""
+        cfg = self.config
         params = state["params"]
         gn = state["gradnorm"]
         loss_t = torch.stack([losses["t_nf"], losses["t_c"]], dim=-1)
@@ -557,7 +599,6 @@ class StyleTransferPipeline(TargetPredictor, ModuleSteps):
             + w[0] * losses["cdan"] + w[1] * losses["fd"] + w[2] * losses["t_sl"]
             + w[3] * losses["s_sl"]
         ).sum()
-        grads = self._grads(total, state, ALL_MODULES, retain_graph=True)
         t_trunk = leaves(params["t_ext"]["block"])
         s_trunk = leaves(params["s_ext"]["block"])
 
@@ -566,24 +607,54 @@ class StyleTransferPipeline(TargetPredictor, ModuleSteps):
                 return torch.linalg.vector_norm(x)
             return torch.linalg.vector_norm(x.reshape(x.shape[0], -1), dim=1)
 
+        def trunk_norm(g):
+            return sum(norm(x) for x in g if x is not None)
+
         def norms(outputs, trunks, retain=True):
             outputs = [o.sum() for o in (outputs if isinstance(outputs, list) else [outputs])]
             g = torch.autograd.grad(outputs, [p for t in trunks for p in t],
                                     retain_graph=retain, allow_unused=True)
             out, j = [], 0
             for t in trunks:
-                out.append(sum(norm(x) for x in g[j : j + len(t)] if x is not None))
+                out.append(trunk_norm(g[j : j + len(t)]))
                 j += len(t)
             return out
 
-        # one pull per seed: e_t_nf + e_s_nf, e_t_c + e_s_c, e_s2t2s_c; the
-        # cross-trunk gradients of the merged pairs are structurally zero
-        n_nf_t, n_nf_s = norms([losses["t_nf"], losses["s_nf"]], (t_trunk, s_trunk))
-        n_c_t, n_c_s = norms([losses["t_c"], losses["s_c"]], (t_trunk, s_trunk))
-        (n_5_s,) = norms(losses["s2t2s_c"], (s_trunk,), retain=False)
-        n_t = torch.stack([n_nf_t, n_c_t], dim=-1).detach()
-        n_s = torch.stack([n_nf_s, n_c_s, n_5_s], dim=-1).detach()
-        return grads, n_t, n_s
+        if not cfg.merged_pullbacks:
+            # six pulls: the total, then each GradNorm loss alone on its trunk
+            grads = self._grads(total, state, ALL_MODULES, retain_graph=True)
+            n_t = [norms(losses[k], (t_trunk,))[0] for k in ("t_nf", "t_c")]
+            n_s = [norms(losses[k], (s_trunk,), retain=k != "s2t2s_c")[0]
+                   for k in ("s_nf", "s_c", "s2t2s_c")]
+        elif cfg.stacked_pullbacks:
+            named = [leaves(params[n]) for n in ALL_MODULES]
+            flat = [p for ps in named for p in ps]
+            # seeds of [total, t_nf, s_nf, s2t2s_c], one row a pull: e_total;
+            # e_t_nf + e_s_nf; e_s2t2s_c
+            seeds = torch.eye(3, device=total.device)[:, [0, 1, 1, 2]]
+            outputs = [total, losses["t_nf"], losses["s_nf"], losses["s2t2s_c"]]
+            cotangents = [seeds[:, j].reshape(3, *([1] * o.dim())).expand(3, *o.shape)
+                          for j, o in enumerate(outputs)]
+            g = batched_pull(outputs, flat, cotangents)
+            grads, i = {}, 0
+            for n, ps in zip(ALL_MODULES, named):
+                grads[n] = [x[0] for x in g[i : i + len(ps)]]
+                i += len(ps)
+            by_id = {id(p): x for p, x in zip(flat, g)}
+            g_t = [by_id[id(p)] for p in t_trunk]
+            g_s = [by_id[id(p)] for p in s_trunk]
+            n_c_t, n_c_s = norms([losses["t_c"], losses["s_c"]], (t_trunk, s_trunk), retain=False)
+            n_t = [trunk_norm([x[1] for x in g_t]), n_c_t]
+            n_s = [trunk_norm([x[1] for x in g_s]), n_c_s, trunk_norm([x[2] for x in g_s])]
+        else:
+            # one pull per seed: e_t_nf + e_s_nf, e_t_c + e_s_c, e_s2t2s_c; the
+            # cross-trunk gradients of the merged pairs are structurally zero
+            grads = self._grads(total, state, ALL_MODULES, retain_graph=True)
+            n_nf_t, n_nf_s = norms([losses["t_nf"], losses["s_nf"]], (t_trunk, s_trunk))
+            n_c_t, n_c_s = norms([losses["t_c"], losses["s_c"]], (t_trunk, s_trunk))
+            (n_5_s,) = norms(losses["s2t2s_c"], (s_trunk,), retain=False)
+            n_t, n_s = [n_nf_t, n_c_t], [n_nf_s, n_c_s, n_5_s]
+        return (grads, torch.stack(n_t, dim=-1).detach(), torch.stack(n_s, dim=-1).detach())
 
     def _phase5_update(self, state: Dict, losses: Dict, new_m: Dict, grads, n_t, n_s) -> None:
         """GradNorm, all 11 module updates, the WGAN clip and the new model

@@ -3,7 +3,8 @@
 ``StyleTransferPipeline`` (``train/pipeline.py``), ``OSCNNClassifier``
 (``train/classifier.py``) and ``BucketedOSCNNClassifier``
 (``train/bucketed.py``) keep their parameters as leaf tensors in nested
-dictionaries, one torch optimizer per named module in ``state["opt"]``, and
+dictionaries, one torch optimizer per named module in ``state["opt"]`` (or,
+with ``fused_optimizers``, one fused RMSprop for the RMSprop modules), and
 step each module's optimizer once a batch through ``ModuleSteps``; their
 evaluation runs fixed-size batches through ``batched_argmax``.
 """
@@ -61,12 +62,32 @@ class ModuleSteps:
 
     def _apply_updates(self, state: Dict, names: Sequence[str], grads: Dict[str, list]) -> None:
         """One step of each named module's optimizer.  A parameter that got
-        no gradient steps with zero, as in the JAX package."""
+        no gradient steps with zero, as in the JAX package.  The modules of a
+        fused optimizer (``state["opt"]["fused"]``, ``fused_optimizers``)
+        step in one update of it (JAX ``train/pipeline.py:277-296``)."""
+        fused = state["opt"].get("fused")
+        in_fused = [n for n in names if fused is not None and n in fused.offsets]
         for name in names:
             for p, g in zip(leaves(state["params"][name]), grads[name]):
                 p.grad = torch.zeros_like(p) if g is None else g
-            state["opt"][name].step()
-            state["opt"][name].zero_grad(set_to_none=True)
+            if name not in in_fused:
+                state["opt"][name].step()
+                state["opt"][name].zero_grad(set_to_none=True)
+        if in_fused:
+            fused.step(in_fused)
+            fused.zero_grad(in_fused)
+
+    @staticmethod
+    def _set_module_lr(state: Dict, name: str, lr) -> None:
+        """Write module ``name``'s learning rate (a float, or one a run) into
+        whichever optimizer layout the state holds: its slice of the fused
+        optimizer's ``lr``, or its own optimizer (JAX
+        ``train/pipeline.py:298-309``)."""
+        fused = state["opt"].get("fused")
+        if fused is not None and name in fused.offsets:
+            fused.set_lr(name, lr)
+        else:
+            set_lr(state["opt"][name], lr)
 
     def _grads(self, loss: torch.Tensor, state: Dict, names: Sequence[str],
                retain_graph: bool = False) -> Dict[str, list]:
@@ -94,7 +115,7 @@ class ModuleSteps:
             step, gamma = o.noise_steplr_step, o.noise_steplr_gamma
         elif name == "cpc":
             gamma = o.cpc_steplr_gamma
-        set_lr(state["opt"][name], step_lr(self.base_lr[name], count, step, gamma))
+        self._set_module_lr(state, name, step_lr(self.base_lr[name], count, step, gamma))
 
     def _step_steplr(self, state: Dict, names: Sequence[str]) -> None:
         """Increment the modules' scheduler counters and refresh their LRs."""

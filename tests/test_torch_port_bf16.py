@@ -317,8 +317,8 @@ def test_os_conv_bf16_operands_must_agree():
 
 def test_pipeline_config_takes_compute_dtype():
     """``compute_dtype="bfloat16"`` builds and selects bf16 convs; any other
-    value means f32, as in JAX ``train/pipeline.py:120-122``; the three
-    host-side A2 knobs still raise and name ROADMAP A2."""
+    value means f32, as in JAX ``train/pipeline.py:120-122``; it builds
+    together with each of the three GradNorm / optimizer knobs."""
     cfg = PipelineConfig(compute_dtype="bfloat16", **KW, flow=FlowConfig(**FLOW))
     assert port_pipeline.StyleTransferPipeline(*T_SHAPE, *S_SHAPE, cfg, device="cpu").compute_dtype \
         == torch.bfloat16
@@ -326,5 +326,7 @@ def test_pipeline_config_takes_compute_dtype():
     assert port_pipeline.TargetPredictor(*T_SHAPE, config=other, device="cpu").compute_dtype is None
     for knob in ({"fused_optimizers": True}, {"stacked_pullbacks": True},
                  {"merged_pullbacks": False}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A2"):
-            PipelineConfig(**knob)
+        both = PipelineConfig(compute_dtype="bfloat16", **KW, flow=FlowConfig(**FLOW), **knob)
+        pipe = port_pipeline.StyleTransferPipeline(*T_SHAPE, *S_SHAPE, both, device="cpu")
+        assert pipe.compute_dtype == torch.bfloat16
+        assert all(getattr(pipe.config, k) == v for k, v in knob.items())

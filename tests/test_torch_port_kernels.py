@@ -43,7 +43,11 @@ bf16 conv kernel (``tap_gemm_bf16.cuh``) at the serving layers' masked
 weights (C_in 7, 25, 225 and 50: one, four, 29 and seven 8-channel chunks
 a tap) at T off every time tile, with a dead column group, with windows
 narrowed to fewer channels or taps than the layer has, and its run-axis
-form at R = 3 (each run the one-run call's bits).
+form at R = 3 (each run the one-run call's bits).  Under a batch of
+cotangents (``stacked_pullbacks``): the WN backward of one run and of K = 2
+runs as one ``wn_bwd_runs`` launch, each cotangent the one-cotangent call's
+bits (f32 and bf16), and the tap conv's input gradient as one folded
+``tap_conv_fwd`` launch with the bits of the single pulls.
 """
 
 import pytest
@@ -789,6 +793,79 @@ def test_vmapped_cores_launch_the_run_kernels_once(card):
         assert torch.equal(y[r], yr) and torch.equal(z[r], zr)
         for got, ref in zip(grads, want):
             _close(got[r], ref, GRAD_REL_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("runs", [False, True])
+def test_wn_backward_under_a_cotangent_batch(card, bf16, runs):
+    """``WNCore`` (one run) and ``WNRunCore`` (K = 2 runs) pulled under 3
+    cotangents at once (``batched_pull``, as ``stacked_pullbacks`` pulls):
+    ONE ``wn_bwd_runs`` launch of 3 (3K) runs and no one-run launch; each
+    cotangent's input and weight gradients the bits of the one-cotangent
+    ``wn_bwd`` on the same operands (the end projection's two, one batched
+    product outside the kernel, within WN_REL_TOL), f32 and bf16."""
+    from feature_level_style_transfer_for_tsc_tpu_torch.train.pipeline import batched_pull
+
+    b, t, h, c, n_layers, k = 3, 150, 25, 120, 8, 2
+    ops = [_wn_operands(card, b, t, h, c, n_layers, seed=30 + r) for r in range(k if runs else 1)]
+    if runs:
+        eff = [torch.stack(e).contiguous().requires_grad_(True) for e in zip(*(o[1] for o in ops))]
+        x = torch.stack([o[2] for o in ops]).requires_grad_(True)
+        y = torch.func.vmap(lambda xx, *ee: wn_fused.WNCore.apply(xx, *ee, bf16)[0])(x, *eff)
+    else:
+        eff = [e.requires_grad_(True) for e in ops[0][1]]
+        x = ops[0][2].requires_grad_(True)
+        y = wn_fused.WNCore.apply(x, *eff, bf16)[0]
+    cot = torch.randn(3, *y.shape, device=card, generator=torch.Generator(card).manual_seed(9))
+    seen = []
+    launch = wn_fused.wn_bwd_runs
+
+    def record(*args):
+        seen.append([a.detach().clone() if isinstance(a, torch.Tensor) else a for a in args])
+        return launch(*args)
+
+    wn_fused.reset_launch_counts()
+    try:
+        wn_fused.wn_bwd_runs = record
+        batched_pull([y], [x, *eff], [cot])
+    finally:
+        wn_fused.wn_bwd_runs = launch
+    torch.cuda.synchronize()
+    tag = "[bf16]" if bf16 else ""
+    assert wn_fused.LAUNCHES == {**dict.fromkeys(wn_fused.LAUNCHES, 0), "wn_bwd_runs" + tag: 1}
+    (args,) = seen
+    tensors, (t_len, flag) = args[:-2], args[-2:]
+    assert tensors[0].shape[0] == 3 * (k if runs else 1) and flag == bf16
+    got = wn_fused.wn_bwd_runs(*tensors, t_len, flag)
+    for r in range(tensors[0].shape[0]):
+        want = wn_fused.wn_bwd(*(a[r] for a in tensors), t_len, flag)
+        for i, (a, w) in enumerate(zip(got, want)):
+            if i < len(want) - 2:
+                assert torch.equal(a[r], w), (r, i)
+            else:
+                _close(a[r], w, WN_REL_TOL)
+
+
+@pytest.mark.gpu
+def test_tap_conv_dx_under_a_cotangent_batch(card):
+    """``TapConvCore``'s input gradient under 3 cotangents: ONE
+    ``tap_conv_fwd`` launch with the cotangents folded into the batch rows,
+    each cotangent's dx the bits of the one-cotangent pull's."""
+    from feature_level_style_transfer_for_tsc_tpu_torch.train.pipeline import batched_pull
+
+    g = torch.Generator(device=card).manual_seed(4)
+    x_pad = torch.randn(5, 300, 120, device=card, generator=g).requires_grad_(True)
+    w = (torch.randn(3, 120, 240, device=card, generator=g) / 20).requires_grad_(True)
+    y = osconv.tap_conv(x_pad, w, 4)
+    cot = torch.randn(3, *y.shape, device=card, generator=g)
+    osconv.reset_launch_counts()
+    got = batched_pull([y], [x_pad], [cot])[0]
+    torch.cuda.synchronize()
+    assert osconv.LAUNCHES["tap_conv_fwd"] == 1
+    for i in range(3):
+        (want,) = torch.autograd.grad(y, [x_pad], cot[i], retain_graph=True)
+        assert torch.equal(got[i], want), i
 
 
 # ------------------------------------------------- the bf16 instances -----

@@ -539,8 +539,26 @@ def test_training_state_round_trips_through_the_jax_key_layout(tmp_path):
 
 @pytest.mark.parametrize("knob", [{"fused_optimizers": True}, {"stacked_pullbacks": True},
                                   {"merged_pullbacks": False}])
-def test_pipeline_config_refuses_unported_knobs(knob):
-    from feature_level_style_transfer_for_tsc_tpu_torch.config import PipelineConfig
+def test_pipeline_config_takes_each_knob(knob):
+    """Each of the JAX package's execution knobs builds a CPU pipeline that
+    takes a phase-5 step with finite losses and moves its parameters
+    (their parity with the JAX package: ``test_torch_port_knobs.py`` and
+    ``test_torch_port_knobs_fused.py``)."""
+    from feature_level_style_transfer_for_tsc_tpu_torch.config import FlowConfig, PipelineConfig
+    from feature_level_style_transfer_for_tsc_tpu_torch.train.pipeline import StyleTransferPipeline
 
-    with pytest.raises(NotImplementedError, match="not ported"):
-        PipelineConfig(**knob)
+    cfg = PipelineConfig(batch_size=4, max_kernel_size=5, cdan_dim=32, cpc_hidden=8,
+                         budget_multiplier=0.02, flow=FlowConfig(n_flows=2, wn_channels=8,
+                                                                 wn_layers=2), **knob)
+    pipe = StyleTransferPipeline(2, 16, 2, 1, 12, 3, cfg, device="cpu")
+    state = pipe.init_state(torch.Generator().manual_seed(0))
+    assert ("fused" in state["opt"]) == cfg.fused_optimizers
+    before = [p.detach().clone() for p in leaves(state["params"])]
+    rng = np.random.default_rng(0)
+    losses, _ = pipe.phase5_step(
+        state, torch.tensor(rng.standard_normal((4, 16, 2)), dtype=torch.float32),
+        torch.tensor(rng.integers(0, 2, 4)), torch.tensor(rng.standard_normal((4, 12, 1)),
+                                                          dtype=torch.float32),
+        torch.tensor(rng.integers(0, 3, 4)), 0)
+    assert all(bool(torch.isfinite(v)) for v in losses.values())
+    assert any(not torch.equal(a, b) for a, b in zip(before, leaves(state["params"])))
