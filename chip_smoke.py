@@ -203,7 +203,31 @@ non-zero when any check fails.  Phases:
     and fused knobs' K-run step at K = 1 and MULTIRUN_K
     (``experiments/multirun_time.py --knob``, a process of its own without
     ``CUBLAS_WORKSPACE_CONFIG``): step ms, device ms, idle share, peak
-    memory.
+    memory;
+21. time-sharded sequence parallelism (``parallel/sequence.py``) at full
+    width on EigenWorms' shape (UEA archive, 6 x 17,984, 5 classes;
+    synthetic data from the seed), ``PipelineConfig()``'s batch (20),
+    layer specs (receptive field 89) and flow (3 flows, n_group the
+    extractor's 50 channels, WN 120 channels, 8 layers): SEQ_RANKS = 4 rank
+    processes (``parallel.launch.spawn``, joined with a deadline) share the
+    card on gloo (``"cpu:gloo,cuda:gloo"``: NCCL refuses two ranks on one
+    card), each with a 4,496-step shard; the sharded extractor in training
+    and in eval mode, the sharded WaveGlow forward on its features, one
+    backward of a fixed random projection of (z, log_s, log-determinants)
+    to the input and every parameter, with exact launches a rank
+    (``os_conv_fwd`` a layer a pass, ``tap_conv_fwd`` forward and dx,
+    ``gate_fwd``; no WN kernel); held against the same unsharded ops on the
+    card (outputs and new BatchNorm statistics within SEQ_ATOL,
+    log-determinants SEQ_LOGDET_RTOL, the input gradient and each module's
+    gradients summed over the ranks within SEQ_GRAD_REL_L2 (relative L2),
+    or SEQ_GRAD_FACTOR times the unsharded float32 step's own gap, of the
+    unsharded step that takes the ranks' ReLU sign patterns (``ReluSigns``:
+    last-bit differences of the statistics flip ReLU inputs within
+    rounding of zero; the flips counted, the unpinned gaps recorded) with
+    its OS conv's transposed convs in float64); each
+    kernel at the shard shapes against its plain version, timed; the
+    forward+backward time of a rank (four share the card) and of the
+    unsharded ops, recorded.
 
 The ``cli.main`` drives (phases 8, 8b, 13, 14) and the drives of phases
 15, 16 and 17 run with PyTorch's deterministic
@@ -215,7 +239,9 @@ not the VendGunPoint check; training: the two ``cli.main`` drives of phases
 8 and 13, not those of phases 8b, 14, 15, 16 and 17, whose counts are
 checked and kept apart; the run-axis kernels, phase 18's drive and its
 fused evaluation; the bf16 instances, phase 19's two drives; phase 20's
-steps are checked and kept apart) and a bound
+steps are checked and kept apart; phase 21's sharded pass, each rank
+setting its counts to 0 just before it and reading them just after, summed
+over the ranks) and a bound
 from the FLOPs or bytes these inputs need (the bf16 instances' at the
 BF16 peak); the last line is {"ok": true, "device": {...}}.  Everything measured is also written to
 chiprun_out/chip_smoke_results.json.
@@ -508,6 +534,17 @@ class Run:
 
     def counts(self) -> dict:
         return {name: n for m in self.modules for name, n in m.LAUNCHES.items()}
+
+    def add(self, what: str, counts: dict, path: str) -> None:
+        """Counts of a drive that ran in other processes (phase 21's ranks),
+        each of which set its counts to 0 just before the drive and read
+        them just after, added to ``path`` as ``drive`` adds its own."""
+        log(f"[{what}] launches={counts}")
+        self.by_drive[what] = counts
+        per = self.by_path.setdefault(path, self.idle())
+        for name, n in counts.items():
+            self.launches[name] += n
+            per[name] += n
 
     def drive(self, what: str, fn, expect: dict, path=None):
         for m in self.modules:
@@ -3263,6 +3300,457 @@ def knobs_phase(run, pipe, modules, batch, smi) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 21 --
+
+# Phase 21: time-sharded sequence parallelism (parallel/sequence.py) at full width on EigenWorms'
+# shape (UEA archive, 6 channels x 17,984 steps, 5 classes; synthetic data from the seed),
+# PipelineConfig()'s batch (20), layer specs (receptive field min(T/4, 89) = 89) and flow, over
+# SEQ_RANKS rank processes that share the one card.  NCCL refuses two ranks on one card, so the
+# ranks run gloo, which stages CUDA tensors through the host itself.
+SEQ_SHAPE = {"channels": 6, "length": 17984, "classes": 5}
+SEQ_RANKS = 4  # T / 4 = 4,496 steps a shard, at least the widest halo (128)
+SEQ_BACKEND = "cpu:gloo,cuda:gloo"
+SEQ_SEED = 41
+# Outputs and new running statistics: max|sharded - unsharded| within SEQ_ATOL of max(1, max|out|),
+# the JAX package's tests' atol 1e-5 on outputs of order one (theirs are), scaled where an output
+# is larger: the flow's z reaches 1,455 here (exp(log_s), log_s up to 4.8), where one float32 ulp
+# is 1.2e-4.  On an H100 z sat 2.0e-3 (1.4e-6 of its largest value) from the unsharded ops,
+# log_s 2.3e-6 to 1.4e-5 (values up to 4.8), the features 2.4e-6.
+SEQ_ATOL = 1e-5
+SEQ_LOGDET_RTOL = 1e-5
+# The input gradient, and each module's gradients summed over the ranks (relative L2), against
+# the unsharded step with the sharded run's ReLU sign patterns pinned (``ReluSigns``) and the
+# OS conv's transposed convs (``OSConvCore``'s backward, cuDNN) in float64
+# (``f64_os_conv_bwd``): within SEQ_GRAD_REL_L2, or within SEQ_GRAD_FACTOR times the same
+# unsharded step's own gap with float32 transposed convs.
+# * Pinned signs: a last-bit difference of the training-mode BatchNorm statistics (the sharded
+#   op's E[x^2] - mean^2 over the ranks against the port's two-pass variance) moves a ReLU input
+#   within rounding of zero to the other side, and one such flip moves a gradient summed over
+#   360k rows by about 1e-3 of itself.  On an H100, 3 flips of layer 1's 81M ReLU inputs and 2
+#   of the final ReLU's 18M put the extractor's and the input's gradients 3e-4 to 6e-4 from the
+#   unsharded ones; eval mode (the same features, bit for bit) put them 2e-7 to 9e-6, and the
+#   flow's gradient at the features sat 2.3e-6 (experiments/sequence_grad_gap.py).
+# * Float64 transposed convs: cuDNN's float32 weight gradient of layer 1 (25 -> 225 channels,
+#   K = 89) sums 360k rows a tap; with the signs pinned that layer's gradients sat 2.4e-5 from
+#   the unsharded float32 step, every other module 5e-7 to 4.5e-6, and the unsharded float32
+#   step sat 2.8e-5 from the float64 one in that layer, 0 to 7e-7 elsewhere (on an H100).
+# The unpinned gaps and the flips are recorded.
+SEQ_GRAD_REL_L2 = 1e-5
+SEQ_GRAD_FACTOR = 2.0
+SEQ_TIMEOUT = 300.0  # the ranks' deadline, spawn and import included
+SEQ_REPS = 3  # timed forward+backward passes after the counted one
+
+
+def sequence_inputs(batch: int) -> dict:
+    """Phase 21's inputs on the current card, the same bits in every
+    process: x (B, T, C) from the seed; the extractor at the layer specs
+    ``PipelineConfig()`` gives the shape, with random BatchNorm state; the
+    flow (``PipelineConfig().flow``, n_group the extractor's channels), its
+    WN end projections WN_END_SCALE N(0, 1) (the init's zero end hides the
+    WN's gradients) and each 1x1 mixing scaled per column by U(0.8, 1.25)
+    (the init's rotation has log|det| 0); and the fixed projections of (z,
+    log_s, log-determinants) whose sum is differentiated."""
+    from feature_level_style_transfer_for_tsc_tpu_torch.config import PipelineConfig
+    from feature_level_style_transfer_for_tsc_tpu_torch.models.flow import waveglow_init
+    from feature_level_style_transfer_for_tsc_tpu_torch.models.os_cnn import (
+        os_block_masks,
+        os_cnn_res_init,
+    )
+    from feature_level_style_transfer_for_tsc_tpu_torch.ops.batchnorm import BNStats
+    from feature_level_style_transfer_for_tsc_tpu_torch.structure import total_out_channels
+    from feature_level_style_transfer_for_tsc_tpu_torch.train.classifier import build_specs
+
+    cfg, fc = PipelineConfig(), PipelineConfig().flow
+    c, t = SEQ_SHAPE["channels"], SEQ_SHAPE["length"]
+    specs, _ = build_specs(c, t, cfg)
+    g = torch.Generator().manual_seed(SEQ_SEED)
+    rng = np.random.default_rng(SEQ_SEED)
+    ext_p, ext_s = os_cnn_res_init(g, specs, "cuda")
+    ext_p, ext_s = with_random_bn(ext_p, rng, BNStats), with_random_bn(ext_s, rng, BNStats)
+    n_group = total_out_channels(specs[-1])
+    flow_p = waveglow_init(g, fc.n_flows, n_group, fc.wn_channels, fc.wn_layers, "cuda")
+    for conv, wn in zip(flow_p["convinv"], flow_p["wn"]):
+        conv["weight"] = conv["weight"] * (0.8 + 0.45 * torch.rand(n_group, generator=g)).cuda()
+        wn["end"]["weight"] = WN_END_SCALE * torch.randn(wn["end"]["weight"].shape, generator=g).cuda()
+    gc = torch.Generator(device="cuda").manual_seed(SEQ_SEED)
+    return {
+        "specs": specs, "ext_p": ext_p, "ext_s": ext_s, "masks": os_block_masks(specs, "cuda"),
+        "flow_p": flow_p, "n_wn": fc.wn_channels,
+        "x": torch.randn(batch, t, c, generator=g).cuda(),
+        "proj_z": torch.randn(batch, t, n_group, device="cuda", generator=gc),
+        "proj_ls": [torch.randn(batch, t, n_group // 2, device="cuda", generator=gc)
+                    for _ in range(fc.n_flows)],
+        "proj_ld": torch.randn(fc.n_flows, generator=g).cuda(),
+    }
+
+
+def sequence_step(inp: dict, seq=None, mesh=None) -> dict:
+    """One pass of phase 21: the extractor in training mode (its features
+    feed the flow) and in eval mode (no gradient), the flow's density
+    direction, and the gradient of the projection of (z, log_s,
+    log-determinants) with respect to the input and every parameter.  Over
+    ``mesh``'s "data" axis through ``seq`` (``parallel.sequence``) when a
+    mesh is given, each rank's share of the projection its own rows and 1/P
+    of the replicated log-determinants' term; else the unsharded ops (the
+    op-by-op WN, as ``OP_BY_OP`` sets it)."""
+    from feature_level_style_transfer_for_tsc_tpu_torch.io.checkpoint import tree_items
+    from feature_level_style_transfer_for_tsc_tpu_torch.models.flow import waveglow_forward
+    from feature_level_style_transfer_for_tsc_tpu_torch.models.os_cnn import os_cnn_res_apply
+
+    params = {"ext": inp["ext_p"], "flow": inp["flow_p"]}
+    leaves = list(tree_items(params))
+    for _, p in leaves:
+        p.requires_grad_(True)
+        p.grad = None
+    if mesh is None:
+        parts = 1
+        x, proj_z, proj_ls = inp["x"].clone(), inp["proj_z"], inp["proj_ls"]
+
+        def ext(training):
+            return os_cnn_res_apply(params["ext"], inp["ext_s"], inp["masks"], x, training)
+
+        def flow(f):
+            return waveglow_forward(params["flow"], f, inp["n_wn"])
+    else:
+        parts = mesh.size(0)
+        x = seq.shard_time(inp["x"], mesh)
+        proj_z = seq.shard_time(inp["proj_z"], mesh)
+        proj_ls = [seq.shard_time(p, mesh) for p in inp["proj_ls"]]
+
+        def ext(training):
+            return seq.time_sharded_os_cnn_res_apply(mesh, params["ext"], inp["ext_s"],
+                                                     inp["masks"], x, training=training)
+
+        def flow(f):
+            return seq.time_sharded_waveglow_forward(mesh, params["flow"], f, inp["n_wn"])
+
+    x.requires_grad_(True)
+    features, new_state = ext(True)
+    with torch.no_grad():
+        features_eval, _ = ext(False)
+    z, log_s, log_det = flow(features)
+    loss = (z * proj_z).sum() + sum((ls * p).sum() for ls, p in zip(log_s, proj_ls)) \
+        + (torch.stack(log_det) * inp["proj_ld"]).sum() / parts
+    loss.backward()
+    return {"features": features.detach(), "features_eval": features_eval,
+            "state": dict(tree_items(new_state)), "z": z.detach(),
+            "log_s": [ls.detach() for ls in log_s], "log_det": torch.stack(log_det).detach(),
+            "dx": x.grad, "grads": {k: p.grad for k, p in leaves}}
+
+
+class ReluSigns:
+    """``torch.relu`` inside the ``with`` block records the sign pattern of
+    each call's input (``masks``, on the CPU, in call order) or, given
+    ``pinned`` patterns, follows them in call order: the input passes where
+    its pattern says, whatever its sign, and ``flips`` counts, call by call,
+    the inputs on the other side of zero.  Phase 21's reference for the
+    gradients takes the sharded run's patterns (see SEQ_GRAD_REL_L2)."""
+
+    def __init__(self, pinned=None):
+        self.pinned = pinned
+        self.masks, self.flips = [], []
+
+    def __enter__(self):
+        self.relu = torch.relu
+
+        def relu(y):
+            if self.pinned is None:
+                self.masks.append((y > 0).cpu())
+                return self.relu(y)
+            mask = self.pinned[len(self.flips)].to(y.device)
+            self.flips.append(int((mask != (y > 0)).sum()))
+            return torch.where(mask, y, torch.zeros_like(y))
+
+        torch.relu = relu
+        return self
+
+    def __exit__(self, *exc):
+        torch.relu = self.relu
+
+
+@contextlib.contextmanager
+def f64_os_conv_bwd(osconv):
+    """``OSConvCore``'s backward (the transposed convs) in float64 inside,
+    its results rounded to float32: a more exact order of the same sums."""
+    f32 = osconv._os_conv_bwd
+
+    def bwd(x_pad, w, g, need_dx, need_dw):
+        dx, dw = f32(x_pad.double(), w.double(), g.double(), need_dx, need_dw)
+        return tuple(None if d is None else d.float() for d in (dx, dw))
+
+    osconv._os_conv_bwd = bwd
+    try:
+        yield
+    finally:
+        osconv._os_conv_bwd = f32
+
+
+def to_cpu(tree):
+    """A copy of a tree of dicts, lists and tensors with every tensor
+    detached on the CPU."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_cpu(v) for v in tree]
+    return tree
+
+
+def timed_steps(fn, reps: int = SEQ_REPS, barrier=None) -> list:
+    """Host seconds of ``reps`` calls, each between ``synchronize()``s (and
+    ``barrier()``s, so that ranks start together)."""
+    out = []
+    for _ in range(reps):
+        if barrier:
+            barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def sequence_rank(rank: int, world: int, init_method: str, out_dir: str, batch: int) -> dict:
+    """One rank of phase 21, in a process of its own: joins the gloo group,
+    checks that gloo takes CUDA tensors in ``all_gather`` and
+    ``all_reduce``, runs ``sequence_step`` once over the mesh with the
+    launch counts set to 0 just before and read just after, saves its
+    shards, gradient shares and ReLU sign patterns to ``out_dir``, then
+    times SEQ_REPS more."""
+    import torch.distributed as dist
+
+    from feature_level_style_transfer_for_tsc_tpu_torch.ops import gate, osconv, wn_fused
+    from feature_level_style_transfer_for_tsc_tpu_torch.parallel import launch, make_mesh
+    from feature_level_style_transfer_for_tsc_tpu_torch.parallel import sequence as seq
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.perf_counter()
+    with launch.process_group(rank, world, init_method, SEQ_BACKEND, timeout=SEQ_TIMEOUT):
+        mesh = make_mesh(data=world, device="cuda")
+        probe = torch.full((3,), float(rank + 1), device="cuda")
+        gathered = [torch.empty_like(probe) for _ in range(world)]
+        dist.all_gather(gathered, probe)
+        dist.all_reduce(probe)
+        collectives_ok = (probe.tolist() == [world * (world + 1) / 2] * 3
+                          and [p[0].item() for p in gathered] == [r + 1.0 for r in range(world)])
+        inp = sequence_inputs(batch)
+        ready_s = time.perf_counter() - t_start
+        modules = (osconv, wn_fused, gate)
+        for m in modules:
+            m.reset_launch_counts()
+        with ReluSigns() as signs:
+            out = sequence_step(inp, seq, mesh)
+        torch.cuda.synchronize()
+        counts = {name: n for m in modules for name, n in m.LAUNCHES.items()}
+        torch.save({**to_cpu(out), "relu_signs": signs.masks}, Path(out_dir) / f"rank{rank}.pt")
+        del out
+        torch.cuda.reset_peak_memory_stats()
+        step_s = timed_steps(lambda: sequence_step(inp, seq, mesh), barrier=dist.barrier)
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
+        backend = str(dist.get_backend())
+    return {"rank": rank, "device": torch.cuda.current_device(), "backend": backend,
+            "collectives_on_cuda_tensors": collectives_ok, "ready_s": ready_s, "counts": counts,
+            "step_s": step_s, "peak_mib": peak_mib}
+
+
+def module_of(key: str) -> str:
+    """The module a parameter key of ``sequence_step``'s tree belongs to:
+    an extractor layer, the shortcut, a flow's 1x1 mixing or its WN."""
+    if key.startswith("['ext']['block']['layers']"):
+        return "extractor layer " + key.split("[")[4].rstrip("]")
+    if key.startswith("['ext']"):
+        return "extractor shortcut"
+    kind, k = key.split("[")[2:4]
+    return f"flow {kind.strip(chr(39) + ']')} {k.rstrip(']')}"
+
+
+def sequence_kernel_rows(osconv, gate, inp, shard: int) -> dict:
+    """Each kernel of the sharded path at its shard shapes against its plain
+    version on the card, timed beside it, its bound and, for the convs,
+    ``F.conv1d``: ``os_conv_fwd`` on each extractor layer's halo-extended
+    shard, ``tap_conv_fwd`` at the WN's dilations (C -> 2C on the shard
+    padded by d a side), ``gate_fwd`` on the shard's rows (b a column
+    slice of a cond projection)."""
+    import torch.nn.functional as F
+
+    from feature_level_style_transfer_for_tsc_tpu_torch.structure import total_out_channels
+
+    gen = torch.Generator(device="cuda").manual_seed(SEQ_SEED + 1)
+    b = inp["x"].shape[0]
+    rows = {"os_conv_fwd": [], "tap_conv_fwd": [], "gate_fwd": []}
+
+    def conv_row(what, x, w, y, plain_fn, kernel_fn, lib_fn, flops):
+        n_bytes = 4 * (x.numel() + w.numel() + y.numel())
+        err, rel = rel_err(y, plain_fn())
+        row = {**what, "max_abs": err, "rel": rel, "ms": cuda_ms(kernel_fn),
+               "plain_ms": cuda_ms(plain_fn, reps=5), "library_ms": cuda_ms(lib_fn),
+               "gflop": flops / 1e9, "tc_flop_ms": TF32_PRODUCTS * flops / TC_PEAK * 1e3,
+               "bytes_ms": n_bytes / HBM_RATE * 1e3}
+        row["bound_ms"] = max(row["tc_flop_ms"], row["bytes_ms"])
+        return row
+
+    for i, (spec, mask) in enumerate(zip(inp["specs"], inp["masks"])):
+        c_in, c_out, k = spec[0][0], total_out_channels(spec), spec[-1][-1]
+        x = torch.randn(b, shard + k - 1, c_in, device="cuda", generator=gen)
+        w = torch.randn(k, c_in, c_out, device="cuda", generator=gen) / math.sqrt(c_in * k) * mask
+        x_ncw, w_oik = x.transpose(1, 2).contiguous(), w.permute(2, 1, 0).contiguous()
+        row = conv_row({"layer": i, "c_in": c_in, "c_out": c_out, "k": k}, x, w,
+                       osconv.os_conv(x, w), lambda: osconv.os_conv_plain(x, w),
+                       lambda: osconv.os_conv(x, w), lambda: F.conv1d(x_ncw, w_oik),
+                       2 * b * shard * c_in * int(mask.sum().item()))
+        rows["os_conv_fwd"].append(row)
+    fc_ch, n_layers = inp["n_wn"], len(inp["flow_p"]["wn"][0]["in_layers"])
+    for j in range(n_layers):
+        d = 2 ** j
+        x = torch.randn(b, shard + 2 * d, fc_ch, device="cuda", generator=gen)
+        w = torch.randn(3, fc_ch, 2 * fc_ch, device="cuda", generator=gen) / math.sqrt(3 * fc_ch)
+        x_ncw, w_oik = x.transpose(1, 2).contiguous(), w.permute(2, 1, 0).contiguous()
+        row = conv_row({"dilation": d, "c_in": fc_ch, "c_out": 2 * fc_ch}, x, w,
+                       osconv.tap_conv_fwd(x, w, d), lambda: osconv.tap_conv_plain(x, w, d),
+                       lambda: osconv.tap_conv_fwd(x, w, d),
+                       lambda: F.conv1d(x_ncw, w_oik, dilation=d), 2 * b * shard * 3 * fc_ch * 2 * fc_ch)
+        rows["tap_conv_fwd"].append(row)
+    n_rows = b * shard
+    a, b_view = gate_operands(n_rows, fc_ch, n_layers, gen)
+    err, rel = rel_err(gate.gate_fwd(a, b_view, fc_ch), gate.gate_plain(a, b_view, fc_ch))
+    n_bytes = 4 * (2 * n_rows * 2 * fc_ch + n_rows * fc_ch)
+    row = {"rows": n_rows, "n": fc_ch, "max_abs": err, "rel": rel,
+           "ms": cuda_ms(lambda: gate.gate_fwd(a, b_view, fc_ch), reps=20),
+           "plain_ms": cuda_ms(lambda: gate.gate_plain(a, b_view, fc_ch), reps=20),
+           "library_ms": None, "bytes_ms": n_bytes / HBM_RATE * 1e3,
+           "flop_ms": GATE_OPS * n_rows * fc_ch / FP32_PEAK * 1e3}
+    row["bound_ms"] = max(row["bytes_ms"], row["flop_ms"])
+    rows["gate_fwd"].append(row)
+    torch.cuda.synchronize()
+    for name, rs in rows.items():
+        for r in rs:
+            log(f"[sequence kernel {name}] " + json.dumps(r))
+            check(r["rel"] <= REL_TOL, f"{name} at the shard shapes {r}: rel err {r['rel']:.3e}")
+    return rows
+
+
+def sequence_phase(run, modules, smi) -> dict:
+    """Phase 21: the time-sharded extractor and flow over SEQ_RANKS ranks
+    on the one card, against the same unsharded ops on the card (the
+    gradients against those with the ranks' ReLU sign patterns pinned and
+    float64 transposed convs);
+    each kernel at the shard shapes against its plain version; exact
+    launches a rank, added to the main path's as the "sequence" path."""
+    from feature_level_style_transfer_for_tsc_tpu_torch.config import PipelineConfig
+    from feature_level_style_transfer_for_tsc_tpu_torch.parallel import launch
+
+    osconv, wn_fused, gate = modules
+    batch = PipelineConfig().batch_size
+    out = {"backend": SEQ_BACKEND, "ranks": SEQ_RANKS, "batch": batch, **SEQ_SHAPE}
+    torch.cuda.empty_cache()
+    inp = sequence_inputs(batch)
+    fc = PipelineConfig().flow
+    n_ext = len(inp["specs"])
+    expect = {**run.idle(), "os_conv_fwd": 2 * n_ext, "gate_fwd": fc.n_flows * fc.wn_layers,
+              "tap_conv_fwd": 2 * fc.n_flows * fc.wn_layers}  # forward, and dx in the backward
+    # the unsharded ops on the card, the op-by-op WN as the ranks run it (counted apart)
+    torch.cuda.reset_peak_memory_stats()
+    with environ(**OP_BY_OP):
+        ref = to_cpu(run.drive("sequence unsharded", lambda: sequence_step(inp), expect))
+        out["unsharded_step_s"] = timed_steps(lambda: sequence_step(inp))
+    out["unsharded_peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    shard = SEQ_SHAPE["length"] // SEQ_RANKS
+    out["kernels"] = sequence_kernel_rows(osconv, gate, inp, shard)
+    del inp
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_seq_") as d:
+        t0 = time.perf_counter()
+        ranks = launch.spawn(sequence_rank, SEQ_RANKS, (f"file://{d}/rendezvous", d, batch),
+                             timeout=SEQ_TIMEOUT)
+        out["spawn_wall_s"] = time.perf_counter() - t0
+        shards = [torch.load(Path(d) / f"rank{r}.pt") for r in range(SEQ_RANKS)]
+    for r in ranks:
+        log(f"[sequence rank {r['rank']}] cuda:{r['device']} backend={r['backend']} gloo takes "
+            f"CUDA tensors in all_gather and all_reduce: {r['collectives_on_cuda_tensors']} "
+            f"ready after {r['ready_s']:.1f} s, launches={r['counts']}, fwd+bwd s="
+            f"{[round(s, 4) for s in r['step_s']]}, peak MiB={r['peak_mib']:.0f}")
+        check(r["collectives_on_cuda_tensors"], f"rank {r['rank']}: gloo collectives on CUDA tensors")
+        check(r["counts"] == expect, f"rank {r['rank']}: launches {r['counts']} != {expect}")
+    out["rank_results"] = ranks
+    out["host_staging"] = "none explicit: gloo copies CUDA tensors through the host itself"
+    log(f"[sequence] backend {SEQ_BACKEND}; halos and statistics through the host: "
+        f"{out['host_staging']}")
+    run.add("sequence 4 ranks", {n: sum(r["counts"][n] for r in ranks) for n in expect},
+            path="sequence")
+
+    def cat(key, k=None):
+        return torch.cat([s[key] if k is None else s[key][k] for s in shards], dim=1)
+
+    gaps = {}
+    for name, got, want in (
+        ("features (training BN)", cat("features"), ref["features"]),
+        ("features (eval BN)", cat("features_eval"), ref["features_eval"]),
+        ("z", cat("z"), ref["z"]),
+        *((f"log_s {k}", cat("log_s", k), ref["log_s"][k]) for k in range(len(ref["log_s"]))),
+    ):
+        scale = max(1.0, want.abs().max().item())
+        gaps[name] = (got - want).abs().max().item() / scale
+        log(f"[sequence] {name}: max abs {gaps[name] * scale:.3e}, largest |value| {scale:.3e}")
+        check(gaps[name] <= SEQ_ATOL, f"sequence {name}: max abs {gaps[name] * scale:.3e} "
+                                      f"> {SEQ_ATOL} x {scale:.3e}")
+    for s in shards:
+        stats = max((s["state"][k] - v).abs().max().item() for k, v in ref["state"].items())
+        gaps["new BN stats"] = max(gaps.get("new BN stats", 0.0), stats)
+        ld = ((s["log_det"] - ref["log_det"]).abs() / ref["log_det"].abs()).max().item()
+        gaps["log_det rel"] = max(gaps.get("log_det rel", 0.0), ld)
+    check(gaps["new BN stats"] <= SEQ_ATOL, f"sequence new BN stats: {gaps['new BN stats']:.3e}")
+    check(gaps["log_det rel"] <= SEQ_LOGDET_RTOL, f"sequence log_det: {gaps['log_det rel']:.3e}")
+    # the gradients against the unsharded step that takes the ranks' ReLU sign patterns, its
+    # transposed convs in float64 (``exact``), and in float32 (``pinned``: its own gap)
+    signs = [torch.cat([s["relu_signs"][i] for s in shards], dim=1)
+             for i in range(len(shards[0]["relu_signs"]))]
+    inp = sequence_inputs(batch)
+    with environ(**OP_BY_OP):
+        with ReluSigns(pinned=signs) as pinned_signs:
+            pinned = to_cpu(sequence_step(inp))
+        with ReluSigns(pinned=signs), f64_os_conv_bwd(osconv):
+            exact = to_cpu(sequence_step(inp))
+    del inp
+    torch.cuda.empty_cache()
+    summed = {k: sum(s["grads"][k] for s in shards) for k in ref["grads"]}
+    keys_of = {"input": ["dx"]}
+    for k in ref["grads"]:
+        keys_of.setdefault(module_of(k), []).append(k)
+
+    def flat(tree, keys):
+        return torch.cat([(tree["dx"] if k == "dx" else tree["grads"][k]).flatten() for k in keys])
+
+    sharded = {"dx": cat("dx"), "grads": summed}
+    grads = {m: rel_l2(flat(sharded, ks), flat(exact, ks))[1] for m, ks in keys_of.items()}
+    own = {m: rel_l2(flat(pinned, ks), flat(exact, ks))[1] for m, ks in keys_of.items()}
+    vs_f32 = {m: rel_l2(flat(sharded, ks), flat(pinned, ks))[1] for m, ks in keys_of.items()}
+    unpinned = {m: rel_l2(flat(sharded, ks), flat(ref, ks))[1] for m, ks in keys_of.items()}
+    out["gaps"], out["grad_rel_l2"], out["unsharded_grad_rel_l2"] = gaps, grads, own
+    out["grad_rel_l2_vs_f32_pinned"], out["unpinned_grad_rel_l2"] = vs_f32, unpinned
+    out["relu_flips"] = {"calls": pinned_signs.flips, "inputs": [m.numel() for m in signs]}
+    log(f"[sequence] vs unsharded on the card: {json.dumps(gaps)}; ReLU flips a call (layer 0, "
+        f"layer 1, features; training then eval) {pinned_signs.flips} of "
+        f"{out['relu_flips']['inputs']}; gradients (relative L2) against the pinned float64-"
+        f"backward reference {json.dumps(grads)}, the unsharded float32 step's own "
+        f"{json.dumps(own)}; against the pinned float32 step {json.dumps(vs_f32)}, the unpinned "
+        f"{json.dumps(unpinned)}")
+    for mod, g in grads.items():
+        bar = max(SEQ_GRAD_REL_L2, SEQ_GRAD_FACTOR * own[mod])
+        check(g <= bar, f"sequence gradient of {mod}: relative L2 {g:.3e} > {bar:.3e} "
+                        f"(the unsharded step's own {own[mod]:.3e})")
+    rank_s = [statistics.median(r["step_s"]) for r in ranks]
+    out["rank_step_median_s"], out["unsharded_step_median_s"] = rank_s, statistics.median(
+        out["unsharded_step_s"])
+    log(f"[sequence] forward+backward s: a rank (4 share the card) {[round(s, 4) for s in rank_s]}, "
+        f"unsharded {out['unsharded_step_median_s']:.4f}; spawn to joined "
+        f"{out['spawn_wall_s']:.1f} s; on {smi}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
@@ -3654,6 +4142,10 @@ def main() -> int:
         clock.start("phase 20")
         # ---- phase 20: PipelineConfig's GradNorm / optimizer knobs
         results["knobs"] = knobs_phase(run, pipe, (osconv, wn_fused, gate), batch, smi)
+
+        clock.start("phase 21")
+        # ---- phase 21: time-sharded sequence parallelism, 4 ranks on the card
+        results["sequence"] = sequence_phase(run, (osconv, wn_fused, gate), smi)
 
     clock.start(None)
     results["phase_s"] = clock.secs
