@@ -147,8 +147,8 @@ non-zero when any check fails.  Phases:
     the shapes that step and the evaluation gave it, each run against the
     one-run kernel (the same bits, else RUN_AXIS_REL_TOL) and against the
     plain version, timed beside the K one-run calls, the plain version and,
-    for the conv, a grouped ``F.conv1d``; and the step's K sweep
-    (``experiments/multirun_time.py`` in a process of its own, without
+    for the conv, a grouped ``F.conv1d``; and the step's K sweep at
+    MULTIRUN_SWEEP (``experiments/multirun_time.py`` in a process of its own, without
     ``CUBLAS_WORKSPACE_CONFIG``): step ms, aggregate series/s, device ms and
     idle share, peak memory a K;
 19. both bf16 switches (``FLSTTSC_WN_MXU=bf16`` and
@@ -200,7 +200,7 @@ non-zero when any check fails.  Phases:
     the merged K-run step's own gap from its one-run step); the
     bf16 stacked step (``FLSTTSC_WN_MXU=bf16``: every cotangent of
     ``wn_bwd_runs[bf16]`` the bits of ``wn_bwd[bf16]``); and the stacked
-    and fused knobs' K-run step at K = 1 and MULTIRUN_K
+    and fused knobs' K-run step at MULTIRUN_K
     (``experiments/multirun_time.py --knob``, a process of its own without
     ``CUBLAS_WORKSPACE_CONFIG``): step ms, device ms, idle share, peak
     memory;
@@ -227,7 +227,29 @@ non-zero when any check fails.  Phases:
     its OS conv's transposed convs in float64); each
     kernel at the shard shapes against its plain version, timed; the
     forward+backward time of a rank (four share the card) and of the
-    unsharded ops, recorded.
+    unsharded ops, recorded;
+22. data parallelism (``parallel/dp.py``, ``parallel/dp_explicit.py``) at
+    full width on phase 8's pair (``PipelineConfig(budget_multiplier=1.0)``,
+    batch 20, DP_RANKS = 4 rank processes sharing the card on gloo as in
+    phase 21, 5 series a domain a rank): each rank replicates the states
+    (``dp.replicate``) and takes its rows of the batch (``place`` by
+    ``data_sharding``); a data-parallel phase-5 step (``dp.phase5_grads``:
+    the pulls, pinned CPC anchors, ``pinned_masks()`` sliced by rank), a
+    phase-1 step (``make_dp_phase1_epoch``) and a classifier step
+    (``dp.train_epoch``), with exact launches a rank (``os_conv_fwd``,
+    ``wn_fwd``, ``wn_bwd``), the ranks' gradients and new parameters the
+    same bits; held against the unsharded steps on the card (losses
+    REL_TOL, trunk norms GRAD_REL_TOL, GradNorm weights REL_TOL, new
+    BatchNorm statistics SEQ_ATOL, each module's gradients within
+    DP_GRAD_REL_L2 or DP_GRAD_FACTOR times the unsharded float32 step's own
+    gap, relative L2, of the unsharded step that takes the ranks' ReLU sign
+    patterns with float64 transposed convs, phase 21's reference); the
+    domain-sharded ensemble (4 members on ``make_mesh(data=1, domain=4)``,
+    ``FLSTTSC_FUSE_EPILOGUE=1``: ``os_conv_fused_fwd``) against the
+    one-process ensemble (the same predictions, class weights within
+    1e-6); each kernel at a rank's shapes against its plain version, timed
+    beside its bound; a rank's phase-5 step and the unsharded one, spawn to
+    joined, peak memory a rank, recorded.
 
 The ``cli.main`` drives (phases 8, 8b, 13, 14) and the drives of phases
 15, 16 and 17 run with PyTorch's deterministic
@@ -239,9 +261,9 @@ not the VendGunPoint check; training: the two ``cli.main`` drives of phases
 8 and 13, not those of phases 8b, 14, 15, 16 and 17, whose counts are
 checked and kept apart; the run-axis kernels, phase 18's drive and its
 fused evaluation; the bf16 instances, phase 19's two drives; phase 20's
-steps are checked and kept apart; phase 21's sharded pass, each rank
-setting its counts to 0 just before it and reading them just after, summed
-over the ranks) and a bound
+steps are checked and kept apart; phase 21's sharded pass and phase 22's
+data-parallel steps and ensemble, each rank setting its counts to 0 just
+before each and reading them just after, summed over the ranks) and a bound
 from the FLOPs or bytes these inputs need (the bf16 instances' at the
 BF16 peak); the last line is {"ok": true, "device": {...}}.  Everything measured is also written to
 chiprun_out/chip_smoke_results.json.
@@ -252,6 +274,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import copy
+import hashlib
 import json
 import math
 import os
@@ -339,7 +362,7 @@ UCR_SHAPES = {"FordA": (3601, 1320, 500, 2), "Earthquakes": (322, 139, 512, 2),
 SWEEP_EPOCHS = 2  # the vendored sweeps (1 under --with-cpc, and over the UCR shapes)
 # phase 18: K runs of the multirun; the Ks of its step sweep (experiments/multirun_time.py)
 MULTIRUN_K = 8
-MULTIRUN_SWEEP = (1, 2, 4, 8)
+MULTIRUN_SWEEP = (1, 8)  # its end points: K = 2 and 4 cut to make room for phase 22
 RUN_AXIS_REL_TOL = 1e-6  # a run of a run-axis kernel against the one-run kernel, where not equal
 # A K-run phase-5 step against K one-run steps is held to phase 9's gates (REL_TOL for the
 # losses, STEP_GRAD_L2_TOL for each module's gradients per run): its kernels give each run the
@@ -536,7 +559,7 @@ class Run:
         return {name: n for m in self.modules for name, n in m.LAUNCHES.items()}
 
     def add(self, what: str, counts: dict, path: str) -> None:
-        """Counts of a drive that ran in other processes (phase 21's ranks),
+        """Counts of a drive that ran in other processes (phases 21-22's ranks),
         each of which set its counts to 0 just before the drive and read
         them just after, added to ``path`` as ``drive`` adds its own."""
         log(f"[{what}] launches={counts}")
@@ -3274,16 +3297,16 @@ def knobs_phase(run, pipe, modules, batch, smi) -> dict:
     torch.cuda.empty_cache()
     lap("(c) the bf16 stacked step")
 
-    # (d) the stacked and fused knobs' K-run step at K = 1 and K = MULTIRUN_K, timed in a
-    # process of its own without CUBLAS_WORKSPACE_CONFIG (phase 18's method).  The default,
-    # merged, is phase 18's sweep of the same run; the unmerged knob (its sweep about 35 s)
-    # and the one-run pipeline's step of each knob (experiments/phase5_step_time.py --knob,
-    # about a minute) would take more than this phase's budget leaves: both scripts time them
-    # outside chip_smoke.py
+    # (d) the stacked and fused knobs' K-run step at K = MULTIRUN_K, timed in a process of its
+    # own without CUBLAS_WORKSPACE_CONFIG (phase 18's method).  The default, merged, is phase
+    # 18's sweep of the same run; the unmerged knob (its sweep about 35 s), K = 1 of each knob
+    # (cut to make room for phase 22) and the one-run pipeline's step of each knob
+    # (experiments/phase5_step_time.py --knob, about a minute) would take more than this
+    # phase's budget leaves: both scripts time them outside chip_smoke.py
     env = {k: v for k, v in os.environ.items() if k != "CUBLAS_WORKSPACE_CONFIG"}
     knobs = "stacked,fused_opt"
     proc = subprocess.run([sys.executable, str(REPO / "experiments" / "multirun_time.py"),
-                           "--knob", knobs, "--ks", f"1,{k_runs}", "--rounds", "1"],
+                           "--knob", knobs, "--ks", str(k_runs), "--rounds", "1"],
                           capture_output=True, text=True, timeout=600, env=env, cwd=REPO)
     check(proc.returncode == 0, f"multirun_time.py --knob {knobs} exited {proc.returncode}: "
                                 f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
@@ -3751,6 +3774,470 @@ def sequence_phase(run, modules, smi) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 22 --
+
+# Phase 22: data parallelism (parallel/dp.py, parallel/dp_explicit.py) at full width on phase 8's
+# pair (SCP2 <- EthanolLevel shapes, PipelineConfig(budget_multiplier=1.0)) with BATCH series a
+# domain, DP_RANKS rank processes sharing the card on gloo as phase 21's (BATCH / DP_RANKS = 5 a
+# rank), and the domain-sharded ensemble, DP_RANKS members one a rank.
+DP_RANKS = 4
+DP_SEED = 22
+DP_SERIES = 40  # the ensemble's train and test splits
+DP_TIMEOUT = 300.0  # the ranks' deadline, spawn and import included
+DP_REPS = 3  # timed data-parallel phase-5 steps a rank after the counted one
+# Gradients, each module's, against the unsharded step that takes the ranks' ReLU sign patterns,
+# its OS conv's transposed convs in float64 (phase 21's reference): within DP_GRAD_REL_L2
+# (relative L2), or DP_GRAD_FACTOR times the same unsharded step's own gap with float32
+# transposed convs.  The global moments' last bits flip ReLU inputs within rounding of zero, as
+# in phase 21.
+DP_GRAD_REL_L2 = 1e-5
+DP_GRAD_FACTOR = 2.0
+
+
+def dp_inputs(cfg) -> dict:
+    """Phase 22's models, states and data, the same bits in every process:
+    phase 8's pipe, a fresh state with WN end projections (``with_wn_ends``,
+    as phase 9's), a batch of BATCH series a domain and the pinned dropout
+    multipliers; a target-shaped classifier without CPC and its state;
+    DP_RANKS ensemble members with random BatchNorm state, and the
+    ensemble's train and test splits."""
+    from feature_level_style_transfer_for_tsc_tpu_torch.ops.batchnorm import BNStats
+    from feature_level_style_transfer_for_tsc_tpu_torch.train.classifier import OSCNNClassifier
+    from feature_level_style_transfer_for_tsc_tpu_torch.train.pipeline import StyleTransferPipeline
+
+    c, t, n = SCP2["channels"], SCP2["length"], SCP2["classes"]
+    e_c, e_t, e_n = ETHANOL["channels"], ETHANOL["length"], ETHANOL["classes"]
+    pipe = StyleTransferPipeline(c, t, n, e_c, e_t, e_n, cfg, device="cuda")
+    g = torch.Generator().manual_seed(DP_SEED)
+    state = with_wn_ends(pipe.init_state(g), g)
+    rng = np.random.default_rng(DP_SEED)
+
+    def series(b, length, ch, classes):
+        return (torch.from_numpy(rng.standard_normal((b, length, ch)).astype(np.float32)).cuda(),
+                torch.from_numpy(rng.integers(0, classes, b)).long().cuda())
+
+    batch = (*series(BATCH, t, c, n), *series(BATCH, e_t, e_c, e_n))
+    clf = OSCNNClassifier(c, t, n, config=cfg, with_cpc=False, device="cuda")
+    members = [with_random_bn(clf.init_models(torch.Generator().manual_seed(DP_SEED + 1 + i)),
+                              rng, BNStats) for i in range(DP_RANKS)]
+    splits = [types.SimpleNamespace(x=x.cpu().numpy(), y=y.cpu().numpy())
+              for x, y in (series(DP_SERIES, t, c, n) for _ in range(2))]
+    return {"pipe": pipe, "state": state, "batch": batch, "masks": pinned_masks()[1],
+            "clf": clf, "clf_state": clf.init_state(torch.Generator().manual_seed(DP_SEED)),
+            "members": members, "splits": splits}
+
+
+def digest(tree) -> str:
+    """A hash of every tensor's bits in a tree of dicts, lists and tensors."""
+    h = hashlib.sha256()
+    for t in _tensor_leaves(tree):
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _tensor_leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensor_leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensor_leaves(v)
+
+
+def recorded_grads(model) -> list:
+    """Each optimizer step's gradients by module (on the CPU), recorded
+    from the model's ``_apply_updates``."""
+    seen = []
+    apply = model._apply_updates
+
+    def record(state, names, grads):
+        seen.append({n: [None if g is None else g.detach().cpu() for g in grads[n]] for n in names})
+        return apply(state, names, grads)
+
+    model._apply_updates = record
+    return seen
+
+
+def dp_rank(rank: int, world: int, init_method: str, out_dir: str) -> dict:
+    """One rank of phase 22, in a process of its own: joins the gloo group,
+    replicates the states, and runs on its rows of the batch, each with the
+    launch counts set to 0 just before and read just after, its ReLU sign
+    patterns recorded: a data-parallel phase-5 step (``dp.phase5_grads``),
+    a phase-1 step (``make_dp_phase1_epoch``, one batch), a classifier step
+    (``dp.train_epoch``, one batch) and the domain-sharded ensemble's
+    evaluation (its member, ``FLSTTSC_FUSE_EPILOGUE=1``); saves what it
+    computed to ``out_dir``, then times DP_REPS more phase-5 steps."""
+    import torch.distributed as dist
+
+    from feature_level_style_transfer_for_tsc_tpu_torch.config import PipelineConfig
+    from feature_level_style_transfer_for_tsc_tpu_torch.losses.gradnorm import gradnorm_step
+    from feature_level_style_transfer_for_tsc_tpu_torch.ops import gate, osconv, wn_fused
+    from feature_level_style_transfer_for_tsc_tpu_torch.parallel import dp, launch, make_mesh
+    from feature_level_style_transfer_for_tsc_tpu_torch.parallel.dp_explicit import (
+        make_dp_phase1_epoch,
+    )
+    from feature_level_style_transfer_for_tsc_tpu_torch.parallel.mesh import data_sharding, place
+    from feature_level_style_transfer_for_tsc_tpu_torch.parallel.multi_source import (
+        MultiSourceEnsemble,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.perf_counter()
+    cfg = PipelineConfig(budget_multiplier=1.0)
+    modules = (osconv, wn_fused, gate)
+    counts, saved = {}, {}
+
+    def counted(what, fn):
+        for m in modules:
+            m.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts[what] = {name: n for m in modules for name, n in m.LAUNCHES.items()}
+        return out
+
+    with launch.process_group(rank, world, init_method, SEQ_BACKEND, timeout=DP_TIMEOUT):
+        mesh = make_mesh(data=world, device="cuda")
+        domains = make_mesh(data=1, domain=world, device="cuda")
+        inp = dp_inputs(cfg)
+        pipe, state, clf = inp["pipe"], inp["state"], inp["clf"]
+        ready_s = time.perf_counter() - t_start
+        t0 = time.perf_counter()
+        dp.replicate(mesh, state)
+        dp.replicate(mesh, inp["clf_state"])
+        torch.cuda.synchronize()
+        replicate_s = time.perf_counter() - t0
+        sh = data_sharding(mesh)
+        local = [place(mesh, b, sh) for b in inp["batch"]]
+        masks = [[place(mesh, m, sh) for m in pair] for pair in inp["masks"]]
+
+        def step5():
+            return dp.phase5_grads(mesh, pipe, state, *local, 0, ANCHORS, masks)
+
+        with ReluSigns() as signs:
+            losses, new_m, _, grads, n_t, n_s = counted("phase 5 step", step5)
+        gn = copy.deepcopy(state["gradnorm"])
+        vec = torch.stack([losses[k] for k in ("t_nf", "t_c", "s_nf", "s_c", "s2t2s_c")])
+        g = cfg.gradnorm
+        gradnorm_step(gn["t"], vec[:2], n_t, alpha=g.alpha, weight_sum=g.weights_t_sum)
+        gradnorm_step(gn["s"], vec[2:], n_s, alpha=g.alpha, weight_sum=g.weights_s_sum)
+        saved["phase5"] = {
+            "losses": to_cpu(losses), "n_t": n_t.cpu(), "n_s": n_s.cpu(),
+            "w_t": gn["t"].weights.cpu(), "w_s": gn["s"].weights.cpu(),
+            "new_m": to_cpu({k: new_m[k] for k in ("t_ext", "t_cls", "s_ext", "s_cls")}),
+            "grads": to_cpu(grads) if rank == 0 else None, "digest": digest(grads),
+            "relu_signs": signs.masks}
+        del grads, new_m
+
+        steps = recorded_grads(pipe)
+        epoch1 = make_dp_phase1_epoch(pipe, mesh)
+        with ReluSigns() as signs:
+            metrics = counted("phase 1 step", lambda: epoch1(state, local[0][None], local[1][None],
+                                                             ANCHORS[0]))
+        saved["phase1"] = {"metrics": to_cpu(metrics), "grads": steps[0] if rank == 0 else None,
+                           "digest": digest(state["params"]), "relu_signs": signs.masks}
+
+        steps = recorded_grads(clf)
+        with ReluSigns() as signs:
+            metrics = counted("classifier step", lambda: dp.train_epoch(
+                mesh, clf, inp["clf_state"], local[0][None], local[1][None]))
+        saved["classifier"] = {"metrics": to_cpu(metrics),
+                               "grads": steps[0] if rank == 0 else None,
+                               "digest": digest(inp["clf_state"]["params"]),
+                               "relu_signs": signs.masks}
+
+        ens = MultiSourceEnsemble(SCP2["channels"], SCP2["length"], SCP2["classes"], config=cfg,
+                                  device="cuda", mesh=domains)
+        stacked_members = ens.stack(inp["members"])
+        with environ(FLSTTSC_FUSE_EPILOGUE="1"):
+            res = counted("ensemble", lambda: ens.evaluate(stacked_members, *inp["splits"]))
+        saved["ensemble"] = {"predictions": torch.from_numpy(res["predictions"]),
+                             "class_weights": torch.from_numpy(res["class_weights"]),
+                             "member_accs": res["member_accs"], "ensemble_acc": res["ensemble_acc"]}
+        torch.save(saved, Path(out_dir) / f"rank{rank}.pt")
+        del saved
+        torch.cuda.reset_peak_memory_stats()
+        step_s = timed_steps(step5, reps=DP_REPS, barrier=dist.barrier)
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    return {"rank": rank, "device": torch.cuda.current_device(), "ready_s": ready_s,
+            "replicate_s": replicate_s, "counts": counts, "step_s": step_s, "peak_mib": peak_mib}
+
+
+def dp_conv_rows(osconv, pipe, b: int, n_fused: int) -> dict:
+    """``os_conv_fwd`` at a rank's shapes (every masked conv of a phase-5
+    step, B = ``b``) and ``os_conv_fused_fwd`` at the ensemble's (the
+    target model's convs over ``n_fused`` series) against their plain
+    versions, timed beside ``F.conv1d`` (the unfused conv) and their bounds."""
+    import torch.nn.functional as F
+
+    from feature_level_style_transfer_for_tsc_tpu_torch.structure import total_out_channels
+
+    gen = torch.Generator(device="cuda").manual_seed(DP_SEED)
+    rows = {"os_conv_fwd": [], "os_conv_fused_fwd": []}
+    for module, specs, masks, t in (("t_ext", pipe.t_ext_specs, pipe.t_ext_masks, SCP2["length"]),
+                                    ("cls", pipe.cls_specs, pipe.cls_masks, SCP2["length"]),
+                                    ("s_ext", pipe.s_ext_specs, pipe.s_ext_masks, ETHANOL["length"])):
+        for i, (spec, mask) in enumerate(zip(specs, masks)):
+            c_in, c_out, k = spec[0][0], total_out_channels(spec), spec[-1][-1]
+            scale = torch.rand(c_out, device="cuda", generator=gen) + 0.5
+            shift = torch.randn(c_out, device="cuda", generator=gen)
+            cases = [("os_conv_fwd", b, osconv.os_conv, osconv.os_conv_plain, ())]
+            if module != "s_ext":  # the ensemble's members are the target model
+                cases.append(("os_conv_fused_fwd", n_fused, osconv.os_conv_fused,
+                              osconv.os_conv_fused_plain, (scale, shift, True)))
+            for kern, batch, fn, plain, epilogue in cases:
+                x = torch.randn(batch, t + k - 1, c_in, device="cuda", generator=gen)
+                w = torch.randn(k, c_in, c_out, device="cuda", generator=gen) / math.sqrt(c_in * k) * mask
+                x_ncw, w_oik = x.transpose(1, 2).contiguous(), w.permute(2, 1, 0).contiguous()
+                err, rel = rel_err(fn(x, w, *epilogue), plain(x, w, *epilogue))
+                flops = 2 * batch * t * c_in * int(mask.sum().item())
+                n_bytes = 4 * (x.numel() + w.numel() + batch * t * c_out + (2 * c_out if epilogue else 0))
+                row = {"layer": f"{module}.{i}", "batch": batch, "t": t, "c_in": c_in,
+                       "c_out": c_out, "k": k, "max_abs": err, "rel": rel,
+                       "ms": cuda_ms(lambda: fn(x, w, *epilogue), reps=5),
+                       "plain_ms": cuda_ms(lambda: plain(x, w, *epilogue), reps=3),
+                       "library_ms": None if epilogue else cuda_ms(lambda: F.conv1d(x_ncw, w_oik), reps=5),
+                       "tc_flop_ms": TF32_PRODUCTS * flops / TC_PEAK * 1e3,
+                       "bytes_ms": n_bytes / HBM_RATE * 1e3}
+                row["bound_ms"] = max(row["tc_flop_ms"], row["bytes_ms"])
+                log(f"[data parallel kernel {kern}] " + json.dumps(row))
+                check(rel <= REL_TOL, f"{kern} {module}.{i} at B={batch}: rel err {rel:.3e}")
+                rows[kern].append(row)
+    return rows
+
+
+def dp_wn_rows(wn_fused, wn_init, weight_norm_weight, pipe, b: int) -> dict:
+    """``wn_fwd`` and ``wn_bwd`` at a rank's phase-5 shapes (pair: 2b
+    series, infer: b; T = 1152) against their plain versions, timed beside
+    their bounds."""
+    fc, t, h = pipe.config.flow, SCP2["length"], pipe.feat_channels // 2
+    rows = {"wn_fwd": [], "wn_bwd": []}
+    for what, series in (("pair", 2 * b), ("infer", b)):
+        eff = random_wn(wn_init, wn_fused, weight_norm_weight, h, fc.wn_channels, fc.wn_layers,
+                        seed=DP_SEED + series)
+        gen = torch.Generator(device="cuda").manual_seed(DP_SEED + series)
+        x2 = torch.randn(series * t, h, device="cuda", generator=gen)
+        g2 = torch.randn(series * t, 2 * h, device="cuda", generator=gen)
+        _, aud, skip = wn_fused.wn_fwd_plain(x2, *eff, t)
+        bwd_args = (x2, g2, aud, skip, eff[0], eff[2], eff[3], eff[4], eff[5], eff[6], eff[8], t)
+        work = wn_work(series, t, h, fc.wn_channels, fc.wn_layers)
+        for d, fn, plain, args in (("fwd", wn_fused.wn_fwd, wn_fused.wn_fwd_plain, (x2, *eff, t)),
+                                   ("bwd", wn_fused.wn_bwd, wn_fused.wn_bwd_plain, bwd_args)):
+            errs = [rel_err(a, w) for a, w in zip(fn(*args), plain(*args))]
+            row = {"shape": what, "rows": series * t, "max_abs": max(e[0] for e in errs),
+                   "rel": max(e[1] for e in errs), "ms": cuda_ms(lambda: fn(*args), reps=5),
+                   "plain_ms": cuda_ms(lambda: plain(*args), reps=3), "library_ms": None,
+                   "tc_flop_ms": TF32_PRODUCTS * work[f"{d}_flops"] / TC_PEAK * 1e3,
+                   "bytes_ms": work[f"{d}_bytes"] / HBM_RATE * 1e3}
+            row["bound_ms"] = max(row["tc_flop_ms"], row["bytes_ms"])
+            log(f"[data parallel kernel wn_{d}] " + json.dumps(row))
+            tol = WN_FWD_REL_TOL if d == "fwd" else WN_BWD_REL_TOL
+            check(row["rel"] <= tol, f"wn_{d} at a rank's {what} shape: rel err {row['rel']:.3e}")
+            rows[f"wn_{d}"].append(row)
+    return rows
+
+
+def dp_module_gaps(what: str, dp_grads: dict, ref: dict, pinned: dict, exact: dict) -> dict:
+    """Each module's gradients (relative L2): the DP step's against the
+    pinned float64-backward reference (gated), the pinned float32 step's own
+    gap to it, and the DP step's against the unpinned step."""
+    def flat(grads, name):
+        return torch.cat([g.flatten() for g in grads[name] if g is not None])
+
+    gaps = {}
+    for name in dp_grads:
+        if all(g is None for g in dp_grads[name]):
+            continue
+        gaps[name] = {"vs_exact": rel_l2(flat(dp_grads, name), flat(exact, name))[1],
+                      "own": rel_l2(flat(pinned, name), flat(exact, name))[1],
+                      "unpinned": rel_l2(flat(dp_grads, name), flat(ref, name))[1]}
+        bar = max(DP_GRAD_REL_L2, DP_GRAD_FACTOR * gaps[name]["own"])
+        check(gaps[name]["vs_exact"] <= bar, f"data parallel {what}, gradients of {name}: relative "
+              f"L2 {gaps[name]['vs_exact']:.3e} > {bar:.3e} (own {gaps[name]['own']:.3e})")
+    log(f"[data parallel {what}] gradients (relative L2) against the pinned float64-backward "
+        f"reference, the unsharded float32 step's own, against the unpinned: {json.dumps(gaps)}")
+    return gaps
+
+
+def dp_phase(run, modules, wn_fns, smi) -> dict:
+    """Phase 22: a data-parallel phase-5 step, phase-1 step and classifier
+    step over DP_RANKS ranks on the one card against the unsharded steps on
+    the card (gradients against those with the ranks' ReLU sign patterns
+    pinned and float64 transposed convs), the domain-sharded ensemble
+    against the one-process ensemble, exact launches a rank (added to the
+    main path's as the "data parallel" path), each kernel at a rank's
+    shapes against its plain version."""
+    from feature_level_style_transfer_for_tsc_tpu_torch.config import PipelineConfig
+    from feature_level_style_transfer_for_tsc_tpu_torch.losses.classification import cross_entropy
+    from feature_level_style_transfer_for_tsc_tpu_torch.losses.gradnorm import gradnorm_step
+    from feature_level_style_transfer_for_tsc_tpu_torch.parallel import launch
+    from feature_level_style_transfer_for_tsc_tpu_torch.parallel.multi_source import (
+        MultiSourceEnsemble,
+    )
+
+    osconv, wn_fused, gate = modules
+    cfg = PipelineConfig(budget_multiplier=1.0)
+    b_rank = BATCH // DP_RANKS
+    out = {"backend": SEQ_BACKEND, "ranks": DP_RANKS, "batch": BATCH, "batch_a_rank": b_rank}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as d:
+        t0 = time.perf_counter()
+        ranks = launch.spawn(dp_rank, DP_RANKS, (f"file://{d}/rendezvous", d), timeout=DP_TIMEOUT)
+        out["spawn_wall_s"] = time.perf_counter() - t0
+        shards = [torch.load(Path(d) / f"rank{r}.pt") for r in range(DP_RANKS)]
+    inp = dp_inputs(cfg)
+    pipe, state, batch, masks = inp["pipe"], inp["state"], inp["batch"], inp["masks"]
+    n_ext, n_s_ext, n_cls = len(pipe.t_ext_specs), len(pipe.s_ext_specs), len(pipe.cls_specs)
+    flows = cfg.flow.n_flows
+    expect = {
+        "phase 5 step": {**run.idle(), "os_conv_fwd": n_ext + n_s_ext + 3 * n_cls,
+                         "wn_fwd": 2 * flows, "wn_bwd": 5 * flows},
+        "phase 1 step": {**run.idle(), "os_conv_fwd": n_ext + n_cls},
+        "classifier step": {**run.idle(), "os_conv_fwd": n_ext + n_cls},
+        "ensemble": {**run.idle(), "os_conv_fused_fwd": 2 * (n_ext + n_cls)},
+    }
+    for r in ranks:
+        log(f"[data parallel rank {r['rank']}] cuda:{r['device']} ready after {r['ready_s']:.1f} s, "
+            f"replicate {r['replicate_s']:.2f} s, launches={r['counts']}, phase-5 step s="
+            f"{[round(x, 4) for x in r['step_s']]}, peak MiB={r['peak_mib']:.0f}")
+        for what, want in expect.items():
+            check(r["counts"][what] == want,
+                  f"rank {r['rank']} {what}: launches {r['counts'][what]} != {want}")
+    total = run.idle()
+    for r in ranks:
+        for what in expect:
+            for name, n in r["counts"][what].items():
+                total[name] += n
+    run.add("data parallel 4 ranks", total, path="data parallel")
+    out["rank_results"] = ranks
+    for key in ("phase5", "phase1", "classifier"):
+        check(len({s[key]["digest"] for s in shards}) == 1, f"data parallel {key}: the ranks' "
+              "gradients or new parameters differ")
+    for s in shards[1:]:
+        check(torch.equal(s["ensemble"]["predictions"], shards[0]["ensemble"]["predictions"]),
+              "domain-sharded ensemble: the ranks' predictions differ")
+
+    def signs_of(key):
+        return [torch.cat([s[key]["relu_signs"][i] for s in shards], dim=0)
+                for i in range(len(shards[0][key]["relu_signs"]))]
+
+    # ---- phase 5: the unsharded step on the card, unpinned, pinned, pinned with float64
+    # transposed convs
+    def p5(ctx):
+        with ctx:
+            losses, new_m, _, grads, n_t, n_s = pipe.phase5_grads(state, *batch, 0, ANCHORS, masks)
+            torch.cuda.synchronize()
+        return {"losses": to_cpu(losses), "grads": to_cpu(grads), "n_t": n_t.cpu(),
+                "n_s": n_s.cpu(), "new_m": to_cpu({k: new_m[k] for k in
+                                                   ("t_ext", "t_cls", "s_ext", "s_cls")})}
+
+    signs = signs_of("phase5")
+    ref = p5(contextlib.nullcontext())
+    with ReluSigns(pinned=signs) as flips5:
+        pinned = p5(contextlib.nullcontext())
+    exact = p5(stacked(ReluSigns(pinned=signs), f64_os_conv_bwd(osconv)))
+    got = shards[0]["phase5"]
+    gn = copy.deepcopy(state["gradnorm"])
+    vec = torch.stack([pinned["losses"][k] for k in ("t_nf", "t_c", "s_nf", "s_c", "s2t2s_c")]).cuda()
+    g = cfg.gradnorm
+    gradnorm_step(gn["t"], vec[:2], pinned["n_t"].cuda(), alpha=g.alpha, weight_sum=g.weights_t_sum)
+    gradnorm_step(gn["s"], vec[2:], pinned["n_s"].cuda(), alpha=g.alpha, weight_sum=g.weights_s_sum)
+    row = {"loss_rel": {k: rel_err(got["losses"][k], pinned["losses"][k])[1] for k in got["losses"]},
+           "loss_rel_unpinned": {k: rel_err(got["losses"][k], ref["losses"][k])[1]
+                                 for k in got["losses"]},
+           "n_t_rel": rel_err(got["n_t"], pinned["n_t"])[1],
+           "n_s_rel": rel_err(got["n_s"], pinned["n_s"])[1],
+           "w_t_rel": rel_err(got["w_t"], gn["t"].weights.cpu())[1],
+           "w_s_rel": rel_err(got["w_s"], gn["s"].weights.cpu())[1],
+           "new_bn_stats": max((a - b_).abs().max().item() / max(1.0, b_.abs().max().item())
+                               for a, b_ in zip(_tensor_leaves(got["new_m"]),
+                                                _tensor_leaves(ref["new_m"]))),
+           "relu_flips": flips5.flips}
+    log(f"[data parallel phase-5 step] vs the unsharded step on the card: {json.dumps(row)}")
+    for k, v in row["loss_rel"].items():
+        check(math.isfinite(float(got["losses"][k])), f"data parallel phase-5 loss {k} not finite")
+        check(v <= REL_TOL, f"data parallel phase-5 loss {k}: rel err {v:.3e}")
+    for k in ("n_t_rel", "n_s_rel"):
+        check(row[k] <= GRAD_REL_TOL, f"data parallel phase-5 {k} {row[k]:.3e}")
+    for k in ("w_t_rel", "w_s_rel"):
+        check(row[k] <= REL_TOL, f"data parallel phase-5 GradNorm {k} {row[k]:.3e}")
+    check(row["new_bn_stats"] <= SEQ_ATOL, f"data parallel new BN stats {row['new_bn_stats']:.3e}")
+    row["grads"] = dp_module_gaps("phase-5 step", got["grads"], ref["grads"], pinned["grads"],
+                                  exact["grads"])
+    out["phase5"] = row
+    del ref, pinned, exact
+
+    # ---- phase 1 and the classifier: the gradients of one step, no update
+    def p1(ctx):
+        with ctx:
+            losses, _ = pipe._phase1_forward(state["params"], state["mstate"], state["consts"],
+                                             batch[0], batch[1], (ANCHORS[0],))
+            grads = pipe._grads(losses["total"], state, ("t_ext", "t_cls", "cpc"))
+        return {"losses": to_cpu(losses), "grads": to_cpu(grads)}
+
+    clf, cstate = inp["clf"], inp["clf_state"]
+
+    def pc(ctx):
+        with ctx:
+            logits, _, _, _ = clf.forward(cstate["params"], cstate["mstate"], batch[0], True)
+            loss = cross_entropy(logits, batch[1])
+            grads = clf._grads(loss, cstate, clf.modules)
+        return {"losses": {"c_loss": loss.detach().cpu()}, "grads": to_cpu(grads)}
+
+    for key, fn, metric in (("phase1", p1, ("t_c_loss", "t_sl_loss")),
+                            ("classifier", pc, ("c_loss",))):
+        signs = signs_of(key)
+        ref = fn(contextlib.nullcontext())
+        with ReluSigns(pinned=signs) as flips:
+            pinned = fn(contextlib.nullcontext())
+        exact = fn(stacked(ReluSigns(pinned=signs), f64_os_conv_bwd(osconv)))
+        got = shards[0][key]
+        loss_rel = {m: rel_err(got["metrics"][m], pinned["losses"][m])[1] for m in metric}
+        log(f"[data parallel {key} step] losses rel vs the unsharded step {json.dumps(loss_rel)}, "
+            f"ReLU flips {flips.flips}")
+        for m, v in loss_rel.items():
+            check(v <= REL_TOL, f"data parallel {key} loss {m}: rel err {v:.3e}")
+        out[key] = {"loss_rel": loss_rel, "relu_flips": flips.flips,
+                    "grads": dp_module_gaps(f"{key} step", got["grads"], ref["grads"],
+                                            pinned["grads"], exact["grads"])}
+        del ref, pinned, exact
+
+    # ---- the ensemble against the one-process ensemble
+    ens = MultiSourceEnsemble(SCP2["channels"], SCP2["length"], SCP2["classes"], config=cfg,
+                              device="cuda")
+    with environ(FLSTTSC_FUSE_EPILOGUE="1"):
+        res = ens.evaluate(ens.stack(inp["members"]), *inp["splits"])
+    got = shards[0]["ensemble"]
+    same = np.array_equal(got["predictions"].numpy(), res["predictions"])
+    w_gap = float(np.abs(got["class_weights"].numpy() - res["class_weights"]).max())
+    log(f"[data parallel ensemble] predictions equal to the one-process ensemble's: {same}; class "
+        f"weights max abs {w_gap:.3e}; accuracy {got['ensemble_acc']:.4f} "
+        f"({res['ensemble_acc']:.4f}); members {got['member_accs']}")
+    check(same, "domain-sharded ensemble: predictions differ from the one-process ensemble's")
+    check(w_gap <= 1e-6, f"domain-sharded ensemble: class weights {w_gap:.3e} from one process's")
+    out["ensemble"] = {"predictions_equal": same, "class_weights_max_abs": w_gap}
+
+    # ---- the kernels at a rank's shapes, and the step timed
+    out["kernels"] = {**dp_conv_rows(osconv, pipe, b_rank, DP_SERIES),
+                      **dp_wn_rows(wn_fused, *wn_fns, pipe, b_rank)}
+    torch.cuda.reset_peak_memory_stats()
+    out["unsharded_step_s"] = timed_steps(lambda: pipe.phase5_grads(state, *batch, 0, ANCHORS, masks))
+    out["unsharded_peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    rank_s = [statistics.median(r["step_s"]) for r in ranks]
+    out["rank_step_median_s"] = rank_s
+    out["unsharded_step_median_s"] = statistics.median(out["unsharded_step_s"])
+    log(f"[data parallel] phase-5 step s (pulls, no update): a rank (4 share the card, 5 series a "
+        f"domain) {[round(x, 4) for x in rank_s]}, unsharded (20) "
+        f"{out['unsharded_step_median_s']:.4f}; spawn to joined {out['spawn_wall_s']:.1f} s; peak "
+        f"MiB a rank {[round(r['peak_mib']) for r in ranks]}, unsharded "
+        f"{out['unsharded_peak_mib']:.0f}; on {smi}")
+    del inp, state
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
@@ -4146,6 +4633,11 @@ def main() -> int:
         clock.start("phase 21")
         # ---- phase 21: time-sharded sequence parallelism, 4 ranks on the card
         results["sequence"] = sequence_phase(run, (osconv, wn_fused, gate), smi)
+
+        clock.start("phase 22")
+        # ---- phase 22: data parallelism, 4 ranks on the card, and the domain-sharded ensemble
+        results["data_parallel"] = dp_phase(run, (osconv, wn_fused, gate),
+                                            (wn_init, weight_norm_weight), smi)
 
     clock.start(None)
     results["phase_s"] = clock.secs

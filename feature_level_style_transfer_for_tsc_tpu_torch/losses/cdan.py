@@ -15,6 +15,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from ..models.critics import CriticState, ad_net_apply, ad_net_coeff, random_layer_apply
+from ..ops.collectives import all_reduce_sum, data_group, rank_and_size
 from ..ops.grl import gradient_reversal
 from .classification import softmax_entropy
 
@@ -38,7 +39,9 @@ def cdan_loss(
     dropout_masks: Optional[Sequence[Sequence[torch.Tensor]]] = None,
 ) -> Tuple[torch.Tensor, CriticState]:
     """``dropout_masks``, when given, are the critic's keep-masks for the
-    target and the s2t call, two each."""
+    target and the s2t call, two each.  Under a data-parallel group the
+    four sums are global (one all-reduce) and the loss, the same on every
+    rank, is returned as the rank's 1/P share of it."""
     prob_target = torch.softmax(target_logits, dim=1)
     prob_s2t = torch.softmax(s2t_logits, dim=1)
     fusion_t = random_layer_apply(random_layer, [_flatten_features(target_feature), prob_target])
@@ -51,6 +54,13 @@ def cdan_loss(
     coeff = ad_net_coeff(state2)
     w_t = 1.0 + torch.exp(-gradient_reversal(softmax_entropy(prob_target), coeff))
     w_s = 1.0 + torch.exp(-gradient_reversal(softmax_entropy(prob_s2t), coeff))
+    group = data_group()
+    if group is not None:
+        sums = all_reduce_sum(torch.stack([w_t.sum(), w_s.sum(), target_out[:, 0].sum(),
+                                           s2t_out[:, 0].sum()]), group)
+        norm = sums[:2].detach()
+        distance = (sums[0] / norm[0]) * sums[2] - (sums[1] / norm[1]) * sums[3]
+        return distance / rank_and_size(group)[1], state2
     w_t = w_t / w_t.sum().detach()
     w_s = w_s / w_s.sum().detach()
     # The reference's unassigned ``.view(-1, 1)`` (C_DAN.py:75,77) makes

@@ -13,6 +13,7 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..ops.collectives import all_reduce_sum, data_group, rank_and_size
 from .common import conv1x1, conv1x1_init, linear_init, lstm_cell, lstm_init
 
 
@@ -79,14 +80,25 @@ def noise_transfer_apply(params: Dict, state: NoiseTransferState, target_noise: 
     The first call adds the plain batch mean; later calls add
     ``batch/cal_num_so_far * mean(batch)`` (a growing accumulator, kept as
     the reference has it).  Gradients flow through the current batch's
-    contribution; the stored averages are detached.
+    contribution; the stored averages are detached.  Under a data-parallel
+    group the means and the counts are the global batch's (one all-reduce),
+    and the delta, the same on every rank, is added to the rank's rows.
     """
     b_t, b_s = target_noise.shape[0], source_noise.shape[0]
+    group = data_group()
+    if group is None:
+        mean_t, mean_s = target_noise.mean(dim=0), source_noise.mean(dim=0)
+    else:
+        n = rank_and_size(group)[1]
+        b_t, b_s = b_t * n, b_s * n
+        sums = all_reduce_sum(torch.stack([target_noise.sum(dim=0), source_noise.sum(dim=0)]),
+                              group)
+        mean_t, mean_s = sums[0] / b_t, sums[1] / b_s
     first = int(state.time) == 0
     coef_t = 1.0 if first else b_t / max(float(state.cal_num_target), 1.0)
     coef_s = 1.0 if first else b_s / max(float(state.cal_num_source), 1.0)
-    target_avg = state.target_avg + coef_t * target_noise.mean(dim=0)
-    source_avg = state.source_avg + coef_s * source_noise.mean(dim=0)
+    target_avg = state.target_avg + coef_t * mean_t
+    source_avg = state.source_avg + coef_s * mean_s
     delta = F.selu(conv1x1(params["conv"], target_avg - source_avg))
     new_state = NoiseTransferState(
         target_avg.detach(), source_avg.detach(), state.time + 1,

@@ -25,6 +25,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops.collectives import data_group, rank_and_size
+
 
 def uniform(shape, bound: float, generator: torch.Generator, device="cpu") -> torch.Tensor:
     """U(-bound, bound), drawn on the CPU from ``generator``, then moved."""
@@ -143,13 +145,22 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Inverted dropout, ``x * mask``.  ``mask`` is the multiplier (keep /
     (1 - rate), 0 where dropped) when given, else drawn on the CPU from
-    ``generator``; with neither, or outside training, x is returned."""
+    ``generator``; with neither, or outside training, x is returned.  Under
+    a data-parallel group the draw is the global batch's (rows of every
+    rank, in rank order) and the rank keeps its own rows, so a replicated
+    generator draws what one device would."""
     if not training or rate == 0.0:
         return x
     if mask is None:
         if generator is None:
             return x
-        mask = dropout_mask(x.shape, rate, generator)
+        group = data_group()
+        if group is None:
+            mask = dropout_mask(x.shape, rate, generator)
+        else:
+            i, n = rank_and_size(group)
+            b = x.shape[0]
+            mask = dropout_mask((b * n, *x.shape[1:]), rate, generator)[i * b : (i + 1) * b]
     return x * mask.to(x.device)
 
 

@@ -20,6 +20,7 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
+from ..ops.collectives import all_gather_rows, data_group, rank_and_size
 from .common import gru_init, gru_scan, linear_init
 
 
@@ -55,9 +56,29 @@ def _info_nce(params: Dict, z: torch.Tensor, context: torch.Tensor, anchor: Anch
     encode_samples = z.index_select(1, steps).transpose(0, 1)  # (ts, B, C)
     c_t = context.index_select(1, steps[:1] - 1)[:, 0]  # (B, hidden)
     pred = torch.stack([c_t @ p["weight"] + p["bias"] for p in params["wk"]])  # (ts, B, C)
+    group = data_group()
+    if group is not None:
+        return info_nce_contrib(encode_samples, pred, group)
     total = torch.einsum("sbc,sdc->sbd", encode_samples, pred)  # (ts, B, B)
     nce = torch.diagonal(torch.log_softmax(total, dim=-1), dim1=1, dim2=2).sum()
     return nce / (-1.0 * b * timestep)
+
+
+def info_nce_contrib(encode_local: torch.Tensor, pred_local: torch.Tensor, group) -> torch.Tensor:
+    """This rank's contribution to the global InfoNCE loss, its batch rows
+    sharded over ``group`` (JAX ``parallel/dp_explicit.py`` ``_cpc_contrib``):
+    the softmax runs over the whole batch, so every rank's prediction
+    columns are gathered (``(ts, B_loc, C)`` -> ``(ts, B_glob, C)``, rank
+    order) and the local rows are scored against all of them; the diagonal
+    of rank i's rows sits at global columns ``i * B_loc + arange(B_loc)``.
+    The contributions sum to the unsharded loss."""
+    timestep, b_loc, _ = encode_local.shape
+    i, n = rank_and_size(group)
+    pred_all = all_gather_rows(pred_local, group, dim=1)  # (ts, B_glob, C)
+    total = torch.einsum("sbc,sdc->sbd", encode_local, pred_all)  # (ts, B_loc, B_glob)
+    rows = torch.arange(b_loc, device=total.device)
+    diag = torch.log_softmax(total, dim=-1)[:, rows, i * b_loc + rows]  # (ts, B_loc)
+    return diag.sum() / (-1.0 * b_loc * n * timestep)
 
 
 def cpc_apply(params: Dict, features: torch.Tensor, anchor: Anchor) -> torch.Tensor:

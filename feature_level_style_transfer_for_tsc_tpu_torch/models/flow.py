@@ -37,6 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.collectives import data_group, rank_and_size
 from ..ops.coupling import affine_coupling_forward, affine_coupling_inverse
 from ..ops.gate import fused_add_tanh_sigmoid_multiply
 from ..ops.osconv import _conv_im2col, conv_impl, tap_conv
@@ -228,9 +229,13 @@ def waveglow_infer(params: Dict, noise: torch.Tensor, n_wn_ch: int,
 
 
 def waveglow_loss(model_output, sigma: float = 1.0) -> torch.Tensor:
-    """WaveGlow NLL (reference WaveGlowLoss, :223-241)."""
+    """WaveGlow NLL (reference WaveGlowLoss, :223-241).  Under a
+    data-parallel group, the rank's contribution: its rows' terms (the
+    log-determinants are its rows' share) over the global element count."""
     z, log_s_list, log_det_w_list = model_output
     log_s_total = sum(torch.sum(ls) for ls in log_s_list)
     log_det_w_total = sum(log_det_w_list)
     loss = torch.sum(z * z) / (2 * sigma * sigma) - log_s_total - log_det_w_total
-    return loss / (z.shape[0] * z.shape[1] * z.shape[2])
+    group = data_group()
+    rows = z.shape[0] if group is None else z.shape[0] * rank_and_size(group)[1]
+    return loss / (rows * z.shape[1] * z.shape[2])

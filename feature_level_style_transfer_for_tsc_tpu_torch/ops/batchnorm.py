@@ -11,6 +11,16 @@ the reference's deliberate train/eval flips become a ``training`` flag:
   through them.  The training loop stores them detached;
 * eval: normalize with the running statistics and return them unchanged.
 
+Inside ``bn_cross_replica(group)`` (JAX's name; the port's data-parallel
+group, ``ops/collectives.py``) the training moments are those of the GLOBAL
+batch, whose rows or time steps the group's ranks hold in shards, over
+local rows x P values: the mean from an all-reduce of the sums, then the
+variance from an all-reduce of the squared deviations from it, the
+two-pass variance of the unsharded op.  JAX's ``E[x^2] - mean^2`` from one
+all-reduce (JAX ``ops/batchnorm.py:71-90``) cancels where a channel's mean
+dwarfs its spread: at the CPU test's source shapes it moved a phase-5
+gradient 0.7% from the unsharded step's (``tests/test_torch_port_dp.py``).
+
 Channel-last layout: x is (..., C); stats are (C,).
 """
 
@@ -19,6 +29,14 @@ from __future__ import annotations
 from typing import NamedTuple, Tuple
 
 import torch
+
+from .collectives import all_reduce_sum, data_group, data_parallel, rank_and_size
+
+
+#: JAX's name for the context of the port's data-parallel group: inside it training-mode
+#: ``batch_norm`` takes its moments over the group, and the port's other batch-global
+#: quantities are global too (``ops/collectives.py``)
+bn_cross_replica = data_parallel
 
 
 class BNStats(NamedTuple):
@@ -57,6 +75,15 @@ def batch_norm(
     if not training:
         return batch_norm_eval(x, scale, bias, stats, eps), stats
     dims = tuple(range(x.dim() - 1))
+    group = data_group()
+    if group is not None:
+        n = x.numel() // x.shape[-1] * rank_and_size(group)[1]
+        mean = all_reduce_sum(x.sum(dim=dims), group) / n
+        var = all_reduce_sum(torch.square(x - mean).sum(dim=dims), group) / n  # biased
+        unbiased = var * (n / max(n - 1, 1))
+        new_stats = BNStats((1 - momentum) * stats.mean + momentum * mean,
+                            (1 - momentum) * stats.var + momentum * unbiased)
+        return (x - mean) * (torch.rsqrt(var + eps) * scale) + bias, new_stats
     mean = x.mean(dim=dims)
     var = torch.square(x - mean).mean(dim=dims)  # biased
     n = x.numel() // x.shape[-1]

@@ -1,7 +1,11 @@
-"""Multi-source ensemble on one card; the mesh and time-sharded sequence
-parallelism over ``torch.distributed`` ranks (``launch`` starts them)."""
+"""The mesh and the multi-source ensemble; data parallelism and time-sharded
+sequence parallelism over ``torch.distributed`` ranks (``launch`` starts
+them)."""
 
-from .mesh import make_mesh  # noqa: F401
+from .dp import replicate, shard_epoch_batches  # noqa: F401
+from .dp_explicit import make_dp_phase1_epoch  # noqa: F401
+from .mesh import data_sharding, domain_sharding, make_mesh, replicated  # noqa: F401
+from .multi_source import MultiSourceEnsemble  # noqa: F401
 from .sequence import (  # noqa: F401
     gather_time,
     shard_time,

@@ -5,8 +5,17 @@ Counterpart of the JAX package's ``parallel/multi_source.py``
 ``compute_class_weights``, ``predict``, ``evaluate``).  The K members
 (feature extractor + classifier) share the target architecture, so their
 states stack along a leading model axis as in the JAX package; on one card
-the members then run one after another over the shared input batch, with no
-mesh, and the vote sums over the model axis.
+the members then run one after another over the shared input batch, and the
+vote sums over the model axis.
+
+With a ``mesh`` (``parallel.mesh.make_mesh``; every rank of it runs the same
+calls, multi-controller) the model axis is sharded over "domain", as JAX's
+``device_put`` with ``domain_sharding`` places it: ``stack`` keeps each
+rank's own members (the member count must be divisible by the axis size),
+and ``member_logits`` computes them and all-gathers the ``(M_loc, N, C)``
+logits in member order, so the weights, the votes and every result are the
+same on every rank.  The CLIs stay one process with ``mesh=None``, JAX's
+case of fewer devices than members.
 """
 
 from __future__ import annotations
@@ -20,7 +29,9 @@ from ..config import PipelineConfig, VotingConfig
 from ..evaluation.metrics import normalize_model_weights, per_class_precision_weights
 from ..evaluation.voting import entropy_only_vote, entropy_precision_vote, predicted_label_vote
 from ..ops.batchnorm import BNStats
+from ..ops.collectives import all_gather
 from ..train.classifier import OSCNNClassifier
+from .mesh import axis_group, domain_sharding, place
 
 
 def tree_map(fn, *trees):
@@ -46,6 +57,7 @@ class MultiSourceEnsemble:
         config: Optional[PipelineConfig] = None,
         voting: Optional[VotingConfig] = None,
         device="cuda",
+        mesh=None,
     ):
         # Member model definition = the target classification stack
         # (reference multi_source_voting.py:240-263 rebuilds exactly this).
@@ -54,22 +66,32 @@ class MultiSourceEnsemble:
         )
         self.num_class = num_class
         self.voting = voting or VotingConfig()
+        self.mesh = mesh
 
     def stack(self, members: List[Dict]) -> Dict:
         """Stack member ``{'params', 'mstate'}`` states along a model axis, on
-        the ensemble's device."""
+        the ensemble's device; with a mesh, this rank's members only."""
         device = self.model_def.device
-        return tree_map(lambda *leaves: torch.stack([l.to(device) for l in leaves]), *members)
+        stacked = tree_map(lambda *leaves: torch.stack([l.to(device) for l in leaves]), *members)
+        if self.mesh is not None:
+            sh = domain_sharding(self.mesh)
+            stacked = tree_map(lambda leaf: place(self.mesh, leaf, sh), stacked)
+        return stacked
 
     def member_logits(self, stacked: Dict, x) -> torch.Tensor:
-        """(M, N, C) logits, one row per model (shared input batch)."""
+        """(M, N, C) logits, one row per model (shared input batch); with a
+        mesh, every rank's members, gathered in member order."""
         n_models = stacked["params"]["cls"]["hidden"]["bias"].shape[0]
         x = torch.as_tensor(x, dtype=torch.float32).to(self.model_def.device)
         out = []
         for m in range(n_models):
             member = tree_map(lambda leaf: leaf[m], stacked)
             out.append(self.model_def.predict_logits(member["params"], member["mstate"], x))
-        return torch.stack(out)
+        logits = torch.stack(out)
+        if self.mesh is None:
+            return logits
+        group, _, _ = axis_group(self.mesh, "domain")
+        return torch.cat(all_gather(logits, group), dim=0)
 
     def compute_class_weights(self, stacked: Dict, x_train, y_train) -> torch.Tensor:
         """Per-model per-class precision on the TARGET TRAIN split, normalized

@@ -47,10 +47,11 @@ the shard edges.  So the halo exchange and the statistics' all-reduce are
 ``autograd.Function``s: the halo exchange's backward sends each halo row's
 gradient back to the rank that donated the row and adds it there (the zero
 halos' gradients are dropped), and the all-reduce's backward all-reduces
-the gradient of the global sums.  Every rank must run the same backward.
+the gradient of the global sums (``batch_norm`` under ``bn_cross_replica``,
+``ops/collectives.py``).  Every rank must run the same backward.
 **Parameter gradients come out as each rank's share**: the sum over the
 ranks is the gradient of the sum of the ranks' losses, and summing them is
-the caller's ``all_reduce`` (DDP's, in the data-parallel slice).  The
+the caller's ``all_reduce`` (``collectives.all_reduce_grads``).  The
 log-determinants are replicated: a loss summed over ranks counts them once.
 """
 
@@ -63,24 +64,11 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..models.flow import wn_apply
-from ..ops.batchnorm import BNStats
+from ..ops.batchnorm import batch_norm, bn_cross_replica
+from ..ops.collectives import all_gather
 from ..ops.coupling import affine_coupling_forward
 from ..ops.osconv import OSConvCore, tap_conv
-
-
-def _axis_group(mesh: DeviceMesh, axis: str):
-    """(process group, this rank's index on ``axis``, the axis' size)."""
-    if axis not in (mesh.mesh_dim_names or ()):
-        raise ValueError(f"mesh axes are {mesh.mesh_dim_names}, not {axis!r}")
-    group = mesh.get_group(axis)
-    return group, dist.get_rank(group), dist.get_world_size(group)
-
-
-def _all_gather(t: torch.Tensor, group) -> List[torch.Tensor]:
-    """Every rank's ``t`` of ``group``, in the group's rank order."""
-    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, t.contiguous(), group=group)
-    return parts
+from .mesh import axis_group
 
 
 class _HaloExchange(torch.autograd.Function):
@@ -95,7 +83,7 @@ class _HaloExchange(torch.autograd.Function):
                              "halo; use fewer shards")
         i, n = dist.get_rank(group), dist.get_world_size(group)
         ctx.shape, ctx.pads, ctx.group = (b, t, c), (pad_l, pad_r), group
-        slabs = _all_gather(torch.cat([x[:, t - pad_l:], x[:, :pad_r]], dim=1), group)
+        slabs = all_gather(torch.cat([x[:, t - pad_l:], x[:, :pad_r]], dim=1), group)
         left = slabs[i - 1][:, :pad_l] if i > 0 else x.new_zeros(b, pad_l, c)
         right = slabs[i + 1][:, pad_l:] if i < n - 1 else x.new_zeros(b, pad_r, c)
         return torch.cat([left, x, right], dim=1)
@@ -104,7 +92,7 @@ class _HaloExchange(torch.autograd.Function):
     def backward(ctx, g):
         (_, t, _), (pad_l, pad_r), group = ctx.shape, ctx.pads, ctx.group
         i, n = dist.get_rank(group), dist.get_world_size(group)
-        slabs = _all_gather(torch.cat([g[:, :pad_l], g[:, pad_l + t:]], dim=1), group)
+        slabs = all_gather(torch.cat([g[:, :pad_l], g[:, pad_l + t:]], dim=1), group)
         dx = g[:, pad_l : pad_l + t].clone()
         if i < n - 1:  # my trailing rows were the right neighbour's left halo
             dx[:, t - pad_l:] += slabs[i + 1][:, :pad_l]
@@ -121,49 +109,6 @@ def _halo_exchange(x_local: torch.Tensor, pad_l: int, pad_r: int, group) -> torc
     return _HaloExchange.apply(x_local, pad_l, pad_r, group)
 
 
-class _AllReduceSum(torch.autograd.Function):
-    """The sum over ``group`` of every rank's ``t``; its gradient is the sum
-    of every rank's gradient of that sum."""
-
-    @staticmethod
-    def forward(ctx, t, group):
-        ctx.group = group
-        out = t.clone()
-        dist.all_reduce(out, group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
-
-
-def _sharded_batch_norm(x_local, scale, bias, stats: BNStats, training: bool, group,
-                        n_global: int, momentum: float = 0.1, eps: float = 1e-5):
-    """Torch-parity BatchNorm over (B, T_shard, C) with time sharded over
-    ``group``: in training the batch statistics are global through one
-    all-reduce of the stacked (sum, sum of squares), the variance
-    ``E[x^2] - mean^2`` over ``n_global = B * T_global`` values (the JAX
-    package's formula); the new running statistics are stored detached."""
-    if training:
-        sums = torch.stack([x_local.sum(dim=(0, 1)), torch.square(x_local).sum(dim=(0, 1))])
-        gsum, gsq = _AllReduceSum.apply(sums, group)
-        mean = gsum / n_global
-        var = gsq / n_global - torch.square(mean)  # biased
-        unbiased = var * (n_global / max(n_global - 1, 1))
-        new_stats = BNStats(
-            ((1 - momentum) * stats.mean + momentum * mean).detach(),
-            ((1 - momentum) * stats.var + momentum * unbiased).detach(),
-        )
-        use_mean, use_var = mean, var
-    else:
-        new_stats = stats
-        use_mean, use_var = stats.mean, stats.var
-    inv = torch.rsqrt(use_var + eps)
-    return (x_local - use_mean) * (inv * scale) + bias, new_stats
-
-
 def _halo_tap_conv(x_local, w, bias, dilation: int, group):
     """The dilated "same" conv of a shard: halo ``d*(k-1)//2`` a side, then
     the VALID tap conv (the kernel on CUDA, the plain version on the CPU)."""
@@ -178,7 +123,7 @@ def _halo_tap_conv(x_local, w, bias, dilation: int, group):
 def shard_time(x: torch.Tensor, mesh: DeviceMesh, axis: str = "data") -> torch.Tensor:
     """This rank's time shard ``x[:, i*T/P:(i+1)*T/P]`` (contiguous) of a
     whole series (B, T, C); T must be divisible by the axis size P."""
-    _, i, n = _axis_group(mesh, axis)
+    _, i, n = axis_group(mesh, axis)
     t = x.shape[1]
     if t % n:
         raise ValueError(f"time length {t} is not divisible by the {n} shards of mesh axis {axis!r}")
@@ -189,8 +134,8 @@ def shard_time(x: torch.Tensor, mesh: DeviceMesh, axis: str = "data") -> torch.T
 def gather_time(y_local: torch.Tensor, mesh: DeviceMesh, axis: str = "data") -> torch.Tensor:
     """The whole series from every rank's shard along ``axis``, on every
     rank (no gradient)."""
-    group, _, _ = _axis_group(mesh, axis)
-    return torch.cat(_all_gather(y_local.detach(), group), dim=1)
+    group, _, _ = axis_group(mesh, axis)
+    return torch.cat(all_gather(y_local.detach(), group), dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -201,7 +146,7 @@ def time_sharded_os_conv(mesh: DeviceMesh, x_local: torch.Tensor, weight: torch.
                          bias: torch.Tensor, mask: torch.Tensor, axis: str = "data") -> torch.Tensor:
     """The masked OS conv (``ops.osconv.masked_os_conv``) of a time shard
     (B, T/P, C_in) with weight (K, C_in, C_out): (B, T/P, C_out)."""
-    group, _, _ = _axis_group(mesh, axis)
+    group, _, _ = axis_group(mesh, axis)
     k = weight.shape[0]
     x_ext = _halo_exchange(x_local, (k - 1) // 2, k // 2, group)
     return OSConvCore.apply(x_ext, weight * mask) + bias
@@ -211,7 +156,7 @@ def time_sharded_dilated_conv(mesh: DeviceMesh, x_local: torch.Tensor, weight: t
                               bias: torch.Tensor, dilation: int, axis: str = "data") -> torch.Tensor:
     """The dilated "same" conv (reference WN padding ``(k*d - d)/2``) of a
     time shard, weight (K, C_in, C_out), K odd: halo ``d*(k-1)//2`` a side."""
-    group, _, _ = _axis_group(mesh, axis)
+    group, _, _ = axis_group(mesh, axis)
     return _halo_tap_conv(x_local, weight, bias, dilation, group)
 
 
@@ -223,7 +168,7 @@ def time_sharded_wn_apply(mesh: DeviceMesh, params: Dict, x_local: torch.Tensor,
                           axis: str = "data") -> torch.Tensor:
     """The WN coupling net (``models.flow.wn_apply``) of a time shard: each
     of its dilated convs exchanges its own halo, the rest is local."""
-    group, _, _ = _axis_group(mesh, axis)
+    group, _, _ = axis_group(mesh, axis)
 
     def halo_conv(xl, w, bias, dilation):
         return _halo_tap_conv(xl, w, bias, dilation, group)
@@ -238,7 +183,7 @@ def time_sharded_waveglow_forward(mesh: DeviceMesh, params: Dict, x_local: torch
     a time shard: (z_local, log_s_list of shards, log_det_w_list).  Each
     log-determinant is ``B * T_global * log|det W|``, the same on every rank
     (not ``inv1x1_forward``'s, which takes the local length)."""
-    group, _, n = _axis_group(mesh, axis)
+    group, _, n = axis_group(mesh, axis)
     b, t_local, _ = x_local.shape
     t_global = t_local * n
 
@@ -272,26 +217,22 @@ def time_sharded_os_cnn_res_apply(mesh: DeviceMesh, params: Dict, state: Dict,
     BatchNorm, no ReLU on the block's last layer; the shortcut is a 1x1 conv
     with a sharded BatchNorm.  Returns (features shard, new state); in
     training the new running statistics are global, the same on every rank."""
-    group, _, n = _axis_group(mesh, axis)
-    b, t_local, _ = x_local.shape
-    n_elems = b * t_local * n
+    group, _, _ = axis_group(mesh, axis)
     h = x_local
     new_layers = []
     layers = list(zip(params["block"]["layers"], state["block"]["layers"], masks))
-    for i, (p, s, mask) in enumerate(layers):
-        w = p["conv"]["weight"] * mask
-        k = w.shape[0]
-        x_ext = _halo_exchange(h, (k - 1) // 2, k // 2, group)
-        y = OSConvCore.apply(x_ext, w) + p["conv"]["bias"]
-        y, new_bn = _sharded_batch_norm(y, p["bn_scale"], p["bn_bias"], s["bn"], training,
-                                        group, n_elems)
-        if i < len(layers) - 1:  # no ReLU on the block's last layer (res variant)
-            y = torch.relu(y)
-        new_layers.append({"bn": new_bn})
-        h = y
-    shortcut = x_local @ params["res"]["weight"] + params["res"]["bias"]
-    shortcut, new_res_bn = _sharded_batch_norm(
-        shortcut, params["res_bn_scale"], params["res_bn_bias"], state["res_bn"], training,
-        group, n_elems,
-    )
+    with bn_cross_replica(group):
+        for i, (p, s, mask) in enumerate(layers):
+            w = p["conv"]["weight"] * mask
+            k = w.shape[0]
+            x_ext = _halo_exchange(h, (k - 1) // 2, k // 2, group)
+            y = OSConvCore.apply(x_ext, w) + p["conv"]["bias"]
+            y, new_bn = batch_norm(y, p["bn_scale"], p["bn_bias"], s["bn"], training)
+            if i < len(layers) - 1:  # no ReLU on the block's last layer (res variant)
+                y = torch.relu(y)
+            new_layers.append({"bn": new_bn})
+            h = y
+        shortcut = x_local @ params["res"]["weight"] + params["res"]["bias"]
+        shortcut, new_res_bn = batch_norm(shortcut, params["res_bn_scale"],
+                                          params["res_bn_bias"], state["res_bn"], training)
     return torch.relu(h + shortcut), {"block": {"layers": new_layers}, "res_bn": new_res_bn}

@@ -34,6 +34,7 @@ from ..models.os_cnn import (
     os_cnn_res_init,
 )
 from ..ops import resolve_device
+from ..ops.collectives import reduce_values
 from ..structure import (
     LayerSpec,
     default_parameter_budgets,
@@ -166,7 +167,8 @@ class OSCNNClassifier(ModuleSteps):
         state["epoch"] += 1
         for name in self.modules:  # StepLR per epoch (reference :97-107,131-134)
             self._steplr(state, name, state["epoch"])
-        return {"c_loss": torch.stack(c_losses).mean(), "sl_loss": torch.stack(sl_losses).mean()}
+        return reduce_values({"c_loss": torch.stack(c_losses).mean(),
+                              "sl_loss": torch.stack(sl_losses).mean()})
 
     # --------------------------------------------------------------- eval --
 

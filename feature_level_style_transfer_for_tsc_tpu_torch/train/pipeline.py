@@ -85,6 +85,7 @@ from ..models.os_cnn import (
     os_cnn_res_init,
 )
 from ..ops import resolve_device
+from ..ops.collectives import all_reduce_grads, reduce_values
 from ..structure import total_out_channels
 from . import jax_state
 from .classifier import build_specs
@@ -368,7 +369,7 @@ class StyleTransferPipeline(TargetPredictor, ModuleSteps):
             self._train_step(state, losses["total"], new_m, names)
             outs.append(detached(losses))
         self._step_steplr(state, names)
-        return self._epoch_means(outs, ("t_c_loss", "t_sl_loss"))
+        return reduce_values(self._epoch_means(outs, ("t_c_loss", "t_sl_loss")))
 
     def _phase2_forward(self, params, mstate, consts, x, y):
         """Source pretrain step (reference :181-220): CE_s."""
@@ -563,12 +564,17 @@ class StyleTransferPipeline(TargetPredictor, ModuleSteps):
 
         Returns (losses, new_m, feats, grads of the total per module, n_t
         (2,), n_s (3,)): ``n_t`` from the t_nf+t_c pulls on the t_ext trunk,
-        ``n_s`` from the s_nf+s_c and s2t2s_c pulls on the s_ext trunk."""
+        ``n_s`` from the s_nf+s_c and s2t2s_c pulls on the s_ext trunk.
+        Under a data-parallel group (``parallel/dp.py``) the forward's
+        losses are the rank's contributions: each pull's gradients are
+        summed over the ranks before the norms are taken, and the losses
+        returned are the global values, detached."""
         losses, new_m, feats = self._phase5_forward(
             state["params"], state["mstate"], state["consts"], bt, lt, bs, ls, state["generator"],
             cpc_anchors, dropout_masks,
         )
-        return (losses, new_m, feats) + self._phase5_pulls(state, losses, epoch)
+        pulls = self._phase5_pulls(state, losses, epoch)
+        return (reduce_values(losses), new_m, feats) + pulls
 
     def _phase5_pulls(self, state: Dict, losses: Dict, epoch: int, per_run: bool = False):
         """The weighted total's gradients per module and the GradNorm trunk
@@ -612,8 +618,8 @@ class StyleTransferPipeline(TargetPredictor, ModuleSteps):
 
         def norms(outputs, trunks, retain=True):
             outputs = [o.sum() for o in (outputs if isinstance(outputs, list) else [outputs])]
-            g = torch.autograd.grad(outputs, [p for t in trunks for p in t],
-                                    retain_graph=retain, allow_unused=True)
+            g = all_reduce_grads(torch.autograd.grad(outputs, [p for t in trunks for p in t],
+                                                     retain_graph=retain, allow_unused=True))
             out, j = [], 0
             for t in trunks:
                 out.append(trunk_norm(g[j : j + len(t)]))

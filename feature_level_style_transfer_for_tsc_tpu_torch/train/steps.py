@@ -16,6 +16,7 @@ from typing import Callable, Dict, List, Sequence
 import numpy as np
 import torch
 
+from ..ops.collectives import all_reduce_grads
 from .optim import set_lr, step_lr
 
 
@@ -91,10 +92,12 @@ class ModuleSteps:
 
     def _grads(self, loss: torch.Tensor, state: Dict, names: Sequence[str],
                retain_graph: bool = False) -> Dict[str, list]:
-        """d loss / d params of each named module (None where unused)."""
+        """d loss / d params of each named module (None where unused); under
+        a data-parallel group ``loss`` is the rank's contribution and the
+        gradients are summed over the ranks (one all-reduce)."""
         params = [leaves(state["params"][n]) for n in names]
-        flat = torch.autograd.grad(loss, [p for ps in params for p in ps],
-                                   retain_graph=retain_graph, allow_unused=True)
+        flat = all_reduce_grads(torch.autograd.grad(loss, [p for ps in params for p in ps],
+                                                    retain_graph=retain_graph, allow_unused=True))
         out, i = {}, 0
         for name, ps in zip(names, params):
             out[name] = list(flat[i : i + len(ps)])
