@@ -66,8 +66,8 @@ non-zero when any check fails.  Phases:
    difference over the module's max|g|), checked on a fresh state with WN
    end projections 0.1*N(0, 1) and measured on the trained state; on both
    states the same step with only the WN kernels on (checked on the fresh
-   state), with only the OS conv kernel on, and the plain path on the CPU
-   are held against the plain path on the card too;
+   state) and with only the OS conv kernel on, and on the fresh state the
+   plain path on the CPU, are held against the plain path on the card too;
 10. one full-width phase-5 step of phase 9's fresh state on the op-by-op
     route against the fused route, both on the card; and the op-by-op
     route's kernels against its plain versions on the card (all kernels,
@@ -149,8 +149,9 @@ non-zero when any check fails.  Phases:
     plain version, timed beside the K one-run calls, the plain version and,
     for the conv, a grouped ``F.conv1d``; and the step's K sweep at
     MULTIRUN_SWEEP (``experiments/multirun_time.py`` in a process of its own, without
-    ``CUBLAS_WORKSPACE_CONFIG``): step ms, aggregate series/s, device ms and
-    idle share, peak memory a K;
+    ``CUBLAS_WORKSPACE_CONFIG``, one round, both WN routes, the op-by-op one
+    for phase 23): step ms, aggregate series/s, device ms and idle share,
+    peak memory a K;
 19. both bf16 switches (``FLSTTSC_WN_MXU=bf16`` and
     ``PipelineConfig(compute_dtype="bfloat16")``) on phase 8's pair: one
     phase-5 epoch through ``StyleTransferPipeline.run`` from phase 8's state
@@ -199,11 +200,9 @@ non-zero when any check fails.  Phases:
     MULTIRUN_GRAD_L2_TOL, within twice the larger of phase 18's control and
     the merged K-run step's own gap from its one-run step); the
     bf16 stacked step (``FLSTTSC_WN_MXU=bf16``: every cotangent of
-    ``wn_bwd_runs[bf16]`` the bits of ``wn_bwd[bf16]``); and the stacked
-    and fused knobs' K-run step at MULTIRUN_K
-    (``experiments/multirun_time.py --knob``, a process of its own without
-    ``CUBLAS_WORKSPACE_CONFIG``): step ms, device ms, idle share, peak
-    memory;
+    ``wn_bwd_runs[bf16]`` the bits of ``wn_bwd[bf16]``) (the knobs'
+    K-run step times come from ``experiments/multirun_time.py --knob`` run
+    on its own);
 21. time-sharded sequence parallelism (``parallel/sequence.py``) at full
     width on EigenWorms' shape (UEA archive, 6 x 17,984, 5 classes;
     synthetic data from the seed), ``PipelineConfig()``'s batch (20),
@@ -249,7 +248,35 @@ non-zero when any check fails.  Phases:
     one-process ensemble (the same predictions, class weights within
     1e-6); each kernel at a rank's shapes against its plain version, timed
     beside its bound; a rank's phase-5 step and the unsharded one, spawn to
-    joined, peak memory a rank, recorded.
+    joined, peak memory a rank, recorded.  In the same spawn, from the same
+    state: a data-parallel phase-5 step under each of ``DP_CONFIGS``
+    (``merged_pullbacks=False``, ``stacked_pullbacks=True``,
+    ``fused_optimizers=True``, ``compute_dtype="bfloat16"``,
+    ``FLSTTSC_WN_MXU=bf16``, the op-by-op route with
+    ``FLSTTSC_CONV_IMPL=pallas``: ``tap_conv_fwd`` and ``gate_fwd`` on each
+    rank) with exact launches, the float32 ones held as the default step,
+    the bf16 ones within their gates or twice the largest gap of three
+    controls (two correct unsharded bf16 steps: the plain bf16 path, the OS
+    convs in micro-batches, the rows in another order; printed); and one
+    step each of phases 2, 3 (supervised) and 4 (both branches) through
+    ``dp.phase2_epoch`` / ``phase3_epoch`` / ``phase4_epoch`` (one batch,
+    exact launches), their losses and gradients held as phase 1's;
+23. K = MULTIRUN_K runs at once on the op-by-op WN route
+    (``FLSTTSC_WN_FUSED=0``, ``FLSTTSC_CONV_IMPL=pallas``) at phase 8's
+    pair and full width (120-channel, 8-layer WN; batch 20), fresh states
+    with WN end projections: one K-run phase-5 step, the main path of the
+    route's run-axis forms (``tap_conv_fwd_runs``: the tap conv's kernel
+    with the run on its grid; ``gate_fwd_runs``: one ``gate_fwd`` launch
+    over the runs' rows), with exact launches, as many as a one-run step
+    launches ``tap_conv_fwd`` and ``gate_fwd``; held against K one-run
+    steps at phase 18's gates (losses STEP_LOSS_REL_TOL, each module's
+    gradients MULTIRUN_GRAD_L2_TOL or twice the one-run step's own gap with
+    the plain OS conv); every recorded call of both run-axis forms again,
+    each run against the one-run kernel (the same bits) and the plain
+    version (REL_TOL), timed beside K one-run calls, the plain version and,
+    for the tap conv, a grouped dilated ``F.conv1d``; and the K = 1 and K
+    = 8 op-by-op steps timed (``experiments/multirun_time.py --op-by-op``
+    in a process of its own without ``CUBLAS_WORKSPACE_CONFIG``).
 
 The ``cli.main`` drives (phases 8, 8b, 13, 14) and the drives of phases
 15, 16 and 17 run with PyTorch's deterministic
@@ -263,7 +290,8 @@ checked and kept apart; the run-axis kernels, phase 18's drive and its
 fused evaluation; the bf16 instances, phase 19's two drives; phase 20's
 steps are checked and kept apart; phase 21's sharded pass and phase 22's
 data-parallel steps and ensemble, each rank setting its counts to 0 just
-before each and reading them just after, summed over the ranks) and a bound
+before each and reading them just after, summed over the ranks; the
+op-by-op run-axis forms, phase 23's K-run step) and a bound
 from the FLOPs or bytes these inputs need (the bf16 instances' at the
 BF16 peak); the last line is {"ok": true, "device": {...}}.  Everything measured is also written to
 chiprun_out/chip_smoke_results.json.
@@ -379,7 +407,12 @@ RUN_AXIS = {  # run-axis kernel: (one-run kernel, source)
     "os_conv_fwd_runs": ("os_conv_fwd", SOURCE), "os_conv_fused_fwd_runs": ("os_conv_fused_fwd", SOURCE),
     "wn_fwd_runs": ("wn_fwd", WN_SOURCE), "wn_bwd_runs": ("wn_bwd", WN_SOURCE),
 }
-RUN_AXIS_IDLE = {name: 0 for name in RUN_AXIS}  # no run-axis launch outside phase 18
+# phase 23: the op-by-op WN route's run-axis forms, the tap conv's kernel with the run on its
+# grid and the gate's runs folded into the rows of one gate_fwd launch
+OPBYOP_RUN_AXIS = {"tap_conv_fwd_runs": ("tap_conv_fwd", TAP_SOURCE),
+                   "gate_fwd_runs": ("gate_fwd", GATE_SOURCE)}
+# no run-axis launch outside phases 18 and 23
+RUN_AXIS_IDLE = {name: 0 for name in {**RUN_AXIS, **OPBYOP_RUN_AXIS}}
 # phase 19: the bf16 switches (FLSTTSC_WN_MXU=bf16, PipelineConfig.compute_dtype="bfloat16").
 # Each bf16 instance counts under its own name, "<f32 name>[bf16]"; the JAX code it stands for.
 BF16 = {
@@ -595,19 +628,22 @@ def plain_convs(osconv, wn_fused, gate, convs: bool = True, wn: bool = True):
     kernels, the gate and the tap conv) on the same CUDA tensors, and no
     launch of those kernels inside."""
     saved = (osconv.os_conv, osconv.os_conv_fused, wn_fused.wn_fwd, wn_fused.wn_bwd,
-             gate.gate_fwd, osconv.tap_conv_fwd)
+             gate.gate_fwd, osconv.tap_conv_fwd, osconv.tap_conv_fwd_runs)
     if convs:
         osconv.os_conv, osconv.os_conv_fused = osconv.os_conv_plain, osconv.os_conv_fused_plain
     if wn:
         wn_fused.wn_fwd, wn_fused.wn_bwd = wn_fused.wn_fwd_plain, wn_fused.wn_bwd_plain
-        gate.gate_fwd, osconv.tap_conv_fwd = gate.gate_plain, osconv.tap_conv_plain
+        gate.gate_fwd = lambda a, b, n, name="gate_fwd": gate.gate_plain(a, b, n)
+        osconv.tap_conv_fwd = osconv.tap_conv_plain
+        osconv.tap_conv_fwd_runs = lambda x_pad, w, d: torch.stack(
+            [osconv.tap_conv_plain(xk, wk, d) for xk, wk in zip(x_pad, w)])
     for m in (osconv, wn_fused, gate):
         m.reset_launch_counts()
     try:
         yield
     finally:
         (osconv.os_conv, osconv.os_conv_fused, wn_fused.wn_fwd, wn_fused.wn_bwd,
-         gate.gate_fwd, osconv.tap_conv_fwd) = saved
+         gate.gate_fwd, osconv.tap_conv_fwd, osconv.tap_conv_fwd_runs) = saved
     conv_names = ("os_conv_fwd", "os_conv_fused_fwd", "os_conv_fwd[bf16]")
     launched = {n: v for n, v in {**osconv.LAUNCHES, **wn_fused.LAUNCHES, **gate.LAUNCHES}.items()
                 if (convs and n in conv_names) or (wn and n not in conv_names)}
@@ -2323,6 +2359,20 @@ def multirun_pair(make_dataset) -> dict:
         ("s_test", make_dataset(TRAIN_SERIES, e_c, e_t, e_n, seed=14, label_dict=s_labels)))}
 
 
+def run_gap(losses_a, grads_a, i, losses_b, grads_b) -> dict:
+    """Run i of (K-leading) step a against one-run step b: each loss's
+    relative error and each module's gradients' relative L2 distance."""
+    loss_rel = {k: abs(float(losses_a[k][i].detach()) - float(v.detach()))
+                / max(abs(float(v.detach())), 1e-30) for k, v in losses_b.items()}
+    grad_l2 = {}
+    for name, gs in grads_b.items():
+        pairs_ = [(a[i], b) for a, b in zip(grads_a[name], gs) if b is not None]
+        d2 = sum(float(((a - b) ** 2).sum()) for a, b in pairs_)
+        n2 = sum(float((b ** 2).sum()) for _, b in pairs_)
+        grad_l2[name] = math.sqrt(d2 / n2) if n2 > 0 else math.sqrt(d2)
+    return {"loss_rel": loss_rel, "grad_l2_rel": grad_l2}
+
+
 def multirun_phase(run, pipe, modules, make_dataset, smi) -> dict:
     """Phase 18: K = MULTIRUN_K runs of the curriculum at once
     (``MultiRunStylePipeline``), at phase 8's shapes and lengths."""
@@ -2421,12 +2471,17 @@ def multirun_phase(run, pipe, modules, make_dataset, smi) -> dict:
 
     # the K sweep, in a process of its own without CUBLAS_WORKSPACE_CONFIG
     env = {k: v for k, v in os.environ.items() if k != "CUBLAS_WORKSPACE_CONFIG"}
+    # (and the op-by-op route's, phase 23's, in the same process)
     proc = subprocess.run([sys.executable, str(REPO / "experiments" / "multirun_time.py"),
-                           "--ks", ",".join(map(str, MULTIRUN_SWEEP))],
+                           "--ks", ",".join(map(str, MULTIRUN_SWEEP)), "--routes",
+                           "fused,op_by_op", "--rounds", "1"],
                           capture_output=True, text=True, timeout=600, env=env, cwd=REPO)
     check(proc.returncode == 0, f"multirun_time.py exited {proc.returncode}: {proc.stderr[-2000:]}")
-    sweep = json.loads(proc.stdout.strip().splitlines()[-1])
+    both = json.loads(proc.stdout.strip().splitlines()[-1])
+    sweep = {**{k: v for k, v in both.items() if k != "by_route"}, "route": "fused",
+             "by_k": both["by_route"]["fused"]}
     out["sweep"] = sweep
+    out["sweep_op_by_op"] = {**sweep, "route": "op_by_op", "by_k": both["by_route"]["op_by_op"]}
     for k, r in sweep["by_k"].items():
         log(f"[multirun sweep K={k}] step ms={r['median_ms']:.1f} ({[round(x, 1) for x in r['step_ms']]}) "
             f"series/s={r['series_per_s']:.1f} device ms={r['device_ms']:.1f} idle share="
@@ -2435,7 +2490,7 @@ def multirun_phase(run, pipe, modules, make_dataset, smi) -> dict:
             log(f"  {ms:9.3f} ms {calls:6d} x {name}")
     log(f"[multirun] max_memory_allocated at K=1: {sweep['by_k']['1']['peak_mib']:.0f} MiB, at "
         f"K={k_runs}: {sweep['by_k'][str(k_runs)]['peak_mib']:.0f} MiB on {smi}")
-    lap("the K sweep (experiments/multirun_time.py)")
+    lap("the K sweep, both routes (experiments/multirun_time.py)")
 
     # one phase-5 step of K fresh runs against K one-run steps from the same states
     fresh = with_wn_ends(mp.init_states(seeds), torch.Generator().manual_seed(18))
@@ -2446,18 +2501,6 @@ def multirun_phase(run, pipe, modules, make_dataset, smi) -> dict:
         losses, _, _, grads, n_t, n_s = mp.phase5_grads(fresh, *k_batch, 0, ANCHORS, card_masks)
         torch.cuda.synchronize()
         k_counts = run.counts()
-    def gap(losses_a, grads_a, i, losses_b, grads_b) -> dict:
-        """Run i of (K-leading) step a against one-run step b."""
-        loss_rel = {k: abs(float(losses_a[k][i].detach()) - float(v.detach()))
-                    / max(abs(float(v.detach())), 1e-30) for k, v in losses_b.items()}
-        grad_l2 = {}
-        for name, gs in grads_b.items():
-            pairs_ = [(a[i], b) for a, b in zip(grads_a[name], gs) if b is not None]
-            d2 = sum(float(((a - b) ** 2).sum()) for a, b in pairs_)
-            n2 = sum(float((b ** 2).sum()) for _, b in pairs_)
-            grad_l2[name] = math.sqrt(d2 / n2) if n2 > 0 else math.sqrt(d2)
-        return {"loss_rel": loss_rel, "grad_l2_rel": grad_l2}
-
     gaps, control = [], []
     for i in range(k_runs):
         st = unstack_state(fresh, i)
@@ -2466,12 +2509,12 @@ def multirun_phase(run, pipe, modules, make_dataset, smi) -> dict:
         l1, _, _, g1, nt1, ns1 = pipe.phase5_grads(st, *batch, 0, ANCHORS, card_masks)
         torch.cuda.synchronize()
         one_counts = run.counts()
-        gaps.append({**gap(losses, grads, i, l1, g1),
+        gaps.append({**run_gap(losses, grads, i, l1, g1),
                      "n_t_rel": rel_err(n_t[i], nt1)[1], "n_s_rel": rel_err(n_s[i], ns1)[1]})
         # the control: how far the same one-run step moves with the plain OS conv
         with plain_convs(osconv, wn_fused, gate, wn=False):
             lp, _, _, gp, _, _ = pipe.phase5_grads(st, *batch, 0, ANCHORS, card_masks)
-        control.append(gap({k: v[None] for k, v in lp.items()},
+        control.append(run_gap({k: v[None] for k, v in lp.items()},
                            {k: [None if g is None else g[None] for g in v] for k, v in gp.items()},
                            0, l1, g1))
         del st, l1, g1, lp, gp
@@ -2512,6 +2555,192 @@ def multirun_phase(run, pipe, modules, make_dataset, smi) -> dict:
     torch.cuda.empty_cache()
 
     return out
+
+# ----------------------------------------------------------------- phase 23 --
+
+def tap_runs_work(x_pad, w, d: int) -> dict:
+    """FLOPs (every tap live) and bytes of one ``tap_conv_fwd_runs`` call."""
+    runs, b, t_pad, c_in = x_pad.shape
+    k, c_out = w.shape[1], w.shape[3]
+    t_out = t_pad - (k - 1) * d
+    return {"flops": 2 * runs * b * t_out * c_in * k * c_out,
+            "bytes": 4 * (x_pad.numel() + w.numel() + runs * b * t_out * c_out)}
+
+
+def opbyop_run_axis_rows(osconv, gate, tap_calls, gate_calls) -> dict:
+    """Every recorded call of phase 23's K-run step: ``tap_conv_fwd_runs``
+    at each distinct shape and dilation, each run against the one-run
+    ``tap_conv_fwd`` (the same bits) and ``tap_conv_plain`` (REL_TOL), timed
+    beside K one-run calls, the plain version run by run and a grouped
+    dilated ``F.conv1d`` (``groups=K``, TF32 off); the gate's folded launch
+    (``gate_fwd_runs``) at each distinct shape, each run's rows against the
+    one-run ``gate_fwd`` (the same bits) and ``gate_plain``, its bound the
+    bytes."""
+    import torch.nn.functional as F
+
+    rows = {"tap_conv_fwd_runs": [], "gate_fwd_runs": []}
+    for args in tap_calls.values():
+        x_pad, w, d = args
+        runs, b, t_pad, c_in = x_pad.shape
+        k, c_out = w.shape[1], w.shape[3]
+        x_ncw = x_pad.permute(1, 0, 3, 2).reshape(b, runs * c_in, t_pad).contiguous()
+        w_oik = w.permute(0, 3, 2, 1).reshape(runs * c_out, c_in, k).contiguous()
+        rows["tap_conv_fwd_runs"].append(run_axis_row(
+            "tap_conv_fwd_runs", args, osconv.tap_conv_fwd_runs, osconv.tap_conv_fwd,
+            osconv.tap_conv_plain, REL_TOL, tap_runs_work(x_pad, w, d),
+            library=lambda: F.conv1d(x_ncw, w_oik, dilation=d, groups=runs)))
+        rows["tap_conv_fwd_runs"][-1]["dilation"] = d
+    for args in gate_calls.values():
+        a, b_, n, name = args
+        if name != "gate_fwd_runs":
+            continue
+        runs, rows_n = a.shape[0], a[0].numel() // (2 * n)
+        work = {"flops": GATE_OPS * runs * rows_n * n,
+                "bytes": 4 * (a.numel() + b_.numel() + runs * rows_n * n)}
+        rows["gate_fwd_runs"].append(run_axis_row(
+            "gate_fwd_runs", (a, b_, n), lambda a, b, n: gate.gate_fwd(a, b, n, "gate_fwd_runs"),
+            gate.gate_fwd, gate.gate_plain, REL_TOL, work, peak=FP32_PEAK))
+    return rows
+
+
+def opbyop_multirun_phase(run, pipe, modules, make_dataset, smi, fused_gaps=None,
+                          sweep=None) -> dict:
+    """Phase 23: K = MULTIRUN_K runs at once on the op-by-op WN route
+    (``FLSTTSC_WN_FUSED=0``, ``FLSTTSC_CONV_IMPL=pallas``) at phase 8's
+    pair and full width: one K-run phase-5 step (the main path of the two
+    run-axis forms) against K one-run steps from phase 18's fresh states,
+    the run-axis kernels at its shapes, and the K = 1 and K = 8 steps
+    timed.  ``fused_gaps``: phase 18's K-run step's gaps from its one-run
+    steps on the same states (the fused route's own), else taken here;
+    ``sweep``: phase 18's timing of this route's steps, else taken here."""
+    from feature_level_style_transfer_for_tsc_tpu_torch.train.multirun import (
+        MultiRunStylePipeline,
+        unstack_state,
+    )
+
+    osconv, wn_fused, gate = modules
+    k_runs = MULTIRUN_K
+    out = {"k": k_runs}
+    t_block = time.perf_counter()
+
+    def lap(what: str) -> None:
+        nonlocal t_block
+        now = time.perf_counter()
+        out.setdefault("block_s", {})[what] = now - t_block
+        log(f"[op-by-op multirun] {what}: {now - t_block:.1f} s")
+        t_block = now
+
+    pair = multirun_pair(make_dataset)
+    batch = [torch.as_tensor(np.asarray(a[:BATCH])).cuda() for a in (
+        pair["t_train"][0], pair["t_train"][1], pair["s_train"][0], pair["s_train"][1])]
+    batch = [b.long() if i % 2 else b for i, b in enumerate(batch)]
+    k_batch = [b.expand(k_runs, *b.shape).contiguous() for b in batch]
+    _, card_masks = pinned_masks()
+    mp = MultiRunStylePipeline(pipe)
+    # phase 18's fresh states: its fused-route step's gaps are this step's second control
+    fresh = with_wn_ends(mp.init_states(range(k_runs)), torch.Generator().manual_seed(18))
+    if fused_gaps is None:
+        losses, _, _, grads, _, _ = mp.phase5_grads(fresh, *k_batch, 0, ANCHORS, card_masks)
+        fused_gaps = []
+        for i in range(k_runs):
+            l1, _, _, g1, _, _ = pipe.phase5_grads(unstack_state(fresh, i), *batch, 0, ANCHORS,
+                                                   card_masks)
+            fused_gaps.append(run_gap(losses, grads, i, l1, g1))
+        del losses, grads, l1, g1
+        lap("the fused route's K-run step against its one-run steps (the second control)")
+    flows, layers = pipe.config.flow.n_flows, pipe.config.flow.wn_layers
+    convs = len(pipe.t_ext_specs) + len(pipe.s_ext_specs) + 3 * len(pipe.cls_specs)
+    # a merged step: each layer's tap conv forward (pair and infer passes) and its dx once a
+    # WN backward (5F), the gate in the forwards; run axes for K runs, one-run kernels for one
+    k_expect = {**run.idle(), "os_conv_fwd_runs": convs, "gate_fwd_runs": layers * 2 * flows,
+                "tap_conv_fwd_runs": layers * (2 * flows + 5 * flows)}
+    one_expect = {**run.idle(), "os_conv_fwd": convs, "gate_fwd": layers * 2 * flows,
+                  "tap_conv_fwd": layers * (2 * flows + 5 * flows)}
+
+    with environ(**OP_BY_OP):
+        with recorded_calls(osconv, ["tap_conv_fwd_runs"]) as taps, \
+                recorded_calls(gate, ["gate_fwd"]) as gates:
+            losses, _, _, grads, n_t, n_s = run.drive(
+                f"multirun K={k_runs} phase-5 step, op-by-op route",
+                lambda: mp.phase5_grads(fresh, *k_batch, 0, ANCHORS, card_masks), k_expect,
+                path="multirun op-by-op")
+        lap("the K-run step (main path)")
+        gaps, control = [], []
+        for i in range(k_runs):
+            st = unstack_state(fresh, i)
+            l1, _, _, g1, nt1, ns1 = run.drive(
+                f"one-run phase-5 step {i}, op-by-op route",
+                lambda: pipe.phase5_grads(st, *batch, 0, ANCHORS, card_masks), one_expect)
+            gaps.append({**run_gap(losses, grads, i, l1, g1),
+                         "n_t_rel": rel_err(n_t[i], nt1)[1], "n_s_rel": rel_err(n_s[i], ns1)[1]})
+            # the control: how far the same one-run step moves with the plain OS conv
+            with plain_convs(osconv, wn_fused, gate, wn=False):
+                lp, _, _, gp, _, _ = pipe.phase5_grads(st, *batch, 0, ANCHORS, card_masks)
+            control.append(run_gap({k: v[None] for k, v in lp.items()},
+                                   {k: [None if g is None else g[None] for g in v]
+                                    for k, v in gp.items()}, 0, l1, g1))
+            del st, l1, g1, lp, gp
+    lap("K one-run steps and their controls")
+    worst = {"loss_rel": max(max(g["loss_rel"].values()) for g in gaps),
+             "grad_l2_rel": max(max(g["grad_l2_rel"].values()) for g in gaps),
+             "n_rel": max(max(g["n_t_rel"], g["n_s_rel"]) for g in gaps),
+             "control_grad_l2_rel": max(max(g["grad_l2_rel"].values()) for g in control),
+             "fused_route_grad_l2_rel": max(max(g["grad_l2_rel"].values()) for g in fused_gaps)}
+    out["step_vs_one_run"] = {"per_run": gaps, "worst": worst, "control_plain_os_conv": control,
+                              "control_fused_route": fused_gaps}
+    out["launches"] = {"k_runs": {n: v for n, v in k_expect.items() if v},
+                       "one_run": {n: v for n, v in one_expect.items() if v}}
+    for i, g in enumerate(gaps):
+        log(f"  run {i}: loss rel {max(g['loss_rel'].values()):.2e} grads rel L2 "
+            f"{ {k: float(f'{v:.2e}') for k, v in g['grad_l2_rel'].items()} }; controls (plain "
+            f"OS conv, one run) {max(control[i]['grad_l2_rel'].values()):.2e}, (the fused "
+            f"route's K-run step) {max(fused_gaps[i]['grad_l2_rel'].values()):.2e}")
+    log(f"[op-by-op multirun phase-5 step, {k_runs} runs vs {k_runs} one-run steps] worst "
+        f"{json.dumps(worst)}; launches {json.dumps(out['launches'])}")
+    for n in ("os_conv_fwd", "tap_conv_fwd", "gate_fwd"):
+        check(k_expect[f"{n}_runs"] == one_expect[n] > 0,
+              f"op-by-op: a K-run step's {n}_runs {k_expect[f'{n}_runs']}, a one-run step's {n} "
+              f"{one_expect[n]}")
+    check(worst["loss_rel"] <= STEP_LOSS_REL_TOL,
+          f"op-by-op multirun step losses rel {worst['loss_rel']:.3e}")
+    for i, (g, ctl, fused) in enumerate(zip(gaps, control, fused_gaps)):
+        for name, v in g["grad_l2_rel"].items():
+            allowed = max(MULTIRUN_GRAD_L2_TOL, 2 * ctl["grad_l2_rel"][name],
+                          2 * fused["grad_l2_rel"][name])
+            check(v <= allowed, f"op-by-op multirun step, run {i} {name}: gradients relative L2 "
+                                f"{v:.3e} > {allowed:.3e}")
+    del losses, grads, fresh
+    torch.cuda.empty_cache()
+
+    # the run-axis forms at the step's shapes
+    out["run_axis"] = opbyop_run_axis_rows(osconv, gate, taps["tap_conv_fwd_runs"],
+                                           gates["gate_fwd"])
+    for name, rows in out["run_axis"].items():
+        check(bool(rows), f"phase 23 recorded no {name} call")
+    del taps, gates
+    torch.cuda.empty_cache()
+    lap("the run-axis kernels")
+
+    # the K = 1 and K = 8 steps timed in a process of its own without CUBLAS_WORKSPACE_CONFIG
+    # (phase 18's, which times both routes)
+    if sweep is None:
+        env = {k: v for k, v in os.environ.items() if k != "CUBLAS_WORKSPACE_CONFIG"}
+        proc = subprocess.run([sys.executable, str(REPO / "experiments" / "multirun_time.py"),
+                               "--ks", ",".join(map(str, MULTIRUN_SWEEP)), "--routes", "op_by_op"],
+                              capture_output=True, text=True, timeout=600, env=env, cwd=REPO)
+        check(proc.returncode == 0, f"multirun_time.py --routes op_by_op exited "
+                                    f"{proc.returncode}: {proc.stderr[-2000:]}")
+        sweep = json.loads(proc.stdout.strip().splitlines()[-1])
+    out["sweep"] = sweep
+    for k, r in sweep["by_k"].items():
+        log(f"[op-by-op multirun K={k}] step ms={r['median_ms']:.1f} series/s="
+            f"{r['series_per_s']:.1f} device ms={r['device_ms']:.1f} idle share="
+            f"{r['device_idle_share']:.3f} peak MiB={r['peak_mib']:.0f} on {sweep['card']}")
+        for name, ms, calls in r["top"]:
+            log(f"  {ms:9.3f} ms {calls:6d} x {name}")
+    lap("K = 1 and 8 timed (experiments/multirun_time.py --routes op_by_op)")
+    return out
+
 
 # ----------------------------------------------------------------- phase 19 --
 
@@ -2849,16 +3078,6 @@ def bf16_phase(run, pipe, state, datasets, batch, modules, layers, wn_fns, make_
                               ctx), plain)
         row[what] = {key: gap[key] for key in ("loss_rel", "grad_l2_rel")}
     controls = [row[k] for k in row if k.startswith("control")]
-    # the same control on the same state with a ten times smaller WN end
-    # (log_s about N(0, 0.01)): a flow that magnifies less
-    g = torch.Generator().manual_seed(21)
-    calm = with_wn_ends(pipe16.init_state(g), g, WN_END_SCALE / 10)
-    calm_plain = once(pipe16, environ(**BF16_ENV), plain_convs(osconv, wn_fused, gate), st=calm)
-    gap = phase5_gap(once(pipe16, environ(**BF16_ENV), plain_convs(osconv, wn_fused, gate),
-                          f64_sums(wn_fused, osconv), st=calm), calm_plain)
-    row["calm flow, control f64 sums in conv and WN"] = {
-        key: gap[key] for key in ("loss_rel", "grad_l2_rel")}
-    del calm, calm_plain
     row["launches"] = {k: v for k, v in launched.items() if v}
     row["grads_and_norms_s"] = {"kernel": kern["secs"], "plain": plain["secs"], "f32": f32["secs"]}
     row["losses_f32"] = {n: float(v) for n, v in f32["losses"].items()}
@@ -2926,7 +3145,7 @@ def bf16_phase(run, pipe, state, datasets, batch, modules, layers, wn_fns, make_
     # CUBLAS_WORKSPACE_CONFIG (phase 18's method)
     env = {k: v for k, v in os.environ.items() if k != "CUBLAS_WORKSPACE_CONFIG"}
     proc = subprocess.run([sys.executable, str(REPO / "experiments" / "multirun_time.py"),
-                           "--ks", str(MULTIRUN_K), "--bf16"],
+                           "--ks", str(MULTIRUN_K), "--bf16", "--rounds", "1"],
                           capture_output=True, text=True, timeout=600, env=env, cwd=REPO)
     check(proc.returncode == 0, f"multirun_time.py --bf16 exited {proc.returncode}: "
                                 f"{proc.stderr[-2000:]}")
@@ -3297,29 +3516,8 @@ def knobs_phase(run, pipe, modules, batch, smi) -> dict:
     torch.cuda.empty_cache()
     lap("(c) the bf16 stacked step")
 
-    # (d) the stacked and fused knobs' K-run step at K = MULTIRUN_K, timed in a process of its
-    # own without CUBLAS_WORKSPACE_CONFIG (phase 18's method).  The default, merged, is phase
-    # 18's sweep of the same run; the unmerged knob (its sweep about 35 s), K = 1 of each knob
-    # (cut to make room for phase 22) and the one-run pipeline's step of each knob
-    # (experiments/phase5_step_time.py --knob, about a minute) would take more than this
-    # phase's budget leaves: both scripts time them outside chip_smoke.py
-    env = {k: v for k, v in os.environ.items() if k != "CUBLAS_WORKSPACE_CONFIG"}
-    knobs = "stacked,fused_opt"
-    proc = subprocess.run([sys.executable, str(REPO / "experiments" / "multirun_time.py"),
-                           "--knob", knobs, "--ks", str(k_runs), "--rounds", "1"],
-                          capture_output=True, text=True, timeout=600, env=env, cwd=REPO)
-    check(proc.returncode == 0, f"multirun_time.py --knob {knobs} exited {proc.returncode}: "
-                                f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
-    lines = proc.stdout.strip().splitlines()
-    for line in lines[:-1]:
-        log(f"  multirun_time.py: {line}")
-    out["multirun_time"] = json.loads(lines[-1])
-    for knob, by_k in out["multirun_time"]["by_knob"].items():
-        for k, v in by_k.items():
-            log(f"[knobs timing {knob}, K={k}] step ms={v['median_ms']:.1f} device ms="
-                f"{v['device_ms']:.1f} idle share={v['device_idle_share']:.3f} peak MiB="
-                f"{v['peak_mib']:.0f} on {smi}")
-    lap("(d) the timings")
+    # The knobs' K-run steps are timed outside chip_smoke.py (experiments/multirun_time.py
+    # --knob, phase 18's method), to leave room for phases 22-23.
     return out
 
 
@@ -3784,7 +3982,7 @@ DP_RANKS = 4
 DP_SEED = 22
 DP_SERIES = 40  # the ensemble's train and test splits
 DP_TIMEOUT = 300.0  # the ranks' deadline, spawn and import included
-DP_REPS = 3  # timed data-parallel phase-5 steps a rank after the counted one
+DP_REPS = 1  # timed data-parallel phase-5 steps a rank after its drives (the first is cold)
 # Gradients, each module's, against the unsharded step that takes the ranks' ReLU sign patterns,
 # its OS conv's transposed convs in float64 (phase 21's reference): within DP_GRAD_REL_L2
 # (relative L2), or DP_GRAD_FACTOR times the same unsharded step's own gap with float32
@@ -3792,6 +3990,26 @@ DP_REPS = 3  # timed data-parallel phase-5 steps a rank after the counted one
 # in phase 21.
 DP_GRAD_REL_L2 = 1e-5
 DP_GRAD_FACTOR = 2.0
+# The configurations phase 22 also takes a data-parallel phase-5 step under: (PipelineConfig
+# knobs, environment).  The float32 ones are held as the default step; the bf16 ones (BF16_DP)
+# sit at the bf16 noise floor, where each quantity is held to the unsharded step within its
+# gate or DP_GRAD_FACTOR times the largest gap between two correct unsharded bf16 steps, the
+# controls (``dp_bf16_against``, measured in the same run and printed): the plain bf16 path on
+# the card; the OS convs over the batch in DP_RANKS micro-batches (a bf16 conv's weight
+# gradient is rounded to bf16 once a call, so a batch split four ways rounds four partial sums,
+# as each rank's share does); the batch's rows in another order.
+DP_CONFIGS = {
+    "unmerged": ({"merged_pullbacks": False}, {}),
+    "stacked": ({"stacked_pullbacks": True}, {}),
+    "fused_optimizers": ({"fused_optimizers": True}, {}),
+    "compute_dtype": ({"compute_dtype": "bfloat16"}, {}),
+    "wn_mxu": ({}, BF16_ENV),
+    "op_by_op": ({}, OP_BY_OP),
+}
+BF16_DP = ("compute_dtype", "wn_mxu")
+# phases 2-4, one data-parallel step each of phase 8's config: (phase, supervised)
+DP_EPOCHS = {"phase 2 step": (2, None), "phase 3 step": (3, True),
+             "phase 4 step supervised": (4, True), "phase 4 step unsupervised": (4, False)}
 
 
 def dp_inputs(cfg) -> dict:
@@ -3860,15 +4078,57 @@ def recorded_grads(model) -> list:
     return seen
 
 
+def config_pipe(pipe, knobs: dict):
+    """``pipe``'s shapes under its config with ``knobs`` replaced."""
+    import dataclasses
+
+    if not knobs:
+        return pipe
+    return type(pipe)(*pipe.t_shape, *pipe.s_shape, dataclasses.replace(pipe.config, **knobs),
+                      device=pipe.device)
+
+
+def dp_step_record(pipe, state, step, gradnorm_step, keep_grads: bool, signs=None) -> dict:
+    """What phase 22 keeps of one phase-5 step's pulls (``phase5_grads``'s
+    output): the losses, norms, the GradNorm weights one update would give,
+    the new BatchNorm statistics, the gradients (``keep_grads``) and their
+    digest, and the ReLU sign patterns ``signs`` recorded."""
+    losses, new_m, _, grads, n_t, n_s = step
+    gn = copy.deepcopy(state["gradnorm"])
+    vec = torch.stack([losses[k] for k in ("t_nf", "t_c", "s_nf", "s_c", "s2t2s_c")]).detach()
+    g = pipe.config.gradnorm
+    gradnorm_step(gn["t"], vec[:2], n_t, alpha=g.alpha, weight_sum=g.weights_t_sum)
+    gradnorm_step(gn["s"], vec[2:], n_s, alpha=g.alpha, weight_sum=g.weights_s_sum)
+    return {"losses": to_cpu(losses), "n_t": n_t.cpu(), "n_s": n_s.cpu(),
+            "w_t": gn["t"].weights.cpu(), "w_s": gn["s"].weights.cpu(),
+            "new_m": to_cpu({k: new_m[k] for k in ("t_ext", "t_cls", "s_ext", "s_cls")}),
+            "grads": to_cpu(grads) if keep_grads else None, "digest": digest(grads),
+            "relu_signs": None if signs is None else signs.masks}
+
+
+def dp_epoch_step(dp, mesh, pipe, state, local, phase: int, supervised):
+    """One data-parallel epoch of one batch of phase 2, 3 or 4 over this
+    rank's rows ``local`` (target x, y, source x, y)."""
+    xt, yt, xs, ys = (t[None] for t in local)
+    if phase == 2:
+        return dp.phase2_epoch(mesh, pipe, state, xs, ys)
+    if phase == 3:
+        return dp.phase3_epoch(mesh, pipe, state, xt, yt, xs, ys, supervised, ANCHORS)
+    return dp.phase4_epoch(mesh, pipe, state, xt, yt, xs, ys, supervised, ANCHORS)
+
+
 def dp_rank(rank: int, world: int, init_method: str, out_dir: str) -> dict:
     """One rank of phase 22, in a process of its own: joins the gloo group,
     replicates the states, and runs on its rows of the batch, each with the
     launch counts set to 0 just before and read just after, its ReLU sign
-    patterns recorded: a data-parallel phase-5 step (``dp.phase5_grads``),
-    a phase-1 step (``make_dp_phase1_epoch``, one batch), a classifier step
-    (``dp.train_epoch``, one batch) and the domain-sharded ensemble's
-    evaluation (its member, ``FLSTTSC_FUSE_EPILOGUE=1``); saves what it
-    computed to ``out_dir``, then times DP_REPS more phase-5 steps."""
+    patterns recorded, each timed from a barrier: a data-parallel phase-5
+    step (``dp.phase5_grads``) and, from the same state, the other
+    configurations' (``DP_CONFIGS``) and a step of phases 2-4
+    (``DP_EPOCHS``); a phase-1 step (``make_dp_phase1_epoch``, one batch), a
+    classifier step (``dp.train_epoch``, one batch) and the domain-sharded
+    ensemble's evaluation (its member, ``FLSTTSC_FUSE_EPILOGUE=1``); saves
+    what it computed to ``out_dir``, then times DP_REPS more default
+    phase-5 steps."""
     import torch.distributed as dist
 
     from feature_level_style_transfer_for_tsc_tpu_torch.config import PipelineConfig
@@ -3882,19 +4142,28 @@ def dp_rank(rank: int, world: int, init_method: str, out_dir: str) -> dict:
     from feature_level_style_transfer_for_tsc_tpu_torch.parallel.multi_source import (
         MultiSourceEnsemble,
     )
+    from feature_level_style_transfer_for_tsc_tpu_torch.train.steps import leaves
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    # the ranks share the host's cores (gloo stages every collective through them)
+    torch.set_num_threads(max(1, (os.cpu_count() or DP_RANKS) // DP_RANKS))
     t_start = time.perf_counter()
     cfg = PipelineConfig(budget_multiplier=1.0)
     modules = (osconv, wn_fused, gate)
-    counts, saved = {}, {}
+    counts, saved, secs = {}, {}, {}
 
     def counted(what, fn):
+        """``fn`` with the launch counts set to 0 before and read after, timed
+        from a barrier (every rank runs the same drives in the same order)."""
+        dist.barrier()
         for m in modules:
             m.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
+        secs[what] = time.perf_counter() - t0
         counts[what] = {name: n for m in modules for name, n in m.LAUNCHES.items()}
         return out
 
@@ -3917,19 +4186,36 @@ def dp_rank(rank: int, world: int, init_method: str, out_dir: str) -> dict:
             return dp.phase5_grads(mesh, pipe, state, *local, 0, ANCHORS, masks)
 
         with ReluSigns() as signs:
-            losses, new_m, _, grads, n_t, n_s = counted("phase 5 step", step5)
-        gn = copy.deepcopy(state["gradnorm"])
-        vec = torch.stack([losses[k] for k in ("t_nf", "t_c", "s_nf", "s_c", "s2t2s_c")])
-        g = cfg.gradnorm
-        gradnorm_step(gn["t"], vec[:2], n_t, alpha=g.alpha, weight_sum=g.weights_t_sum)
-        gradnorm_step(gn["s"], vec[2:], n_s, alpha=g.alpha, weight_sum=g.weights_s_sum)
-        saved["phase5"] = {
-            "losses": to_cpu(losses), "n_t": n_t.cpu(), "n_s": n_s.cpu(),
-            "w_t": gn["t"].weights.cpu(), "w_s": gn["s"].weights.cpu(),
-            "new_m": to_cpu({k: new_m[k] for k in ("t_ext", "t_cls", "s_ext", "s_cls")}),
-            "grads": to_cpu(grads) if rank == 0 else None, "digest": digest(grads),
-            "relu_signs": signs.masks}
-        del grads, new_m
+            saved["phase5"] = dp_step_record(pipe, state, counted("phase 5 step", step5),
+                                             gradnorm_step, rank == 0, signs)
+
+        # the other configurations' phase-5 steps, and phases 2-4, from the same state
+        for name, (knobs, env) in DP_CONFIGS.items():
+            kpipe = config_pipe(pipe, knobs)
+            kstate = knob_state(kpipe, state)
+            with environ(**env):
+                with ReluSigns() as signs:
+                    step = counted(f"phase 5 step {name}", lambda: dp.phase5_grads(
+                        mesh, kpipe, kstate, *local, 0, ANCHORS, masks))
+                    record = dp_step_record(kpipe, kstate, step, gradnorm_step, rank == 0,
+                                            None if name in BF16_DP else signs)
+            if kpipe.config.fused_optimizers:  # the update too: the fused RMSprop on the global grads
+                kpipe._phase5_update(kstate, step[0], step[1], *step[3:])
+                record["params_after"] = to_cpu(leaves(kstate["params"])) if rank == 0 else None
+                record["params_digest"] = digest(kstate["params"])
+            saved[f"phase5 {name}"] = record
+            del kpipe, kstate, step, record
+        for key, (phase, supervised) in DP_EPOCHS.items():
+            pstate = knob_state(pipe, state)
+            steps = recorded_grads(pipe)
+            with ReluSigns() as signs:
+                metrics = counted(key, lambda: dp_epoch_step(dp, mesh, pipe, pstate, local, phase,
+                                                             supervised))
+            del pipe._apply_updates  # the class's again
+            saved[key] = {"metrics": to_cpu(metrics), "grads": steps[0] if rank == 0 else None,
+                          "digest": digest(pstate["params"]), "relu_signs": signs.masks}
+            del pstate, steps
+        torch.cuda.empty_cache()
 
         steps = recorded_grads(pipe)
         epoch1 = make_dp_phase1_epoch(pipe, mesh)
@@ -3962,7 +4248,8 @@ def dp_rank(rank: int, world: int, init_method: str, out_dir: str) -> dict:
         step_s = timed_steps(step5, reps=DP_REPS, barrier=dist.barrier)
         peak_mib = torch.cuda.max_memory_allocated() / 2**20
     return {"rank": rank, "device": torch.cuda.current_device(), "ready_s": ready_s,
-            "replicate_s": replicate_s, "counts": counts, "step_s": step_s, "peak_mib": peak_mib}
+            "replicate_s": replicate_s, "counts": counts, "step_s": step_s, "peak_mib": peak_mib,
+            "drive_s": secs}
 
 
 def dp_conv_rows(osconv, pipe, b: int, n_fused: int) -> dict:
@@ -4061,6 +4348,158 @@ def dp_module_gaps(what: str, dp_grads: dict, ref: dict, pinned: dict, exact: di
     return gaps
 
 
+def dp_phase5_against(what, kpipe, kstate, batch, masks, got, signs, osconv, gradnorm_step,
+                      env=None) -> dict:
+    """A data-parallel phase-5 step (rank 0's record ``got``) against the
+    unsharded step of the same pipe and state on the card: the losses,
+    trunk norms, GradNorm weights and new BatchNorm statistics (phase 22's
+    gates), each module's gradients against the unsharded step that takes
+    the ranks' ReLU sign patterns ``signs`` with float64 transposed convs
+    (``dp_module_gaps``)."""
+    def p5(*ctxs):
+        with stacked(environ(**(env or {})), *ctxs):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            step = kpipe.phase5_grads(kstate, *batch, 0, ANCHORS, masks)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        return {**dp_step_record(kpipe, kstate, step, gradnorm_step, True), "secs": secs,
+                "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+
+    ref = p5()
+    with ReluSigns(pinned=signs) as flips:
+        pinned = p5()
+    exact = p5(ReluSigns(pinned=signs), f64_os_conv_bwd(osconv))
+    row = {"loss_rel": {k: rel_err(got["losses"][k], pinned["losses"][k])[1] for k in got["losses"]},
+           "loss_rel_unpinned": {k: rel_err(got["losses"][k], ref["losses"][k])[1]
+                                 for k in got["losses"]},
+           "n_t_rel": rel_err(got["n_t"], pinned["n_t"])[1],
+           "n_s_rel": rel_err(got["n_s"], pinned["n_s"])[1],
+           "w_t_rel": rel_err(got["w_t"], pinned["w_t"])[1],
+           "w_s_rel": rel_err(got["w_s"], pinned["w_s"])[1],
+           "new_bn_stats": bn_stats_gap(got, ref), "relu_flips": flips.flips}
+    log(f"[data parallel {what}] vs the unsharded step on the card: {json.dumps(row)}")
+    row["unsharded_s"], row["unsharded_peak_mib"] = ref["secs"], ref["peak_mib"]
+    for k, v in row["loss_rel"].items():
+        check(math.isfinite(float(got["losses"][k])), f"data parallel {what} loss {k} not finite")
+        check(v <= REL_TOL, f"data parallel {what} loss {k}: rel err {v:.3e}")
+    for k in ("n_t_rel", "n_s_rel"):
+        check(row[k] <= GRAD_REL_TOL, f"data parallel {what} {k} {row[k]:.3e}")
+    for k in ("w_t_rel", "w_s_rel"):
+        check(row[k] <= REL_TOL, f"data parallel {what} GradNorm {k} {row[k]:.3e}")
+    check(row["new_bn_stats"] <= SEQ_ATOL, f"data parallel {what} new BN stats "
+                                           f"{row['new_bn_stats']:.3e}")
+    row["grads"] = dp_module_gaps(what, got["grads"], ref["grads"], pinned["grads"],
+                                  exact["grads"])
+    return row
+
+
+def bn_stats_gap(a: dict, b: dict) -> float:
+    """The largest difference of two records' new BatchNorm statistics, over
+    max(1, the statistic's largest value)."""
+    return max((x - y).abs().max().item() / max(1.0, y.abs().max().item())
+               for x, y in zip(_tensor_leaves(a["new_m"]), _tensor_leaves(b["new_m"])))
+
+
+def dp_record_gaps(a: dict, b: dict) -> dict:
+    """How far record ``a`` is from ``b``: each loss, trunk norm and
+    GradNorm weight (relative), the new BatchNorm statistics, and each
+    module's gradients (relative L2)."""
+    gaps = {f"loss {k}": rel_err(a["losses"][k], b["losses"][k])[1] for k in b["losses"]}
+    for k in ("n_t", "n_s", "w_t", "w_s"):
+        gaps[k] = rel_err(a[k], b[k])[1]
+    gaps["new_bn_stats"] = bn_stats_gap(a, b)
+    for name, gs in b["grads"].items():
+        if any(g is not None for g in gs):
+            gaps[f"grads {name}"] = grads_l2_gap({name: a["grads"][name]}, {name: gs})[name]
+    return gaps
+
+
+def dp_bf16_against(what, kpipe, kstate, batch, masks, got, modules, gradnorm_step, env) -> dict:
+    """A bf16 configuration's data-parallel phase-5 step (rank 0's record
+    ``got``) against the unsharded step on the card: each quantity of
+    ``dp_record_gaps`` within its phase-22 gate or DP_GRAD_FACTOR times the
+    largest gap of a control from the unsharded step (DP_CONFIGS says which;
+    a norm or weight also twice its trunk's gradient gap, which bounds a
+    norm's relative change)."""
+    osconv, wn_fused, gate = modules
+
+    def p5(b, m, *ctxs):
+        with stacked(environ(**env), *ctxs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step = kpipe.phase5_grads(kstate, *b, 0, ANCHORS, m)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        return {**dp_step_record(kpipe, kstate, step, gradnorm_step, True), "secs": secs}
+
+    core = osconv.OSConvCore
+
+    class MicroBatched:
+        """``OSConvCore`` over the batch in DP_RANKS micro-batches."""
+
+        @staticmethod
+        def apply(x_pad, w):
+            return torch.cat([core.apply(part, w) for part in x_pad.chunk(DP_RANKS)])
+
+    ref = p5(batch, masks)
+    perm = torch.from_numpy(np.random.default_rng(DP_SEED).permutation(BATCH)).cuda()
+    controls = {"plain bf16 path": p5(batch, masks, plain_convs(osconv, wn_fused, gate)),
+                "OS convs in micro-batches": p5(batch, masks, patched(osconv, "OSConvCore",
+                                                                      MicroBatched)),
+                "rows in another order": p5([t[perm] for t in batch],
+                                            [[m[perm] for m in pair] for pair in masks])}
+    gaps = dp_record_gaps(got, ref)
+    spread = {c: dp_record_gaps(r, ref) for c, r in controls.items()}
+    bars = {"loss": REL_TOL, "n_t": GRAD_REL_TOL, "n_s": GRAD_REL_TOL, "w_t": REL_TOL,
+            "w_s": REL_TOL, "new_bn_stats": SEQ_ATOL, "grads": DP_GRAD_REL_L2}
+    trunk = {"n_t": "grads t_ext", "w_t": "grads t_ext", "n_s": "grads s_ext", "w_s": "grads s_ext"}
+    row = {"gaps": gaps, "controls": spread, "allowed": {}, "unsharded_s": ref["secs"]}
+    for key, gap in gaps.items():
+        keys = [key] + ([trunk[key]] if key in trunk else [])
+        control = max(c[k] for c in spread.values() for k in keys)
+        row["allowed"][key] = max(bars[key.split(" ")[0]], DP_GRAD_FACTOR * control)
+    log(f"[data parallel {what}] vs the unsharded step on the card, and the controls' gaps from "
+        f"it (two correct unsharded bf16 steps): {json.dumps(row)}")
+    for k, v in got["losses"].items():
+        check(math.isfinite(float(v)), f"data parallel {what} loss {k} not finite")
+    for key, gap in gaps.items():
+        check(gap <= row["allowed"][key], f"data parallel {what} {key}: {gap:.3e} > "
+                                          f"{row['allowed'][key]:.3e}")
+    return row
+
+
+@contextlib.contextmanager
+def patched(module, name: str, value):
+    """``module.<name>`` set to ``value`` inside."""
+    saved = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+def dp_epoch_reference(pipe, state, batch, phase: int, supervised, ctx) -> dict:
+    """The unsharded step of a phase-2, 3 or 4 epoch of one batch: its
+    losses and gradients, no update."""
+    params, mstate, consts = state["params"], state["mstate"], state["consts"]
+    with ctx:
+        if phase == 2:
+            losses, _ = pipe._phase2_forward(params, mstate, consts, batch[2], batch[3])
+            names = ("s_ext", "dim_uni", "s_cls")
+        elif phase == 3:
+            losses, _ = pipe._phase3_forward(params, mstate, consts, *batch, ANCHORS, supervised)
+            names = pipe._phase3_names(supervised)
+        else:
+            losses, _ = pipe._phase4_forward(params, mstate, consts, *batch,
+                                             ANCHORS if supervised else None, supervised)
+            names = pipe._phase4_names(supervised)[0]
+        grads = pipe._grads(losses["total"], state, names)
+    return {"losses": to_cpu(losses), "grads": to_cpu(grads)}
+
+
 def dp_phase(run, modules, wn_fns, smi) -> dict:
     """Phase 22: a data-parallel phase-5 step, phase-1 step and classifier
     step over DP_RANKS ranks on the one card against the unsharded steps on
@@ -4076,6 +4515,7 @@ def dp_phase(run, modules, wn_fns, smi) -> dict:
     from feature_level_style_transfer_for_tsc_tpu_torch.parallel.multi_source import (
         MultiSourceEnsemble,
     )
+    from feature_level_style_transfer_for_tsc_tpu_torch.train.steps import leaves
 
     osconv, wn_fused, gate = modules
     cfg = PipelineConfig(budget_multiplier=1.0)
@@ -4091,9 +4531,30 @@ def dp_phase(run, modules, wn_fns, smi) -> dict:
     pipe, state, batch, masks = inp["pipe"], inp["state"], inp["batch"], inp["masks"]
     n_ext, n_s_ext, n_cls = len(pipe.t_ext_specs), len(pipe.s_ext_specs), len(pipe.cls_specs)
     flows = cfg.flow.n_flows
+    convs5 = n_ext + n_s_ext + 3 * n_cls
+    layers = cfg.flow.wn_layers
     expect = {
-        "phase 5 step": {**run.idle(), "os_conv_fwd": n_ext + n_s_ext + 3 * n_cls,
+        "phase 5 step": {**run.idle(), "os_conv_fwd": convs5,
                          "wn_fwd": 2 * flows, "wn_bwd": 5 * flows},
+        "phase 5 step unmerged": {**run.idle(), "os_conv_fwd": convs5, "wn_fwd": 2 * flows,
+                                  "wn_bwd": 6 * flows},
+        "phase 5 step stacked": {**run.idle(), "os_conv_fwd": convs5, "wn_fwd": 2 * flows,
+                                 "wn_bwd_runs": 2 * flows},
+        "phase 5 step fused_optimizers": {**run.idle(), "os_conv_fwd": convs5,
+                                          "wn_fwd": 2 * flows, "wn_bwd": 5 * flows},
+        "phase 5 step compute_dtype": {**run.idle(), "os_conv_fwd[bf16]": convs5,
+                                       "wn_fwd": 2 * flows, "wn_bwd": 5 * flows},
+        "phase 5 step wn_mxu": {**run.idle(), "os_conv_fwd": convs5, "wn_fwd[bf16]": 2 * flows,
+                                "wn_bwd[bf16]": 5 * flows},
+        "phase 5 step op_by_op": {**run.idle(), "os_conv_fwd": convs5,
+                                  "gate_fwd": layers * 2 * flows,
+                                  "tap_conv_fwd": layers * (2 * flows + 5 * flows)},
+        "phase 2 step": {**run.idle(), "os_conv_fwd": n_s_ext + n_cls},
+        "phase 3 step": {**run.idle(), "os_conv_fwd": n_ext + n_s_ext + 2 * n_cls},
+        "phase 4 step supervised": {**run.idle(), "os_conv_fwd": n_ext + n_s_ext + 2 * n_cls,
+                                    "wn_fwd": flows, "wn_bwd": flows},
+        "phase 4 step unsupervised": {**run.idle(), "os_conv_fwd": n_ext + n_s_ext,
+                                      "wn_fwd": flows, "wn_bwd": flows},
         "phase 1 step": {**run.idle(), "os_conv_fwd": n_ext + n_cls},
         "classifier step": {**run.idle(), "os_conv_fwd": n_ext + n_cls},
         "ensemble": {**run.idle(), "os_conv_fused_fwd": 2 * (n_ext + n_cls)},
@@ -4112,7 +4573,8 @@ def dp_phase(run, modules, wn_fns, smi) -> dict:
                 total[name] += n
     run.add("data parallel 4 ranks", total, path="data parallel")
     out["rank_results"] = ranks
-    for key in ("phase5", "phase1", "classifier"):
+    for key in ("phase5", "phase1", "classifier", *(f"phase5 {n}" for n in DP_CONFIGS),
+                *DP_EPOCHS):
         check(len({s[key]["digest"] for s in shards}) == 1, f"data parallel {key}: the ranks' "
               "gradients or new parameters differ")
     for s in shards[1:]:
@@ -4125,49 +4587,70 @@ def dp_phase(run, modules, wn_fns, smi) -> dict:
 
     # ---- phase 5: the unsharded step on the card, unpinned, pinned, pinned with float64
     # transposed convs
-    def p5(ctx):
-        with ctx:
-            losses, new_m, _, grads, n_t, n_s = pipe.phase5_grads(state, *batch, 0, ANCHORS, masks)
-            torch.cuda.synchronize()
-        return {"losses": to_cpu(losses), "grads": to_cpu(grads), "n_t": n_t.cpu(),
-                "n_s": n_s.cpu(), "new_m": to_cpu({k: new_m[k] for k in
-                                                   ("t_ext", "t_cls", "s_ext", "s_cls")})}
+    out["phase5"] = dp_phase5_against("phase-5 step", pipe, state, batch, masks,
+                                      shards[0]["phase5"], signs_of("phase5"), osconv,
+                                      gradnorm_step)
 
-    signs = signs_of("phase5")
-    ref = p5(contextlib.nullcontext())
-    with ReluSigns(pinned=signs) as flips5:
-        pinned = p5(contextlib.nullcontext())
-    exact = p5(stacked(ReluSigns(pinned=signs), f64_os_conv_bwd(osconv)))
-    got = shards[0]["phase5"]
-    gn = copy.deepcopy(state["gradnorm"])
-    vec = torch.stack([pinned["losses"][k] for k in ("t_nf", "t_c", "s_nf", "s_c", "s2t2s_c")]).cuda()
-    g = cfg.gradnorm
-    gradnorm_step(gn["t"], vec[:2], pinned["n_t"].cuda(), alpha=g.alpha, weight_sum=g.weights_t_sum)
-    gradnorm_step(gn["s"], vec[2:], pinned["n_s"].cuda(), alpha=g.alpha, weight_sum=g.weights_s_sum)
-    row = {"loss_rel": {k: rel_err(got["losses"][k], pinned["losses"][k])[1] for k in got["losses"]},
-           "loss_rel_unpinned": {k: rel_err(got["losses"][k], ref["losses"][k])[1]
-                                 for k in got["losses"]},
-           "n_t_rel": rel_err(got["n_t"], pinned["n_t"])[1],
-           "n_s_rel": rel_err(got["n_s"], pinned["n_s"])[1],
-           "w_t_rel": rel_err(got["w_t"], gn["t"].weights.cpu())[1],
-           "w_s_rel": rel_err(got["w_s"], gn["s"].weights.cpu())[1],
-           "new_bn_stats": max((a - b_).abs().max().item() / max(1.0, b_.abs().max().item())
-                               for a, b_ in zip(_tensor_leaves(got["new_m"]),
-                                                _tensor_leaves(ref["new_m"]))),
-           "relu_flips": flips5.flips}
-    log(f"[data parallel phase-5 step] vs the unsharded step on the card: {json.dumps(row)}")
-    for k, v in row["loss_rel"].items():
-        check(math.isfinite(float(got["losses"][k])), f"data parallel phase-5 loss {k} not finite")
-        check(v <= REL_TOL, f"data parallel phase-5 loss {k}: rel err {v:.3e}")
-    for k in ("n_t_rel", "n_s_rel"):
-        check(row[k] <= GRAD_REL_TOL, f"data parallel phase-5 {k} {row[k]:.3e}")
-    for k in ("w_t_rel", "w_s_rel"):
-        check(row[k] <= REL_TOL, f"data parallel phase-5 GradNorm {k} {row[k]:.3e}")
-    check(row["new_bn_stats"] <= SEQ_ATOL, f"data parallel new BN stats {row['new_bn_stats']:.3e}")
-    row["grads"] = dp_module_gaps("phase-5 step", got["grads"], ref["grads"], pinned["grads"],
-                                  exact["grads"])
-    out["phase5"] = row
-    del ref, pinned, exact
+    # ---- phase 5 under the other configurations, from the same state
+    for name, (knobs, env) in DP_CONFIGS.items():
+        kpipe = config_pipe(pipe, knobs)
+        kstate = knob_state(kpipe, state)
+        got = shards[0][f"phase5 {name}"]
+        if name in BF16_DP:
+            out[f"phase5 {name}"] = dp_bf16_against(f"phase-5 step, {name}", kpipe, kstate,
+                                                    batch, masks, got, modules, gradnorm_step,
+                                                    env)
+        else:
+            out[f"phase5 {name}"] = dp_phase5_against(
+                f"phase-5 step, {name}", kpipe, kstate, batch, masks, got,
+                signs_of(f"phase5 {name}"), osconv, gradnorm_step, env)
+        # a rank's step (its counted drive) beside the unsharded one (the reference's first)
+        step_s = {"a_rank": [r["drive_s"][f"phase 5 step {name}"] for r in ranks],
+                  "unsharded": out[f"phase5 {name}"].pop("unsharded_s")}
+        out[f"phase5 {name}"]["step_s"] = step_s
+        log(f"[data parallel phase-5 step, {name}] step s (pulls, no update): a rank (4 share the "
+            f"card) {[round(x, 4) for x in step_s['a_rank']]}, unsharded "
+            f"{step_s['unsharded']:.4f} on {smi}")
+        if kpipe.config.fused_optimizers:
+            # the fused RMSprop's update on the ranks' global gradients: the same bits on every
+            # rank and as this process's update of a copy of the state on the same gradients
+            check(len({s_[f"phase5 {name}"]["params_digest"] for s_ in shards}) == 1,
+                  f"data parallel {name}: the ranks' updated parameters differ")
+            kpipe._phase5_update(kstate, tree_to(got["losses"], "cuda"), kstate["mstate"],
+                                 tree_to(got["grads"], "cuda"), got["n_t"].cuda(),
+                                 got["n_s"].cuda())
+            same = all(torch.equal(a.detach().cpu(), b) for a, b in
+                       zip(leaves(kstate["params"]), got["params_after"]))
+            out[f"phase5 {name}"]["update_same_bits"] = same
+            log(f"[data parallel phase-5 step, {name}] the ranks' fused update the same bits as "
+                f"one process's on the same gradients: {same}")
+            check(same, f"data parallel {name}: the fused update differs from one process's")
+        del kpipe, kstate, got
+        torch.cuda.empty_cache()
+
+    # ---- phases 2-4: the gradients of one step from the same state, no update
+    for key, (phase, supervised) in DP_EPOCHS.items():
+        signs = signs_of(key)
+        pstate = knob_state(pipe, state)
+
+        def pn(ctx):
+            return dp_epoch_reference(pipe, pstate, batch, phase, supervised, ctx)
+
+        ref = pn(contextlib.nullcontext())
+        with ReluSigns(pinned=signs) as flips:
+            pinned = pn(contextlib.nullcontext())
+        exact = pn(stacked(ReluSigns(pinned=signs), f64_os_conv_bwd(osconv)))
+        got = shards[0][key]
+        loss_rel = {m: rel_err(got["metrics"][m], pinned["losses"][m])[1] for m in got["metrics"]}
+        log(f"[data parallel {key}] losses rel vs the unsharded step {json.dumps(loss_rel)}, "
+            f"ReLU flips {flips.flips}")
+        for m, v in loss_rel.items():
+            check(math.isfinite(float(got["metrics"][m])), f"data parallel {key} {m} not finite")
+            check(v <= REL_TOL, f"data parallel {key} loss {m}: rel err {v:.3e}")
+        out[key] = {"loss_rel": loss_rel, "relu_flips": flips.flips,
+                    "grads": dp_module_gaps(key, got["grads"], ref["grads"], pinned["grads"],
+                                            exact["grads"])}
+        del ref, pinned, exact, pstate
 
     # ---- phase 1 and the classifier: the gradients of one step, no update
     def p1(ctx):
@@ -4222,9 +4705,8 @@ def dp_phase(run, modules, wn_fns, smi) -> dict:
     # ---- the kernels at a rank's shapes, and the step timed
     out["kernels"] = {**dp_conv_rows(osconv, pipe, b_rank, DP_SERIES),
                       **dp_wn_rows(wn_fused, *wn_fns, pipe, b_rank)}
-    torch.cuda.reset_peak_memory_stats()
-    out["unsharded_step_s"] = timed_steps(lambda: pipe.phase5_grads(state, *batch, 0, ANCHORS, masks))
-    out["unsharded_peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    out["unsharded_step_s"] = [out["phase5"].pop("unsharded_s")]
+    out["unsharded_peak_mib"] = out["phase5"].pop("unsharded_peak_mib")
     rank_s = [statistics.median(r["step_s"]) for r in ranks]
     out["rank_step_median_s"] = rank_s
     out["unsharded_step_median_s"] = statistics.median(out["unsharded_step_s"])
@@ -4531,8 +5013,8 @@ def main() -> int:
         # the scale training gives them.  The flow amplifies last-bit
         # differences of the sums from coupling to coupling wherever log_s
         # is large, as in the state the short drive leaves, so that state is
-        # measured, not checked.  Both states also run the plain path on the
-        # CPU, held against the plain path on the card: a witness of how far
+        # measured, not checked.  The fresh state also runs the plain path on
+        # the CPU, held against the plain path on the card: a witness of how far
         # another summation order alone moves the same step.
         batch = (
             torch.as_tensor(tt_train.x[:BATCH]).cuda(), torch.as_tensor(tt_train.y[:BATCH]).long().cuda(),
@@ -4543,7 +5025,6 @@ def main() -> int:
         cpu_pipe = StyleTransferPipeline(c, t, n_cls, e_c, e_t, e_n, cfg, device="cpu")
         results["phase5_vs_plain_trained"] = phase5_against_plain(
             pipe, state, batch, osconv, wn_fused, gate, gradnorm_step, smi, checked=False,
-            cpu_pipe=cpu_pipe,
         )
         results["phase5_vs_plain"] = phase5_against_plain(
             pipe, fresh, batch, osconv, wn_fused, gate, gradnorm_step, smi,
@@ -4639,6 +5120,13 @@ def main() -> int:
         results["data_parallel"] = dp_phase(run, (osconv, wn_fused, gate),
                                             (wn_init, weight_norm_weight), smi)
 
+        clock.start("phase 23")
+        # ---- phase 23: K runs at once on the op-by-op WN route (the run-axis tap conv, the
+        # gate's runs folded into its rows)
+        results["multirun_op_by_op"] = opbyop_multirun_phase(
+            run, pipe, (osconv, wn_fused, gate), make_dataset, smi,
+            results["multirun"]["step_vs_one_run"]["per_run"], results["multirun"]["sweep_op_by_op"])
+
     clock.start(None)
     results["phase_s"] = clock.secs
     for name, n in run.launches.items():
@@ -4713,6 +5201,20 @@ def main() -> int:
             "bound_ms": sum(r["bound_ms"] for r in rows_k),
             "bound_by": "operations" if sum(r["tc_flop_ms"] for r in rows_k)
             >= sum(r["bytes_ms"] for r in rows_k) else "bytes",
+            "library_ms": (sum(r["library_ms"] for r in rows_k)
+                           if all(r["library_ms"] is not None for r in rows_k) else None),
+        })
+    for name, (one_run, source) in OPBYOP_RUN_AXIS.items():
+        # every recorded call of phase 23's K-run step (its shapes), summed
+        rows_k = results["multirun_op_by_op"]["run_axis"][name]
+        flop_ms = sum(r["tc_flop_ms"] for r in rows_k)
+        line["kernels"].append({
+            "name": name, "route": "cuda", "source": source, "replaces": REPLACES[one_run],
+            "launches": run.launches[name],
+            "max_abs_err": max(r["max_abs"] for r in rows_k),
+            "ms": sum(r["ms"] for r in rows_k), "plain_ms": sum(r["plain_ms"] for r in rows_k),
+            "bound_ms": sum(r["bound_ms"] for r in rows_k),
+            "bound_by": "operations" if flop_ms >= sum(r["bytes_ms"] for r in rows_k) else "bytes",
             "library_ms": (sum(r["library_ms"] for r in rows_k)
                            if all(r["library_ms"] is not None for r in rows_k) else None),
         })

@@ -33,15 +33,21 @@ it (from PR 15 to PR 16 the K sweeps ran with it).  ``--knob`` takes one or more
 ``unmerged`` (``merged_pullbacks=False``), ``stacked``
 (``stacked_pullbacks=True``) and ``fused_opt`` (``fused_optimizers=True``),
 comma-separated: the sweep of each in turn, its states freed before the
-next (chip_smoke.py phase 20 runs all four so).
+next (chip_smoke.py phase 20 runs all four so).  ``--routes`` takes one
+or both WN routes, comma-separated: ``fused`` (the default) and
+``op_by_op`` (``FLSTTSC_WN_FUSED=0``, ``FLSTTSC_CONV_IMPL=pallas``: the
+run-axis tap conv ``tap_conv_fwd_runs`` and the gate's runs folded into
+one ``gate_fwd`` launch), each swept in turn in this one process
+(chip_smoke.py phase 18 runs both, phase 23 reads the second).
 It imports only torch, numpy, the port of the tree it sits in and that
 tree's chip_smoke.py (its ``device_events``).
 
 Usage: python experiments/multirun_time.py [--ks 1,2,4,8] [--rounds 2] [--bf16]
-       [--knob merged,unmerged,stacked,fused_opt]
+       [--knob merged,unmerged,stacked,fused_opt] [--routes fused,op_by_op]
 Prints the card's name and power limit, then one JSON line (the last): with
-one knob ``{"card", "kind", "bf16", "knob", "by_k"}``, with several
-``by_knob`` (knob -> its ``by_k``) in place of ``by_k``.
+one knob and one route ``{"card", "kind", "bf16", "route", "knob", "by_k"}``,
+with several knobs ``by_knob`` (knob -> its ``by_k``) in place of ``by_k``,
+with several routes ``by_route`` (route -> its ``by_k``).
 """
 
 from __future__ import annotations
@@ -147,13 +153,18 @@ def main() -> int:
     ap.add_argument("--ks", default="1,2,4,8")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--bf16", action="store_true", help="both bf16 switches on")
+    ap.add_argument("--routes", default="fused",
+                    help="comma-separated, of fused and op_by_op (FLSTTSC_WN_FUSED=0, "
+                         "FLSTTSC_CONV_IMPL=pallas): each swept in turn")
     ap.add_argument("--knob", default="merged",
                     help=f"comma-separated, of {', '.join(smoke.KNOBS)}: each swept in turn")
     args = ap.parse_args()
-    knobs = args.knob.split(",")
+    knobs, routes = args.knob.split(","), args.routes.split(",")
     unknown = [k for k in knobs if k not in smoke.KNOBS]
     if unknown:
         ap.error(f"unknown --knob {unknown}; choose from {list(smoke.KNOBS)}")
+    if set(routes) - {"fused", "op_by_op"} or (len(routes) > 1 and len(knobs) > 1):
+        ap.error(f"--routes {routes}: fused and op_by_op, several only with one knob")
     if not torch.cuda.is_available():
         print("multirun_time: needs a CUDA card", file=sys.stderr)
         return 2
@@ -174,19 +185,29 @@ def main() -> int:
     ks = [int(k) for k in args.ks.split(",")]
     pipe = StyleTransferPipeline(*TARGET, *SOURCE, cfg, device="cuda")
     models = {s: pipe.init_models(torch.Generator().manual_seed(s)) for s in range(max(ks))}
-    by_knob = {}
-    for knob in knobs:
-        knob_cfg = dataclasses.replace(cfg, **smoke.KNOBS[knob])
-        pipe = StyleTransferPipeline(*TARGET, *SOURCE, knob_cfg, device="cuda")
-        t_knob = time.perf_counter()
-        by_knob[knob] = sweep(MultiRunStylePipeline(pipe), ks, args.rounds, make_dataset, smoke,
-                              models)
-        print(f"knob {knob}: the sweep in {time.perf_counter() - t_knob:.1f} s", flush=True)
-        del pipe
-        torch.cuda.empty_cache()
+    by = {}
+    for route in routes:
+        for knob in knobs:
+            if route == "op_by_op":
+                os.environ.update(smoke.OP_BY_OP)
+            knob_cfg = dataclasses.replace(cfg, **smoke.KNOBS[knob])
+            pipe = StyleTransferPipeline(*TARGET, *SOURCE, knob_cfg, device="cuda")
+            t_knob = time.perf_counter()
+            by[route, knob] = sweep(MultiRunStylePipeline(pipe), ks, args.rounds, make_dataset,
+                                    smoke, models)
+            print(f"route {route}, knob {knob}: the sweep in {time.perf_counter() - t_knob:.1f} s",
+                  flush=True)
+            for name in smoke.OP_BY_OP:
+                os.environ.pop(name, None)
+            del pipe
+            torch.cuda.empty_cache()
     head = {"card": smi, "kind": torch.cuda.get_device_name(0), "bf16": args.bf16}
-    out = ({**head, "knob": knobs[0], "by_k": by_knob[knobs[0]]} if len(knobs) == 1
-           else {**head, "by_knob": by_knob})
+    if len(routes) > 1:
+        out = {**head, "knob": knobs[0], "by_route": {r: by[r, knobs[0]] for r in routes}}
+    elif len(knobs) > 1:
+        out = {**head, "route": routes[0], "by_knob": {k: by[routes[0], k] for k in knobs}}
+    else:
+        out = {**head, "route": routes[0], "knob": knobs[0], "by_k": by[routes[0], knobs[0]]}
     print(json.dumps(out), flush=True)
     return 0
 

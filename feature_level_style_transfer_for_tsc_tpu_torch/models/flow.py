@@ -24,7 +24,10 @@ switches, read per call:
   the tap-conv kernel) and the gate (``ops.gate``, its kernel).
 
 Either way a CUDA tensor runs the hand-written kernels of its route and a
-CPU tensor their plain PyTorch versions.  Layout (B, T, C), channel split
+CPU tensor their plain PyTorch versions.  Both routes run under
+``torch.func.vmap`` over K runs (``train/multirun.py``): the kernels'
+Functions take the runs through their vmap rules (``WNCore``; ``GateCore``,
+``TapConvCore``).  Layout (B, T, C), channel split
 along the last axis.
 """
 

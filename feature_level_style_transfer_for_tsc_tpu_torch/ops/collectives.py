@@ -73,22 +73,41 @@ def all_gather(t: torch.Tensor, group) -> List[torch.Tensor]:
     return parts
 
 
+def _moved(in_dim, t: torch.Tensor) -> torch.Tensor:
+    """A vmap rule's operand with its batch dim first, or ``t`` unbatched."""
+    return t if in_dim is None else t.movedim(in_dim, 0)
+
+
 class _AllReduceSum(torch.autograd.Function):
     """The sum over ``group`` of every rank's ``t``; its gradient is the sum
-    of every rank's gradient of that sum."""
+    of every rank's gradient of that sum, the same Function applied to it.
+
+    Under ``torch.func.vmap`` (a batched pull's cotangents, ``train/
+    pipeline.py`` ``batched_pull``, or K runs) the vmap rule all-reduces the
+    whole batched tensor, its batch dim moved to the front, in ONE
+    collective.  The backward calls the Function on ``g`` rather than
+    ``dist.all_reduce`` on it, so a batched ``g`` (a backward under vmap)
+    reaches that rule too; every rank runs the same collectives in the same
+    order, batched or not."""
 
     @staticmethod
-    def forward(ctx, t, group):
-        ctx.group = group
-        out = t.clone()
+    def forward(t, group):
+        out = t.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(out, group=group)
         return out
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.group = inputs[1]
+
+    @staticmethod
     def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
+        return _AllReduceSum.apply(g, ctx.group), None
+
+    @staticmethod
+    def vmap(info, in_dims, t, group):
+        out = _AllReduceSum.apply(_moved(in_dims[0], t), group)
+        return out, (None if in_dims[0] is None else 0)
 
 
 def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
@@ -97,20 +116,32 @@ def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
 
 class _AllGatherRows(torch.autograd.Function):
     """Every rank's ``t`` concatenated along ``dim`` in rank order; the
-    backward all-reduces the gradient of the whole and keeps this rank's
-    rows of it."""
+    backward all-reduces the gradient of the whole (``_AllReduceSum``, so a
+    batched gradient takes its vmap rule) and keeps this rank's rows of it.
+    Under ``torch.func.vmap`` one gather of the batched tensor along the
+    shifted dim."""
 
     @staticmethod
-    def forward(ctx, t, dim: int, group):
-        ctx.dim, ctx.group, ctx.rows = dim, group, t.shape[dim]
+    def forward(t, dim: int, group):
         return torch.cat(all_gather(t, group), dim=dim)
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        t, dim, group = inputs
+        ctx.dim, ctx.group, ctx.rows = dim % t.dim(), group, t.shape[dim]
+
+    @staticmethod
     def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
+        g = _AllReduceSum.apply(g, ctx.group)
         i = dist.get_rank(ctx.group)
         return g.narrow(ctx.dim, i * ctx.rows, ctx.rows).contiguous(), None, None
+
+    @staticmethod
+    def vmap(info, in_dims, t, dim, group):
+        if in_dims[0] is None:
+            return _AllGatherRows.apply(t, dim, group), None
+        t = t.movedim(in_dims[0], 0)
+        return _AllGatherRows.apply(t, dim % (t.dim() - 1) + 1, group), 0
 
 
 def all_gather_rows(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
@@ -120,7 +151,9 @@ def all_gather_rows(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
 def all_reduce_grads(grads: Sequence[Optional[torch.Tensor]]) -> List[Optional[torch.Tensor]]:
     """Under a data-parallel group, the gradients summed over the ranks in
     one all-reduce (a None stays None: every rank has the same graph);
-    else ``grads`` as they are."""
+    else ``grads`` as they are.  A gradient may carry leading cotangent or
+    run axes (a batched pull's (N, ...) gradients): it is summed
+    elementwise, whatever its shape."""
     group = data_group()
     grads = list(grads)
     if group is None:
@@ -142,9 +175,9 @@ def all_reduce_grads(grads: Sequence[Optional[torch.Tensor]]) -> List[Optional[t
 
 def reduce_values(values: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Under a data-parallel group, the ranks' contributions to each value
-    (scalars or equal shapes) summed in one all-reduce, detached: the
-    global values, the same bits on every rank; else ``values`` as they
-    are."""
+    (scalars, or values of one shape with leading cotangent or run axes)
+    summed in one all-reduce, detached: the global values, the same bits on
+    every rank; else ``values`` as they are."""
     group = data_group()
     if group is None:
         return values

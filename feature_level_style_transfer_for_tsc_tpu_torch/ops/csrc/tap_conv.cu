@@ -2,7 +2,7 @@
 // tensor cores (3xTF32).
 //
 // Replaces the TPU kernel of feature_level_style_transfer_for_tsc_tpu/ops/osconv.py:
-//   _tap_conv_kernel  (osconv.py:158)  ->  tap_conv_fwd
+//   _tap_conv_kernel  (osconv.py:158)  ->  tap_conv_fwd, and tap_conv_fwd_runs (R runs)
 //       y[b, t, o] = sum_{j<k} sum_i x_pad[b, t + j*d, i] * w[j, i, o],  t < t_out
 // with x_pad (B, t_pad, C_in), w (k, C_in, C_out), y (B, t_out, C_out), all
 // row-major float32, t_out = t_pad - (k-1)*d.  The op-by-op WaveNet coupling
@@ -37,4 +37,20 @@ extern "C" int tap_conv_fwd(const float* x_pad, const float* w, void* work, floa
   return static_cast<int>(tap_gemm::run(x_pad, w, work, false, nullptr, nullptr,
                                         tap_gemm::kNone, y, 1, b, t_pad, c_in, k, c_out, dilation,
                                         static_cast<cudaStream_t>(stream_ptr)));
+}
+
+// R runs of one shape at once: x_pad (R, B, t_pad, C_in), w (R, k, C_in, C_out),
+// y (R, B, t_out, C_out), work R * tap_gemm::work_words(k, C_in, C_out) words.
+// The same two kernel launches whatever R, with the run on the main grid's z
+// (tap_gemm.cuh), whose limit asks R * B <= 65535 (the caller splits larger
+// calls); the tiles are chosen from one run's batch, so each run's arithmetic
+// and bits are the one-run call's.  The counterpart of the JAX package's
+// vmapped _tap_conv_kernel (its multi-run training, train/multirun.py, on the
+// op-by-op WaveNet route), where jax.vmap adds a grid axis.
+extern "C" int tap_conv_fwd_runs(const float* x_pad, const float* w, void* work, float* y,
+                                 int runs, int b, int t_pad, int c_in, int k, int c_out,
+                                 int dilation, void* stream_ptr) {
+  return static_cast<int>(tap_gemm::run(x_pad, w, work, false, nullptr, nullptr,
+                                        tap_gemm::kNone, y, runs, b, t_pad, c_in, k, c_out,
+                                        dilation, static_cast<cudaStream_t>(stream_ptr)));
 }

@@ -11,8 +11,10 @@ is channel-last: a, b are (..., 2n) and the result is (..., n).
 * ``GateCore`` is the ``autograd.Function``: the kernel for a CUDA tensor,
   the plain version for a CPU tensor, and the JAX package's ``_gate_bwd``
   (XLA there, no Pallas) in plain PyTorch as its backward, recomputing
-  ``a + b`` from the saved operands.  It has no run axis yet, so it raises
-  under ``torch.func.vmap`` (multi-run training, ``ROADMAP.md``).
+  ``a + b`` from the saved operands.  Under ``torch.func.vmap`` (K runs,
+  ``train/multirun.py``) its vmap rule folds the runs into the rows:
+  ``GateRunCore``, ONE launch of the same kernel for the K runs, counted as
+  ``gate_fwd_runs``, each run's rows the bits of its one-run call.
 """
 
 from __future__ import annotations
@@ -25,8 +27,9 @@ import torch
 
 from . import _build, use_kernel
 
-#: Launches of the kernel, counted by its wrapper where it launches.
-LAUNCHES = {"gate_fwd": 0}
+#: Launches of the kernel, counted by its wrapper where it launches; ``gate_fwd_runs``
+#: counts the launches over K runs folded into the rows (``GateRunCore``).
+LAUNCHES = {"gate_fwd": 0, "gate_fwd_runs": 0}
 
 
 def reset_launch_counts() -> None:
@@ -63,9 +66,9 @@ def _rows(t: torch.Tensor, n: int) -> Optional[torch.Tensor]:
     return v if v.stride(1) == 1 and (v.shape[0] < 2 or v.stride(0) >= 2 * n) else None
 
 
-def gate_fwd(a: torch.Tensor, b: torch.Tensor, n: int) -> torch.Tensor:
+def gate_fwd(a: torch.Tensor, b: torch.Tensor, n: int, name: str = "gate_fwd") -> torch.Tensor:
     """The kernel: a, b (..., 2n) float32 CUDA tensors, each contiguous or a
-    row-strided view -> (..., n)."""
+    row-strided view -> (..., n); the launch counted as ``name``."""
     for t in (a, b):
         if t.device.type != "cuda" or t.device != a.device:
             raise ValueError(f"gate_fwd takes CUDA operands on one device, got {t.device}")
@@ -84,9 +87,9 @@ def gate_fwd(a: torch.Tensor, b: torch.Tensor, n: int) -> torch.Tensor:
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.gate_fwd(a2.data_ptr(), a2.stride(0), b2.data_ptr(), b2.stride(0),
                            out.data_ptr(), a2.shape[0], n, stream)
-    LAUNCHES["gate_fwd"] += 1
+    LAUNCHES[name] += 1
     if err:
-        raise RuntimeError(f"gate_fwd launch failed with cudaError_t {err}")
+        raise RuntimeError(f"{name} launch failed with cudaError_t {err}")
     return out.reshape(*a.shape[:-1], n)
 
 
@@ -94,15 +97,18 @@ def gate_fwd(a: torch.Tensor, b: torch.Tensor, n: int) -> torch.Tensor:
 
 class GateCore(torch.autograd.Function):
     """The gate: ``gate_fwd`` on CUDA, ``gate_plain`` on the CPU; the plain
-    backward of JAX's ``_gate_bwd``, the same gradient for a and b.  No run
-    axis yet: under ``torch.func.vmap`` it raises."""
+    backward of JAX's ``_gate_bwd``, the same gradient for a and b.  Under
+    ``torch.func.vmap`` one ``GateRunCore`` call for all runs."""
 
-    @staticmethod
-    def forward(a: torch.Tensor, b: torch.Tensor, n: int) -> torch.Tensor:
+    LAUNCH = "gate_fwd"
+
+    @classmethod
+    def forward(cls, a: torch.Tensor, b: torch.Tensor, n: int) -> torch.Tensor:
         if not use_kernel(a):
             return gate_plain(a, b, n)
         # an operand with no row-strided view of its memory is copied first
-        return gate_fwd(*(t if _rows(t, n) is not None else t.contiguous() for t in (a, b)), n)
+        a, b = (t if _rows(t, n) is not None else t.contiguous() for t in (a, b))
+        return gate_fwd(a, b, n, cls.LAUNCH)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -122,9 +128,23 @@ class GateCore(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, a, b, n):
-        from .osconv import NO_RUN_AXIS
+        # The gate has no weights and is elementwise over rows, so K runs are
+        # the rows of one call: the kernel takes any (M, 2n) row-strided view
+        # and already flattens every leading axis into M, as JAX's
+        # _gate_pallas flattens them into its m rows.  No kernel change: the
+        # runs go first (a runs-first slice of a stacked projection keeps its
+        # row-strided view; an unbatched operand is expanded, and copied by
+        # the forward), and each run's rows give its one-run bits.
+        a, b = (t.movedim(d, 0) if d is not None else t.expand(info.batch_size, *t.shape)
+                for t, d in zip((a, b), in_dims[:2]))
+        return GateRunCore.apply(a, b, n), 0
 
-        raise NotImplementedError(NO_RUN_AXIS.format("gate_fwd (GateCore)"))
+
+class GateRunCore(GateCore):
+    """The gate of K runs with the runs folded into the rows: one launch,
+    counted as ``gate_fwd_runs``; the same backward."""
+
+    LAUNCH = "gate_fwd_runs"
 
 
 def fused_add_tanh_sigmoid_multiply(a: torch.Tensor, b: torch.Tensor, n: int) -> torch.Tensor:

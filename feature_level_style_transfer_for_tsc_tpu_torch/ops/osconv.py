@@ -51,8 +51,8 @@ the kernel's grid: one launch set for the K runs, each run's bits those of
 a one-run call), its backward one grouped transposed conv (``groups=K``);
 on the CPU the plain version and the one-run backward run by run.  The
 fused path's ``OSConvFusedCore`` does the same for ``os_conv_fused_runs``
-(no gradient).  ``TapConvCore`` (the op-by-op WN route) has no run axis
-yet and raises under ``vmap``.
+(no gradient), and ``TapConvCore`` (the op-by-op WN route) for
+``TapConvRunCore`` (``tap_conv_runs``: ``tap_conv_fwd_runs``).
 
 The tap conv, the flow's dilated kernel-3 conv under
 ``FLSTTSC_CONV_IMPL=pallas`` (``conv_impl``, read per call):
@@ -68,7 +68,14 @@ The tap conv, the flow's dilated kernel-3 conv under
   conv (the kernel again, through ``TapConvDxCore``) on g padded by (k-1)*d
   each side with the taps flipped and transposed, dw[j] one matmul per tap.
   Under a batch of cotangents (``stacked_pullbacks``) dx is one tap conv
-  with the cotangents folded into the batch rows.
+  with the cotangents folded into the batch rows (into each run's rows for
+  the runs form).
+* ``tap_conv_runs(x_pad, w, dilation)``: K runs of one shape, x_pad (K, B,
+  t_pad, C_in) and w (K, k, C_in, C_out): on CUDA ``tap_conv_fwd_runs``
+  (the run on the kernel's grid, each run the one-run call's bits; a call
+  whose K * B passes the grid's limit is split on the host), on the CPU the
+  plain version run by run.  ``TapConvRunCore`` is its Function, with the
+  same backward run by run (dx the runs tap conv, dw one batched product).
 """
 
 from __future__ import annotations
@@ -91,12 +98,11 @@ from . import _build, use_kernel
 #: bf16 instance counts under its own names.
 LAUNCHES = {"os_conv_fwd": 0, "os_conv_fused_fwd": 0, "tap_conv_fwd": 0,
             "os_conv_fwd_runs": 0, "os_conv_fused_fwd_runs": 0,
-            "os_conv_fwd[bf16]": 0, "os_conv_fwd_runs[bf16]": 0}
+            "os_conv_fwd[bf16]": 0, "os_conv_fwd_runs[bf16]": 0, "tap_conv_fwd_runs": 0}
 
-#: Why the op-by-op WN route refuses ``torch.func.vmap`` (multi-run training).
-NO_RUN_AXIS = ("{} has no run axis yet, so the op-by-op WN route (FLSTTSC_WN_FUSED=0) cannot "
-               "run under torch.func.vmap (train/multirun.py); ROADMAP.md queues its run axis. "
-               "Use the fused WN route (the default).")
+#: The tap GEMM's main grid carries run * batch + b on its z axis (``csrc/tap_gemm.cuh``),
+#: whose limit is 65,535 blocks: a run-axis tap conv with more rows is split on the host.
+GRID_Z = 65535
 
 
 def reset_launch_counts() -> None:
@@ -240,6 +246,8 @@ def _tap_lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.tap_conv_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
     lib.tap_conv_fwd.restype = i
+    lib.tap_conv_fwd_runs.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
+    lib.tap_conv_fwd_runs.restype = i
     return lib
 
 
@@ -431,6 +439,59 @@ def tap_conv_fwd(x_pad: torch.Tensor, w: torch.Tensor, dilation: int) -> torch.T
     return y
 
 
+def run_chunks(runs: int, batch: int, limit: Optional[int] = None):
+    """The ``[start, stop)`` run ranges of the ``tap_conv_fwd_runs`` calls
+    that K = ``runs`` runs of ``batch`` rows take: as many runs a call as
+    the grid's z axis holds (runs * batch <= ``limit``, ``GRID_Z`` by
+    default), in order."""
+    limit = GRID_Z if limit is None else limit
+    if batch > limit:
+        raise ValueError(f"a batch of {batch} exceeds the grid's {limit}")
+    per = limit // batch
+    return [(s, min(s + per, runs)) for s in range(0, runs, per)]
+
+
+def tap_conv_fwd_runs(x_pad: torch.Tensor, w: torch.Tensor, dilation: int) -> torch.Tensor:
+    """The tap-conv kernel over K runs on CUDA tensors: x_pad (K, B, t_pad,
+    C_in), w (K, k, C_in, C_out) -> (K, B, t_out, C_out), every run the
+    one-run call's bits; one ``tap_conv_fwd_runs`` launch set a chunk of
+    ``run_chunks`` (one for K * B <= ``GRID_Z``)."""
+    if x_pad.device.type != "cuda":
+        raise ValueError(f"tap_conv_fwd_runs takes CUDA tensors, got {x_pad.device}")
+    if x_pad.dim() != 4 or w.dim() != 4 or x_pad.shape[0] != w.shape[0]:
+        raise ValueError(f"run shapes {tuple(x_pad.shape)} and {tuple(w.shape)} do not chain")
+    _check_operands(x_pad[0], w[0])
+    for t in (x_pad, w):
+        if not t.is_contiguous():
+            raise ValueError("the conv kernels take contiguous tensors")
+    runs, b, t_pad, c_in = x_pad.shape
+    k, _, c_out = w.shape[1:]
+    t_out = t_pad - (k - 1) * dilation
+    if dilation < 1 or t_out < 1:
+        raise ValueError(f"unsupported dilation {dilation} for t_pad={t_pad}, k={k}")
+    lib = _tap_lib()
+    y = torch.empty(runs, b, t_out, c_out, device=x_pad.device, dtype=torch.float32)
+    for start, stop in run_chunks(runs, b):
+        work = _work(w, stop - start)
+        with _on(x_pad.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.tap_conv_fwd_runs(x_pad[start].data_ptr(), w[start].data_ptr(),
+                                        work.data_ptr(), y[start].data_ptr(), stop - start, b,
+                                        t_pad, c_in, k, c_out, dilation, stream)
+        LAUNCHES["tap_conv_fwd_runs"] += 1
+        _raise_on(err, "tap_conv_fwd_runs")
+    return y
+
+
+def tap_conv_runs(x_pad: torch.Tensor, w: torch.Tensor, dilation: int) -> torch.Tensor:
+    """K independent ``tap_conv`` forwards of one shape, x_pad (K, B, t_pad,
+    C_in) and w (K, k, C_in, C_out) -> (K, B, t_out, C_out): on CUDA
+    ``tap_conv_fwd_runs``, on the CPU the plain version run by run."""
+    if not use_kernel(x_pad):
+        return torch.stack([tap_conv_plain(xk, wk, dilation) for xk, wk in zip(x_pad, w)])
+    return tap_conv_fwd_runs(x_pad, w, dilation)
+
+
 # ----------------------------------------------------------- gradient -----
 
 def _os_conv_bwd(x_pad, w, g, need_dx: bool, need_dw: bool):
@@ -548,20 +609,46 @@ class OSConvFusedCore(torch.autograd.Function):
 
 
 def _tap(x_pad: torch.Tensor, w: torch.Tensor, dilation: int) -> torch.Tensor:
-    """The kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    """The tap conv of one run (w 3-D) or of K runs (w 4-D, ``tap_conv_runs``):
+    the kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    if w.dim() == 4:
+        return tap_conv_runs(x_pad, w, dilation)
     if use_kernel(x_pad):
         return tap_conv_fwd(x_pad, w, dilation)
     return tap_conv_plain(x_pad, w, dilation)
 
 
+def _tap_dx(g: torch.Tensor, w: torch.Tensor, dilation: int) -> torch.Tensor:
+    """dx_pad of a tap conv (of one run, or of K runs with g and w run-first):
+    ``dx_pad[s] = sum_j g[s - j*d] @ w[j].T``, the tap conv of g padded by
+    (k-1)*d each side with the flipped, transposed taps, through
+    ``TapConvDxCore``."""
+    lp = (w.shape[-3] - 1) * dilation
+    w_t = torch.flip(w, (-3,)).transpose(-2, -1).contiguous()
+    return TapConvDxCore.apply(F.pad(g, (0, 0, lp, lp)), w_t, dilation)
+
+
+def _tap_dw(x_pad: torch.Tensor, g: torch.Tensor, k: int, dilation: int) -> torch.Tensor:
+    """dw of a tap conv, one product a tap: ``dw[j] = x_pad[:, j*d : j*d +
+    t_out]^T @ g`` over every row, of one run or batched over K leading runs."""
+    lead = g.shape[:-3]  # () or (K,)
+    rows = g.shape[-3] * g.shape[-2]
+    t_out, c_in = g.shape[-2], x_pad.shape[-1]
+    g2 = g.reshape(*lead, rows, g.shape[-1])
+    return torch.stack([
+        x_pad[..., j * dilation : j * dilation + t_out, :].reshape(*lead, rows, c_in)
+        .transpose(-2, -1) @ g2 for j in range(k)], dim=len(lead))
+
+
 class TapConvDxCore(torch.autograd.Function):
-    """``TapConvCore``'s input gradient, the tap conv of the padded g with
-    the flipped, transposed taps, as an op of its own: the kernel on CUDA,
-    the plain version on the CPU.  Its vmap rule takes a batch of
-    cotangents (``train/pipeline.py`` ``batched_pull``: g batched, the taps
-    shared) as ONE tap conv with the cotangent axis folded into the batch
-    rows; batched taps would need a run axis, which the tap conv has not
-    (ROADMAP A6), and raise.  No gradient of its own."""
+    """The tap conv's input gradient, the tap conv of the padded g with the
+    flipped, transposed taps, as an op of its own: the kernel on CUDA, the
+    plain version on the CPU; one run (w_t 3-D) or K runs (w_t 4-D, the
+    runs kernel).  Its vmap rule takes a batch of cotangents
+    (``train/pipeline.py`` ``batched_pull``: g batched, the taps shared) as
+    ONE tap conv with the cotangent axis folded into the batch rows (each
+    run's rows for the runs form), and batched taps as a run axis (joined
+    with the runs form's own).  No gradient of its own."""
 
     @staticmethod
     def forward(g_pad: torch.Tensor, w_t: torch.Tensor, dilation: int) -> torch.Tensor:
@@ -578,17 +665,32 @@ class TapConvDxCore(torch.autograd.Function):
     @staticmethod
     def vmap(info, in_dims, g_pad, w_t, dilation):
         g_dim, w_dim = in_dims[:2]
-        if w_dim is not None:
-            raise NotImplementedError(NO_RUN_AXIS.format("tap_conv_fwd (TapConvDxCore)"))
-        g_pad = g_pad.movedim(g_dim, 0)
-        n, b = g_pad.shape[:2]
-        y = _tap(g_pad.reshape(n * b, *g_pad.shape[2:]).contiguous(), w_t, dilation)
-        return y.reshape(n, b, *y.shape[1:]), 0
+        if w_dim is None:
+            # a cotangent batch (N, [K,] B, t_pad, C): N folded into the batch rows
+            g = g_pad.movedim(g_dim, 0)
+            runs = w_t.dim() == 4
+            if runs:
+                g = g.transpose(0, 1)  # (K, N, B, ...)
+            lead = g.shape[: 2 + runs]
+            y = _tap(g.reshape(*lead[:-2], lead[-2] * lead[-1], *g.shape[2 + runs:]).contiguous(),
+                     w_t, dilation)
+            y = y.reshape(*lead, *y.shape[1 + runs:])
+            return (y.transpose(0, 1) if runs else y), 0
+        # batched taps: the vmap axis is (or joins) the run axis
+        w = w_t.movedim(w_dim, 0)
+        g = (g_pad.movedim(g_dim, 0) if g_dim is not None
+             else g_pad.expand(info.batch_size, *g_pad.shape))
+        if w.dim() == 4:
+            return _tap(g.contiguous(), w.contiguous(), dilation), 0
+        n, k = w.shape[:2]
+        y = _tap(g.reshape(n * k, *g.shape[2:]).contiguous(),
+                 w.reshape(n * k, *w.shape[2:]).contiguous(), dilation)
+        return y.reshape(n, k, *y.shape[1:]), 0
 
 
 class TapConvCore(torch.autograd.Function):
-    """The tap conv with the JAX package's hand-written backward; no run
-    axis yet (its vmap rule raises)."""
+    """The tap conv with the JAX package's hand-written backward; under
+    ``torch.func.vmap`` one ``TapConvRunCore`` call for all runs."""
 
     @staticmethod
     def forward(x_pad: torch.Tensor, w: torch.Tensor, dilation: int) -> torch.Tensor:
@@ -602,27 +704,31 @@ class TapConvCore(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, x_pad, w, dilation):
-        raise NotImplementedError(NO_RUN_AXIS.format("tap_conv_fwd (TapConvCore)"))
+        return TapConvRunCore.apply(*_runs_first(info, in_dims[:2], x_pad, w), dilation), 0
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         x_pad, w = ctx.saved_tensors
         d = ctx.dilation
-        k, c_in, c_out = w.shape
-        b, t_out = g.shape[0], g.shape[1]
-        dx = dw = None
-        if ctx.needs_input_grad[0]:
-            # dx_pad[s] = sum_j g[s - j*d] @ w[j].T: the tap conv of g padded
-            # by (k-1)*d each side with flipped, transposed taps
-            lp = (k - 1) * d
-            g_pad = F.pad(g, (0, 0, lp, lp))
-            dx = TapConvDxCore.apply(g_pad, torch.flip(w, (0,)).transpose(1, 2).contiguous(), d)
-        if ctx.needs_input_grad[1]:
-            g2 = g.reshape(b * t_out, c_out)
-            dw = torch.stack([
-                x_pad[:, j * d : j * d + t_out].reshape(b * t_out, c_in).T @ g2 for j in range(k)
-            ])
+        dx = _tap_dx(g, w, d) if ctx.needs_input_grad[0] else None
+        dw = _tap_dw(x_pad, g, w.shape[-3], d) if ctx.needs_input_grad[1] else None
         return dx, dw, None
+
+
+class TapConvRunCore(TapConvCore):
+    """K runs of the tap conv, x_pad (K, B, t_pad, C_in) and w (K, k, C_in,
+    C_out): ``tap_conv_runs`` forward; the backward of JAX's
+    ``_tap_conv_bwd`` run by run, dx the runs tap conv (``TapConvDxCore``
+    with 4-D taps), dw one batched product a tap (JAX too takes dw outside
+    its kernel).  Under ``torch.func.vmap`` the vmap axis joins the run axis."""
+
+    @staticmethod
+    def vmap(info, in_dims, x_pad, w, dilation):
+        x, w = _runs_first(info, in_dims[:2], x_pad, w)  # (N, K, ...)
+        n, k = w.shape[:2]
+        y = TapConvRunCore.apply(x.reshape(n * k, *x.shape[2:]), w.reshape(n * k, *w.shape[2:]),
+                                 dilation)
+        return y.reshape(n, k, *y.shape[1:]), 0
 
 
 def tap_conv(x_pad: torch.Tensor, w: torch.Tensor, dilation: int) -> torch.Tensor:

@@ -2,7 +2,15 @@
 sequence parallelism over ``torch.distributed`` ranks (``launch`` starts
 them)."""
 
-from .dp import replicate, shard_epoch_batches  # noqa: F401
+from .dp import (  # noqa: F401
+    phase2_epoch,
+    phase3_epoch,
+    phase4_epoch,
+    phase5_epoch,
+    phase5_grads,
+    replicate,
+    shard_epoch_batches,
+)
 from .dp_explicit import make_dp_phase1_epoch  # noqa: F401
 from .mesh import data_sharding, domain_sharding, make_mesh, replicated  # noqa: F401
 from .multi_source import MultiSourceEnsemble  # noqa: F401

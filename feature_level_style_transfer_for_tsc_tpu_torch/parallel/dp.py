@@ -17,21 +17,30 @@ calls on its own shard of the batch with the same replicated state.
   axis' first rank, in place: tensors, optimizer states, GradNorm, plateau
   and scheduler values, and the ``torch.Generator`` that draws the CPC
   anchors and dropout masks, so that they come out alike on every rank;
-* ``train_epoch`` (``OSCNNClassifier.train_epoch``), ``phase5_grads`` and
-  ``phase5_epoch`` (``StyleTransferPipeline``'s): the single-device methods
-  inside ``bn_cross_replica`` over the axis' group.  There each rank's loss
-  is its contribution to the global loss, each pull's gradients are summed
-  over the ranks before GradNorm's norms and the optimizers, and the losses
-  given to GradNorm, the schedulers and the metrics are the global values;
-  the new state is the same bits on every rank.  ``dropout_masks``, when
+* ``train_epoch`` (``OSCNNClassifier.train_epoch``), ``phase2_epoch``,
+  ``phase3_epoch``, ``phase4_epoch``, ``phase5_grads`` and ``phase5_epoch``
+  (``StyleTransferPipeline``'s; phase 1 is ``dp_explicit``'s): the
+  single-device methods inside ``bn_cross_replica`` over the axis' group.
+  There each rank's loss is its contribution to the global loss, each
+  pull's gradients are summed over the ranks before GradNorm's norms and
+  the optimizers, and the losses given to GradNorm, the schedulers (phase
+  4's nf plateau: the last batch's global total) and the metrics are the
+  global values; the new state is the same bits on every rank.  ``dropout_masks``, when
   pinned, are the rank's rows of the global batch's; drawn, the global
   batch's are drawn and sliced.  ``phase5_epoch``'s ``collect_features``
   returns the rank's rows.
 
-Phase 5 runs data-parallel under the default config only: merged pulls
-unstacked, per-module optimizers, f32, the fused WN route, one run.  The
-other knobs, either bf16 switch, the op-by-op route and the multirun raise
-``ValueError`` (ROADMAP A8).
+Every ``PipelineConfig`` knob runs data-parallel (``merged_pullbacks``,
+``stacked_pullbacks``: the batched pull's cotangents pass the collectives'
+vmap rules; ``fused_optimizers``: ``FusedRMSprop`` steps on the global
+gradients), and so do both bf16 switches and both WN routes.  The bf16
+switches move no collective: ``compute_dtype="bfloat16"`` runs only the
+OS-CNN convs in bf16 and casts their outputs to f32 before BatchNorm, as
+JAX's ``models/os_cnn.py`` does, so BatchNorm's moments, CDAN's sums, the
+noise transfer's means and CPC's gathered columns are f32 sums in both
+packages; ``FLSTTSC_WN_MXU=bf16`` changes the WN's products, which are per
+row.  The op-by-op WN route (``FLSTTSC_WN_FUSED=0``) is per row too.  Only
+the multirun (``MultiRunStylePipeline``) raises ``ValueError`` (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -43,9 +52,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..losses.gradnorm import GradNormState
-from ..models.flow import wn_fused_enabled
 from ..ops.batchnorm import bn_cross_replica
-from ..ops.wn_fused import mxu_bf16
 from ..train.classifier import OSCNNClassifier
 from ..train.optim import FusedRMSprop
 from ..train.pipeline import StyleTransferPipeline
@@ -147,20 +154,44 @@ def train_epoch(mesh: DeviceMesh, clf: OSCNNClassifier, state, xb, yb,
         return clf.train_epoch(state, xb, yb, cpc_anchors)
 
 
-def _check_phase5(pipe) -> None:
-    """Refuse what phase 5 does not run data-parallel (ROADMAP A8)."""
+def _check_pipeline(pipe) -> None:
+    """Refuse what does not run data-parallel: the multirun (ROADMAP A8)."""
     if not isinstance(pipe, StyleTransferPipeline):
         raise ValueError(NOT_DATA_PARALLEL.format(f"{type(pipe).__name__} (the multirun)"))
-    cfg = pipe.config
-    for knob, default in (("merged_pullbacks", True), ("stacked_pullbacks", False),
-                          ("fused_optimizers", False), ("compute_dtype", "float32")):
-        if getattr(cfg, knob) != default:
-            raise ValueError(NOT_DATA_PARALLEL.format(f"phase 5 with {knob}={getattr(cfg, knob)!r}"))
-    if mxu_bf16():
-        raise ValueError(NOT_DATA_PARALLEL.format("phase 5 with FLSTTSC_WN_MXU=bf16"))
-    if not wn_fused_enabled():
-        raise ValueError(NOT_DATA_PARALLEL.format("phase 5 on the op-by-op WN route "
-                                                  "(FLSTTSC_WN_FUSED=0)"))
+
+
+def phase2_epoch(mesh: DeviceMesh, pipe: StyleTransferPipeline, state, xb, yb,
+                 axis: str = "data"):
+    """``pipe.phase2_epoch`` (source pretrain) over this rank's shard of the
+    stacked source batches, ``state`` replicated: the global metrics."""
+    _check_pipeline(pipe)
+    group, _, _ = axis_group(mesh, axis)
+    with bn_cross_replica(group):
+        return pipe.phase2_epoch(state, xb, yb)
+
+
+def phase3_epoch(mesh: DeviceMesh, pipe: StyleTransferPipeline, state, xt, yt, xs, ys,
+                 supervised: bool, cpc_anchors: Optional[Sequence[int]] = None,
+                 axis: str = "data"):
+    """``pipe.phase3_epoch`` (self-supervised, ``supervised`` adding the CE
+    terms) over this rank's shards, ``state`` replicated: the global
+    metrics."""
+    _check_pipeline(pipe)
+    group, _, _ = axis_group(mesh, axis)
+    with bn_cross_replica(group):
+        return pipe.phase3_epoch(state, xt, yt, xs, ys, supervised, cpc_anchors)
+
+
+def phase4_epoch(mesh: DeviceMesh, pipe: StyleTransferPipeline, state, xt, yt, xs, ys,
+                 supervised: bool, cpc_anchors: Optional[Sequence[int]] = None,
+                 axis: str = "data"):
+    """``pipe.phase4_epoch`` (NF pretrain, joint when ``supervised``) over
+    this rank's shards, ``state`` replicated: the global metrics; the nf
+    plateau steps on the last batch's global total on every rank."""
+    _check_pipeline(pipe)
+    group, _, _ = axis_group(mesh, axis)
+    with bn_cross_replica(group):
+        return pipe.phase4_epoch(state, xt, yt, xs, ys, supervised, cpc_anchors)
 
 
 def phase5_grads(mesh: DeviceMesh, pipe: StyleTransferPipeline, state, bt, lt, bs, ls,
@@ -168,7 +199,7 @@ def phase5_grads(mesh: DeviceMesh, pipe: StyleTransferPipeline, state, bt, lt, b
                  axis: str = "data"):
     """``pipe.phase5_grads`` of this rank's batch rows: (global losses,
     new_m, the rank's feats, the global gradients of the total, n_t, n_s)."""
-    _check_phase5(pipe)
+    _check_pipeline(pipe)
     group, _, _ = axis_group(mesh, axis)
     with bn_cross_replica(group):
         return pipe.phase5_grads(state, bt, lt, bs, ls, epoch, cpc_anchors, dropout_masks)
@@ -180,7 +211,7 @@ def phase5_epoch(mesh: DeviceMesh, pipe: StyleTransferPipeline, state, xt, yt, x
                  axis: str = "data"):
     """``pipe.phase5_epoch`` over this rank's shards of the stacked batches
     (``shard_epoch_batches``), ``state`` replicated: the global metrics."""
-    _check_phase5(pipe)
+    _check_pipeline(pipe)
     group, _, _ = axis_group(mesh, axis)
     with bn_cross_replica(group):
         return pipe.phase5_epoch(state, xt, yt, xs, ys, epoch, collect_features, cpc_anchors,

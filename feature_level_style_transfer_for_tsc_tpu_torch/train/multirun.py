@@ -12,8 +12,11 @@ so the host's launch work is spread over K runs:
   ``ops.wn_fused.WNCore``): one run-axis kernel call for the K runs, so a
   K-run step launches ``os_conv_fwd_runs`` / ``wn_fwd_runs`` /
   ``wn_bwd_runs`` as often as a one-run step launches the one-run kernels.
-  The op-by-op WN route (``FLSTTSC_WN_FUSED=0``) has no run axis yet and
-  raises ``NotImplementedError``;
+  On the op-by-op WN route (``FLSTTSC_WN_FUSED=0``) ``ops.gate.GateCore``
+  folds the runs into the rows of one ``gate_fwd`` launch (counted as
+  ``gate_fwd_runs``) and, under ``FLSTTSC_CONV_IMPL=pallas``,
+  ``ops.osconv.TapConvCore`` takes ``tap_conv_fwd_runs`` (forward and dx);
+  the ``conv`` and ``im2col`` formulations are PyTorch's own batched ops;
 * the gradient is taken OUTSIDE the transform: ``torch.autograd.grad`` of
   the runs' summed losses by the stacked leaves gives each run its own
   gradient in its own slice, because the runs share nothing; GradNorm's

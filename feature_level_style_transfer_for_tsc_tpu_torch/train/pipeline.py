@@ -389,7 +389,7 @@ class StyleTransferPipeline(TargetPredictor, ModuleSteps):
             self._train_step(state, losses["total"], new_m, names)
             outs.append(detached(losses))
         self._step_steplr(state, names)
-        return self._epoch_means(outs, ("s_c_loss",))
+        return reduce_values(self._epoch_means(outs, ("s_c_loss",)))
 
     def _both_sides(self, params, mstate, bt, lt, bs, ls, anchors):
         """The supervised joint forward of phases 3 and 4."""
@@ -441,7 +441,7 @@ class StyleTransferPipeline(TargetPredictor, ModuleSteps):
             self._train_step(state, losses["total"], new_m, names)
             outs.append(detached(losses))
         self._step_steplr(state, names)
-        return self._epoch_means(outs, PHASE3_METRICS)
+        return reduce_values(self._epoch_means(outs, PHASE3_METRICS))
 
     def _phase4_forward(self, params, mstate, consts, bt, lt, bs, ls, anchors, supervised: bool):
         """NF pretrain step (reference :374-494): the flow NLL on detached
@@ -479,7 +479,9 @@ class StyleTransferPipeline(TargetPredictor, ModuleSteps):
 
     @staticmethod
     def _phase4_plateau_metric(last: Dict):
-        """The nf plateau steps with the LAST batch's total (:444,:494)."""
+        """The nf plateau steps with the LAST batch's total (:444,:494); under
+        a data-parallel group the caller passes the global losses, so every
+        rank's scheduler moves alike."""
         return last["t_nf_loss"] + last["s_nf_loss"] + 5 * last["t_c_loss"] + 5 * last["s_c_loss"]
 
     def phase4_epoch(self, state: Dict, xt, yt, xs, ys, supervised: bool,
@@ -497,8 +499,8 @@ class StyleTransferPipeline(TargetPredictor, ModuleSteps):
             self._train_step(state, losses["total"], new_m, names)
             outs.append(detached(losses))
         self._step_steplr(state, steplr)
-        self._step_plateau(state, "nf", float(self._phase4_plateau_metric(outs[-1])))
-        return self._epoch_means(outs, PHASE4_METRICS)
+        self._step_plateau(state, "nf", float(self._phase4_plateau_metric(reduce_values(outs[-1]))))
+        return reduce_values(self._epoch_means(outs, PHASE4_METRICS))
 
     def _phase5_forward(self, params, mstate, consts, bt, lt, bs, ls,
                         generator: Optional[torch.Generator] = None,
@@ -592,7 +594,14 @@ class StyleTransferPipeline(TargetPredictor, ModuleSteps):
         pulls the total, t_nf + s_nf and s2t2s_c as ONE backward under a
         batch of three cotangents (``batched_pull``, the cotangent axis in
         front of any run axis), and t_c + s_c alone, which reaches only the
-        classifiers' ancestors."""
+        classifiers' ancestors.
+
+        Under a data-parallel group (``parallel/dp.py``) every pull's
+        gradients are summed over the ranks before the norms and the
+        updates (``all_reduce_grads``; the stacked pull's (3, ...) gradients
+        in one collective), and a batched pull's cotangents pass the
+        collectives' vmap rules (``ops/collectives.py``); every rank runs
+        the same pulls in the same order."""
         cfg = self.config
         params = state["params"]
         gn = state["gradnorm"]
@@ -641,7 +650,7 @@ class StyleTransferPipeline(TargetPredictor, ModuleSteps):
             outputs = [total, losses["t_nf"], losses["s_nf"], losses["s2t2s_c"]]
             cotangents = [seeds[:, j].reshape(3, *([1] * o.dim())).expand(3, *o.shape)
                           for j, o in enumerate(outputs)]
-            g = batched_pull(outputs, flat, cotangents)
+            g = all_reduce_grads(batched_pull(outputs, flat, cotangents))
             grads, i = {}, 0
             for n, ps in zip(ALL_MODULES, named):
                 grads[n] = [x[0] for x in g[i : i + len(ps)]]

@@ -652,10 +652,18 @@ def test_domain_sharded_ensemble_matches_jax_sequential(ranks, setup, members):
                                   "compute_dtype", "FLSTTSC_WN_MXU", "FLSTTSC_WN_FUSED",
                                   "multirun", "multirun_phase1", "ensemble_indivisible"])
 def test_refusals(ranks, what):
-    """Phase 5 data-parallel under a non-default knob, either bf16 switch,
-    the op-by-op WN route or the multirun raises ``ValueError`` naming
+    """Phase 5 data-parallel under a non-default knob, either bf16 switch or
+    the op-by-op WN route runs: the step that raised ``ValueError`` until
+    these ran data-parallel gives finite global losses, the same bits on
+    every rank (``tests/test_torch_port_dp_knobs.py`` holds them against
+    JAX and the unsharded step).  The multirun raises ``ValueError`` naming
     ROADMAP A8; an ensemble whose members the domain axis does not divide
     is refused as JAX's ``device_put`` refuses it."""
+    if what not in ("multirun", "multirun_phase1", "ensemble_indivisible"):
+        runs = _same_bits(ranks, ("refusals", what))
+        assert runs[0] is None, runs[0]
+        assert len(runs[1]) == 9 and all(np.isfinite(v) for v in runs[1].values()), runs[1]
+        return
     for r in ranks:
         msg = r["refusals"][what]
         assert msg is not None, what

@@ -47,7 +47,10 @@ form at R = 3 (each run the one-run call's bits).  Under a batch of
 cotangents (``stacked_pullbacks``): the WN backward of one run and of K = 2
 runs as one ``wn_bwd_runs`` launch, each cotangent the one-cotangent call's
 bits (f32 and bf16), and the tap conv's input gradient as one folded
-``tap_conv_fwd`` launch with the bits of the single pulls.
+``tap_conv_fwd`` launch with the bits of the single pulls.  The op-by-op
+route's run axes: ``tap_conv_fwd_runs`` (each run the one-run call's bits;
+split on the host past the grid's limit) and the vmap rules of
+``TapConvCore`` and ``GateCore`` (one launch each for K runs).
 """
 
 import pytest
@@ -865,6 +868,80 @@ def test_tap_conv_dx_under_a_cotangent_batch(card):
     assert osconv.LAUNCHES["tap_conv_fwd"] == 1
     for i in range(3):
         (want,) = torch.autograd.grad(y, [x_pad], cot[i], retain_graph=True)
+        assert torch.equal(got[i], want), i
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("runs, b, t_out, c_in, c_out, d", [
+    (3, 2, 150, 120, 240, 1),
+    (2, 3, 37, 240, 120, 128),
+    (4, 1, 5, 7, 9, 2),
+])
+def test_tap_conv_runs_match_one_run_calls(card, runs, b, t_out, c_in, c_out, d):
+    """``tap_conv_fwd_runs`` (one launch set for K runs): each run the bits
+    of the one-run ``tap_conv_fwd`` call, within REL_TOL of the plain
+    version."""
+    g = torch.Generator(device=card).manual_seed(runs * 10 + d)
+    x_pad = torch.randn(runs, b, t_out + 2 * d, c_in, device=card, generator=g)
+    w = torch.randn(runs, 3, c_in, c_out, device=card, generator=g) / (3 * c_in) ** 0.5
+    osconv.reset_launch_counts()
+    got = osconv.tap_conv_fwd_runs(x_pad, w, d)
+    torch.cuda.synchronize()
+    assert osconv.LAUNCHES["tap_conv_fwd_runs"] == 1
+    for r in range(runs):
+        assert torch.equal(got[r], osconv.tap_conv_fwd(x_pad[r], w[r], d)), r
+        _close(got[r], osconv.tap_conv_plain(x_pad[r], w[r], d))
+
+
+@pytest.mark.gpu
+def test_tap_conv_runs_split_at_the_grid_limit(card, monkeypatch):
+    """A run-axis call whose K * B passes the grid's z limit (``GRID_Z``,
+    lowered here to 7) is split on the host into ``run_chunks`` calls,
+    each run still the one-run call's bits."""
+    monkeypatch.setattr(osconv, "GRID_Z", 7)
+    g = torch.Generator(device=card).manual_seed(3)
+    x_pad = torch.randn(5, 3, 40, 16, device=card, generator=g)
+    w = torch.randn(5, 3, 16, 24, device=card, generator=g) / 7
+    osconv.reset_launch_counts()
+    got = osconv.tap_conv_fwd_runs(x_pad, w, 4)
+    torch.cuda.synchronize()
+    assert osconv.LAUNCHES["tap_conv_fwd_runs"] == len(osconv.run_chunks(5, 3)) == 3
+    for r in range(5):
+        assert torch.equal(got[r], osconv.tap_conv_fwd(x_pad[r], w[r], 4)), r
+
+
+@pytest.mark.gpu
+def test_op_by_op_vmap_rules_launch_the_runs_forms(card):
+    """Under ``torch.func.vmap`` over K = 3 runs, ``TapConvCore`` is one
+    ``tap_conv_fwd_runs`` launch and ``GateCore`` one ``gate_fwd`` launch
+    over the runs' rows (``gate_fwd_runs``), b a column slice of a stacked
+    projection: both the per-run bits; a batched pull of 2 cotangents
+    through the runs' tap conv is one more ``tap_conv_fwd_runs`` launch,
+    each cotangent's dx the bits of its single pull."""
+    from feature_level_style_transfer_for_tsc_tpu_torch.train.pipeline import batched_pull
+
+    g = torch.Generator(device=card).manual_seed(5)
+    x = torch.randn(3, 2, 64, 24, device=card, generator=g).requires_grad_(True)
+    w = (torch.randn(3, 3, 24, 48, device=card, generator=g) / 8).requires_grad_(True)
+    proj = torch.randn(3, 2, 60, 96, device=card, generator=g)
+    osconv.reset_launch_counts()
+    gate.reset_launch_counts()
+    y = torch.func.vmap(lambda a, b: osconv.tap_conv(a, b, 2))(x, w)
+    z = torch.func.vmap(lambda a, b: gate.fused_add_tanh_sigmoid_multiply(a, b[..., 48:96], 24))(
+        y.detach(), proj)
+    torch.cuda.synchronize()
+    assert osconv.LAUNCHES["tap_conv_fwd_runs"] == 1 and osconv.LAUNCHES["tap_conv_fwd"] == 0
+    assert gate.LAUNCHES["gate_fwd_runs"] == 1 and gate.LAUNCHES["gate_fwd"] == 0
+    for r in range(3):
+        assert torch.equal(y[r], osconv.tap_conv_fwd(x[r].detach(), w[r].detach(), 2)), r
+        assert torch.equal(z[r], gate.gate_fwd(y[r].detach(), proj[r, ..., 48:96], 24)), r
+    cot = torch.randn(2, *y.shape, device=card, generator=g)
+    osconv.reset_launch_counts()
+    got = batched_pull([y], [x], [cot])[0]
+    torch.cuda.synchronize()
+    assert osconv.LAUNCHES["tap_conv_fwd_runs"] == 1
+    for i in range(2):
+        (want,) = torch.autograd.grad(y, [x], cot[i], retain_graph=True)
         assert torch.equal(got[i], want), i
 
 

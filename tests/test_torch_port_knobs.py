@@ -353,7 +353,8 @@ def test_wn_backward_takes_a_cotangent_batch_in_one_call(monkeypatch, runs, bf16
 def test_tap_conv_dx_folds_the_cotangents_into_one_call(monkeypatch):
     """``TapConvCore``'s input gradient under 3 cotangents: ONE tap conv with
     the cotangents folded into the batch rows (counted at the plain
-    version), equal to three single pulls."""
+    version), equal to three single pulls; batched taps (a run axis) take
+    the runs form, each run the plain tap conv's bits."""
     g = torch.Generator().manual_seed(6)
     x_pad = torch.randn(2, 13, 4, generator=g).requires_grad_(True)
     w = torch.randn(3, 4, 5, generator=g).requires_grad_(True)
@@ -373,9 +374,11 @@ def test_tap_conv_dx_folds_the_cotangents_into_one_call(monkeypatch):
         want = torch.autograd.grad(y, [x_pad, w], cot[i], retain_graph=True)
         for a, wv in zip(got, want):
             torch.testing.assert_close(a[i], wv, **RULE_TOL)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        torch.func.vmap(lambda gp, wt: osconv.TapConvDxCore.apply(gp, wt, 2))(
-            torch.randn(2, 2, 13, 5), torch.randn(2, 3, 5, 4))
+    # batched taps (a run axis) take the runs form: each run the plain tap conv's
+    gp, wt = torch.randn(2, 2, 13, 5, generator=g), torch.randn(2, 3, 5, 4, generator=g)
+    out = torch.func.vmap(lambda a, b: osconv.TapConvDxCore.apply(a, b, 2))(gp, wt)
+    for r in range(2):
+        torch.testing.assert_close(out[r], plain(gp[r], wt[r], 2), rtol=0, atol=0)
 
 
 def test_plain_backwards_batch_without_a_loop():

@@ -328,21 +328,32 @@ def test_vmap_rules_match_per_run_calls():
 # ------------------------------------------------------ (e) no fallback ----
 
 def test_op_by_op_route_raises_under_vmap(pipe, pairs, monkeypatch):
-    """``TapConvCore`` and ``GateCore`` have no run axis: under vmap they
-    raise ``NotImplementedError`` naming ROADMAP.md, and so does a multirun
-    on the op-by-op WN route (``FLSTTSC_WN_FUSED=0``), never a quiet
-    fallback; a pipeline on the default device needs CUDA."""
+    """``TapConvCore`` and ``GateCore`` have run axes now: under vmap each
+    is ONE call of its runs form (``tap_conv_runs``, ``GateRunCore``) with
+    the per-run bits, and a multirun on the op-by-op WN route
+    (``FLSTTSC_WN_FUSED=0``, ``FLSTTSC_CONV_IMPL=pallas``) trains an NF
+    pretrain epoch through them, with finite metrics, no longer raising
+    ``NotImplementedError`` (``tests/test_torch_port_multirun_opbyop.py``
+    holds the route against JAX); a pipeline on the default device needs
+    CUDA."""
     x = torch.randn(2, 3, 12, 4)
     w = torch.randn(2, 3, 4, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        torch.func.vmap(lambda a, b: osconv.tap_conv(a, b, 2))(x, w)
+    y = torch.func.vmap(lambda a, b: osconv.tap_conv(a, b, 2))(x, w)
     a = torch.randn(2, 5, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        torch.func.vmap(lambda a, b: gate.fused_add_tanh_sigmoid_multiply(a, b, 4))(a, a)
+    z = torch.func.vmap(lambda a, b: gate.fused_add_tanh_sigmoid_multiply(a, b, 4))(a, a)
+    for r in range(2):
+        assert torch.equal(y[r], osconv.tap_conv_plain(x[r], w[r], 2))
+        assert torch.equal(z[r], gate.gate_plain(a[r], a[r], 4))
     monkeypatch.setenv("FLSTTSC_WN_FUSED", "0")
+    monkeypatch.setenv("FLSTTSC_CONV_IMPL", "pallas")
+    runs = []
+    tap_runs = osconv.tap_conv_runs
+    monkeypatch.setattr(osconv, "tap_conv_runs", lambda *args: runs.append(1) or tap_runs(*args))
     mp = MultiRunStylePipeline(pipe)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        mp.run(as_multirun_data(pairs), SEEDS, epochs={"p1": 0, "p2": 0, "p3": 0, "p4": 1, "p5": 0})
+    _, history = mp.run(as_multirun_data(pairs), SEEDS,
+                        epochs={"p1": 0, "p2": 0, "p3": 0, "p4": 1, "p5": 0})
+    assert runs and history[-1]["phase"] == "p4"
+    assert all(np.isfinite(v).all() for k, v in history[-1].items() if k not in ("phase", "epoch"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             StyleTransferPipeline(*SHAPES, PipelineConfig(**KW, flow=FlowConfig(**FLOW)))
