@@ -28,9 +28,15 @@ non-zero when any check fails.  Phases:
    synthetic data (200 train / 180 test series), with the launch counts,
    the logits against the plain path on the card, and series/s;
 4. ensemble serving (3 members, entropy_precision vote) through
-   ``cli.predict.main``, with launch counts and predictions against the plain
-   path, and the members' logits on the whole train and test splits and the
-   class weights against the plain path; phases 3 and 4 run with
+   ``cli.predict.main``, the members under one ``torch.func.vmap`` (one
+   run-axis launch a layer and split), with launch counts and predictions
+   against the plain path, and the members' logits on the whole train and
+   test splits and the class weights against the plain path; on each split
+   the vmapped logits the bits of the members' own calls, with the
+   launches of both counted, and again with the calls split on the host
+   past a lowered grid limit; the run-axis calls timed against the
+   members' one-run calls, and the series/s of the members one after
+   another beside the vmapped ensemble's; phases 3 and 4 run with
    FLSTTSC_FUSE_EPILOGUE unset and =1; every checkpoint carries random
    BatchNorm state, so the folded epilogue is exercised;
 5. the vendored VendGunPoint (T=150) once through ``cli.predict.main``;
@@ -171,9 +177,9 @@ non-zero when any check fails.  Phases:
     serving convs against its plain bf16 version, the f32 kernel and
     ``F.conv1d`` in bf16; ``wn_fwd[bf16]`` and ``wn_bwd[bf16]`` at pair +
     infer, layer by layer and free-running (BF16_REL_L2, BF16_CASCADE), and
-    each layer alone (BF16_FLIPS); the run-axis bf16 forms at one K-run
-    step's shapes (WN end projections non-zero); and
-    ``experiments/multirun_time.py --ks 8 --bf16`` in a process of its own;
+    each layer alone (BF16_FLIPS); and the run-axis bf16 forms at one K-run
+    step's shapes (WN end projections non-zero) (``experiments/multirun_time.py
+    --ks 8 --bf16`` times the K-run step, run on its own);
 20. PipelineConfig's GradNorm / optimizer knobs on phase 8's pair at full
     width, from phase 9's fresh state with its pinned anchors and masks:
     one phase-5 step each of the default (merged pulls),
@@ -274,9 +280,26 @@ non-zero when any check fails.  Phases:
     the plain OS conv); every recorded call of both run-axis forms again,
     each run against the one-run kernel (the same bits) and the plain
     version (REL_TOL), timed beside K one-run calls, the plain version and,
-    for the tap conv, a grouped dilated ``F.conv1d``; and the K = 1 and K
-    = 8 op-by-op steps timed (``experiments/multirun_time.py --op-by-op``
-    in a process of its own without ``CUBLAS_WORKSPACE_CONFIG``).
+    for the tap conv, a grouped dilated ``F.conv1d``; and the K = 8
+    op-by-op step timed (phase 18's ``experiments/multirun_time.py``
+    process);
+24. ``cli.predict`` and ``cli.multi_source`` under ``torchrun`` (``python -m
+    torch.distributed.run --standalone``), the ranks sharing the card on
+    ``"cpu:gloo,cuda:gloo"``, each rank running the CLI's ``main`` through
+    this script's rank mode (``--cli-rank``, which writes its launch
+    counts and every ``member_logits`` result), the three commands at
+    once: ``cli.predict`` over three members whose predictions vary (heads
+    scaled and centred: phase 4's random members each predict one class)
+    with 3 ranks (``make_mesh(data=1, domain=3)``, a member a rank) and 2
+    (rank 0 alone), the predictions' bytes, the member accuracies (not all
+    equal) and every serving rank's gathered member logits those of the
+    one-process run, one ``_predict.npy``; ``cli.multi_source`` with phase
+    15's two sources over 2 ranks (member i trained by rank i, the vote on
+    their mesh), the JAX CLI's file set, finite members,
+    ``final_predict.npy`` and each rank's gathered member logits what
+    one-process ``cli.predict`` gives over the saved members; exact
+    launches a rank; wall times, each rank's startup and a rank's member
+    wall time beside phase 15's.
 
 The ``cli.main`` drives (phases 8, 8b, 13, 14) and the drives of phases
 15, 16 and 17 run with PyTorch's deterministic
@@ -289,9 +312,10 @@ not the VendGunPoint check; training: the two ``cli.main`` drives of phases
 checked and kept apart; the run-axis kernels, phase 18's drive and its
 fused evaluation; the bf16 instances, phase 19's two drives; phase 20's
 steps are checked and kept apart; phase 21's sharded pass and phase 22's
-data-parallel steps and ensemble, each rank setting its counts to 0 just
-before each and reading them just after, summed over the ranks; the
-op-by-op run-axis forms, phase 23's K-run step) and a bound
+data-parallel steps and ensemble, and phase 24's CLI runs, each rank
+setting its counts to 0 just before each and reading them just after,
+summed over the ranks; the op-by-op run-axis forms, phase 23's K-run step;
+the ensemble's run-axis convs, phases 4, 22 and 24) and a bound
 from the FLOPs or bytes these inputs need (the bf16 instances' at the
 BF16 peak); the last line is {"ok": true, "device": {...}}.  Everything measured is also written to
 chiprun_out/chip_smoke_results.json.
@@ -303,6 +327,7 @@ import concurrent.futures
 import contextlib
 import copy
 import hashlib
+import io
 import json
 import math
 import os
@@ -390,7 +415,7 @@ UCR_SHAPES = {"FordA": (3601, 1320, 500, 2), "Earthquakes": (322, 139, 512, 2),
 SWEEP_EPOCHS = 2  # the vendored sweeps (1 under --with-cpc, and over the UCR shapes)
 # phase 18: K runs of the multirun; the Ks of its step sweep (experiments/multirun_time.py)
 MULTIRUN_K = 8
-MULTIRUN_SWEEP = (1, 8)  # its end points: K = 2 and 4 cut to make room for phase 22
+MULTIRUN_SWEEP = (8,)  # K = 2 and 4 cut to make room for phase 22, K = 1 for phase 24
 RUN_AXIS_REL_TOL = 1e-6  # a run of a run-axis kernel against the one-run kernel, where not equal
 # A K-run phase-5 step against K one-run steps is held to phase 9's gates (REL_TOL for the
 # losses, STEP_GRAD_L2_TOL for each module's gradients per run): its kernels give each run the
@@ -626,11 +651,17 @@ def plain_convs(osconv, wn_fused, gate, convs: bool = True, wn: bool = True):
     """The reference run: the plain PyTorch versions of the OS conv kernels
     (``convs``) and of the kernels of both WN routes (``wn``: the fused WN
     kernels, the gate and the tap conv) on the same CUDA tensors, and no
-    launch of those kernels inside."""
-    saved = (osconv.os_conv, osconv.os_conv_fused, wn_fused.wn_fwd, wn_fused.wn_bwd,
-             gate.gate_fwd, osconv.tap_conv_fwd, osconv.tap_conv_fwd_runs)
+    launch of those kernels inside (the run-axis forms' included: under
+    ``torch.func.vmap`` the plain versions run run by run)."""
+    saved = (osconv.os_conv, osconv.os_conv_fused, osconv.os_conv_runs, osconv.os_conv_fused_runs,
+             wn_fused.wn_fwd, wn_fused.wn_bwd, gate.gate_fwd, osconv.tap_conv_fwd,
+             osconv.tap_conv_fwd_runs)
     if convs:
         osconv.os_conv, osconv.os_conv_fused = osconv.os_conv_plain, osconv.os_conv_fused_plain
+        osconv.os_conv_runs = lambda x_pad, w: torch.stack(
+            [osconv.os_conv_plain(xk, wk) for xk, wk in zip(x_pad, w)])
+        osconv.os_conv_fused_runs = lambda x_pad, w, scale, shift, relu: torch.stack(
+            [osconv.os_conv_fused_plain(*args, relu) for args in zip(x_pad, w, scale, shift)])
     if wn:
         wn_fused.wn_fwd, wn_fused.wn_bwd = wn_fused.wn_fwd_plain, wn_fused.wn_bwd_plain
         gate.gate_fwd = lambda a, b, n, name="gate_fwd": gate.gate_plain(a, b, n)
@@ -642,9 +673,11 @@ def plain_convs(osconv, wn_fused, gate, convs: bool = True, wn: bool = True):
     try:
         yield
     finally:
-        (osconv.os_conv, osconv.os_conv_fused, wn_fused.wn_fwd, wn_fused.wn_bwd,
-         gate.gate_fwd, osconv.tap_conv_fwd, osconv.tap_conv_fwd_runs) = saved
-    conv_names = ("os_conv_fwd", "os_conv_fused_fwd", "os_conv_fwd[bf16]")
+        (osconv.os_conv, osconv.os_conv_fused, osconv.os_conv_runs, osconv.os_conv_fused_runs,
+         wn_fused.wn_fwd, wn_fused.wn_bwd, gate.gate_fwd, osconv.tap_conv_fwd,
+         osconv.tap_conv_fwd_runs) = saved
+    conv_names = ("os_conv_fwd", "os_conv_fused_fwd", "os_conv_fwd[bf16]", "os_conv_fwd_runs",
+                  "os_conv_fused_fwd_runs", "os_conv_fwd_runs[bf16]")
     launched = {n: v for n, v in {**osconv.LAUNCHES, **wn_fused.LAUNCHES, **gate.LAUNCHES}.items()
                 if (convs and n in conv_names) or (wn and n not in conv_names)}
     check(not any(launched.values()), f"the plain reference launched {launched}")
@@ -794,6 +827,80 @@ def kernel_phase(osconv, layers):
 
 
 # -------------------------------------------------------------- phases 3-5 --
+
+# phase 4: the run-axis calls' grid limit lowered to this many rows a launch, so that the
+# ensemble's 3 members over a split of n series take two launches a layer (2 n here)
+ENSEMBLE_SPLIT_ROWS = 2
+
+
+def ensemble_vmap_phase(osconv, wn_fused, ens, members, stacked, weights, splits, n_layers: int,
+                        fused: bool) -> dict:
+    """Phase 4's members under one ``torch.func.vmap``: on each split, the
+    vmapped ``member_logits`` the same bits as the members' own
+    ``predict_logits`` calls, with one run-axis launch a layer against one a
+    member and layer; the same bits again with the calls split on the host
+    past a lowered grid limit (``osconv.GRID_Z``: two launches a layer); the
+    run-axis calls of the test split timed against the members' one-run
+    calls, the plain version and (unfused) a grouped ``F.conv1d``
+    (``run_axis_rows``); the series/s of the vote over the members one
+    after another, the form before the vmap, in the same run."""
+    from feature_level_style_transfer_for_tsc_tpu_torch.evaluation.voting import (
+        entropy_precision_vote,
+    )
+
+    runs_name = "os_conv_fused_fwd_runs" if fused else "os_conv_fwd_runs"
+    one_name = "os_conv_fused_fwd" if fused else "os_conv_fwd"
+    model, m = ens.model_def, len(members)
+    out = {"members": m}
+    for split, x in splits:
+        osconv.reset_launch_counts()
+        got = ens.member_logits(stacked, x)
+        torch.cuda.synchronize()
+        vmap_launches = dict(osconv.LAUNCHES)
+        osconv.reset_launch_counts()
+        each = torch.stack([model.predict_logits(mb["params"], mb["mstate"], x) for mb in members])
+        torch.cuda.synchronize()
+        loop_launches = dict(osconv.LAUNCHES)
+        limit = ENSEMBLE_SPLIT_ROWS * len(x)
+        osconv.reset_launch_counts()
+        with patched(osconv, "GRID_Z", limit):
+            split_calls = ens.member_logits(stacked, x)
+        torch.cuda.synchronize()
+        chunks = len(osconv.run_chunks(m, len(x), limit))
+        out[split] = {"vmap_launches": vmap_launches[runs_name],
+                      "one_run_launches": loop_launches[one_name],
+                      "same_bits": torch.equal(got, each),
+                      "split_launches": osconv.LAUNCHES[runs_name], "chunks": chunks,
+                      "split_same_bits": torch.equal(split_calls, got)}
+        log(f"[ensemble vmap {runs_name} {split}] {json.dumps(out[split])}")
+        check(vmap_launches == {**{n: 0 for n in osconv.LAUNCHES}, runs_name: n_layers},
+              f"ensemble vmap {split}: launches {vmap_launches}")
+        check(loop_launches[one_name] == m * n_layers,
+              f"ensemble members one by one, {split}: launches {loop_launches}")
+        check(out[split]["same_bits"], f"ensemble vmap {split}: logits differ from the members' "
+              f"own calls, max abs {(got - each).abs().max().item():.3e}")
+        check(chunks == 2 and out[split]["split_launches"] == chunks * n_layers
+              and out[split]["split_same_bits"],
+              f"ensemble vmap {split}, split past the grid limit: {out[split]}")
+    with recorded_calls(osconv, ["os_conv_fused_runs" if fused else "os_conv_runs"],
+                        every=True) as calls:
+        ens.member_logits(stacked, splits[-1][1])
+    rows = run_axis_rows(osconv, wn_fused, {} if fused else calls["os_conv_runs"],
+                         calls["os_conv_fused_runs"] if fused else {},
+                         {"wn_fwd_runs": {}, "wn_bwd_runs": {}})[runs_name]
+    out["rows"] = rows
+    out["ms"] = sum(r["ms"] for r in rows)
+    out["one_run_calls_ms"] = sum(r["one_run_calls_ms"] for r in rows)
+    out["ratio"] = out["ms"] / out["one_run_calls_ms"]
+    x_test = splits[-1][1]
+    out["loop_series_per_s"] = series_per_s(lambda: entropy_precision_vote(
+        torch.stack([model.predict_logits(mb["params"], mb["mstate"], x_test) for mb in members]),
+        weights, ens.voting).cpu(), len(x_test))
+    log(f"[ensemble vmap {runs_name}] the test split's {len(rows)} run-axis calls {out['ms']:.3f} "
+        f"ms against {m} one-run calls each {out['one_run_calls_ms']:.3f} ms "
+        f"(ratio {out['ratio']:.3f})")
+    return out
+
 
 def with_random_bn(tree, rng: np.random.Generator, bn_stats_type, key: str = ""):
     """``tree`` with non-trivial BatchNorm state, so the folded epilogue has
@@ -1666,7 +1773,8 @@ def multi_source_phase(run, ms_cli, predict, pipeline_cls, cfg, data: Path, targ
         for name, k in expected_training_launches(pipe, TRAIN_SERIES, PHASE_EPOCHS).items():
             expect[name] += k
     member_convs = len(pipes[0].t_ext_specs) + len(pipes[0].cls_specs)
-    expect["os_conv_fwd"] += 2 * len(sources) * member_convs  # train split, test split
+    # the vote: one run-axis launch a conv for the members, train split and test split
+    expect["os_conv_fwd_runs"] += 2 * member_convs
     args = ["--target-root", str(data), "--target", target, "--source-root", str(data),
             "--sources", ",".join(sources), "--out", str(out),
             "--phase-epochs", json.dumps(PHASE_EPOCHS), "--device", "cuda"]
@@ -2488,8 +2596,8 @@ def multirun_phase(run, pipe, modules, make_dataset, smi) -> dict:
             f"{r['device_idle_share']:.3f} peak MiB={r['peak_mib']:.0f} on {sweep['card']}")
         for name, ms, calls in r["top"]:
             log(f"  {ms:9.3f} ms {calls:6d} x {name}")
-    log(f"[multirun] max_memory_allocated at K=1: {sweep['by_k']['1']['peak_mib']:.0f} MiB, at "
-        f"K={k_runs}: {sweep['by_k'][str(k_runs)]['peak_mib']:.0f} MiB on {smi}")
+    log(f"[multirun] max_memory_allocated at K={k_runs}: "
+        f"{sweep['by_k'][str(k_runs)]['peak_mib']:.0f} MiB on {smi}")
     lap("the K sweep, both routes (experiments/multirun_time.py)")
 
     # one phase-5 step of K fresh runs against K one-run steps from the same states
@@ -2609,9 +2717,10 @@ def opbyop_multirun_phase(run, pipe, modules, make_dataset, smi, fused_gaps=None
     (``FLSTTSC_WN_FUSED=0``, ``FLSTTSC_CONV_IMPL=pallas``) at phase 8's
     pair and full width: one K-run phase-5 step (the main path of the two
     run-axis forms) against K one-run steps from phase 18's fresh states,
-    the run-axis kernels at its shapes, and the K = 1 and K = 8 steps
-    timed.  ``fused_gaps``: phase 18's K-run step's gaps from its one-run
-    steps on the same states (the fused route's own), else taken here;
+    the run-axis kernels at its shapes, and the step timed at
+    MULTIRUN_SWEEP's Ks.  ``fused_gaps``: phase 18's K-run step's gaps from
+    its one-run steps on the same states (the fused route's own), else taken
+    here;
     ``sweep``: phase 18's timing of this route's steps, else taken here."""
     from feature_level_style_transfer_for_tsc_tpu_torch.train.multirun import (
         MultiRunStylePipeline,
@@ -2721,8 +2830,8 @@ def opbyop_multirun_phase(run, pipe, modules, make_dataset, smi, fused_gaps=None
     torch.cuda.empty_cache()
     lap("the run-axis kernels")
 
-    # the K = 1 and K = 8 steps timed in a process of its own without CUBLAS_WORKSPACE_CONFIG
-    # (phase 18's, which times both routes)
+    # the steps timed in a process of its own without CUBLAS_WORKSPACE_CONFIG (phase 18's,
+    # which times both routes)
     if sweep is None:
         env = {k: v for k, v in os.environ.items() if k != "CUBLAS_WORKSPACE_CONFIG"}
         proc = subprocess.run([sys.executable, str(REPO / "experiments" / "multirun_time.py"),
@@ -2738,7 +2847,7 @@ def opbyop_multirun_phase(run, pipe, modules, make_dataset, smi, fused_gaps=None
             f"{r['device_idle_share']:.3f} peak MiB={r['peak_mib']:.0f} on {sweep['card']}")
         for name, ms, calls in r["top"]:
             log(f"  {ms:9.3f} ms {calls:6d} x {name}")
-    lap("K = 1 and 8 timed (experiments/multirun_time.py --routes op_by_op)")
+    lap("the K-run steps timed (experiments/multirun_time.py --routes op_by_op)")
     return out
 
 
@@ -3140,25 +3249,6 @@ def bf16_phase(run, pipe, state, datasets, batch, modules, layers, wn_fns, make_
     del fresh_k, k_convs, k_wns
     torch.cuda.empty_cache()
     lap("the run-axis kernels")
-
-    # K runs at once with both switches, in a process of its own without
-    # CUBLAS_WORKSPACE_CONFIG (phase 18's method)
-    env = {k: v for k, v in os.environ.items() if k != "CUBLAS_WORKSPACE_CONFIG"}
-    proc = subprocess.run([sys.executable, str(REPO / "experiments" / "multirun_time.py"),
-                           "--ks", str(MULTIRUN_K), "--bf16", "--rounds", "1"],
-                          capture_output=True, text=True, timeout=600, env=env, cwd=REPO)
-    check(proc.returncode == 0, f"multirun_time.py --bf16 exited {proc.returncode}: "
-                                f"{proc.stderr[-2000:]}")
-    sweep = json.loads(proc.stdout.strip().splitlines()[-1])
-    out["sweep"] = sweep
-    for k, r in sweep["by_k"].items():
-        log(f"[bf16 multirun K={k}] step ms={r['median_ms']:.1f} "
-            f"({[round(x, 1) for x in r['step_ms']]}) series/s={r['series_per_s']:.1f} "
-            f"device ms={r['device_ms']:.1f} idle share={r['device_idle_share']:.3f} "
-            f"peak MiB={r['peak_mib']:.0f} on {sweep['card']}")
-        for name, ms, calls in r["top"]:
-            log(f"  {ms:9.3f} ms {calls:6d} x {name}")
-    lap("K runs with both switches (experiments/multirun_time.py --bf16)")
 
     out["rows"] = {"os_conv_fwd[bf16]": out["conv_rows"], **out["wn_rows"],
                    **{f"{name}[bf16]": r for name, r in rows_k.items() if r}}
@@ -4557,7 +4647,7 @@ def dp_phase(run, modules, wn_fns, smi) -> dict:
                                       "wn_fwd": flows, "wn_bwd": flows},
         "phase 1 step": {**run.idle(), "os_conv_fwd": n_ext + n_cls},
         "classifier step": {**run.idle(), "os_conv_fwd": n_ext + n_cls},
-        "ensemble": {**run.idle(), "os_conv_fused_fwd": 2 * (n_ext + n_cls)},
+        "ensemble": {**run.idle(), "os_conv_fused_fwd_runs": 2 * (n_ext + n_cls)},
     }
     for r in ranks:
         log(f"[data parallel rank {r['rank']}] cuda:{r['device']} ready after {r['ready_s']:.1f} s, "
@@ -4720,6 +4810,309 @@ def dp_phase(run, modules, wn_fns, smi) -> dict:
     return out
 
 
+
+# ----------------------------------------------------------------- phase 24 --
+
+# Phase 24: cli.predict and cli.multi_source under torchrun on the one card, the ranks sharing it
+# (``parallel.launch.torchrun_group`` picks ``"cpu:gloo,cuda:gloo"`` when there are fewer cards
+# than local ranks: NCCL refuses two ranks on one card).  Each rank runs the CLI's ``main`` as
+# ``python -m`` runs it, through this script's rank mode (``cli_rank``), which also writes the
+# rank's launch counts.
+TORCHRUN_PREDICT_RANKS = (3, 2)  # P >= M = 3 members: the domain-sharded ensemble; P < M: rank 0
+TORCHRUN_MULTI_RANKS = 2  # phase 15's two sources, one member a rank
+TORCHRUN_TIMEOUT = 300  # a torchrun command's deadline in seconds, its start included
+# phase 24's members: heads scaled by this, their biases set to centre the logits on the
+# target's series, so that each member's predictions vary from series to series
+HEAD_SCALE = 30.0
+VARIED_SEED = 40  # their weights, from VARIED_SEED + i, and their BatchNorm state
+
+
+def varied_members(member_def, x, paths, save_checkpoint, bn_stats_type) -> None:
+    """Phase 24's members, written to ``paths``: random members with
+    non-trivial BatchNorm state (``with_random_bn``), each head's weight
+    scaled by HEAD_SCALE and its bias set to minus the median of the scaled
+    products over the series ``x``, so that a member predicts every class."""
+    rng = np.random.default_rng(VARIED_SEED)
+    x = torch.as_tensor(x).cuda()
+    for i, path in enumerate(paths):
+        member = with_random_bn(member_def.init_models(
+            torch.Generator().manual_seed(VARIED_SEED + i)), rng, bn_stats_type)
+        head = member["params"]["cls"]["hidden"]
+        with torch.no_grad():
+            logits = member_def.predict_logits(member["params"], member["mstate"], x)
+        head["weight"] = HEAD_SCALE * head["weight"]
+        head["bias"] = -torch.median(HEAD_SCALE * (logits - head["bias"]), dim=0).values
+        save_checkpoint(str(path), member)
+
+
+@contextlib.contextmanager
+def recorded_logits(ensemble_cls):
+    """Every ``member_logits`` result of ``ensemble_cls`` inside (with a
+    mesh, every rank's members gathered), as numpy arrays in call order."""
+    calls = []
+    member_logits = ensemble_cls.member_logits
+
+    def recording(self, *args):
+        out = member_logits(self, *args)
+        calls.append(out.cpu().numpy())
+        return out
+
+    with patched(ensemble_cls, "member_logits", recording):
+        yield calls
+
+
+def cli_rank(out_dir: str, cli: str, argv) -> int:
+    """The rank mode, under torchrun: ``chip_smoke.py --cli-rank <out_dir>
+    <predict|multi_source> <the CLI's arguments>``.  Runs the CLI's
+    ``main(argv)`` deterministic with TF32 off (as phases 4 and 15 run it),
+    the launch counts set to 0 just before and read just after, each member
+    pipeline's run watched (``watched_members``) and every ``member_logits``
+    result recorded (``recorded_logits``), and writes the rank's counts,
+    members and clock times to ``<out_dir>/rank<RANK>.json``, its logits to
+    ``<out_dir>/rank<RANK>_logits.npz``."""
+    from feature_level_style_transfer_for_tsc_tpu_torch.cli import multi_source, predict
+    from feature_level_style_transfer_for_tsc_tpu_torch.ops import gate, osconv, wn_fused
+    from feature_level_style_transfer_for_tsc_tpu_torch.parallel.multi_source import (
+        MultiSourceEnsemble,
+    )
+    from feature_level_style_transfer_for_tsc_tpu_torch.train.pipeline import (
+        StyleTransferPipeline,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    modules = (osconv, wn_fused, gate)
+    main_fn = {"predict": predict.main, "multi_source": multi_source.main}[cli]
+    with watched_members(StyleTransferPipeline) as members, deterministic(), \
+            recorded_logits(MultiSourceEnsemble) as logits:
+        for m in modules:
+            m.reset_launch_counts()
+        t_main = time.time()
+        main_fn(list(argv))
+        torch.cuda.synchronize()
+        t_end = time.time()
+    rank = int(os.environ["RANK"])
+    np.savez(Path(out_dir) / f"rank{rank}_logits.npz", *logits)
+    record = {"rank": rank, "device": torch.cuda.current_device(),
+              "counts": {name: n for m in modules for name, n in m.LAUNCHES.items()},
+              "t_main": t_main, "t_end": t_end, "members": members,
+              "cublas_workspace_config": os.environ.get("CUBLAS_WORKSPACE_CONFIG")}
+    (Path(out_dir) / f"rank{rank}.json").write_text(
+        json.dumps(record, default=lambda v: np.asarray(v).tolist()))
+    return 0
+
+
+def torchrun_jobs(specs) -> list:
+    """Each ``(cli, ranks, argv, out_dir, env)`` of ``specs`` as ``python -m
+    torch.distributed.run --standalone --nproc-per-node <ranks>`` of this
+    script's rank mode, all started at once (a command spends most of its
+    time starting Python and importing torch in each process) and waited
+    for: per command, its wall time from start to exit, its standard output
+    and each rank's record, with ``startup_s`` (from the command's start to
+    the rank entering ``main``) and ``main_s``, and its ``member_logits``
+    results.  Fails when a command fails
+    (a rank that fails fails torchrun) or outlives TORCHRUN_TIMEOUT; every
+    command's process group is killed before this returns or raises."""
+    import signal
+
+    # the ranks see this process's card only, so that they share it whatever the machine holds
+    card = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    jobs = []
+    try:
+        for cli, ranks, argv, out_dir, env in specs:
+            out_dir.mkdir(parents=True)
+            cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                   "--nproc-per-node", str(ranks), str(REPO / "chip_smoke.py"), "--cli-rank",
+                   str(out_dir), cli, *argv]
+            with open(out_dir / "stdout.txt", "w") as out, open(out_dir / "stderr.txt", "w") as err:
+                jobs.append({"cli": cli, "ranks": ranks, "out_dir": out_dir, "t0": time.time(),
+                             "exit": None, "proc": subprocess.Popen(
+                                 cmd, stdout=out, stderr=err, cwd=REPO, start_new_session=True,
+                                 env={**os.environ, "CUDA_VISIBLE_DEVICES": card, **env})})
+        deadline = time.time() + TORCHRUN_TIMEOUT
+        while any(j["exit"] is None for j in jobs) and time.time() < deadline:
+            for j in jobs:
+                if j["exit"] is None and j["proc"].poll() is not None:
+                    j["exit"] = time.time()
+            time.sleep(0.1)
+    finally:
+        for j in jobs:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(j["proc"].pid, signal.SIGKILL)
+            j["proc"].wait()
+    results = []
+    for j in jobs:
+        cli, ranks, out_dir = j["cli"], j["ranks"], j["out_dir"]
+        stdout = (out_dir / "stdout.txt").read_text()
+        check(j["exit"] is not None and j["proc"].returncode == 0,
+              f"{cli} under torchrun ({ranks} ranks) exited {j['proc'].returncode} (killed after "
+              f"{TORCHRUN_TIMEOUT} s if None): {stdout[-2000:]} "
+              f"{(out_dir / 'stderr.txt').read_text()[-4000:]}")
+        records = [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(ranks)]
+        for r in records:
+            r["startup_s"], r["main_s"] = r["t_main"] - j["t0"], r["t_end"] - r["t_main"]
+            check(r["cublas_workspace_config"] == os.environ["CUBLAS_WORKSPACE_CONFIG"],
+                  f"rank {r['rank']}: CUBLAS_WORKSPACE_CONFIG {r['cublas_workspace_config']}")
+        backends = [line for line in stdout.splitlines() if line.startswith("[rank ")]
+        check(sorted(backends) == sorted(f"[rank {r} of {ranks}] backend {SEQ_BACKEND}, "
+                                         f"device cuda:0" for r in range(ranks)),
+              f"{cli} under torchrun: the ranks' backend lines {backends}")
+        for line in backends:
+            log(f"[torchrun {cli}, {ranks} ranks] {line}")
+        logits = []
+        for r in range(ranks):
+            with np.load(out_dir / f"rank{r}_logits.npz") as z:
+                logits.append([z[f"arr_{i}"] for i in range(len(z.files))])
+        results.append({"wall_s": j["exit"] - j["t0"], "stdout": stdout, "ranks": records,
+                        "logits": logits})
+    return results
+
+
+def same_arrays(got: list, want: list) -> bool:
+    """The same arrays, bit for bit, in the same order."""
+    return len(got) == len(want) and all(
+        a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
+        for a, b in zip(got, want))
+
+
+def result_line(stdout: str) -> str:
+    """``cli.predict``'s one result line, without the output path."""
+    lines = [line for line in stdout.splitlines() if line.startswith("n=")]
+    check(len(lines) == 1, f"cli.predict printed {len(lines)} result lines: {lines}")
+    return lines[0].split(" -> ")[0]
+
+
+def torchrun_phase(run, predict, pipeline_cls, cfg, ensemble, y_test, n_layers: int, data: Path,
+                   train_data: Path, sources: dict, phase15: dict, tmp: Path, smi: str) -> dict:
+    """Phase 24: (a) ``cli.predict`` over the three members of ``ensemble``
+    (``varied_members``) under torchrun with P ranks sharing the card, P = 3
+    (the domain-sharded ensemble, a member a rank) and P = 2 (fewer ranks
+    than members: rank 0 alone), unfused: the predictions' file, the printed
+    result (member accuracies, not all equal on ``y_test``, each member
+    predicting every class) and every serving rank's gathered member logits
+    those of the one-process run, bit for bit, one ``_predict.npy`` written,
+    each rank's launches exact; (b) ``cli.multi_source`` with phase 15's
+    sources, a member a rank: the JAX CLI's file set, every member finite
+    (``check_history``), each rank's launches exact (its member's training
+    drive and the vote over its member), ``final_predict.npy`` and each
+    rank's gathered member logits what one-process ``cli.predict`` gives
+    over the saved members, bit for bit.  The three torchrun commands run at
+    once (``torchrun_jobs``).  Wall times, each rank's startup, and a rank's
+    member wall time beside phase 15's, recorded; every rank's counts added
+    to the main path's as the "torchrun" path."""
+    from feature_level_style_transfer_for_tsc_tpu_torch.parallel.multi_source import (
+        MultiSourceEnsemble,
+    )
+
+    root = tmp / "torchrun"
+    out = {"backend": SEQ_BACKEND}
+    c, t, n_cls = SCP2["channels"], SCP2["length"], SCP2["classes"]
+    unfused = {"FLSTTSC_FUSE_EPILOGUE": "0"}
+    idle = run.idle()
+    names = list(sources)
+    prefixes = {ranks: root / f"predict_p{ranks}" / "ens" for ranks in TORCHRUN_PREDICT_RANKS}
+    ms_out = root / "multi_source"
+    ms_args = ["--target-root", str(train_data), "--target", "SynSCP2", "--source-root",
+               str(train_data), "--sources", ",".join(sources), "--out", str(ms_out),
+               "--phase-epochs", json.dumps(PHASE_EPOCHS), "--device", "cuda"]
+    t0 = time.time()
+    *predicts, multi = torchrun_jobs(
+        [("predict", ranks, cli_args(data, "SynSCP2", data, "SynSource", ensemble, prefix),
+          root / f"predict_p{ranks}_ranks", unfused) for ranks, prefix in prefixes.items()]
+        + [("multi_source", TORCHRUN_MULTI_RANKS, ms_args, root / "multi_source_ranks", {})])
+    out["commands_wall_s"] = time.time() - t0
+    log(f"[torchrun] {len(predicts) + 1} commands at once: {out['commands_wall_s']:.1f} s")
+
+    # (a) against the one-process run of the same command
+    one = root / "predict_one_process" / "ens"
+    with environ(**unfused), contextlib.redirect_stdout(io.StringIO()) as printed, \
+            recorded_logits(MultiSourceEnsemble) as want_logits:
+        predict.main(cli_args(data, "SynSCP2", data, "SynSource", ensemble, one))
+    want_line = result_line(printed.getvalue())
+    want_bytes = Path(f"{one}_predict.npy").read_bytes()
+    member_preds = want_logits[-1].argmax(-1)  # the calls: the train split, then the test split
+    member_accs = [float(np.mean(p == y_test)) for p in member_preds]
+    out["members"] = {"accuracies": member_accs,
+                      "per_class": [np.bincount(p, minlength=n_cls).tolist() for p in member_preds]}
+    log(f"[torchrun predict] members: test accuracies {member_accs}, predictions per class "
+        f"{out['members']['per_class']}")
+    check(len(want_logits) == 2 and len(set(member_accs)) > 1
+          and all(min(c) > 0 for c in out["members"]["per_class"]),
+          f"torchrun predict: the members' predictions do not vary: {out['members']}")
+    for (ranks, prefix), res in zip(prefixes.items(), predicts):
+        what = f"predict, {ranks} ranks"
+        written = sorted(p.name for p in prefix.parent.iterdir())
+        check(written == ["ens_predict.npy"], f"torchrun {what}: wrote {written}")
+        check(Path(f"{prefix}_predict.npy").read_bytes() == want_bytes,
+              f"torchrun {what}: predictions differ from the one-process run's")
+        line = result_line(res["stdout"])
+        check(line == want_line, f"torchrun {what}: {line!r} against one process's {want_line!r}")
+        serving = range(len(ensemble)) if ranks >= len(ensemble) else [0]
+        for r in res["ranks"]:
+            want = {**idle, "os_conv_fwd_runs": 2 * n_layers} if r["rank"] in serving else idle
+            check(r["counts"] == want, f"torchrun {what}, rank {r['rank']}: launches "
+                                       f"{r['counts']} != {want}")
+            check(same_arrays(res["logits"][r["rank"]],
+                              want_logits if r["rank"] in serving else []),
+                  f"torchrun {what}, rank {r['rank']}: its gathered member logits differ from "
+                  f"the one-process run's")
+        run.add(f"torchrun {what}", {n: sum(r["counts"][n] for r in res["ranks"]) for n in idle},
+                path="torchrun")
+        out[f"predict_p{ranks}"] = {
+            "wall_s": res["wall_s"], "mesh": ranks >= len(ensemble), "result": line,
+            "ranks": [{k: r[k] for k in ("rank", "device", "counts", "startup_s", "main_s")}
+                      for r in res["ranks"]]}
+        log(f"[torchrun {what}] {'mesh data=1 domain=3' if ranks >= len(ensemble) else 'no mesh'}"
+            f": the one-process bytes and result line ({line}); wall s={res['wall_s']:.1f}, "
+            f"startup s={[round(r['startup_s'], 1) for r in res['ranks']]}, main s="
+            f"{[round(r['main_s'], 1) for r in res['ranks']]} on {smi}")
+
+    # (b) the members trained one a rank, then the vote on the mesh of the two ranks
+    pipes = [pipeline_cls(c, t, n_cls, d["channels"], d["length"], d["classes"], cfg,
+                          device="cuda") for d in sources.values()]
+    member_convs = len(pipes[0].t_ext_specs) + len(pipes[0].cls_specs)
+    want_files = {f"member_{name}.npz" for name in sources} | {
+        "final_predict.npy", "true_label.npy", "prediction_strip.png", "ensemble.json"}
+    have = {f.name for f in ms_out.iterdir()}
+    check(have == want_files, f"torchrun multi-source wrote {sorted(have)}, want "
+                              f"{sorted(want_files)}")
+    rows = {}
+    for r in multi["ranks"]:
+        check(len(r["members"]) == 1, f"torchrun multi-source rank {r['rank']}: trained "
+                                      f"{len(r['members'])} members")
+        name, m = names[r["rank"]], r["members"][0]
+        want = {**idle, **expected_training_launches(pipes[r["rank"]], TRAIN_SERIES, PHASE_EPOCHS)}
+        want["os_conv_fwd_runs"] += 2 * member_convs  # the vote over its member: train, test split
+        check(r["counts"] == want, f"torchrun multi-source rank {r['rank']}: launches "
+                                   f"{r['counts']} != {want}")
+        rows[name] = {"wall_s": m["wall_s"], "phase15_wall_s": phase15["members"][name]["wall_s"],
+                      "phase5": check_history(f"torchrun member {name}", m["history"],
+                                              m["first_step"]),
+                      "startup_s": r["startup_s"], "main_s": r["main_s"]}
+        log(f"[torchrun multi-source member {name}, rank {r['rank']}] wall s={m['wall_s']:.2f} "
+            f"(phase 15, one process: {rows[name]['phase15_wall_s']:.2f}), startup s="
+            f"{r['startup_s']:.1f} on {smi}")
+    run.add("torchrun multi-source, 2 ranks",
+            {n: sum(r["counts"][n] for r in multi["ranks"]) for n in idle}, path="torchrun")
+    served = root / "multi_source_served"
+    members_csv = ",".join(str(ms_out / f"member_{name}.npz") for name in sources)
+    with recorded_logits(MultiSourceEnsemble) as served_logits:
+        predict.main(["--target-root", str(train_data), "--target", "SynSCP2", "--source-root",
+                      str(train_data), "--source", names[0], "--checkpoint", members_csv,
+                      "--vote", "entropy_precision", "--out", str(served), "--device", "cuda"])
+    check(np.array_equal(np.load(f"{served}_predict.npy"), np.load(ms_out / "final_predict.npy")),
+          "torchrun multi-source: final_predict.npy differs from one-process cli.predict's")
+    for r in multi["ranks"]:
+        check(same_arrays(multi["logits"][r["rank"]], served_logits),
+              f"torchrun multi-source, rank {r['rank']}: its gathered member logits differ "
+              f"from one-process cli.predict's")
+    out["multi_source"] = {"wall_s": multi["wall_s"], "members": rows}
+    log(f"[torchrun multi-source, 2 ranks] the JAX CLI's files, final_predict.npy what "
+        f"one-process cli.predict gives over the saved members; wall s={multi['wall_s']:.1f} on "
+        f"{smi}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
@@ -4862,19 +5255,21 @@ def main() -> int:
                 log(f"[single {tag}] accuracy={acc:.4f} logits max_abs={l_abs:.3e} rel={l_rel:.3e} "
                     f"series/s={single_sps:.1f} on {smi}")
 
-                # ---- phase 4: ensemble of 3
+                # ---- phase 4: ensemble of 3, the members under one vmap: one
+                # run-axis launch a layer and split (train, test)
                 out = tmp / f"ensemble_{tag}"
                 acc_e = run.drive(
                     f"ensemble {tag}",
                     lambda: predict.main(cli_args(data, "SynSCP2", data, "SynSource", ensemble, out)),
-                    {**idle, kern: len(ensemble) * n_layers * 2}, path="serving",
+                    {**idle, f"{kern}_runs": n_layers * 2}, path="serving",
                 )
                 with plain_convs(osconv, wn_fused, gate):
                     predict.main(cli_args(data, "SynSCP2", data, "SynSource", ensemble, f"{out}_plain"))
                 same = np.array_equal(np.load(f"{out}_predict.npy"), np.load(f"{out}_plain_predict.npy"))
                 check(same, f"ensemble {tag}: predictions differ from plain")
                 ens = MultiSourceEnsemble(c, t, n_cls, config=cfg, device="cuda")
-                stacked = ens.stack([predict._load_member(str(p), "cuda") for p in ensemble])
+                loaded = [predict._load_member(str(p), "cuda") for p in ensemble]
+                stacked = ens.stack(loaded)
                 weights = ens.compute_class_weights(stacked, t_train.x, t_train.y)
                 # the members at the ensemble's own shapes (whole train and
                 # test splits in one call each) against the plain path
@@ -4905,12 +5300,16 @@ def main() -> int:
                     ).cpu(),
                     SCP2["n_test"],
                 )
-                log(f"[ensemble {tag}] accuracy={acc_e:.4f} series/s={ens_sps:.1f} on {smi}")
+                vmapped = ensemble_vmap_phase(osconv, wn_fused, ens, loaded, stacked, weights,
+                                              (("train", t_train.x), ("test", t_test.x)),
+                                              n_layers, fused)
+                log(f"[ensemble {tag}] accuracy={acc_e:.4f} series/s={ens_sps:.1f} (members one "
+                    f"after another, in the same run: {vmapped['loop_series_per_s']:.1f}) on {smi}")
                 results["serving"][tag] = {
                     "single_accuracy": acc, "single_logits_rel": l_rel,
                     "single_series_per_s": single_sps,
                     "ensemble_accuracy": acc_e, "ensemble_series_per_s": ens_sps,
-                    "ensemble_rel": ens_rel,
+                    "ensemble_rel": ens_rel, "ensemble_vmap": vmapped,
                 }
 
         clock.start("phase 5")
@@ -5127,6 +5526,15 @@ def main() -> int:
             run, pipe, (osconv, wn_fused, gate), make_dataset, smi,
             results["multirun"]["step_vs_one_run"]["per_run"], results["multirun"]["sweep_op_by_op"])
 
+        clock.start("phase 24")
+        # ---- phase 24: cli.predict and cli.multi_source under torchrun, the ranks sharing the card
+        varied = [tmp / "ckpt" / f"varied{i}.npz" for i in range(3)]
+        varied_members(member_def, np.concatenate([t_train.x, t_test.x]), varied,
+                       save_checkpoint, BNStats)
+        results["torchrun"] = torchrun_phase(
+            run, predict, StyleTransferPipeline, cfg, varied, t_test.y, n_layers, data, train_data,
+            {"SynEthanol": ETHANOL, "SynWorms": WORMS}, results["multi_source"], tmp, smi)
+
     clock.start(None)
     results["phase_s"] = clock.secs
     for name, n in run.launches.items():
@@ -5245,4 +5653,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cli-rank"]:  # a rank of phase 24, under torchrun
+        sys.exit(cli_rank(sys.argv[2], sys.argv[3], sys.argv[4:]))
     sys.exit(main())

@@ -26,14 +26,14 @@ TF32 is off, as in chip_smoke.py.  ``--bf16`` turns both bf16 switches on:
 ``FLSTTSC_WN_MXU=bf16`` (the WN kernels' bf16 instances) and
 ``PipelineConfig(compute_dtype="bfloat16")`` (the OS convs in bf16).  Run it
 without ``CUBLAS_WORKSPACE_CONFIG`` (which adds 0.4-0.5 s a step on an
-H100): chip_smoke.py phases 18, 19 and 20 start it with that variable
+H100): chip_smoke.py phase 18 starts it with that variable
 removed.  Importing chip_smoke.py (for ``device_events``) sets it again, so
 the script unsets it after the import where its process started without
 it (from PR 15 to PR 16 the K sweeps ran with it).  ``--knob`` takes one or more of ``merged`` (the default config),
 ``unmerged`` (``merged_pullbacks=False``), ``stacked``
 (``stacked_pullbacks=True``) and ``fused_opt`` (``fused_optimizers=True``),
 comma-separated: the sweep of each in turn, its states freed before the
-next (chip_smoke.py phase 20 runs all four so).  ``--routes`` takes one
+next.  ``--routes`` takes one
 or both WN routes, comma-separated: ``fused`` (the default) and
 ``op_by_op`` (``FLSTTSC_WN_FUSED=0``, ``FLSTTSC_CONV_IMPL=pallas``: the
 run-axis tap conv ``tap_conv_fwd_runs`` and the gate's runs folded into

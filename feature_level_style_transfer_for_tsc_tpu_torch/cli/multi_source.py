@@ -16,16 +16,30 @@ off for cuDNN and matmuls: the JAX package trains in exact float32.
   (``params.ext``, ``params.cls``, ``mstate.ext``, ``mstate.cls``);
 * ``--member-checkpoints`` restores members (either package's files) and
   votes without training;
-* the members are stacked and run one after another on the card; the
-  per-class precision weights come from the target train split, and the
-  vote's predictions and the true labels are saved as .npy like the
-  reference, with ``prediction_strip.png`` and ``ensemble.json``.
+* the members are stacked and run under one ``torch.func.vmap`` (one
+  run-axis conv launch a layer); the per-class precision weights come from
+  the target train split, and the vote's predictions and the true labels
+  are saved as .npy like the reference, with ``prediction_strip.png`` and
+  ``ensemble.json``.
+
+Under ``torchrun`` (P ranks, ``parallel.launch.torchrun_group``) member i
+is trained by rank ``i % P`` on its own device, the JAX package's
+round-robin of members over devices, and each rank writes its members'
+files and logs.  After a barrier the ensemble follows ``cli.predict``'s
+rule: with P >= M members it is sharded over ``make_mesh(data=1,
+domain=M)``, rank r holding member r; with P < M rank 0 runs it
+(``mesh=None``), reading the members the other ranks trained from their
+files.  ``--member-checkpoints`` takes the same rule.  Only rank 0 writes
+the vote's files.
 
 Usage:
   python -m feature_level_style_transfer_for_tsc_tpu_torch.cli.multi_source \
       --target-root Multivariate_ts --target StandWalkJump \
       --source-root Univariate_ts --sources EthanolLevel,Worms,InlineSkate \
       --out multi_log --device cuda
+  # one member a rank:
+  python -m torch.distributed.run --standalone --nproc-per-node 3 \
+      -m feature_level_style_transfer_for_tsc_tpu_torch.cli.multi_source ... --device cuda
 """
 
 from __future__ import annotations
@@ -36,14 +50,15 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import PipelineConfig
 from ..data.dataset import TestData, TrainData
 from ..io.artifacts import save_prediction_strip
 from ..io.checkpoint import flatten, from_jax_params, load_flat, save_checkpoint
-from ..ops import resolve_device
+from ..parallel.launch import torchrun_group
 from ..parallel.multi_pipeline import train_members_parallel
-from ..parallel.multi_source import MultiSourceEnsemble, tree_map
+from ..parallel.multi_source import MultiSourceEnsemble, ensemble_mesh, tree_map
 from ..train.classifier import OSCNNClassifier
 from ..train.pipeline import StyleTransferPipeline
 from .main import target_member
@@ -94,29 +109,30 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain PyTorch path")
     args = p.parse_args(argv)
-    device = resolve_device(args.device)
+    with torchrun_group(args.device) as (rank, world, device):
+        return train_and_vote(args, rank, world, device)
+
+
+def train_and_vote(args, rank: int, world: int, device):
+    """``main`` on this rank: the ensemble's result on rank 0, None on the
+    others."""
     if device.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     phase_epochs = json.loads(args.phase_epochs) if args.phase_epochs else None
 
-    sources = args.sources.split(",")
     target_dict = {}
     t_train = TrainData(args.target_root, f"{args.target}/{args.target}_TRAIN.ts", target_dict)
     t_test = TestData(args.target_root, f"{args.target}/{args.target}_TEST.ts", target_dict)
     os.makedirs(args.out, exist_ok=True)
     shape = (t_train.in_channel, t_train.time_length, t_train.num_class)
+    cfg = PipelineConfig(budget_multiplier=args.budget_multiplier)
 
-    members = []
     if args.member_checkpoints:
-        model_def = OSCNNClassifier(
-            *shape, config=PipelineConfig(budget_multiplier=args.budget_multiplier), with_cpc=False,
-            device=device,
-        )
-        template = model_def.init_models(torch.Generator().manual_seed(0))
-        for path in args.member_checkpoints.split(","):
-            members.append(restore_member(path, template, device))
-        sources = []
+        sources, paths = [], args.member_checkpoints.split(",")
+    else:
+        sources = args.sources.split(",")
+        paths = [os.path.join(args.out, f"member_{source}.npz") for source in sources]
     capture_epochs = (
         [int(e) for e in args.capture_epochs.split(",")] if args.capture_epochs else None
     )
@@ -145,24 +161,37 @@ def main(argv=None):
             )
             member = snap.get("member") or target_member(state)
             tag = f"@p5e{capture_at}" if "member" in snap else ""
-            save_checkpoint(os.path.join(args.out, f"member_{source}.npz"), member)
+            save_checkpoint(paths[i], member)
             print(f"[{source}{tag}] final:", history[-1])
             return member
 
         return fn
 
-    if sources:
-        # K heterogeneous pipelines: over every card for --device cuda (one
-        # after another on one card), else on the one device named
-        devices = None if device.type == "cuda" and device.index is None else [device]
-        members.extend(train_members_parallel(
-            [make_member_fn(i, s) for i, s in enumerate(sources)], devices))
+    # K heterogeneous pipelines: member i on rank i % P.  One process
+    # spreads its members over every card for --device cuda (one after
+    # another on one card), else runs them on the one device named.
+    trained = [i for i in range(len(sources)) if i % world == rank]
+    devices = None if world == 1 and device.type == "cuda" and device.index is None else [device]
+    held = {}
+    if trained:
+        held = dict(zip(trained, train_members_parallel(
+            [make_member_fn(i, sources[i]) for i in trained], devices)))
+    if world > 1:
+        dist.barrier()  # every member file is written
 
-    ens = MultiSourceEnsemble(
-        *shape, config=PipelineConfig(budget_multiplier=args.budget_multiplier), device=device
-    )
-    stacked = ens.stack(members)
+    mesh, voting = ensemble_mesh(world, rank, len(paths), device)
+    if not voting:
+        return None
+    ens = MultiSourceEnsemble(*shape, config=cfg, device=device, mesh=mesh)
+    to_read = [i for i in ens.local_members(len(paths)) if i not in held]
+    if to_read:  # members other ranks trained, or --member-checkpoints
+        model_def = OSCNNClassifier(*shape, config=cfg, with_cpc=False, device=device)
+        template = model_def.init_models(torch.Generator().manual_seed(0))
+        held.update({i: restore_member(paths[i], template, device) for i in to_read})
+    stacked = ens.stack([held.get(i) for i in range(len(paths))])
     result = ens.evaluate(stacked, t_train, t_test)
+    if rank != 0:
+        return None
     np.save(os.path.join(args.out, "final_predict.npy"), result["predictions"])
     np.save(os.path.join(args.out, "true_label.npy"), t_test.y)
     save_prediction_strip(

@@ -8,12 +8,23 @@ unless ``--device cpu`` asks for the plain PyTorch path):
   statistics) of a full pipeline state, run the no-grad inference path on
   the requested target split, save predictions, print accuracy;
 * SEVERAL checkpoints (comma-separated): ensemble serving — the members are
-  stacked and run one after another on the card, then combined with the
-  selected reference vote rule (``multi_source_voting.py:405-429`` and its
-  two in-tree variants).  Full pipeline states and extracted members are
-  auto-detected from their npz key paths, as in the JAX package.
+  stacked and run under one ``torch.func.vmap`` (one run-axis conv launch a
+  layer), then combined with the selected reference vote rule
+  (``multi_source_voting.py:405-429`` and its two in-tree variants).  Full
+  pipeline states and extracted members are auto-detected from their npz
+  key paths, as in the JAX package.
 
 Checkpoints written by either package are read (``io/checkpoint.py``).
+
+Under ``torchrun`` (P ranks, ``parallel.launch.torchrun_group``: gloo for
+``--device cpu``, NCCL with a card a rank, ``"cpu:gloo,cuda:gloo"`` for
+ranks sharing a card) the ensemble follows the JAX package's rule over
+devices: with P >= M members the model axis is sharded over
+``make_mesh(data=1, domain=M)``, rank r < M loading and running member r
+alone and the ranks past M idle; with P < M rank 0 runs the whole ensemble
+(``mesh=None``).  One checkpoint is served by rank 0 alone.  Only rank 0
+prints the result and writes ``<out>_predict.npy``, the bytes of the
+one-process run.
 
 Usage:
   python -m feature_level_style_transfer_for_tsc_tpu_torch.cli.predict \
@@ -22,6 +33,9 @@ Usage:
       --checkpoint train_log/final_state.npz --out predictions --device cuda
   # ensemble over 3 members, entropy+precision vote:
   ... --checkpoint m1.npz,m2.npz,m3.npz --vote entropy_precision
+  # the same ensemble domain-sharded over 3 ranks:
+  python -m torch.distributed.run --standalone --nproc-per-node 3 \
+      -m feature_level_style_transfer_for_tsc_tpu_torch.cli.predict ... --device cuda
 """
 
 from __future__ import annotations
@@ -36,8 +50,8 @@ from ..config import PipelineConfig
 from ..data.dataset import TestData, TrainData
 from ..evaluation.voting import entropy_only_vote, entropy_precision_vote, predicted_label_vote
 from ..io.checkpoint import restore_checkpoint
-from ..ops import resolve_device
-from ..parallel.multi_source import MultiSourceEnsemble
+from ..parallel.launch import torchrun_group
+from ..parallel.multi_source import MultiSourceEnsemble, ensemble_mesh
 from ..train.classifier import OSCNNClassifier
 from ..train.pipeline import TARGET_PREFIXES, TargetPredictor
 
@@ -103,25 +117,34 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain PyTorch path")
     args = p.parse_args(argv)
+    paths = [s.strip() for s in args.checkpoint.split(",") if s.strip()]
+    if not paths:
+        p.error("--checkpoint is empty after splitting on ','")
+    with torchrun_group(args.device) as (rank, world, device):
+        return serve(args, paths, rank, world, device)
 
-    device = resolve_device(args.device)
+
+def serve(args, paths, rank: int, world: int, device):
+    """``main`` on this rank: the accuracy on rank 0, None on the others."""
+    ensemble = len(paths) > 1
+    mesh, serving = None, rank == 0  # one checkpoint: rank 0 alone, as JAX runs one program
+    if ensemble:
+        mesh, serving = ensemble_mesh(world, rank, len(paths), device)
+    if not serving:
+        return None
     t_train, t_test, _, _ = build_datasets(
         args.target_root, args.target, args.source_root, args.source
     )
     cfg = PipelineConfig(seed=args.seed, budget_multiplier=args.budget_multiplier)
     shape = (t_train.in_channel, t_train.time_length, t_train.num_class)
-
     ds = t_test if args.split == "test" else t_train
-    paths = [s.strip() for s in args.checkpoint.split(",") if s.strip()]
-    if not paths:
-        p.error("--checkpoint is empty after splitting on ','")
 
     member_accs = None
-    if len(paths) == 1 and not _is_member_layout(paths[0]):
+    if not ensemble and not _is_member_layout(paths[0]):
         predictor = TargetPredictor(*shape, config=cfg, device=device)
         state = restore_checkpoint(paths[0], TARGET_PREFIXES, device)
         preds = predictor.predict_target(state, ds.x)
-    elif len(paths) == 1:
+    elif not ensemble:
         # A single cli.multi_source member: classify with plain argmax (the
         # reference's single-model path, utils.py:27-52 — voting needs >=2
         # models).
@@ -130,8 +153,10 @@ def main(argv=None):
         logits = model_def.predict_logits(member["params"], member["mstate"], ds.x)
         preds = torch.argmax(logits, -1).cpu().numpy()
     else:
-        ens = MultiSourceEnsemble(*shape, config=cfg, device=device)
-        stacked = ens.stack([_load_member(pp, device) for pp in paths])
+        ens = MultiSourceEnsemble(*shape, config=cfg, device=device, mesh=mesh)
+        mine = ens.local_members(len(paths))
+        stacked = ens.stack([_load_member(pp, device) if i in mine else None
+                             for i, pp in enumerate(paths)])
         # Precision weights always come from the target TRAIN split
         # (reference :281-367), regardless of which split is scored.
         weights = ens.compute_class_weights(stacked, t_train.x, t_train.y)
@@ -146,6 +171,8 @@ def main(argv=None):
         member_accs = [
             float(np.mean(torch.argmax(l, -1).cpu().numpy() == ds.y)) for l in logits
         ]
+        if rank != 0:
+            return None
 
     out_path = f"{args.out}_predict.npy"
     os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)

@@ -94,14 +94,15 @@ from ..structure import LayerSpec, mask_bounds
 from . import _build, use_kernel
 
 #: Launches of each kernel, counted by its wrapper where it launches; the
-#: ``_runs`` entries count the run-axis calls (one a call, whatever K); the
+#: ``_runs`` entries count the run-axis launches (one a call, whatever K, unless the
+#: grid's limit splits it, ``run_chunks``); the
 #: bf16 instance counts under its own names.
 LAUNCHES = {"os_conv_fwd": 0, "os_conv_fused_fwd": 0, "tap_conv_fwd": 0,
             "os_conv_fwd_runs": 0, "os_conv_fused_fwd_runs": 0,
             "os_conv_fwd[bf16]": 0, "os_conv_fwd_runs[bf16]": 0, "tap_conv_fwd_runs": 0}
 
 #: The tap GEMM's main grid carries run * batch + b on its z axis (``csrc/tap_gemm.cuh``),
-#: whose limit is 65,535 blocks: a run-axis tap conv with more rows is split on the host.
+#: whose limit is 65,535 blocks: a run-axis conv with more rows is split on the host.
 GRID_Z = 65535
 
 
@@ -318,15 +319,15 @@ def _raise_on(err: int, name: str) -> None:
 
 
 def _launch(name: str, x_pad: torch.Tensor, w: torch.Tensor, out_shape, runs: int,
-            epilogue=None) -> torch.Tensor:
+            epilogue=None, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One ``os_conv_fwd_runs`` call, or ``os_conv_fused_fwd_runs`` with
     ``epilogue`` = (scale, shift, relu), on checked operands with ``runs``
     leading runs (none for a one-run call, which is the kernel's runs = 1),
-    counted as ``name`` (``name[bf16]`` on bf16 operands, the bf16
-    instance)."""
+    into ``out`` (contiguous, of ``out_shape``) or a new tensor, counted as
+    ``name`` (``name[bf16]`` on bf16 operands, the bf16 instance)."""
     lib = _lib()
     bf16 = x_pad.dtype == torch.bfloat16
-    y = torch.empty(out_shape, device=x_pad.device, dtype=x_pad.dtype)
+    y = torch.empty(out_shape, device=x_pad.device, dtype=x_pad.dtype) if out is None else out
     work = _work(w, runs)
     dims = (runs, *x_pad.shape[-3:], w.shape[-3], w.shape[-1])
     with _on(x_pad.device):
@@ -388,33 +389,46 @@ def _check_runs(x_pad: torch.Tensor, w: torch.Tensor, *vectors: torch.Tensor,
     for t in (x_pad, w) + vectors:
         if not t.is_contiguous():
             raise ValueError("the conv kernels take contiguous tensors")
-    if runs * x_pad.shape[1] > 65535:
-        raise ValueError(f"{runs} runs of batch {x_pad.shape[1]} exceed the grid")
     return runs, (runs, *out_shape)
+
+
+def _launch_runs(name: str, x_pad: torch.Tensor, w: torch.Tensor, out_shape,
+                 vectors=(), relu: bool = False) -> torch.Tensor:
+    """``_launch`` of K checked runs (the fused kernel where ``vectors`` =
+    (scale, shift)), one launch a chunk of ``run_chunks``: one for K * B <=
+    ``GRID_Z``, and a call past the grid's z limit split on the host."""
+    chunks = run_chunks(out_shape[0], x_pad.shape[1])
+    y = torch.empty(out_shape, device=x_pad.device, dtype=x_pad.dtype)
+    for a, b in chunks:
+        epilogue = (*(v[a:b] for v in vectors), relu) if vectors else None
+        _launch(name, x_pad[a:b], w[a:b], (b - a, *out_shape[1:]), b - a, epilogue, y[a:b])
+    return y
 
 
 def os_conv_runs(x_pad: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """K independent ``os_conv`` calls of one shape, x_pad (K, B, t_pad,
     C_in) and w (K, Kt, C_in, C_out) -> (K, B, T, C_out), float32 or
-    bfloat16: on CUDA one ``os_conv_fwd_runs`` call (the kernel with the run
-    on its grid), on the CPU the plain version run by run."""
+    bfloat16: on CUDA one ``os_conv_fwd_runs`` launch (the kernel with the run
+    on its grid; one a ``run_chunks`` chunk past the grid's limit), on the
+    CPU the plain version run by run."""
     if not use_kernel(x_pad):
         return torch.stack([os_conv_plain(xk, wk) for xk, wk in zip(x_pad, w)])
-    runs, out_shape = _check_runs(x_pad, w, bf16=True)
-    return _launch("os_conv_fwd_runs", x_pad, w, out_shape, runs)
+    _, out_shape = _check_runs(x_pad, w, bf16=True)
+    return _launch_runs("os_conv_fwd_runs", x_pad, w, out_shape)
 
 
 def os_conv_fused_runs(x_pad: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                        shift: torch.Tensor, relu: bool) -> torch.Tensor:
     """K independent ``os_conv_fused`` calls of one shape (scale and shift
-    (K, C_out)): on CUDA one ``os_conv_fused_fwd_runs`` call, on the CPU the
-    plain version run by run.  No gradient: inference only."""
+    (K, C_out)): on CUDA one ``os_conv_fused_fwd_runs`` launch (split as
+    ``os_conv_runs``), on the CPU the plain version run by run.  No
+    gradient: inference only."""
     _no_grad("os_conv_fused_runs", x_pad, w, scale, shift)
     if not use_kernel(x_pad):
         return torch.stack([os_conv_fused_plain(*args, relu)
                             for args in zip(x_pad, w, scale, shift)])
-    runs, out_shape = _check_runs(x_pad, w, scale, shift)
-    return _launch("os_conv_fused_fwd_runs", x_pad, w, out_shape, runs, (scale, shift, relu))
+    _, out_shape = _check_runs(x_pad, w, scale, shift)
+    return _launch_runs("os_conv_fused_fwd_runs", x_pad, w, out_shape, (scale, shift), relu)
 
 
 def tap_conv_fwd(x_pad: torch.Tensor, w: torch.Tensor, dilation: int) -> torch.Tensor:
@@ -440,7 +454,8 @@ def tap_conv_fwd(x_pad: torch.Tensor, w: torch.Tensor, dilation: int) -> torch.T
 
 
 def run_chunks(runs: int, batch: int, limit: Optional[int] = None):
-    """The ``[start, stop)`` run ranges of the ``tap_conv_fwd_runs`` calls
+    """The ``[start, stop)`` run ranges of the run-axis conv launches
+    (``os_conv_fwd_runs``, ``os_conv_fused_fwd_runs``, ``tap_conv_fwd_runs``)
     that K = ``runs`` runs of ``batch`` rows take: as many runs a call as
     the grid's z axis holds (runs * batch <= ``limit``, ``GRID_Z`` by
     default), in order."""

@@ -40,7 +40,8 @@ JAX's ``models/os_cnn.py`` does, so BatchNorm's moments, CDAN's sums, the
 noise transfer's means and CPC's gathered columns are f32 sums in both
 packages; ``FLSTTSC_WN_MXU=bf16`` changes the WN's products, which are per
 row.  The op-by-op WN route (``FLSTTSC_WN_FUSED=0``) is per row too.  Only
-the multirun (``MultiRunStylePipeline``) raises ``ValueError`` (ROADMAP A8).
+the multirun (``MultiRunStylePipeline``) raises ``ValueError``: the JAX package
+has no data-parallel multirun (its ``train/multirun.py`` takes no mesh).
 """
 
 from __future__ import annotations
@@ -58,8 +59,9 @@ from ..train.optim import FusedRMSprop
 from ..train.pipeline import StyleTransferPipeline
 from .mesh import axis_group, data_sharding, place
 
-#: the refusal of what does not run data-parallel yet, and the ROADMAP item that holds it
-NOT_DATA_PARALLEL = "{} does not run data-parallel yet (ROADMAP A8)"
+#: the refusal of the multirun, which does not run data-parallel in the JAX package either
+NOT_DATA_PARALLEL = ("{} does not run data-parallel: the JAX package has no data-parallel "
+                     "multirun (its train/multirun.py takes no mesh)")
 
 
 def shard_epoch_batches(mesh: DeviceMesh, xb, yb):
@@ -148,14 +150,14 @@ def train_epoch(mesh: DeviceMesh, clf: OSCNNClassifier, state, xb, yb,
     ``yb`` this rank's shard (``shard_epoch_batches``), ``state``
     replicated; returns the global epoch means."""
     if not isinstance(clf, OSCNNClassifier):
-        raise ValueError(NOT_DATA_PARALLEL.format(type(clf).__name__))
+        raise ValueError(f"dp.train_epoch takes an OSCNNClassifier, not {type(clf).__name__}")
     group, _, _ = axis_group(mesh, axis)
     with bn_cross_replica(group):
         return clf.train_epoch(state, xb, yb, cpc_anchors)
 
 
 def _check_pipeline(pipe) -> None:
-    """Refuse what does not run data-parallel: the multirun (ROADMAP A8)."""
+    """Refuse what does not run data-parallel: the multirun."""
     if not isinstance(pipe, StyleTransferPipeline):
         raise ValueError(NOT_DATA_PARALLEL.format(f"{type(pipe).__name__} (the multirun)"))
 

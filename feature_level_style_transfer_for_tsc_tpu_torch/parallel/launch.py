@@ -14,7 +14,10 @@ process group joined in each, and the ranks' results brought back:
 * ``process_group(rank, world_size, init_method, backend)`` joins the default
   process group for the ``with`` block.  The backend is the caller's: NCCL
   needs a card of its own for each rank, ``"cpu:gloo,cuda:gloo"`` serves
-  ranks that share a card, and the CPU.
+  ranks that share a card, and the CPU;
+* ``torchrun_group(device)`` joins the group that ``torchrun`` (``python -m
+  torch.distributed.run``) describes in the environment, choosing the
+  backend and the rank's device itself; the CLIs run under it.
 
 ``fn`` is pickled by reference, so it must be a module-level function of an
 importable module; its arguments and result are pickled too (numpy arrays
@@ -26,12 +29,25 @@ from __future__ import annotations
 import contextlib
 import datetime
 import multiprocessing
+import os
 import queue as queue_mod
 import time
 import traceback
 from typing import Any, Callable, List, Sequence
 
+import torch
 import torch.distributed as dist
+
+from ..ops import resolve_device
+
+#: The backend of ranks that share a card: NCCL refuses two ranks on one card, and gloo takes
+#: CUDA tensors in the collectives the port uses (``ops/collectives.py``).
+SHARED_CARD_BACKEND = "cpu:gloo,cuda:gloo"
+
+#: How long a collective of ``torchrun_group``'s group may wait before it raises: a day, since a
+#: rank of ``cli.multi_source`` waits at a barrier for the slowest member's whole curriculum (a
+#: rank that dies fails the command at once: torchrun stops the others).
+CLI_COLLECTIVE_TIMEOUT = datetime.timedelta(days=1)
 
 
 def _rank_main(fn: Callable, rank: int, world_size: int, args: Sequence, results) -> None:
@@ -98,5 +114,51 @@ def process_group(rank: int, world_size: int, init_method: str, backend: str,
                             timeout=datetime.timedelta(seconds=timeout))
     try:
         yield
+    finally:
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def torchrun_group(device="cuda"):
+    """The default process group that ``torchrun`` describes (``RANK``,
+    ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``), joined through
+    ``init_method="env://"`` for the ``with`` block; yields ``(rank,
+    world_size, device)``, ``device`` this rank's.
+
+    ``device`` is the entry point's ``--device`` ("cuda" refused without
+    CUDA, as ``resolve_device`` refuses it).  The backend: "cpu" joins on
+    gloo; "cuda" with at least ``LOCAL_WORLD_SIZE`` cards on NCCL, rank on
+    ``cuda:LOCAL_RANK``; "cuda" with fewer cards than local ranks on
+    ``SHARED_CARD_BACKEND``, the ranks sharing the cards (``cuda:(LOCAL_RANK
+    % device_count)``).  Each rank prints its backend and device.  With no
+    ``WORLD_SIZE``, or a ``WORLD_SIZE`` of 1, it joins nothing: one process,
+    ``(0, 1, device)``.  The group is left after a barrier when the block
+    ends, and without one when it raises.  A collective that waits longer
+    than ``CLI_COLLECTIVE_TIMEOUT`` raises."""
+    dev = resolve_device(device)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world <= 1:
+        yield 0, 1, dev
+        return
+    if dev.index is not None:
+        raise ValueError(f"--device {dev} under torchrun: pass the type ('cuda' or 'cpu'); "
+                         "each rank takes its card from LOCAL_RANK")
+    rank = int(os.environ["RANK"])
+    local_rank, local_world = int(os.environ["LOCAL_RANK"]), int(os.environ["LOCAL_WORLD_SIZE"])
+    if dev.type == "cpu":
+        backend = "gloo"
+    elif torch.cuda.device_count() >= local_world:
+        backend, dev = "nccl", torch.device("cuda", local_rank)
+    else:
+        backend = SHARED_CARD_BACKEND
+        dev = torch.device("cuda", local_rank % torch.cuda.device_count())
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    print(f"[rank {rank} of {world}] backend {backend}, device {dev}", flush=True)
+    dist.init_process_group(backend, init_method="env://", rank=rank, world_size=world,
+                            timeout=CLI_COLLECTIVE_TIMEOUT)
+    try:
+        yield rank, world, dev
+        dist.barrier()
     finally:
         dist.destroy_process_group()

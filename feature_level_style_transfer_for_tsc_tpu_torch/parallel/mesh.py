@@ -11,8 +11,11 @@ or ``torch.distributed.init_process_group``), one process a rank:
   the time axis;
 * "domain" holds the source-domain models side by side.
 
-Rank r sits at ``(r // domain, r % domain)``.  Each rank's device is
-explicit: ``cuda:(rank % device_count)``, made the current device, or the CPU
+Rank r sits at ``(r // domain, r % domain)``; a rank at or past ``data *
+domain`` takes part in making the mesh and is outside it
+(``get_coordinate()`` is None).  Each rank's device is explicit: the card
+the caller names (``cuda:i``, as ``launch.torchrun_group`` gives each rank)
+or else ``cuda:(rank % device_count)``, made the current device, or the CPU
 when the caller asks for it.  The backend is the caller's choice when it
 joins the group; nothing here guesses it.
 
@@ -46,8 +49,9 @@ def make_mesh(data: Optional[int] = None, domain: int = 1, device="cuda") -> Dev
     """Mesh with axes ("data", "domain") over the first ``data * domain``
     ranks; ``data`` defaults to all ranks over ``domain``.  ``device``
     "cuda" (the default; refused without CUDA) puts rank r on
-    ``cuda:(r % device_count)``, "cpu" on the CPU.  Every rank of the group
-    calls it, in the same order as its other collectives."""
+    ``cuda:(r % device_count)``, ``cuda:i`` on card i, "cpu" on the CPU.
+    Every rank of the group calls it, in the same order as its other
+    collectives."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs the default process group: join it first "
                            "(parallel.launch.process_group or torch.distributed.init_process_group)")
@@ -58,7 +62,8 @@ def make_mesh(data: Optional[int] = None, domain: int = 1, device="cuda") -> Dev
         raise ValueError(f"need {data * domain} devices, have {world}")
     dev = resolve_device(device)
     if dev.type == "cuda":
-        torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
+        torch.cuda.set_device(dev.index if dev.index is not None
+                              else dist.get_rank() % torch.cuda.device_count())
     grid = torch.arange(data * domain).reshape(data, domain)
     return DeviceMesh(dev.type, grid, mesh_dim_names=AXES)
 

@@ -9,8 +9,10 @@ CPU).  With several CUDA devices each member gets a thread of its own, its
 work placed on ``devices[i % len(devices)]`` by ``torch.cuda.device``, the
 current device of that thread, so members can train on several cards at
 once.  The tests run those threads on the CPU only; no run on several
-cards has checked this path yet (``ROADMAP.md`` C6).  The reference has no
-counterpart: multi-source is K sequential full runs (SURVEY §2.6).
+cards has checked this path yet (``ROADMAP.md`` C6).  Under ``torchrun``
+``cli.multi_source`` gives each rank its members (member i on rank i % P)
+and its own device.  The reference has no counterpart: multi-source is K
+sequential full runs (SURVEY §2.6).
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, List, Optional, Sequence
 
 import torch
+
+from ..ops import resolve_device
 
 
 def train_members_parallel(
@@ -29,12 +33,13 @@ def train_members_parallel(
     returns the results in order.
 
     ``devices`` defaults to every CUDA device (``cuda:0`` .. ``cuda:n-1``),
-    or to the CPU when there is none.  Each callable builds and trains one
-    member pipeline and returns its result (a ``{'params', 'mstate'}``
+    and is refused when CUDA is absent, as ``resolve_device`` refuses it
+    (name ``["cpu"]`` to train on the CPU).  Each callable builds and trains
+    one member pipeline and returns its result (a ``{'params', 'mstate'}``
     dict)."""
     if devices is None:
-        n = torch.cuda.device_count()
-        devices = [f"cuda:{i}" for i in range(n)] if n else ["cpu"]
+        resolve_device("cuda")
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
     devs = [torch.device(d) for d in devices]
 
     def run(i, fn):

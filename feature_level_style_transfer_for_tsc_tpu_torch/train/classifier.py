@@ -27,8 +27,10 @@ from ..data.batching import epoch_batches
 from ..losses.classification import cross_entropy
 from ..models.cpc import cpc_apply, cpc_init, draw_anchor
 from ..models.os_cnn import (
+    os_block_apply,
     os_block_masks,
     os_cnn_apply,
+    os_cnn_head,
     os_cnn_init,
     os_cnn_res_apply,
     os_cnn_res_init,
@@ -130,14 +132,11 @@ class OSCNNClassifier(ModuleSteps):
 
     # ----------------------------------------------------------- forward --
 
-    def forward(self, params, mstate, x: torch.Tensor, training: bool, fused_infer: bool = False):
+    def forward(self, params, mstate, x: torch.Tensor, training: bool):
         """(logits, pooled, feat, new_mstate)."""
-        feat, ext_s = os_cnn_res_apply(
-            params["ext"], mstate["ext"], self.ext_masks, x, training, fused_infer=fused_infer
-        )
-        logits, pooled, cls_s = os_cnn_apply(
-            params["cls"], mstate["cls"], self.cls_masks, feat, training, fused_infer=fused_infer
-        )
+        feat, ext_s = os_cnn_res_apply(params["ext"], mstate["ext"], self.ext_masks, x, training)
+        logits, pooled, cls_s = os_cnn_apply(params["cls"], mstate["cls"], self.cls_masks, feat,
+                                             training)
         return logits, pooled, feat, {"ext": ext_s, "cls": cls_s}
 
     # -------------------------------------------------------- train step --
@@ -175,9 +174,24 @@ class OSCNNClassifier(ModuleSteps):
     @torch.inference_mode()
     def predict_logits(self, params, mstate, x) -> torch.Tensor:
         """No-grad serving forward with the folded-BN conv epilogue."""
+        return self.predict_head(params, self.predict_block(params, mstate, x))
+
+    @torch.inference_mode()
+    def predict_block(self, params, mstate, x) -> torch.Tensor:
+        """``predict_logits`` up to the classifier block's output (B, T, C):
+        every conv of the model, before the time pool and the head."""
         x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
-        logits, _, _, _ = self.forward(params, mstate, x, False, fused_infer=True)
-        return logits
+        feat, _ = os_cnn_res_apply(params["ext"], mstate["ext"], self.ext_masks, x, False,
+                                   fused_infer=True)
+        y, _ = os_block_apply(params["cls"]["block"], mstate["cls"]["block"], self.cls_masks,
+                              feat, False, fused_infer=True)
+        return y
+
+    @torch.inference_mode()
+    def predict_head(self, params, y: torch.Tensor) -> torch.Tensor:
+        """The rest of ``predict_logits``: the classifier's time pool and
+        linear head on ``predict_block``'s output."""
+        return os_cnn_head(params["cls"], torch.mean(y, dim=1))
 
     def evaluate(self, state: Dict, x: np.ndarray, y: np.ndarray, batch_size: int = 0) -> float:
         """Argmax accuracy over batches of ``batch_size`` (default the

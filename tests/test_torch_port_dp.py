@@ -656,9 +656,10 @@ def test_refusals(ranks, what):
     the op-by-op WN route runs: the step that raised ``ValueError`` until
     these ran data-parallel gives finite global losses, the same bits on
     every rank (``tests/test_torch_port_dp_knobs.py`` holds them against
-    JAX and the unsharded step).  The multirun raises ``ValueError`` naming
-    ROADMAP A8; an ensemble whose members the domain axis does not divide
-    is refused as JAX's ``device_put`` refuses it."""
+    JAX and the unsharded step).  The multirun raises ``ValueError``: the JAX
+    package has no data-parallel multirun; an ensemble whose members the
+    domain axis does not divide is refused as JAX's ``device_put`` refuses
+    it."""
     if what not in ("multirun", "multirun_phase1", "ensemble_indivisible"):
         runs = _same_bits(ranks, ("refusals", what))
         assert runs[0] is None, runs[0]
@@ -670,4 +671,5 @@ def test_refusals(ranks, what):
         if what == "ensemble_indivisible":
             assert "not divisible by the 4 ranks of mesh axis 'domain'" in msg
         else:
-            assert "ROADMAP A8" in msg
+            assert ("does not run data-parallel: the JAX package has no data-parallel "
+                    "multirun") in msg

@@ -50,7 +50,10 @@ bits (f32 and bf16), and the tap conv's input gradient as one folded
 ``tap_conv_fwd`` launch with the bits of the single pulls.  The op-by-op
 route's run axes: ``tap_conv_fwd_runs`` (each run the one-run call's bits;
 split on the host past the grid's limit) and the vmap rules of
-``TapConvCore`` and ``GateCore`` (one launch each for K runs).
+``TapConvCore`` and ``GateCore`` (one launch each for K runs).  The
+run-axis OS conv split on the host past the grid's limit too, and the
+ensemble's members under one ``torch.func.vmap`` (one run-axis launch a
+layer, each member's logits its own call's bits).
 """
 
 import pytest
@@ -908,6 +911,63 @@ def test_tap_conv_runs_split_at_the_grid_limit(card, monkeypatch):
     assert osconv.LAUNCHES["tap_conv_fwd_runs"] == len(osconv.run_chunks(5, 3)) == 3
     for r in range(5):
         assert torch.equal(got[r], osconv.tap_conv_fwd(x_pad[r], w[r], 4)), r
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", [False, True])
+def test_os_conv_runs_split_at_the_grid_limit(card, monkeypatch, fused):
+    """A run-axis OS conv whose K * B passes the grid's z limit (``GRID_Z``,
+    lowered here to 7) is split on the host into ``run_chunks`` launches,
+    each run still the one-run call's bits."""
+    monkeypatch.setattr(osconv, "GRID_Z", 7)
+    g = torch.Generator(device=card).manual_seed(4)
+    x_pad = torch.randn(5, 3, 40, 16, device=card, generator=g)
+    w = torch.randn(5, 5, 16, 24, device=card, generator=g) / 9
+    scale = torch.rand(5, 24, device=card, generator=g) + 0.5
+    shift = torch.randn(5, 24, device=card, generator=g)
+    osconv.reset_launch_counts()
+    if fused:
+        got = osconv.os_conv_fused_runs(x_pad, w, scale, shift, True)
+        want = [osconv.os_conv_fused(x_pad[r], w[r], scale[r], shift[r], True) for r in range(5)]
+    else:
+        got = osconv.os_conv_runs(x_pad, w)
+        want = [osconv.os_conv(x_pad[r], w[r]) for r in range(5)]
+    torch.cuda.synchronize()
+    name = "os_conv_fused_fwd_runs" if fused else "os_conv_fwd_runs"
+    assert osconv.LAUNCHES[name] == len(osconv.run_chunks(5, 3)) == 3
+    for r in range(5):
+        assert torch.equal(got[r], want[r]), r
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fuse", ["0", "1"])
+def test_ensemble_members_under_vmap_on_card(card, monkeypatch, fuse):
+    """``MultiSourceEnsemble.member_logits`` on the card: the members under
+    one ``torch.func.vmap``, one run-axis launch a layer, each member's
+    logits the bits of its own ``predict_logits`` call."""
+    from feature_level_style_transfer_for_tsc_tpu_torch.parallel.multi_source import (
+        MultiSourceEnsemble,
+    )
+
+    monkeypatch.setenv("FLSTTSC_FUSE_EPILOGUE", fuse)
+    ens = MultiSourceEnsemble(3, 150, 4, config=PipelineConfig(budget_multiplier=0.2),
+                              device=card)
+    model = ens.model_def
+    members = [model.init_models(torch.Generator().manual_seed(s)) for s in (1, 2, 3)]
+    for m in members:  # BatchNorm statistics off their initial values
+        for s in list(m["mstate"]["ext"]["block"]["layers"]) + list(
+                m["mstate"]["cls"]["block"]["layers"]):
+            s["bn"] = type(s["bn"])(torch.randn_like(s["bn"].mean) * 0.1,
+                                    torch.rand_like(s["bn"].var) + 0.5)
+    x = torch.randn(7, 150, 3, generator=torch.Generator().manual_seed(0))
+    layers = len(model.ext_masks) + len(model.cls_masks)
+    osconv.reset_launch_counts()
+    got = ens.member_logits(ens.stack(members), x)
+    torch.cuda.synchronize()
+    runs = "os_conv_fused_fwd_runs" if fuse == "1" else "os_conv_fwd_runs"
+    assert {n: v for n, v in osconv.LAUNCHES.items() if v} == {runs: layers}
+    want = torch.stack([model.predict_logits(m["params"], m["mstate"], x) for m in members])
+    assert torch.equal(got, want)
 
 
 @pytest.mark.gpu
